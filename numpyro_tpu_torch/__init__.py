@@ -1,0 +1,26 @@
+"""numpyro_tpu_torch -- the PyTorch and CUDA port of numpyro_tpu.
+
+The model DSL, distributions, NUTS engine and MCMC driver of the JAX
+package, ported slice by slice for NVIDIA GPUs (see ROADMAP.md for what is
+ported).  Every kernel that the JAX package wrote in Pallas for the TPU is a
+CUDA kernel written by hand for Hopper (``numpyro_tpu_torch/csrc``), built
+on first use.  The package imports ``torch`` and never ``jax``.
+"""
+
+from numpyro_tpu_torch import distributions, handlers
+from numpyro_tpu_torch.primitives import deterministic, factor, sample
+from numpyro_tpu_torch import diagnostics, infer, ops
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "__version__",
+    "deterministic",
+    "diagnostics",
+    "distributions",
+    "factor",
+    "handlers",
+    "infer",
+    "ops",
+    "sample",
+]

@@ -1,0 +1,140 @@
+"""Effect handlers (port of ``trace``, ``seed``, ``substitute``, ``condition``
+and ``block`` from ``numpyro_tpu/handlers.py``; the rest are listed in
+ROADMAP.md).
+
+Random state is an explicit ``torch.Generator``: ``seed`` hands its generator
+to every stochastic site below it, and each draw advances it.  JAX's split
+keys have no counterpart; the generator's device decides where draws land.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+
+from numpyro_tpu_torch.primitives import Messenger
+
+__all__ = ["block", "condition", "seed", "substitute", "trace"]
+
+
+class trace(Messenger):
+    """Record every site into an OrderedDict keyed by name."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.trace = OrderedDict()
+        return self.trace
+
+    def postprocess_message(self, msg):
+        if msg.get("name") is None:
+            return
+        name = msg["name"]
+        if msg["type"] in ("sample", "deterministic") and name in self.trace:
+            raise AssertionError(
+                f"all sites must have unique names but got `{name}` duplicated"
+            )
+        self.trace[name] = msg.copy()
+
+    def get_trace(self, *args, **kwargs):
+        self(*args, **kwargs)
+        return self.trace
+
+
+def _site_selector(hide_fn, hide, expose_types, expose):
+    if hide_fn is not None:
+        return hide_fn
+    if hide is not None:
+        return lambda msg: msg.get("name") in hide
+    if expose_types is not None:
+        return lambda msg: msg.get("type") not in expose_types
+    if expose is not None:
+        return lambda msg: msg.get("name") not in expose
+    return lambda msg: True
+
+
+class block(Messenger):
+    """Hide selected sites from handlers above this one."""
+
+    def __init__(self, fn=None, hide_fn=None, hide=None, expose_types=None, expose=None):
+        self.hide_fn = _site_selector(hide_fn, hide, expose_types, expose)
+        super().__init__(fn)
+
+    def process_message(self, msg):
+        if self.hide_fn(msg):
+            msg["stop"] = True
+
+
+class _ValueBinder(Messenger):
+    """Shared machinery of ``condition`` and ``substitute``."""
+
+    _site_types = ()
+
+    def __init__(self, fn=None, data=None, lookup_fn=None):
+        if (data is None) == (lookup_fn is None):
+            raise ValueError(self._both_error)
+        self.data = data
+        self._lookup_fn = lookup_fn
+        super().__init__(fn)
+
+    def process_message(self, msg):
+        if msg["type"] not in self._site_types:
+            return
+        bound = self.data.get(msg["name"]) if self.data is not None else self._lookup_fn(msg)
+        if bound is not None:
+            self._bind(msg, bound)
+
+    def _bind(self, msg, value):
+        raise NotImplementedError
+
+
+class condition(_ValueBinder):
+    """Fix the value of sample sites (they become observed)."""
+
+    _site_types = ("sample",)
+    _both_error = "Only one of `data` or `condition_fn` should be provided."
+
+    def __init__(self, fn=None, data=None, condition_fn=None):
+        super().__init__(fn, data=data, lookup_fn=condition_fn)
+
+    def _bind(self, msg, value):
+        msg["value"] = value
+        msg["is_observed"] = True
+
+
+class substitute(_ValueBinder):
+    """Fix latent values (sites stay latent, unlike ``condition``)."""
+
+    _site_types = ("sample",)
+    _both_error = "Only one of `data` or `substitute_fn` should be provided."
+
+    def __init__(self, fn=None, data=None, substitute_fn=None):
+        super().__init__(fn, data=data, lookup_fn=substitute_fn)
+
+    def _bind(self, msg, value):
+        msg["value"] = value
+
+
+class seed(Messenger):
+    """Give every unobserved sample site below this handler the generator
+    ``rng_seed`` (a ``torch.Generator``, or an int seeding a CPU one)."""
+
+    def __init__(self, fn=None, rng_seed=None, hide_types=None):
+        if isinstance(rng_seed, int):
+            rng_seed = torch.Generator().manual_seed(rng_seed)
+        if not isinstance(rng_seed, torch.Generator):
+            raise TypeError(
+                "Incorrect type for rng_seed: expected int or torch.Generator, "
+                f"got {type(rng_seed)}"
+            )
+        self.rng_key = rng_seed
+        self.hide_types = [] if hide_types is None else hide_types
+        super().__init__(fn)
+
+    def process_message(self, msg):
+        if msg["type"] in self.hide_types or msg["type"] != "sample":
+            return
+        if msg["is_observed"] or msg["value"] is not None:
+            return
+        if msg["kwargs"]["rng_key"] is None:
+            msg["kwargs"]["rng_key"] = self.rng_key

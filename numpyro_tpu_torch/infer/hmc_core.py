@@ -1,0 +1,776 @@
+"""Chain-batched HMC/NUTS engine (port of ``numpyro_tpu/infer/hmc_core.py``
+for NUTS with a diagonal mass matrix).
+
+As in the JAX package the chain axis is the first dimension of every
+tensor: positions and momenta are ``(C, D)`` panels, and one NUTS "tick"
+advances every chain by one leapfrog (one batched potential-and-gradient
+evaluation) plus masked tree bookkeeping; the doubling structure is tracked
+with integer registers and ``K = max_tree_depth`` U-turn checkpoint slots
+(see the JAX module docstring).
+
+What differs from the JAX engine:
+
+- Random numbers come from a draw source (:class:`GeneratorDraws`, one
+  ``torch.Generator`` drawing ``(C,)`` or ``(C, D)`` tensors per call) and
+  are passed into :func:`_nuts_tick` and :func:`_init_nuts_carry` as
+  arguments, so a test can feed them JAX's draws.
+- ``lax.while_loop`` / ``fori_loop`` are Python loops that read the host
+  condition only every ``CHECK_EVERY`` ticks (one device sync per block of
+  ticks instead of one per leapfrog).  The extra ticks are harmless: every
+  state update of a finished chain is masked by ``active = ~done``, except
+  the subtree registers ``s_logw`` and ``s_prefix``, which are never read for
+  a finished chain.
+- ``lax.cond`` at warmup window ends is a plain ``if`` on the step index.
+- The harvest loop banks draws with ``index_put`` into buffers that carry one
+  spare slot (JAX's ``mode="drop"``), cut off at the end; the buffers are
+  updated in place.
+
+Dense mass matrices, fixed-trajectory HMC and pooled multi-device
+adaptation are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from numpyro_tpu_torch.infer.util import batched_value_and_grad
+
+__all__ = [
+    "FlatLayout",
+    "GeneratorDraws",
+    "MassBlocks",
+    "AdaptPanel",
+    "batched_potential",
+    "batched_step_size_search",
+    "build_fused_run",
+    "build_mass_blocks",
+    "build_warmup",
+    "carry_from_numpy",
+    "init_mass",
+    "leapfrog",
+    "nuts_transition",
+    "popcount",
+    "stan_windows",
+]
+
+# ticks between two reads of a loop's host condition (each read is a device
+# sync); finished chains are masked, so the extra ticks change no result
+CHECK_EVERY = 8
+
+
+# ---------------------------------------------------------------------------
+# Flat (C, D) layout
+
+
+class FlatLayout:
+    """How a dict of latent sites packs into a flat vector, built once from a
+    single-chain prototype (sites in sorted-key order, as JAX flattens)."""
+
+    def __init__(self, z_proto):
+        if not isinstance(z_proto, dict):
+            raise NotImplementedError("FlatLayout needs a dict of latent sites")
+        self.names = tuple(sorted(z_proto))
+        self.shapes = tuple(tuple(z_proto[k].shape) for k in self.names)
+        self.sizes = tuple(math.prod(s) for s in self.shapes)
+        self.dim = int(sum(self.sizes))
+        self.site_ranges = {}
+        offset = 0
+        for name, size in zip(self.names, self.sizes):
+            self.site_ranges[name] = (offset, size)
+            offset += size
+
+    def unravel_one(self, flat):
+        return {
+            k: flat[o : o + s].reshape(shape)
+            for k, shape, (o, s) in zip(
+                self.names, self.shapes, (self.site_ranges[k] for k in self.names)
+            )
+        }
+
+    def ravel_batch(self, tree):
+        """Dict of ``(C, *s)`` tensors -> ``(C, D)`` panel."""
+        c = tree[self.names[0]].shape[0]
+        return torch.cat([tree[k].reshape(c, -1) for k in self.names], dim=1)
+
+    def unravel_batch(self, panel):
+        """``(C, D)`` panel -> dict of ``(C, *s)`` tensors."""
+        c = panel.shape[0]
+        return {
+            k: panel[:, o : o + s].reshape((c,) + shape)
+            for k, shape, (o, s) in zip(
+                self.names, self.shapes, (self.site_ranges[k] for k in self.names)
+            )
+        }
+
+
+def batched_potential(potential_fn, layout):
+    """(C, D) panel -> potential (C,) and gradient panel (C, D): the
+    one-chain ``potential_fn`` through ``vmap(grad_and_value(...))``."""
+
+    def pe_flat(flat):
+        return potential_fn(layout.unravel_one(flat))
+
+    vg = batched_value_and_grad(pe_flat)
+
+    def pe_grad(panel):
+        if layout.dim == 0:
+            return panel.new_zeros(panel.shape[:1]), panel
+        return vg(panel)
+
+    return pe_grad
+
+
+# ---------------------------------------------------------------------------
+# Mass matrix: one diagonal block over the whole flat dimension
+
+MassBlocks = namedtuple("MassBlocks", ["names", "indices", "dense", "full"])
+
+
+def build_mass_blocks(layout, dense_mass):
+    if dense_mass is not False:
+        raise NotImplementedError(
+            "dense_mass is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        )
+    names = (tuple(sorted(layout.site_ranges)) or None,)
+    return MassBlocks(names, (np.arange(layout.dim),), (False,), True)
+
+
+def _diag(inv_mass, r):
+    return inv_mass.reshape(inv_mass.shape[:1] + (1,) * (r.dim() - 2) + inv_mass.shape[1:])
+
+
+def apply_inv_mass(blocks, inv_mass, r):
+    """v = M^{-1} r over panels ``(C, ..., D)`` (extra axes broadcast)."""
+    return _diag(inv_mass, r) * r
+
+
+def kinetic(blocks, inv_mass, r):
+    """K(r) = r^T M^{-1} r / 2, batched over (C, ..., D) -> (C, ...)."""
+    return 0.5 * (apply_inv_mass(blocks, inv_mass, r) * r).sum(-1)
+
+
+def draw_momentum(blocks, sqrt_mass, eps):
+    """r = chol(M) eps for standard normals eps (C, D)."""
+    return sqrt_mass * eps
+
+
+def init_mass(blocks, num_chains, like, init_inverse=None):
+    """Identity (or user-provided diagonal) mass; returns (inv, sqrt, sqrt_inv)."""
+    d = len(blocks.indices[0])
+    if init_inverse is None:
+        inv = like.new_ones((num_chains, d))
+        return inv, inv, inv
+    inv = torch.as_tensor(init_inverse, dtype=like.dtype, device=like.device)
+    if inv.dim() != 1 and inv.dim() != 2:
+        raise NotImplementedError("only diagonal inverse mass matrices are ported")
+    inv = inv.expand(num_chains, d)
+    sqrt_inv = inv.sqrt()
+    return inv, 1.0 / sqrt_inv, sqrt_inv
+
+
+# ---------------------------------------------------------------------------
+# Random draws
+
+
+class GeneratorDraws:
+    """The engine's random numbers from one ``torch.Generator``: every call
+    draws for all chains at once, on the device and in the dtype of ``like``
+    (a ``(C, D)`` panel)."""
+
+    def __init__(self, generator):
+        self.generator = generator
+
+    def _rand(self, like, shape):
+        return torch.rand(shape, generator=self.generator, device=like.device, dtype=like.dtype)
+
+    def normal(self, like):
+        return torch.randn(
+            like.shape, generator=self.generator, device=like.device, dtype=like.dtype
+        )
+
+    def rademacher(self, like):
+        return torch.where(self._rand(like, like.shape[:1]) < 0.5, 1.0, -1.0).to(like.dtype)
+
+    def start(self, like):
+        """Momentum noise and first direction of a new trajectory."""
+        return self.normal(like), self.rademacher(like)
+
+    def tick(self, like):
+        """(u_swap, u_merge, direction) of one NUTS tick."""
+        c = like.shape[:1]
+        return self._rand(like, c), self._rand(like, c), self.rademacher(like)
+
+
+# ---------------------------------------------------------------------------
+# Leapfrog
+
+
+def leapfrog(pe_grad, blocks, inv_mass, eps, z, r, grad):
+    """One velocity-Verlet step with per-chain signed step size eps (C,)."""
+    e = eps[:, None]
+    r_half = r - 0.5 * e * grad
+    z_new = z + e * apply_inv_mass(blocks, inv_mass, r_half)
+    pe_new, grad_new = pe_grad(z_new)
+    r_new = r_half - 0.5 * e * grad_new
+    return z_new, r_new, pe_new, grad_new
+
+
+def popcount(n):
+    """Bits set in each int32 (SWAR; torch has no population count)."""
+    n = n - ((n >> 1) & 0x55555555)
+    n = (n & 0x33333333) + ((n >> 2) & 0x33333333)
+    n = (n + (n >> 4)) & 0x0F0F0F0F
+    n = n + (n >> 8)
+    n = n + (n >> 16)
+    return n & 0x3F
+
+
+# ---------------------------------------------------------------------------
+# NUTS transition: all chains, one loop, one gradient per tick
+
+NutsCarry = namedtuple(
+    "NutsCarry",
+    [
+        # building edge (the point the next leapfrog starts from)
+        "z", "r", "grad", "pe",
+        # trajectory ends in time order (bwd = earliest, fwd = latest)
+        "zb", "rb", "gradb", "peb",
+        "zf", "rf", "gradf", "pef",
+        "rho",  # (C, D) total momentum sum over the trajectory
+        # current multinomial proposal over the whole trajectory
+        "prop_z", "prop_grad", "prop_pe", "prop_energy",
+        "logw",  # (C,) log total weight of the trajectory
+        # subtree under construction
+        "s_logw", "s_prop_z", "s_prop_grad", "s_prop_pe", "s_prop_energy",
+        "s_prefix",  # (C, D) running momentum sum inside the subtree
+        "ck_r", "ck_s",  # (C, K, D) checkpoint momenta / prefix sums
+        "leaf", "depth",  # (C,) int32
+        "direction",  # (C,) +-1.0
+        "e0", "accept_sum", "n_leaf",  # (C,)
+        "diverging", "done",  # (C,) bool
+    ],
+)
+"""The JAX ``NutsCarry`` without its ``key`` field."""
+
+
+def carry_from_numpy(fields, device="cpu"):
+    """The port's carry from the fields of a JAX ``NutsCarry`` given as numpy
+    arrays (a mapping or namedtuple; its ``key`` field is dropped), so that
+    one tick can be run from the same state in both packages."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    return NutsCarry(
+        **{k: torch.from_numpy(np.array(fields[k])).to(device) for k in NutsCarry._fields}
+    )
+
+
+def _turning(blocks, inv_mass, r_first, r_last, rho):
+    """Generalized U-turn criterion; supports extra broadcast axes."""
+    vf = apply_inv_mass(blocks, inv_mass, r_first)
+    vl = apply_inv_mass(blocks, inv_mass, r_last)
+    return ((rho * vf).sum(-1) <= 0) | ((rho * vl).sum(-1) <= 0)
+
+
+def _sel(mask, new, old):
+    """Per-chain select with broadcasting over trailing axes."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
+
+
+def _init_nuts_carry(z, pe, grad, blocks, inv_mass, sqrt_mass, k_slots, eps, direction):
+    """Fresh trajectory from ``z`` with momentum noise ``eps`` (C, D) and
+    first direction ``direction`` (C,)."""
+    c, d = z.shape
+    r0 = draw_momentum(blocks, sqrt_mass, eps)
+    e0 = pe + kinetic(blocks, inv_mass, r0)
+    zeros_i = torch.zeros((c,), dtype=torch.int32, device=z.device)
+    false = torch.zeros((c,), dtype=torch.bool, device=z.device)
+    return NutsCarry(
+        z=z, r=r0, grad=grad, pe=pe,
+        zb=z, rb=r0, gradb=grad, peb=pe,
+        zf=z, rf=r0, gradf=grad, pef=pe,
+        rho=r0,
+        prop_z=z, prop_grad=grad, prop_pe=pe, prop_energy=e0,
+        logw=-e0,
+        s_logw=torch.full_like(pe, -math.inf),
+        s_prop_z=z, s_prop_grad=grad, s_prop_pe=pe, s_prop_energy=e0,
+        s_prefix=torch.zeros_like(z),
+        ck_r=z.new_zeros((c, k_slots, d)),
+        ck_s=z.new_zeros((c, k_slots, d)),
+        leaf=zeros_i, depth=zeros_i,
+        direction=direction.to(z.dtype),
+        e0=e0,
+        accept_sum=torch.zeros_like(pe),
+        n_leaf=zeros_i,
+        diverging=false, done=false,
+    )
+
+
+def _nuts_tick(
+    t, blocks, pe_grad, inv_mass, step_size, max_depth, max_delta_energy,
+    u_swap, u_merge, new_direction,
+):
+    """One batched leapfrog + tree bookkeeping for every chain.  The draws
+    are uniforms ``u_swap``, ``u_merge`` (C,) and a +-1 ``new_direction``
+    (C,) (JAX draws them from the carry's keys at hmc_core.py:452)."""
+    active = ~t.done
+    eps = t.direction * step_size
+    z_n, r_n, pe_n, grad_n = leapfrog(pe_grad, blocks, inv_mass, eps, t.z, t.r, t.grad)
+    energy = pe_n + kinetic(blocks, inv_mass, r_n)
+    energy = torch.where(torch.isnan(energy), math.inf, energy)
+    delta = energy - t.e0
+    div_leaf = delta > max_delta_energy
+    logw_leaf = -energy
+    accept_leaf = torch.exp(torch.clamp(-delta, max=0.0))
+    accept_sum = t.accept_sum + torch.where(active, accept_leaf, 0.0)
+    n_leaf = t.n_leaf + active.to(torch.int32)
+
+    # --- iterative U-turn machinery, vectorized over checkpoint slots
+    n = t.leaf
+    pc = popcount(n)
+    is_even = (n & 1) == 0
+    k_slots = t.ck_r.shape[1]
+    slot_ids = torch.arange(k_slots, dtype=torch.int32, device=n.device)
+    # even leaf: store (momentum, prefix-before) at slot popcount(n)
+    store = (active & is_even)[:, None] & (slot_ids[None, :] == pc[:, None])
+    ck_r = torch.where(store[..., None], r_n[:, None, :], t.ck_r)
+    ck_s = torch.where(store[..., None], t.s_prefix[:, None, :], t.ck_s)
+    s_after = t.s_prefix + r_n
+    # odd leaf: check slots [pc - trailing_ones, pc)
+    t_ones = popcount(n ^ (n + 1)) - 1
+    check = (
+        (active & ~is_even)[:, None]
+        & (slot_ids[None, :] >= (pc - t_ones)[:, None])
+        & (slot_ids[None, :] < pc[:, None])
+    )
+    rho_k = s_after[:, None, :] - ck_s  # momentum sum over each subspan
+    turn_k = _turning(blocks, inv_mass, ck_r, r_n[:, None, :], rho_k)
+    turn_within = (check & turn_k).any(1)
+
+    # --- progressive multinomial inside the subtree
+    s_logw = torch.logaddexp(t.s_logw, logw_leaf)
+    take = active & (torch.log(u_swap) < (logw_leaf - s_logw))
+    s_prop_z = _sel(take, z_n, t.s_prop_z)
+    s_prop_grad = _sel(take, grad_n, t.s_prop_grad)
+    s_prop_pe = torch.where(take, pe_n, t.s_prop_pe)
+    s_prop_energy = torch.where(take, energy, t.s_prop_energy)
+
+    invalid = div_leaf | turn_within
+    leaf_next = n + 1
+    complete = leaf_next == (1 << t.depth)
+    a_bad = active & invalid  # transition over, discard subtree
+    b_merge = active & ~invalid & complete  # subtree done, merge into tree
+    c_cont = active & ~invalid & ~complete  # keep building the subtree
+
+    # --- merge: biased progressive sampling between tree and subtree
+    merge_take = b_merge & (torch.log(u_merge) < (s_logw - t.logw))
+    prop_z = _sel(merge_take, s_prop_z, t.prop_z)
+    prop_grad = _sel(merge_take, s_prop_grad, t.prop_grad)
+    prop_pe = torch.where(merge_take, s_prop_pe, t.prop_pe)
+    prop_energy = torch.where(merge_take, s_prop_energy, t.prop_energy)
+    logw = torch.where(b_merge, torch.logaddexp(t.logw, s_logw), t.logw)
+    rho = _sel(b_merge, t.rho + s_after, t.rho)
+
+    fwd = b_merge & (t.direction > 0)
+    bwd = b_merge & (t.direction < 0)
+    zf = _sel(fwd, z_n, t.zf)
+    rf = _sel(fwd, r_n, t.rf)
+    gradf = _sel(fwd, grad_n, t.gradf)
+    pef = torch.where(fwd, pe_n, t.pef)
+    zb = _sel(bwd, z_n, t.zb)
+    rb = _sel(bwd, r_n, t.rb)
+    gradb = _sel(bwd, grad_n, t.gradb)
+    peb = torch.where(bwd, pe_n, t.peb)
+
+    turn_tree = b_merge & _turning(blocks, inv_mass, rb, rf, rho)
+    depth = t.depth + b_merge.to(torch.int32)
+    done = t.done | a_bad | turn_tree | (b_merge & (depth >= max_depth))
+    diverging = t.diverging | (active & div_leaf)
+
+    # --- next building edge: new subtree starts at a trajectory end
+    start_new = b_merge & ~done
+    direction = torch.where(start_new, new_direction.to(t.direction.dtype), t.direction)
+    go_fwd = direction > 0
+    z = _sel(c_cont, z_n, _sel(go_fwd, zf, zb))
+    r = _sel(c_cont, r_n, _sel(go_fwd, rf, rb))
+    grad = _sel(c_cont, grad_n, _sel(go_fwd, gradf, gradb))
+    pe = torch.where(c_cont, pe_n, torch.where(go_fwd, pef, peb))
+
+    reset = b_merge | a_bad
+    return NutsCarry(
+        z=z, r=r, grad=grad, pe=pe,
+        zb=zb, rb=rb, gradb=gradb, peb=peb,
+        zf=zf, rf=rf, gradf=gradf, pef=pef,
+        rho=rho,
+        prop_z=prop_z, prop_grad=prop_grad, prop_pe=prop_pe, prop_energy=prop_energy,
+        logw=logw,
+        s_logw=torch.where(reset, -math.inf, s_logw),
+        s_prop_z=s_prop_z, s_prop_grad=s_prop_grad,
+        s_prop_pe=s_prop_pe, s_prop_energy=s_prop_energy,
+        s_prefix=_sel(reset, torch.zeros_like(s_after), s_after),
+        ck_r=ck_r, ck_s=ck_s,
+        leaf=torch.where(reset, 0, torch.where(active, leaf_next, n)).to(torch.int32),
+        depth=depth,
+        direction=direction,
+        e0=t.e0,
+        accept_sum=accept_sum,
+        n_leaf=n_leaf,
+        diverging=diverging,
+        done=done,
+    )
+
+
+TransitionOut = namedtuple(
+    "TransitionOut", ["z", "pe", "grad", "energy", "num_steps", "accept_prob", "diverging"]
+)
+"""The JAX ``TransitionOut`` without its ``key`` field."""
+
+
+def nuts_transition(
+    pe_grad, blocks, draws, z, pe, grad, inv_mass, sqrt_mass, step_size, max_depth,
+    max_delta_energy=1000.0, k_slots=None,
+):
+    """One multinomial-NUTS transition for all chains (parity target:
+    ``numpyro_tpu.infer.hmc_core.nuts_transition``)."""
+    k_slots = k_slots if k_slots is not None else max(int(max_depth), 1)
+    eps, direction = draws.start(z)
+    t = _init_nuts_carry(z, pe, grad, blocks, inv_mass, sqrt_mass, k_slots, eps, direction)
+    c, d = z.shape
+    if d == 0:
+        return TransitionOut(
+            z, pe, grad, t.e0, torch.ones((c,), dtype=torch.int32, device=z.device),
+            torch.ones_like(pe), torch.zeros((c,), dtype=torch.bool, device=z.device),
+        )
+    while True:
+        for _ in range(CHECK_EVERY):
+            t = _nuts_tick(
+                t, blocks, pe_grad, inv_mass, step_size, max_depth, max_delta_energy,
+                *draws.tick(z),
+            )
+        if bool(t.done.all()):
+            break
+    accept_prob = t.accept_sum / t.n_leaf.clamp(min=1)
+    return TransitionOut(
+        t.prop_z, t.prop_pe, t.prop_grad, t.prop_energy, t.n_leaf, accept_prob, t.diverging
+    )
+
+
+# ---------------------------------------------------------------------------
+# Batched reasonable-step-size search (all chains search simultaneously)
+
+
+def batched_step_size_search(
+    pe_grad, blocks, draws, z, pe, grad, inv_mass, sqrt_mass, init_step_size,
+    target=0.8,
+):
+    """Per-chain doubling/halving search for a step size whose single-step
+    acceptance crosses ``target``, as one masked loop over all chains."""
+    c, d = z.shape
+    ss = torch.as_tensor(init_step_size, dtype=z.dtype, device=z.device).expand(c).clone()
+    if d == 0:
+        return ss
+    log_target = math.log(target)
+    finfo = torch.finfo(z.dtype)
+    prev_dir = torch.zeros_like(ss)
+    cur_dir = torch.zeros_like(ss)
+    settled = torch.zeros((c,), dtype=torch.bool, device=z.device)
+    while True:
+        for _ in range(CHECK_EVERY):
+            ss_new = torch.where(settled, ss, ss * 2.0**cur_dir)
+            r = draw_momentum(blocks, sqrt_mass, draws.normal(z))
+            _, r1, pe1, _ = leapfrog(pe_grad, blocks, inv_mass, ss_new, z, r, grad)
+            e0 = pe + kinetic(blocks, inv_mass, r)
+            e1 = pe1 + kinetic(blocks, inv_mass, r1)
+            delta = torch.where(torch.isnan(e1), math.inf, e1 - e0)
+            new_dir = torch.where(log_target < -delta, 1.0, -1.0).to(z.dtype)
+            crossed = (prev_dir != 0.0) & (new_dir != prev_dir)
+            extreme = (ss_new <= finfo.tiny) | (ss_new >= finfo.max)
+            ss = torch.where(settled, ss, ss_new)
+            prev_dir = torch.where(settled, prev_dir, new_dir)
+            cur_dir = torch.where(settled, cur_dir, new_dir)
+            settled = settled | crossed | extreme
+        if bool(settled.all()):
+            return ss
+
+
+# ---------------------------------------------------------------------------
+# Warmup adaptation, batched over chains: Stan windows (75 / 25*2^k / 50),
+# per-chain dual averaging and Welford variance estimates
+
+AdaptPanel = namedtuple(
+    "AdaptPanel",
+    [
+        "step_size",  # (C,)
+        "inverse_mass_matrix", "mass_matrix_sqrt", "mass_matrix_sqrt_inv",
+        "da_log", "da_log_avg", "da_grad_avg", "da_count", "da_anchor",  # (C,)
+        "wf_mean", "wf_m2", "wf_count",  # welford
+    ],
+)
+"""The JAX ``AdaptPanel`` without its ``rng_key`` field."""
+
+
+def stan_windows(num_steps):
+    """(start, end) inclusive windows; list shrinks for short warmups."""
+    if num_steps < 20:
+        return [(0, num_steps - 1)]
+    head, tail, first = 75, 50, 25
+    if head + tail + first > num_steps:
+        head = int(0.15 * num_steps)
+        tail = int(0.1 * num_steps)
+        first = num_steps - head - tail
+    windows = [(0, head - 1)]
+    pos, width = head, first
+    last_start = num_steps - tail
+    while pos < last_start:
+        end = pos + width if 3 * width <= last_start - pos else last_start
+        windows.append((pos, end - 1))
+        pos, width = end, 2 * width
+    windows.append((last_start, num_steps - 1))
+    return windows
+
+
+def _window_masks(num_warmup):
+    """Per-step host masks: inside a middle window / at a middle-window end."""
+    in_middle = np.zeros(max(num_warmup, 1), bool)
+    at_end = np.zeros(max(num_warmup, 1), bool)
+    windows = stan_windows(num_warmup)
+    for w_idx, (start, end) in enumerate(windows):
+        if 0 < w_idx < len(windows) - 1:
+            in_middle[start : end + 1] = True
+            at_end[end] = True
+    return in_middle, at_end
+
+
+def _welford_init(z):
+    return torch.zeros_like(z), torch.zeros_like(z), z.new_zeros(z.shape[:1])
+
+
+def _welford_update(wf, z_flat):
+    mean, m2, count = wf
+    count = count + 1
+    pre = z_flat - mean
+    mean = mean + pre / count[:, None]
+    post = z_flat - mean
+    return mean, m2 + post * pre, count
+
+
+def _welford_finalize(wf, regularize=True):
+    """Per-chain variance estimate -> (inv_mass, sqrt, sqrt_inv)."""
+    _, m2, count = wf
+    n = count[:, None]
+    cov = m2 / torch.clamp(n - 1, min=1)
+    if regularize:
+        cov = (n / (n + 5.0)) * cov + 1e-3 * (5.0 / (n + 5.0))
+    root = torch.sqrt(cov)
+    return cov, 1.0 / root, root
+
+
+def _welford_pool(wf):
+    """Pool per-chain Welford states into one estimate broadcast over chains
+    (parallel-Welford merge with the between-chain spread)."""
+    mean, m2, count = wf
+    grand = mean.mean(0, keepdim=True)
+    spread = mean - grand
+    m2_pooled = (m2 + count[:, None] * spread**2).sum(0, keepdim=True)
+    return grand.expand_as(mean), m2_pooled.expand_as(m2), count.sum().expand_as(count)
+
+
+def _pool_step_size(ss):
+    """Harmonic-mean pooled step size, broadcast over chains."""
+    return (1.0 / (1.0 / ss).mean()).expand_as(ss)
+
+
+def build_warmup(
+    pe_grad, blocks, num_warmup, *, adapt_step_size=True, adapt_mass_matrix=True,
+    target_accept_prob=0.8, regularize_mass_matrix=True, da_t0=10.0, da_kappa=0.75,
+    da_gamma=0.05, find_step_size=True, pool_chains=False,
+):
+    """Returns ``(init_fn, update_fn)`` for chain-batched warmup adaptation
+    (parity target: ``numpyro_tpu.infer.hmc_core.build_warmup``)."""
+    in_middle, at_end = _window_masks(num_warmup)
+
+    def da_reset(step_size):
+        z = torch.zeros_like(step_size)
+        return (z, z, z, z, torch.log(10.0 * step_size))
+
+    def search(draws, z, pe, grad, inv, sqrt, ss):
+        ss = batched_step_size_search(
+            pe_grad, blocks, draws, z, pe, grad, inv, sqrt, ss, target=target_accept_prob
+        )
+        return _pool_step_size(ss) if pool_chains else ss
+
+    def init_fn(draws, z, pe, grad, step_size, inverse_mass_matrix=None):
+        c, d = z.shape
+        inv, sqrt, sqrt_inv = init_mass(blocks, c, z, init_inverse=inverse_mass_matrix)
+        ss = torch.as_tensor(step_size, dtype=z.dtype, device=z.device).expand(c)
+        if adapt_step_size and find_step_size and d > 0:
+            ss = search(draws, z, pe, grad, inv, sqrt, ss)
+        return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da_reset(ss), *_welford_init(z))
+
+    def _da_update(adapt, accept_prob, is_last):
+        if pool_chains:
+            # geometric mean: one stuck chain vetoes equilibrium
+            # (numpyro_tpu/infer/hmc_core.py:1011)
+            pooled = torch.exp(torch.log(torch.clamp(accept_prob, min=1e-6)).mean())
+            accept_prob = pooled.expand_as(accept_prob)
+        g = target_accept_prob - accept_prob
+        count = adapt.da_count + 1
+        grad_avg = (1 - 1 / (count + da_t0)) * adapt.da_grad_avg + g / (count + da_t0)
+        log_ss = adapt.da_anchor - torch.sqrt(count) / da_gamma * grad_avg
+        w = count ** (-da_kappa)
+        log_avg = (1 - w) * adapt.da_log_avg + w * log_ss
+        step_size = torch.exp(log_avg if is_last else log_ss)
+        finfo = torch.finfo(step_size.dtype)
+        step_size = torch.clamp(step_size, finfo.tiny, finfo.max)
+        return adapt._replace(
+            step_size=step_size, da_log=log_ss, da_log_avg=log_avg,
+            da_grad_avg=grad_avg, da_count=count,
+        )
+
+    def _window_end(adapt, z, pe, grad, draws):
+        inv, sqrt, sqrt_inv = (
+            adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.mass_matrix_sqrt_inv
+        )
+        if adapt_mass_matrix:
+            wf = (adapt.wf_mean, adapt.wf_m2, adapt.wf_count)
+            if pool_chains:
+                wf = _welford_pool(wf)
+            inv, sqrt, sqrt_inv = _welford_finalize(wf, regularize=regularize_mass_matrix)
+        ss = adapt.step_size
+        if adapt_step_size:
+            if find_step_size:
+                ss = search(draws, z, pe, grad, inv, sqrt, ss)
+            da = da_reset(ss)
+        else:
+            da = (adapt.da_log, adapt.da_log_avg, adapt.da_grad_avg,
+                  adapt.da_count, adapt.da_anchor)
+        return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da, *_welford_init(z))
+
+    def update_fn(i, adapt, accept_prob, z, pe, grad, draws):
+        """``i``: the warmup step index, the same for every chain."""
+        idx = min(i, max(num_warmup - 1, 0))
+        if adapt_step_size:
+            adapt = _da_update(adapt, accept_prob, i == num_warmup - 1)
+        if adapt_mass_matrix and num_warmup > 0 and in_middle[idx]:
+            wf = _welford_update((adapt.wf_mean, adapt.wf_m2, adapt.wf_count), z)
+            adapt = adapt._replace(wf_mean=wf[0], wf_m2=wf[1], wf_count=wf[2])
+        if num_warmup > 0 and at_end[idx]:
+            adapt = _window_end(adapt, z, pe, grad, draws)
+        return adapt
+
+    return init_fn, update_fn
+
+
+# ---------------------------------------------------------------------------
+# Whole run: synchronous warmup, then asynchronous harvest sampling
+
+
+class FusedRun:
+    """Warmup + sampling for all chains (port of ``build_fused_run``).
+
+    Warmup is synchronous at transition granularity; sampling is the
+    asynchronous harvest loop: every tick advances every chain one leapfrog,
+    and a chain that completes a transition banks its draw and starts the
+    next trajectory at once.  A run then costs the slowest chain's total
+    leapfrogs, not the sum over transitions of the longest tree.
+    """
+
+    def __init__(
+        self, pe_grad, blocks, *, num_warmup, num_samples, thinning=1, max_depth=10,
+        warmup_max_depth=None, max_delta_energy=1000.0, **adapt_kwargs,
+    ):
+        self.pe_grad, self.blocks = pe_grad, blocks
+        self.num_warmup, self.num_samples, self.thinning = num_warmup, num_samples, thinning
+        self.max_depth = max_depth
+        self.warmup_max_depth = warmup_max_depth or max_depth
+        self.max_delta_energy = max_delta_energy
+        self.k_slots = max(max_depth, self.warmup_max_depth, 1)
+        self.wa_init, self.wa_update = build_warmup(pe_grad, blocks, num_warmup, **adapt_kwargs)
+
+    def warmup(self, draws, z, pe, grad, step_size, inverse_mass_matrix=None):
+        adapt = self.wa_init(draws, z, pe, grad, step_size, inverse_mass_matrix)
+        mean_acc = torch.zeros_like(pe)
+        for i in range(self.num_warmup):
+            out = nuts_transition(
+                self.pe_grad, self.blocks, draws, z, pe, grad,
+                adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.step_size,
+                self.warmup_max_depth, self.max_delta_energy, k_slots=self.k_slots,
+            )
+            z, pe, grad = out.z, out.pe, out.grad
+            adapt = self.wa_update(i, adapt, out.accept_prob, z, pe, grad, draws)
+            mean_acc = mean_acc + (out.accept_prob - mean_acc) / (i + 1)
+        return {"z": z, "pe": pe, "grad": grad, "adapt": adapt, "mean_accept_prob": mean_acc}
+
+    def sample(self, draws, z, pe, grad, adapt):
+        """Harvest loop until every chain has ``num_samples`` transitions."""
+        blocks, inv, sqrt = self.blocks, adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt
+        c, d = z.shape
+        num_samples, thinning = self.num_samples, self.thinning
+        num_collect = (num_samples + thinning - 1) // thinning
+        dev = z.device
+        # slot num_collect is the spare that takes every non-banked write
+        buf_z = z.new_zeros((c, num_collect + 1, d))
+        buf = {
+            "energy": z.new_zeros((c, num_collect + 1)),
+            "diverging": torch.zeros((c, num_collect + 1), dtype=torch.bool, device=dev),
+            "num_steps": torch.zeros((c, num_collect + 1), dtype=torch.int32, device=dev),
+            "accept_prob": z.new_zeros((c, num_collect + 1)),
+            "mean_accept_prob": z.new_zeros((c, num_collect + 1)),
+        }
+        t = _init_nuts_carry(z, pe, grad, blocks, inv, sqrt, max(self.max_depth, 1),
+                             *draws.start(z))
+        trans_idx = torch.zeros((c,), dtype=torch.int32, device=dev)
+        mean_acc = torch.zeros_like(pe)
+        rows = torch.arange(c, device=dev)
+        while True:
+            for _ in range(CHECK_EVERY):
+                finished = trans_idx >= num_samples
+                t = t._replace(done=t.done | finished)
+                t = _nuts_tick(
+                    t, blocks, self.pe_grad, inv, adapt.step_size, self.max_depth,
+                    self.max_delta_energy, *draws.tick(z),
+                )
+                boundary = t.done & ~finished
+                acc = t.accept_sum / t.n_leaf.clamp(min=1)
+                n1 = trans_idx + 1
+                mean_acc = torch.where(boundary, mean_acc + (acc - mean_acc) / n1, mean_acc)
+                keep = boundary & (trans_idx % thinning == 0)
+                slot = torch.where(keep, trans_idx // thinning, num_collect)
+                buf_z[rows, slot] = t.prop_z
+                for name, value in (
+                    ("energy", t.prop_energy), ("diverging", t.diverging),
+                    ("num_steps", t.n_leaf), ("accept_prob", acc),
+                    ("mean_accept_prob", mean_acc),
+                ):
+                    buf[name][rows, slot] = value
+                trans_idx = torch.where(boundary, n1, trans_idx)
+                # refresh momentum and restart the machines at boundaries
+                restart = boundary & (trans_idx < num_samples)
+                fresh = _init_nuts_carry(
+                    t.prop_z, t.prop_pe, t.prop_grad, blocks, inv, sqrt,
+                    t.ck_r.shape[1], *draws.start(z),
+                )._replace(ck_r=t.ck_r, ck_s=t.ck_s)
+                t = NutsCarry(*(_sel(restart, f, o) for f, o in zip(fresh, t)))
+            if bool((trans_idx >= num_samples).all()):
+                break
+        return {
+            "z": t.prop_z,
+            "pe": t.prop_pe,
+            "grad": t.prop_grad,
+            "samples_z": buf_z[:, :num_collect],
+            "extras": {k: v[:, :num_collect] for k, v in buf.items()},
+            "adapt": adapt,
+            "mean_accept_prob": mean_acc,
+        }
+
+
+def build_fused_run(pe_grad, blocks, *, algo="NUTS", **kwargs):
+    """The run object for ``algo`` (only NUTS is ported; see ROADMAP.md)."""
+    if algo != "NUTS":
+        raise NotImplementedError(
+            "fixed-trajectory HMC is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        )
+    return FusedRun(pe_grad, blocks, **kwargs)

@@ -1,0 +1,302 @@
+"""Model -> density bridge (port of the parts of ``numpyro_tpu/infer/util.py``
+that the covtype slice needs: ``log_density``, ``potential_energy``,
+``find_valid_initial_params`` and ``initialize_model``).
+
+The potential of a model is written for ONE chain, as in the JAX package;
+:func:`batched_value_and_grad` maps it over the leading chain axis with
+``torch.func.vmap(torch.func.grad_and_value(...))``.  The trace built under
+``vmap`` never leaves the potential: only the summed log density does.
+"""
+
+from __future__ import annotations
+
+from collections import namedtuple
+from functools import partial
+
+import torch
+
+from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.distributions import constraints
+from numpyro_tpu_torch.distributions.transforms import biject_to
+from numpyro_tpu_torch.distributions.util import sum_rightmost
+from numpyro_tpu_torch.infer.initialization import init_to_uniform
+from numpyro_tpu_torch.primitives import factor
+from numpyro_tpu_torch.util import identity
+
+__all__ = [
+    "batched_value_and_grad",
+    "find_valid_initial_params",
+    "get_potential_fn",
+    "initialize_model",
+    "log_density",
+    "potential_energy",
+    "transform_fn",
+]
+
+ModelInfo = namedtuple(
+    "ModelInfo", ["param_info", "potential_fn", "postprocess_fn", "model_trace"]
+)
+ParamInfo = namedtuple("ParamInfo", ["z", "potential_energy", "z_grad"])
+
+# batched potential-and-gradient evaluations made through
+# batched_value_and_grad (init search and every leapfrog); MCMC reports the
+# count of a run in ``last_run_stats["potential_evals"]``
+potential_evals = 0
+
+
+def batched_value_and_grad(fn):
+    """``fn`` maps one chain's params to a scalar; the result maps a
+    chain-batched pytree to ``(values (C,), grads like the input)``."""
+    vg = torch.func.vmap(torch.func.grad_and_value(fn))
+
+    def call(batched):
+        global potential_evals
+        potential_evals += 1
+        grad, value = vg(batched)  # torch.func returns (grad, value)
+        return value, grad
+
+    return call
+
+
+def _site_log_prob(site, *, check_shapes=False):
+    value = site["value"]
+    if check_shapes:
+        fn_shape = tuple(site["fn"].shape())
+        try:
+            torch.broadcast_shapes(tuple(value.shape), fn_shape)
+        except RuntimeError:
+            raise ValueError(
+                f"Model and guide shapes disagree at site: "
+                f"'{site['name']}': {fn_shape} vs {tuple(value.shape)}"
+            )
+    lp = site["fn"].log_prob(value)
+    if site["scale"] is not None:
+        lp = site["scale"] * lp
+    return lp
+
+
+def log_density(model, model_args, model_kwargs, params):
+    """Sum of the scaled log-probs of all sample sites given substituted
+    params; returns ``(log_joint, model_trace)``."""
+    model = handlers.substitute(model, data=params)
+    trace = handlers.trace(model).get_trace(*model_args, **model_kwargs)
+    log_joint = 0.0
+    for site in trace.values():
+        if site["type"] == "sample":
+            log_joint = log_joint + _site_log_prob(site, check_shapes=True).sum()
+    return log_joint, trace
+
+
+def transform_fn(transforms, params, invert=False):
+    """Apply (or invert) a dict of per-site transforms to params."""
+
+    def pick(name):
+        t = transforms.get(name)
+        if t is None:
+            return identity
+        return t.inv if invert else t
+
+    return {name: pick(name)(value) for name, value in params.items()}
+
+
+def _unconstrain_reparam(params, site):
+    """Substitute-fn that maps unconstrained values into site supports and
+    adds log|det J| as a factor: the inner transformation of
+    :func:`potential_energy`."""
+    name = site["name"]
+    if name not in params:
+        return None
+    p = params[name]
+    if site["type"] != "sample":
+        return p
+    support = site["fn"].support
+    t = biject_to(support)
+    base = (
+        support.base_constraint
+        if isinstance(support, constraints._IndependentConstraint)
+        else support
+    )
+    if isinstance(base, constraints._Real):
+        return p  # identity transform: no jacobian term
+    value = t(p)
+    log_det = t.log_abs_det_jacobian(p, value)
+    log_det = sum_rightmost(
+        log_det, log_det.dim() - value.dim() + len(site["fn"].event_shape)
+    )
+    factor(f"_{name}_log_det", log_det)
+    return value
+
+
+def potential_energy(model, model_args, model_kwargs, params):
+    """-log p(constrained(params)) - log|det J|: the NUTS target."""
+    reparamed = handlers.substitute(
+        model, substitute_fn=partial(_unconstrain_reparam, params)
+    )
+    log_joint, _ = log_density(reparamed, model_args, model_kwargs, {})
+    return -log_joint
+
+
+def _finite_per_chain(pe, grad):
+    ok = torch.isfinite(pe)
+    for g in grad.values():
+        ok = ok & torch.isfinite(g.reshape(g.shape[0], -1)).all(-1)
+    return ok
+
+
+def find_valid_initial_params(
+    rng_key,
+    model,
+    *,
+    num_chains,
+    init_strategy=init_to_uniform,
+    model_args=(),
+    model_kwargs=None,
+    prototype_params=None,
+):
+    """Draw initial latents for ``num_chains`` chains until the potential and
+    its gradient are finite (at most 100 tries per chain).
+
+    All chains are scored in one batched evaluation per try; chains that
+    are already valid keep their params (a masked loop in place of the JAX
+    package's batched ``while_loop``).  Returns
+    ``((init_params, pe, grad), is_valid)``, each with a leading chain axis.
+    """
+    model_kwargs = {} if model_kwargs is None else model_kwargs
+    strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
+    if getattr(strategy, "func", None) is not init_to_uniform or prototype_params is None:
+        raise NotImplementedError(
+            "only init_to_uniform is ported to numpyro_tpu_torch (see ROADMAP.md)"
+        )
+    radius = strategy.keywords.get("radius", 2.0)
+
+    def draw():
+        return {
+            name: (
+                torch.rand(
+                    (num_chains,) + tuple(proto.shape), generator=rng_key,
+                    device=rng_key.device, dtype=proto.dtype,
+                ) * 2 - 1
+            ) * radius
+            for name, proto in sorted(prototype_params.items())
+        }
+
+    score = batched_value_and_grad(
+        partial(potential_energy, model, model_args, model_kwargs)
+    )
+    params = draw()
+    pe, grad = score(params)
+    ok = _finite_per_chain(pe, grad)
+    for _ in range(99):
+        if bool(ok.all()):
+            break
+        cand = draw()
+        pe_c, grad_c = score(cand)
+        redo = ~ok
+        pe = torch.where(redo, pe_c, pe)
+        for name in params:
+            mask = redo.reshape((-1,) + (1,) * (params[name].dim() - 1))
+            params[name] = torch.where(mask, cand[name], params[name])
+            grad[name] = torch.where(mask, grad_c[name], grad[name])
+        ok = ok | _finite_per_chain(pe_c, grad_c)
+    return (params, pe, grad), ok
+
+
+def _get_model_transforms(model, model_args=(), model_kwargs=None):
+    model_kwargs = {} if model_kwargs is None else model_kwargs
+    model_trace = handlers.trace(model).get_trace(*model_args, **model_kwargs)
+    inv_transforms = {}
+    replay_model = False
+    for name, site in model_trace.items():
+        if site["type"] == "sample" and not site["is_observed"]:
+            if site["fn"].support.is_discrete:
+                raise NotImplementedError(
+                    "discrete latent sites are not ported to numpyro_tpu_torch "
+                    "yet (see ROADMAP.md)"
+                )
+            inv_transforms[name] = biject_to(site["fn"].support)
+        elif site["type"] == "deterministic":
+            replay_model = True
+    return inv_transforms, replay_model, model_trace
+
+
+def get_potential_fn(
+    model, inv_transforms, *, replay_model=False, dynamic_args=False,
+    model_args=(), model_kwargs=None,
+):
+    """Build the ``(potential_fn, postprocess_fn)`` closures; with
+    ``dynamic_args`` both take the model arguments first."""
+    if replay_model:
+        raise NotImplementedError(
+            "deterministic sites in MCMC postprocessing are not ported to "
+            "numpyro_tpu_torch yet (see ROADMAP.md)"
+        )
+    if dynamic_args:
+
+        def potential_fn(*args, **kwargs):
+            return partial(potential_energy, model, args, kwargs)
+
+        def postprocess_fn(*args, **kwargs):
+            return partial(transform_fn, inv_transforms)
+
+        return potential_fn, postprocess_fn
+    model_kwargs = {} if model_kwargs is None else model_kwargs
+    return (
+        partial(potential_energy, model, model_args, model_kwargs),
+        partial(transform_fn, inv_transforms),
+    )
+
+
+def initialize_model(
+    rng_key,
+    model,
+    *,
+    num_chains,
+    init_strategy=init_to_uniform,
+    dynamic_args=False,
+    model_args=(),
+    model_kwargs=None,
+):
+    """Trace the model, build the potential/postprocess closures and find
+    valid initial params for ``num_chains`` chains.  ``rng_key`` is a
+    ``torch.Generator`` on the device the chains should live on."""
+    model_kwargs = {} if model_kwargs is None else model_kwargs
+    strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
+    substituted_model = handlers.substitute(
+        handlers.seed(model, rng_key), substitute_fn=strategy
+    )
+    inv_transforms, replay_model, model_trace = _get_model_transforms(
+        substituted_model, model_args, model_kwargs
+    )
+    potential_fn, postprocess_fn = get_potential_fn(
+        model,
+        inv_transforms,
+        replay_model=replay_model,
+        dynamic_args=dynamic_args,
+        model_args=model_args,
+        model_kwargs=model_kwargs,
+    )
+    prototype_params = transform_fn(
+        inv_transforms,
+        {
+            k: v["value"]
+            for k, v in model_trace.items()
+            if v["type"] == "sample" and not v["is_observed"]
+        },
+        invert=True,
+    )
+    (init_params, pe, grad), is_valid = find_valid_initial_params(
+        rng_key,
+        model,
+        num_chains=num_chains,
+        init_strategy=strategy,
+        model_args=model_args,
+        model_kwargs=model_kwargs,
+        prototype_params=prototype_params,
+    )
+    if not bool(is_valid.all()):
+        raise RuntimeError(
+            "Cannot find valid initial parameters. Please check your model again."
+        )
+    return ModelInfo(
+        ParamInfo(init_params, pe, grad), potential_fn, postprocess_fn, model_trace
+    )

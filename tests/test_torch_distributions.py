@@ -1,0 +1,141 @@
+"""The port's distributions, transforms and effect handlers against the JAX
+package's, on the same numpy inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax import random
+
+import numpyro_tpu
+import numpyro_tpu.distributions as jdist
+import numpyro_tpu_torch as npt
+import numpyro_tpu_torch.distributions as dist
+from numpyro_tpu import handlers as jhandlers
+from numpyro_tpu_torch import handlers
+
+torch.set_num_threads(1)
+
+RTOL = 1e-6  # elementwise float32 formulas
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _close(t, j, rtol=RTOL):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=rtol, atol=1e-6)
+
+
+def test_normal_log_prob():
+    rng = _rng()
+    loc = rng.standard_normal((3, 4)).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, (4,)).astype(np.float32)
+    value = rng.standard_normal((5, 3, 4)).astype(np.float32)
+    d_t = dist.Normal(torch.from_numpy(loc), torch.from_numpy(scale))
+    d_j = jdist.Normal(loc, scale)
+    assert d_t.batch_shape == d_j.batch_shape and d_t.event_shape == d_j.event_shape
+    _close(d_t.log_prob(torch.from_numpy(value)), d_j.log_prob(value))
+
+
+def test_independent_log_prob_and_shapes():
+    rng = _rng(1)
+    value = rng.standard_normal((6, 7)).astype(np.float32)
+    d_t = dist.Normal(torch.zeros(7), 1.0).to_event(1)
+    d_j = jdist.Normal(jnp.zeros(7), 1.0).to_event(1)
+    assert isinstance(d_t, dist.Independent)
+    assert (d_t.batch_shape, d_t.event_shape) == ((), (7,))
+    assert (d_t.batch_shape, d_t.event_shape) == (d_j.batch_shape, d_j.event_shape)
+    _close(d_t.log_prob(torch.from_numpy(value)), d_j.log_prob(value), rtol=1e-5)
+    assert d_t.support.event_dim == 1
+
+
+def test_uniform_log_prob_and_support():
+    rng = _rng(2)
+    value = rng.uniform(-1.5, 2.5, (4, 3)).astype(np.float32)
+    d_t = dist.Uniform(-2.0, 3.0)
+    d_j = jdist.Uniform(-2.0, 3.0)
+    _close(d_t.log_prob(torch.from_numpy(value)), d_j.log_prob(value))
+    assert bool(d_t.support(torch.from_numpy(value)).all())
+
+
+def test_unit_log_prob():
+    log_factor = _rng(3).standard_normal((5,)).astype(np.float32)
+    d_t = dist.Unit(torch.from_numpy(log_factor))
+    d_j = jdist.Unit(log_factor)
+    value = np.zeros((5, 0), np.float32)
+    assert d_t.event_shape == (0,)
+    _close(d_t.log_prob(torch.from_numpy(value)), d_j.log_prob(value))
+
+
+def test_expanded_log_prob_and_sample_shape():
+    d_t = dist.Normal(torch.tensor(0.5), 2.0).expand((3, 2))
+    d_j = jdist.Normal(0.5, 2.0).expand((3, 2))
+    value = _rng(4).standard_normal((3, 2)).astype(np.float32)
+    _close(d_t.log_prob(torch.from_numpy(value)), d_j.log_prob(value))
+    draw = d_t.sample(torch.Generator().manual_seed(0), (4,))
+    assert draw.shape == (4, 3, 2)
+    # fresh draws for every expanded entry
+    assert len(torch.unique(draw)) == draw.numel()
+
+
+def test_biject_to_real_and_independent():
+    x = torch.randn(3, 4)
+    t = dist.biject_to(dist.constraints.independent(dist.constraints.real, 1))
+    assert torch.equal(t(x), x) and torch.equal(t.inv(x), x)
+    assert t.log_abs_det_jacobian(x, x).shape == (3,)
+    assert t.codomain.event_dim == 1
+    with pytest.raises(NotImplementedError):
+        dist.biject_to(dist.constraints.interval(0.0, 1.0))
+
+
+def _jmodel():
+    a = numpyro_tpu.sample("a", jdist.Normal(0.0, 1.0))
+    numpyro_tpu.sample("b", jdist.Normal(a, 2.0), obs=jnp.asarray(0.5))
+    numpyro_tpu.factor("f", a * 3.0)
+
+
+def _tmodel():
+    a = npt.sample("a", dist.Normal(0.0, 1.0))
+    npt.sample("b", dist.Normal(a, 2.0), obs=torch.tensor(0.5))
+    npt.factor("f", a * 3.0)
+
+
+def test_trace_substitute_matches_jax():
+    tr_t = handlers.trace(handlers.substitute(_tmodel, data={"a": torch.tensor(0.3)})).get_trace()
+    tr_j = jhandlers.trace(jhandlers.substitute(_jmodel, data={"a": 0.3})).get_trace()
+    assert list(tr_t) == list(tr_j) == ["a", "b", "f"]
+    for name in tr_t:
+        assert tr_t[name]["is_observed"] == tr_j[name]["is_observed"]
+        _close(
+            tr_t[name]["fn"].log_prob(tr_t[name]["value"]),
+            tr_j[name]["fn"].log_prob(tr_j[name]["value"]),
+        )
+
+
+def test_seed_condition_block():
+    gen = torch.Generator().manual_seed(0)
+    tr = handlers.trace(handlers.seed(_tmodel, gen)).get_trace()
+    assert tr["a"]["value"].shape == () and not tr["a"]["is_observed"]
+    # the same seed gives the same draw
+    again = handlers.trace(handlers.seed(_tmodel, 0)).get_trace()
+    assert torch.equal(tr["a"]["value"], again["a"]["value"])
+    cond = handlers.trace(handlers.condition(_tmodel, data={"a": torch.tensor(1.0)})).get_trace()
+    assert cond["a"]["is_observed"] and cond["a"]["value"] == 1.0
+    hidden = handlers.trace(handlers.block(handlers.seed(_tmodel, 0), hide=["a"])).get_trace()
+    assert "a" not in hidden and "b" in hidden
+    with pytest.raises(ValueError):
+        handlers.trace(_tmodel).get_trace()  # no generator for "a"
+
+
+def test_sample_is_reproducible_and_on_generator_device():
+    gen = torch.Generator().manual_seed(7)
+    x = npt.sample("x", dist.Normal(torch.zeros(3), 1.0), rng_key=gen)
+    y = dist.Normal(torch.zeros(3), 1.0).sample(torch.Generator().manual_seed(7))
+    assert torch.equal(x, y) and x.device.type == "cpu"
+    u = dist.Uniform(torch.tensor(-2.0), torch.tensor(2.0)).sample(gen, (1000,))
+    assert u.min() >= -2.0 and u.max() <= 2.0
+    # same law as JAX's sampler (different bits): moments agree
+    uj = np.asarray(jdist.Uniform(-2.0, 2.0).sample(random.PRNGKey(0), (1000,)))
+    assert abs(u.mean().item() - uj.mean()) < 0.2

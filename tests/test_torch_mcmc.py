@@ -1,0 +1,124 @@
+"""The whole slice, ``MCMC(NUTS)`` on a small Bernoulli GLM, against the
+JAX package's; the diagnostics against JAX's; and the port's import
+hygiene."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax import random
+
+import numpyro_tpu
+import numpyro_tpu.distributions as jdist
+import numpyro_tpu_torch as npt
+import numpyro_tpu_torch.distributions as dist
+from numpyro_tpu import diagnostics as jdiag
+from numpyro_tpu.infer import MCMC as JMCMC, NUTS as JNUTS
+from numpyro_tpu.ops import glm as jglm
+from numpyro_tpu_torch import diagnostics
+from numpyro_tpu_torch.infer import MCMC, NUTS
+from numpyro_tpu_torch.ops import glm
+
+torch.set_num_threads(1)
+
+N, D, C = 500, 4, 4
+WARMUP, SAMPLES = 100, 100
+
+
+def _data():
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N, D)).astype(np.float32)
+    y = (rng.random(N) < 1 / (1 + np.exp(-X @ np.linspace(-1, 1, D)))).astype(np.float32)
+    return X, y
+
+
+def jax_model(data):
+    w = numpyro_tpu.sample("w", jdist.Normal(jnp.zeros(D), 1.0).to_event(1))
+    numpyro_tpu.factor("lik", jglm.bernoulli_logits_loglik(w, data))
+
+
+def torch_model(data):
+    w = npt.sample("w", dist.Normal(torch.zeros(D, device=data.device), 1.0).to_event(1))
+    npt.factor("lik", glm.bernoulli_logits_loglik(w, data))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    X, y = _data()
+    jm = JMCMC(JNUTS(jax_model), num_warmup=WARMUP, num_samples=SAMPLES, num_chains=C,
+               chain_method="vectorized", progress_bar=False)
+    jm.run(random.PRNGKey(1), jglm.prepare_glm_data(jnp.asarray(X), jnp.asarray(y)))
+    tm = MCMC(NUTS(torch_model), num_warmup=WARMUP, num_samples=SAMPLES, num_chains=C,
+              chain_method="vectorized")
+    glm.reset_launch_counts()
+    tm.run(torch.Generator().manual_seed(1),
+           glm.prepare_glm_data(torch.from_numpy(X), torch.from_numpy(y)),
+           extra_fields=("num_steps", "accept_prob"))
+    return jm, tm, dict(glm.launch_counts)
+
+
+def test_posterior_matches_jax(runs):
+    jm, tm, _ = runs
+    w_j = np.asarray(jm.get_samples()["w"])
+    w_t = tm.get_samples()["w"].numpy()
+    assert w_t.shape == w_j.shape == (C * SAMPLES, D)
+    # as at tests/test_ops_glm.py:108-113: two chains of draws of the same
+    # posterior, with different random numbers
+    np.testing.assert_allclose(w_t.mean(0), w_j.mean(0), atol=0.05)
+    np.testing.assert_allclose(w_t.std(0), w_j.std(0), atol=0.03)
+
+
+def test_run_bookkeeping(runs):
+    _, tm, launches = runs
+    stats = tm.last_run_stats
+    by_chain = tm.get_samples(group_by_chain=True)["w"]
+    extra = tm.get_extra_fields(group_by_chain=True)
+    assert by_chain.shape == (C, SAMPLES, D)
+    assert extra["num_steps"].shape == (C, SAMPLES) and bool((extra["num_steps"] >= 1).all())
+    assert extra["diverging"].dtype == torch.bool
+    # every batched potential evaluation is one GLM call for all chains,
+    # plus the one unbatched trace that finds the latent sites
+    assert launches["plain"] == stats["potential_evals"] + stats["init_traces"]
+    assert stats["potential_evals_init"] == 1
+    assert 0.5 < extra["accept_prob"].mean().item() < 1.0
+    assert tm.last_state.z["w"].shape == (C, D)
+
+
+def test_effective_sample_size_matches_jax():
+    rng = np.random.default_rng(3)
+    x = np.zeros((4, 300, 2), np.float32)
+    noise = rng.standard_normal(x.shape).astype(np.float32)
+    for i in range(1, 300):  # AR(1) chains, rho = 0.7
+        x[:, i] = 0.7 * x[:, i - 1] + noise[:, i]
+    np.testing.assert_allclose(
+        diagnostics.effective_sample_size(torch.from_numpy(x)).numpy(),
+        np.asarray(jax.jit(jdiag.effective_sample_size)(jnp.asarray(x))),
+        rtol=1e-4,
+    )
+    np.testing.assert_allclose(
+        diagnostics.split_gelman_rubin(torch.from_numpy(x)).numpy(),
+        np.asarray(jax.jit(jdiag.split_gelman_rubin)(jnp.asarray(x))),
+        rtol=1e-5,
+    )
+    np.testing.assert_allclose(
+        diagnostics.autocorrelation(torch.from_numpy(x), axis=1).numpy(),
+        np.asarray(jax.jit(jdiag.autocorrelation, static_argnums=1)(jnp.asarray(x), 1)),
+        rtol=1e-4, atol=1e-5,
+    )
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method="parallel")
+    with pytest.raises(NotImplementedError):
+        NUTS(torch_model, dense_mass=True)
+
+
+def test_import_leaves_jax_out():
+    code = "import sys, numpyro_tpu_torch; assert 'jax' not in sys.modules, sorted(sys.modules)"
+    subprocess.run([sys.executable, "-c", code], check=True)
