@@ -135,17 +135,25 @@ class ExpandedDistribution(_Decorated):
         super().__init__(target, base_dist.event_shape)
 
     def sample(self, key, sample_shape=()):
-        # a fresh draw for every expanded entry: sample the base over the new
-        # leading dims (size-1 base dims growing to >1 are not supported)
-        lead = len(self.batch_shape) - len(self.base_dist.batch_shape)
-        grown = any(
-            b == 1 and t != 1
-            for b, t in zip(self.base_dist.batch_shape, self.batch_shape[lead:])
-        )
-        if grown:
-            raise NotImplementedError("sampling an expanded size-1 batch dim")
-        extra = tuple(sample_shape) + self.batch_shape[:lead]
-        return self.base_dist.sample(key, extra)
+        # a fresh draw for every expanded entry.  The base sampler only takes
+        # a sample_shape prefix, so the new leading dims and the sizes of the
+        # grown size-1 base dims are drawn as extra leading axes; each grown
+        # axis is then swapped into the place of its size-1 base axis, and the
+        # leftover size-1 axes vanish in the final reshape.
+        sample_shape = tuple(sample_shape)
+        base_batch = self.base_dist.batch_shape
+        lead = len(self.batch_shape) - len(base_batch)
+        grown = [
+            (i, t) for i, (b, t) in enumerate(zip(base_batch, self.batch_shape[lead:]))
+            if b == 1 and t != 1
+        ]
+        fresh = self.batch_shape[:lead] + tuple(t for _, t in grown)
+        raw = self.base_dist.sample(key, sample_shape + fresh)
+        for j, (i, _) in enumerate(grown):
+            raw = raw.swapaxes(
+                len(sample_shape) + lead + j, len(sample_shape) + len(fresh) + i
+            )
+        return raw.reshape(sample_shape + self.batch_shape + self.event_shape)
 
     def log_prob(self, value):
         lead = max(value.dim() - self.event_dim, 0)

@@ -13,7 +13,7 @@ from collections import OrderedDict
 
 import torch
 
-from numpyro_tpu_torch.primitives import Messenger
+from numpyro_tpu_torch.primitives import Messenger, prng_key
 
 __all__ = ["block", "condition", "seed", "substitute", "trace"]
 
@@ -61,8 +61,18 @@ class block(Messenger):
         super().__init__(fn)
 
     def process_message(self, msg):
-        if self.hide_fn(msg):
-            msg["stop"] = True
+        # prng_key messages always propagate, so that a hidden site can still
+        # draw from an outer seed
+        if msg["type"] == "prng_key" or not self.hide_fn(msg):
+            return
+        msg["stop"] = True
+        needs_key = (
+            msg["type"] == "sample"
+            and msg.get("value") is None
+            and msg.get("kwargs", {}).get("rng_key") is None
+        )
+        if needs_key:
+            msg["kwargs"]["rng_key"] = prng_key()
 
 
 class _ValueBinder(Messenger):
@@ -132,9 +142,9 @@ class seed(Messenger):
         super().__init__(fn)
 
     def process_message(self, msg):
-        if msg["type"] in self.hide_types or msg["type"] != "sample":
+        if msg["type"] in self.hide_types or msg["type"] not in ("sample", "prng_key"):
             return
-        if msg["is_observed"] or msg["value"] is not None:
+        if msg["type"] == "sample" and (msg["is_observed"] or msg["value"] is not None):
             return
         if msg["kwargs"]["rng_key"] is None:
             msg["kwargs"]["rng_key"] = self.rng_key

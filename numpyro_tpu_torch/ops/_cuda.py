@@ -77,14 +77,34 @@ def load():
         os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.glm_split_launch.argtypes = [p, i, i, i, p, p, i, i, p, p, p, p, p]
+    # (w, b, d, d_pad, tensor map, [x_is_bf16,] y, n_pad, n, plan, pe_part,
+    #  g_part, ll, grad, stream)
+    lib.glm_split_launch.argtypes = [p, i, i, i, p, p, i, i, p, p, p, p, p, p]
     lib.glm_split_launch.restype = i
-    lib.glm_fused_launch.argtypes = [p, i, i, i, p, i, p, i, i, p, p, p, p, p]
+    lib.glm_fused_launch.argtypes = [p, i, i, i, p, i, p, i, i, p, p, p, p, p, p]
     lib.glm_fused_launch.restype = i
-    lib.glm_chunk_columns.argtypes = []
-    lib.glm_chunk_columns.restype = i
+    # (out, x, x_is_bf16, d_pad, n_pad, box_rows)
+    lib.glm_make_tensor_map.argtypes = [p, p, i, i, i, i]
+    lib.glm_make_tensor_map.restype = i
+    for fn in (lib.glm_tile_columns, lib.glm_segment_tiles):
+        fn.argtypes = []
+        fn.restype = i
     build_info.update(
         seconds=time.perf_counter() - t0, ptxas=ptxas, path=str(target)
     )
     _lib = lib
     return lib
+
+
+def ptxas_summary():
+    """One line per kernel of the last build: the end of its mangled name
+    (for ``glm_partials_kernel`` the template arguments mode, d-blocks and
+    chain groups per warpgroup), registers and spills, from ``-Xptxas -v``."""
+    lines = build_info.get("ptxas", "").splitlines()
+    names = [ln.split("'")[1] for ln in lines if "Compiling entry" in ln]
+    used = [ln.split(":")[-1].strip() for ln in lines if "registers" in ln]
+    spills = [ln.strip() for ln in lines if "spill" in ln]
+    return [
+        f"{name.split('kernel')[-1][:16]}: {u}; {sp}"
+        for name, u, sp in zip(names, used, spills)
+    ]

@@ -18,14 +18,23 @@ Where it runs is decided by the tensor's device, never guessed:
 - Any other device raises.
 
 Precision modes (``prepare_glm_data(..., dtype=...)``), as in the JAX
-package: ``torch.float32`` (exact-f32 model; no TF32 anywhere), ``"split"``
-(bf16-stored design matrix with f32-accurate hi+lo ``w``) and
-``torch.bfloat16`` (all-bf16, including ``w`` and the residual).
+package: ``torch.float32`` (f32-accurate model; no TF32 anywhere: the kernel
+splits ``w``, X and the residual into three bf16 pieces each and sums the six
+products that matter, see :func:`six_product_matmul`; the plain version keeps
+the exact f32 product), ``"split"`` (bf16-stored design matrix with
+f32-accurate hi+lo ``w``) and ``torch.bfloat16`` (all-bf16, including ``w``
+and the residual).
+
+The kernels' launch plan (:func:`glm_launch_plan`) and one call's count of
+operations and bytes (:func:`glm_work`) are pure functions, tested on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -33,22 +42,70 @@ __all__ = [
     "BernoulliLogitsGLMData",
     "bernoulli_logits_loglik",
     "from_numpy_glm_data",
+    "GLMLaunchPlan",
+    "glm_launch_plan",
     "glm_value_and_grad",
+    "glm_tensor_core_flops",
+    "glm_work",
+    "kernel_tolerances",
     "launch_counts",
     "plain_value_and_grad",
     "prepare_glm_data",
     "reset_launch_counts",
+    "six_product_matmul",
     "split_hi_lo",
+    "split_hi_mid_lo",
 ]
 
 # same layout as the JAX package, so both score the same padded matrix; the
-# CUDA kernel needs N_pad to be a multiple of its 4096-column chunk
+# CUDA kernel needs N_pad to be a multiple of its 64-column tile
 _N_PAD = 32768
 _LOG2 = math.log(2.0)
+
+# the kernel's tiling (numpyro_tpu_torch/csrc/glm.cu holds the same numbers
+# and refuses a plan that disagrees with them)
+TILE_COLUMNS = 64  # columns of X^T per staged tile
+SEGMENT_TILES = 128  # tiles per f32 accumulator run: 8,192 columns
+MAX_F32_RUN_COLUMNS = TILE_COLUMNS * SEGMENT_TILES
+MAX_SHARED_BYTES = 232448  # what one block may use on an H100
+MAX_D_PAD = 256
+_GROUP = 64  # chains per warpgroup product
+_D_BLOCK = 64  # rows of X^T per d-block
+_BLOCK_BYTES = _D_BLOCK * TILE_COLUMNS * 2  # one bf16 d-block
+_PARTS = {"bf16": 1, "split": 2, "f32": 3}  # bf16 pieces of w and the residual
 
 # launches of each kernel entry point (and calls of the plain version); a
 # wrapper adds one where it launches, and nowhere else
 launch_counts = {"glm_split": 0, "glm_fused_f32": 0, "glm_fused_bf16": 0, "plain": 0}
+
+
+# how closely a kernel must agree with the plain version (kernel_tolerances)
+LL_RTOL, G_RTOL = 1e-5, 1e-3
+
+
+def kernel_tolerances(mode, n):
+    """``(loglik rtol, gradient rtol, gradient atol)`` within which a kernel
+    agrees with :func:`plain_value_and_grad` on ``n`` rows.  The GPU tests and
+    the smoke run share them.
+
+    Kernel and plain version add the same exact products of bf16 pieces in
+    another order, so they differ by summation rounding only: ~1e-7 relative on
+    the potential, and far less than the rtol on any gradient component of size.
+    The atol is for the components near zero, and is three times the most that
+    an H100 showed over eight shapes and three datasets of 581,012 rows:
+
+    - split and f32 mode: the tensor cores' f32 accumulator truncates, so each
+      64-column tile's product carries an error towards zero of about an ulp
+      of the tile's sum; over the tiles of a component near zero these have
+      random signs and add to ~1.8e-6 sqrt(n) at most (1.4e-3 at n = 581,012).
+    - bf16 mode rounds every residual to bf16, which is discontinuous: where
+      the two versions' logits differ in the last f32 bit, a residual at a
+      rounding boundary lands on the other side and moves a component by
+      2^-9 |r| |x| ~ 2e-3.  A component collects a few of these whatever the
+      shape: 8.7e-3 at most from n = 33,000 to 581,012, where the plain
+      version itself stands 4.6e-3 beyond the rtol from a float64 reference."""
+    atol = 2.5e-2 if mode == "bf16" else 5e-6 * math.sqrt(n)
+    return LL_RTOL, G_RTOL, atol
 
 
 def reset_launch_counts():
@@ -80,6 +137,7 @@ class BernoulliLogitsGLMData:
         self.d = d
         self.dtype = dtype
         self.mode = _mode(dtype)
+        self._tensor_maps = {}  # TMA descriptors of x_t, made once each
 
     @property
     def device(self):
@@ -127,6 +185,173 @@ def split_hi_lo(w):
     return hi.to(torch.bfloat16), (w - hi).to(torch.bfloat16)
 
 
+def split_hi_mid_lo(v):
+    """Split f32 ``v`` into three bf16 pieces ``(hi, mid, lo)``, each the
+    round-to-nearest-even of what the ones before left over (24 mantissa bits
+    in all, so ``hi + mid + lo == v`` to ~2^-24 relative).  This is how the
+    f32-mode kernel splits ``w``, the staged tile of X and the residual."""
+    pieces = []
+    rest = v.contiguous()
+    for _ in range(3):
+        bits = rest.view(torch.int32)
+        piece = ((bits + 0x7FFF + ((bits >> 16) & 1)) & -65536).view(torch.float32)
+        pieces.append(piece.to(torch.bfloat16))
+        rest = rest - piece
+    return tuple(pieces)
+
+
+def six_product_matmul(a, b):
+    """``a @ b`` in f32 from bf16 pieces, as the f32-mode kernel computes both
+    of its products: each operand split by :func:`split_hi_mid_lo`, and the six
+    products of weight >= 2^-16 (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid)
+    summed smallest first.  Each piece product is exact in f32."""
+    a_hi, a_mid, a_lo = (t.to(torch.float32) for t in split_hi_mid_lo(a))
+    b_hi, b_mid, b_lo = (t.to(torch.float32) for t in split_hi_mid_lo(b))
+    return (a_lo @ b_hi + a_hi @ b_lo + a_mid @ b_mid
+            + a_mid @ b_hi + a_hi @ b_mid + a_hi @ b_hi)
+
+
+def glm_work(mode, b, d_pad, n_pad):
+    """``(operations, bytes)`` of one call: the two products (forward and
+    backward) of ``b`` chains over the padded matrix, four in split mode (hi
+    and lo each way), and every input read once (X^T, y, w) and every output
+    written once (loglik, grad)."""
+    products = {"f32": 2, "bf16": 2, "split": 4}[mode]
+    flops = products * 2 * b * d_pad * n_pad
+    x_bytes = d_pad * n_pad * (4 if mode == "f32" else 2)
+    return flops, x_bytes + 4 * n_pad + 4 * b * d_pad + 4 * b * (d_pad + 1)
+
+
+def glm_tensor_core_flops(mode, b, d_pad, n_pad):
+    """Operations of one call when every product is a bf16 product on the
+    tensor cores.  Split and bf16 mode have no other kind (:func:`glm_work`'s
+    count); f32 mode then makes the six piece products of
+    :func:`six_product_matmul` each way, twelve in all, which at the tensor
+    cores' rate is less work for the card than two f32 products outside them."""
+    products = {"f32": 12, "bf16": 2, "split": 4}[mode]
+    return products * 2 * b * d_pad * n_pad
+
+
+class GLMLaunchPlan(NamedTuple):
+    """How one kernel call is laid out (see :func:`glm_launch_plan`)."""
+
+    chain_tile: int  # chains per block: 64, 128 or 256
+    grid_x: int  # blocks along the columns, each with a contiguous tile range
+    grid_y: int  # chain tiles
+    col_split: int  # 1: the block's two warpgroups take alternate column tiles
+    stages: int  # depth of the shared-memory ring of X tiles
+    segs: int  # accumulator runs (segments of SEGMENT_TILES tiles) per block
+    smem_bytes: int  # dynamic shared memory of a block
+
+    @property
+    def slots(self):
+        """Scratch slots: one per (block along x, warpgroup if split, segment)."""
+        return self.grid_x * (2 if self.col_split else 1) * self.segs
+
+    def tile_range(self, block_x, n_tiles):
+        """The column tiles ``[t0, t1)`` that block ``block_x`` walks."""
+        return block_x * n_tiles // self.grid_x, (block_x + 1) * n_tiles // self.grid_x
+
+    def scratch_shapes(self, b, d_pad):
+        return (self.slots, b), (self.slots, b, d_pad)
+
+
+def _smem_bytes(mode, chain_tile, d_blocks, stages):
+    w_tiles = (chain_tile // _GROUP) * _PARTS[mode] * d_blocks * _BLOCK_BYTES
+    if mode == "f32":  # three bf16 tiles, and a ring of f32 d-blocks
+        split_tiles, stage = 3 * d_blocks * _BLOCK_BYTES, 2 * _BLOCK_BYTES
+    else:
+        split_tiles, stage = 0, d_blocks * _BLOCK_BYTES
+    # 1024 to align the base; per stage the tile, y (256) and two barriers
+    return 1024 + w_tiles + split_tiles + stages * (stage + 4 * TILE_COLUMNS + 16)
+
+
+def glm_launch_plan(mode, b, d_pad, n_pad, sm_count):
+    """The kernel's launch plan, a pure function of the shapes and the number
+    of SMs.  The wrapper allocates scratch from it and hands it to the kernel.
+
+    - The chain tile is the one of 64, 128, 256 that pads ``b`` least (the
+      larger on a tie, so that X^T is read fewer times); 256 needs
+      ``d_pad <= 64`` (registers), and every choice must leave room in shared
+      memory for a ring of at least three X tiles (two 16 KiB f32 blocks in
+      f32 mode).
+    - About one block per SM: ``grid_x * grid_y <= sm_count`` where possible,
+      each block walking a fixed contiguous range of 64-column tiles.
+    - With a chain tile of 64 (bf16 modes) the block's two consumer
+      warpgroups take alternate tiles, each with scratch slots of its own.
+    - No f32 accumulator runs over more than ``SEGMENT_TILES`` tiles."""
+    if mode not in _PARTS:
+        raise ValueError(f"unknown GLM mode {mode!r}")
+    if b < 1 or d_pad < 8 or d_pad % 8 or d_pad > MAX_D_PAD:
+        raise ValueError(f"need b >= 1 and D_pad a multiple of 8 in [8, {MAX_D_PAD}]")
+    if n_pad < TILE_COLUMNS or n_pad % TILE_COLUMNS:
+        raise ValueError(f"N_pad={n_pad} is not a multiple of {TILE_COLUMNS}")
+    d_blocks = -(-d_pad // _D_BLOCK)
+    min_stages = 2 if mode == "f32" else 3
+    best = None
+    for chain_tile in (64, 128, 256) if d_blocks == 1 else (64, 128):
+        room = MAX_SHARED_BYTES - _smem_bytes(mode, chain_tile, d_blocks, 0)
+        stages = min(8, room // (_smem_bytes(mode, chain_tile, d_blocks, 1)
+                                 - _smem_bytes(mode, chain_tile, d_blocks, 0)))
+        if stages < min_stages:
+            continue
+        key = (-(-b // chain_tile) * chain_tile, -chain_tile)
+        if best is None or key < best[0]:
+            best = (key, chain_tile, stages)
+    _, chain_tile, stages = best
+    grid_y = -(-b // chain_tile)
+    n_tiles = n_pad // TILE_COLUMNS
+    grid_x = max(1, min(sm_count // grid_y, n_tiles))
+    segs = -(-(-(-n_tiles // grid_x)) // SEGMENT_TILES)
+    return GLMLaunchPlan(
+        chain_tile, grid_x, grid_y, int(mode != "f32" and chain_tile == 64), stages, segs,
+        _smem_bytes(mode, chain_tile, d_blocks, stages),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_for_kernel(mode, b, d_pad, n_pad, sm_count):
+    plan = glm_launch_plan(mode, b, d_pad, n_pad, sm_count)
+    return plan, (ctypes.c_int * len(plan))(*plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_library():
+    """The built kernel library, once it has confirmed the tiling this module
+    plans with."""
+    from numpyro_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    tiling = (lib.glm_tile_columns(), lib.glm_segment_tiles())
+    if tiling != (TILE_COLUMNS, SEGMENT_TILES):
+        raise RuntimeError(f"the kernels tile by {tiling}, ops/glm.py plans for "
+                           f"{(TILE_COLUMNS, SEGMENT_TILES)}")
+    return lib
+
+
+def _tensor_map(lib, data, d_pad, n_pad):
+    """The TMA descriptor of ``data.x_t``: made once per (pointer, shape) and
+    kept on the data object (the kernel is launched thousands of times)."""
+    is_bf16 = data.x_t.dtype == torch.bfloat16
+    box_rows = _D_BLOCK * -(-d_pad // _D_BLOCK)
+    key = (data.x_t.data_ptr(), d_pad, n_pad, is_bf16)
+    found = data._tensor_maps.get(key)
+    if found is None:
+        found = ctypes.create_string_buffer(128)
+        err = lib.glm_make_tensor_map(
+            found, data.x_t.data_ptr(), int(is_bf16), d_pad, n_pad, box_rows
+        )
+        if err != 0:
+            raise RuntimeError(f"encoding the TMA descriptor of X^T failed with error {err}")
+        data._tensor_maps[key] = found
+    return found
+
+
 def _round_bf16(v):
     return v.to(torch.bfloat16).to(torch.float32)
 
@@ -165,8 +390,6 @@ def plain_value_and_grad(w, data):
 
 def _kernel_value_and_grad(w, data):
     """Launch the CUDA kernel for ``data.mode`` on ``w``'s current stream."""
-    from numpyro_tpu_torch.ops import _cuda
-
     x_t, y_row = data.x_t, data.y_row
     if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
         raise ValueError("w must be a contiguous (B, D) float32 tensor")
@@ -176,34 +399,35 @@ def _kernel_value_and_grad(w, data):
         raise ValueError("GLM data tensors must be contiguous")
     b, d = w.shape
     d_pad, n_pad = x_t.shape
-    if d != data.d or d_pad > 256:
-        raise ValueError(f"w has {d} columns; the data has {data.d} (D_pad {d_pad} <= 256)")
-    lib = _cuda.load()
-    chunk = lib.glm_chunk_columns()
-    if n_pad % chunk:
-        raise ValueError(f"N_pad={n_pad} is not a multiple of {chunk}")
+    if d != data.d or d_pad > MAX_D_PAD:
+        raise ValueError(
+            f"w has {d} columns; the data has {data.d} (D_pad {d_pad} <= {MAX_D_PAD})"
+        )
+    want = torch.float32 if data.mode == "f32" else torch.bfloat16
+    if x_t.dtype != want:
+        raise ValueError(f"{data.mode} mode needs {want} x_t, got {x_t.dtype}")
+    lib = _kernel_library()
     dev = w.device
-    pe_part = torch.empty((n_pad // chunk, b), dtype=torch.float32, device=dev)
-    g_part = torch.empty((n_pad // chunk, b, d_pad), dtype=torch.float32, device=dev)
-    ll = torch.empty((b,), dtype=torch.float32, device=dev)
-    grad = torch.empty((b, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        plan, plan_ints = _plan_for_kernel(
+            data.mode, b, d_pad, n_pad, _sm_count(torch.cuda.current_device())
+        )
+        tmap = _tensor_map(lib, data, d_pad, n_pad)
+        pe_shape, g_shape = plan.scratch_shapes(b, d_pad)
+        pe_part = torch.empty(pe_shape, dtype=torch.float32, device=dev)
+        g_part = torch.empty(g_shape, dtype=torch.float32, device=dev)
+        ll = torch.empty((b,), dtype=torch.float32, device=dev)
+        grad = torch.empty((b, d), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        common = (y_row.data_ptr(), n_pad, data.n, pe_part.data_ptr(),
+        common = (y_row.data_ptr(), n_pad, data.n, plan_ints, pe_part.data_ptr(),
                   g_part.data_ptr(), ll.data_ptr(), grad.data_ptr(), stream)
         if data.mode == "split":
             name = "glm_split"
-            err = lib.glm_split_launch(
-                w.data_ptr(), b, d, d_pad, x_t.data_ptr(), *common
-            )
+            err = lib.glm_split_launch(w.data_ptr(), b, d, d_pad, tmap, *common)
         else:
             name = "glm_fused_" + data.mode
-            want = torch.float32 if data.mode == "f32" else torch.bfloat16
-            if x_t.dtype != want:
-                raise ValueError(f"{data.mode} mode needs {want} x_t, got {x_t.dtype}")
             err = lib.glm_fused_launch(
-                w.data_ptr(), b, d, d_pad, x_t.data_ptr(),
-                int(data.mode == "bf16"), *common,
+                w.data_ptr(), b, d, d_pad, tmap, int(data.mode == "bf16"), *common
             )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")

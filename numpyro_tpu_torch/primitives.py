@@ -16,7 +16,7 @@ import torch
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.util import identity
 
-__all__ = ["Messenger", "apply_stack", "deterministic", "factor", "sample"]
+__all__ = ["Messenger", "apply_stack", "deterministic", "factor", "prng_key", "sample"]
 
 _PYRO_STACK = []
 
@@ -122,6 +122,17 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
         is_observed=obs is not None,
         intermediates=[],
         infer={} if infer is None else infer,
+    )["value"]
+
+
+def prng_key():
+    """The generator of the innermost ``seed`` handler (JAX's ``prng_key``
+    draws a fresh split key there; the port's generator advances with every
+    draw instead).  ``None`` outside any handler or without a ``seed``."""
+    if not _PYRO_STACK:
+        return None
+    return _dispatch(
+        "prng_key", fn=lambda rng_key: rng_key, kwargs={"rng_key": None}
     )["value"]
 
 

@@ -17,8 +17,14 @@ from numpyro_tpu_torch.ops import glm
 
 torch.set_num_threads(1)
 
-# kernel against plain: the same products summed in another order
-LL_RTOL, G_RTOL, G_ATOL = 1e-5, 1e-3, 1e-3
+
+def _assert_matches_plain(got, want, mode, n):
+    """Kernel against plain version within ``glm.kernel_tolerances``."""
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances(mode, n)
+    torch.testing.assert_close(got[0], want[0], rtol=ll_rtol, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=g_rtol, atol=g_atol)
+
+
 MODES = {"f32": torch.float32, "split": "split", "bf16": torch.bfloat16}
 KERNEL = {"f32": "glm_fused_f32", "split": "glm_split", "bf16": "glm_fused_bf16"}
 
@@ -41,21 +47,41 @@ def _problem(device, n=70000, d=70, c=40, seed=0):
     return to(X), to(y), to(W), true_w
 
 
+def _same_bits(a, b):
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", list(MODES))
+# (n, d, chains): a partial 128-chain tile over two d-blocks; five 64-chain
+# tiles whose warpgroups split the columns; four d-blocks; one small tile
+@pytest.mark.parametrize("shape", [(70000, 70, 100), (50000, 55, 300), (33000, 200, 70),
+                                   (5000, 7, 5)])
+def test_kernel_matches_plain_at_ragged_shapes(cuda, mode, shape):
+    n, d, c = shape
+    X, y, W, _ = _problem(cuda, n=n, d=d, c=c, seed=1)
+    data = glm.prepare_glm_data(X, y, dtype=MODES[mode])
+    first = glm.glm_value_and_grad(W, data)
+    second = glm.glm_value_and_grad(W, data)
+    plain = glm.plain_value_and_grad(W, data)
+    torch.cuda.synchronize()
+    assert _same_bits(first, second)  # no float atomics, a fixed order of sums
+    _assert_matches_plain(first, plain, mode, n)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("mode", list(MODES))
 def test_kernel_matches_plain(cuda, mode):
     X, y, W, _ = _problem(cuda)
     data = glm.prepare_glm_data(X, y, dtype=MODES[mode])
     before = glm.launch_counts[KERNEL[mode]]
-    ll_k, g_k = glm.glm_value_and_grad(W, data)
-    ll_p, g_p = glm.plain_value_and_grad(W, data)
+    got = glm.glm_value_and_grad(W, data)
+    plain = glm.plain_value_and_grad(W, data)
     torch.cuda.synchronize()
     assert glm.launch_counts[KERNEL[mode]] == before + 1
-    torch.testing.assert_close(ll_k, ll_p, rtol=LL_RTOL, atol=0)
-    torch.testing.assert_close(g_k, g_p, rtol=G_RTOL, atol=G_ATOL)
+    _assert_matches_plain(got, plain, mode, X.shape[0])
     # no float atomics: a second call gives the same bits
-    ll_2, g_2 = glm.glm_value_and_grad(W, data)
-    assert torch.equal(ll_k, ll_2) and torch.equal(g_k, g_2)
+    assert _same_bits(got, glm.glm_value_and_grad(W, data))
 
 
 @pytest.mark.requires_cuda
@@ -68,9 +94,7 @@ def test_vmap_makes_one_launch(cuda, c):
         torch.func.grad_and_value(glm.bernoulli_logits_loglik), in_dims=(0, None)
     )(W, data)
     assert glm.launch_counts["glm_split"] == before + 1
-    ll_p, g_p = glm.plain_value_and_grad(W, data)
-    torch.testing.assert_close(ll, ll_p, rtol=LL_RTOL, atol=0)
-    torch.testing.assert_close(g, g_p, rtol=G_RTOL, atol=G_ATOL)
+    _assert_matches_plain((ll, g), glm.plain_value_and_grad(W, data), "split", X.shape[0])
 
 
 @pytest.mark.requires_cuda
