@@ -15,16 +15,28 @@ Phases (each prints on its own lines; any failure exits non-zero):
                the split kernel is timed at 64, 256 and 1,024 chains.
 4. main     -- with every launch count set to 0: MCMC(NUTS) with 256
                vectorized chains on the covtype model in each precision mode.
-               Split mode (the bench's) runs 200 + 200 transitions, f32 mode
-               (``prepare_glm_data``'s default) 100 + 100, and both must
+               Split mode (the bench's) runs 100 + 50 transitions, f32 mode
+               (``prepare_glm_data``'s default) 50 + 25, and both must
                recover the generating coefficients to 0.05.  bf16 mode runs a
                short depth-6 chain whose draws must be finite (its quantized
                ``w`` stalls NUTS at this data concentration, so it has no
                coefficient gate).  Every potential evaluation of every run
                must have launched its mode's kernel exactly once.
+               A fourth run drives NUTS in split mode through the per-step
+               ``init``/``sample`` API (64 chains, 10 + 10), which must launch
+               the split kernel once per evaluation too.
 5. f32/bf16 -- one batched potential-and-gradient evaluation of the f32- and
                bf16-mode models through ``batched_potential``, checked
                against the plain version.
+6. ecs      -- HMCECS with the Taylor proxy on the same data (the bench's
+               second leg): 1,024 chains, subsample 1,000 of 581,012 rows, 100
+               blocks, 100 + 100 transitions at tree depth 6, on the default
+               device, with the modes that ``auto`` resolves; the posterior means must recover
+               the generating coefficients to 0.1.  Then the other modes by
+               name (``bf16`` and ``lean`` panels, ``recompute`` proxy) at 256
+               chains, 20 + 20, depth 6, gate 0.2.  This path is plain PyTorch
+               (gathers, small products, nested JVPs) and launches none of
+               the hand-written kernels.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -42,7 +54,7 @@ import torch
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size
-from numpyro_tpu_torch.infer import MCMC, NUTS
+from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
 from numpyro_tpu_torch.ops import _cuda, glm
@@ -65,14 +77,28 @@ RAGGED = (70_000, 70, 100)  # n, d, chains: two d-blocks, a partial chain tile
 SWEEP_CHAINS = (64, 256, 1024)
 # main-path runs: kernel -> (warmup, samples, max_tree_depth, coefficient gate)
 RUNS = {
-    "glm_split": (200, 200, (6, 10), 0.05),
-    "glm_fused_f32": (100, 100, (6, 10), 0.05),
+    "glm_split": (100, 50, (6, 10), 0.05),
+    "glm_fused_f32": (50, 25, (6, 10), 0.05),
     "glm_fused_bf16": (20, 20, 6, None),
 }
+PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
+# the HMCECS leg: chains, warmup, samples, max_tree_depth, coefficient gate.
+# ``MCMC``'s per-step loop waits for the deepest tree of all chains at every
+# transition, and a potential evaluation costs ~25 ms of host time: with the
+# bench's sampling cap of 10 a few chains with a small adapted step size grow
+# trees of 500-1,023 leapfrogs and one transition takes 23 s (NVIDIA H100 80GB
+# HBM3, 700.00 W), so the main leg caps the depth at 6 in sampling as in warmup.
+SUBSAMPLE, NUM_BLOCKS = 1000, 100
+ECS_MAIN = (1024, 100, 100, 6, 0.1)
+ECS_MODES = (256, 20, 20, 6, 0.2)
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """Print a progress line with the seconds since the script began."""
+    print(f"[+{time.perf_counter() - _T0:.0f}s] {msg}", flush=True)
 
 
 def smi():
@@ -274,6 +300,99 @@ def phase_main(X, y, true_w, name):
     return stats
 
 
+def phase_per_step(X, y):
+    """NUTS in split mode through the per-step API (a field that the fused
+    run does not bank sends ``MCMC`` there): one launch per evaluation."""
+    chains, warmup, samples = PER_STEP
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    mcmc = MCMC(NUTS(model, max_tree_depth=6), num_warmup=warmup, num_samples=samples,
+                num_chains=chains)
+    before = glm.launch_counts["glm_split"]
+    mcmc.run(2, data, extra_fields=("potential_energy",))
+    stats = mcmc.last_run_stats
+    launches = glm.launch_counts["glm_split"] - before
+    draws = mcmc.get_samples(group_by_chain=True)["w"]
+    pe = mcmc.get_extra_fields(group_by_chain=True)["potential_energy"]
+    log(f"[main] per-step NUTS, {chains} chains, {warmup} + {samples}: "
+        f"{stats['potential_evals']} potential evaluations, glm_split launches {launches}, "
+        f"warmup {stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s")
+    if draws.shape != (chains, samples, D) or not torch.isfinite(draws).all():
+        raise SystemExit(f"per-step NUTS: bad draws, shape {tuple(draws.shape)}")
+    if pe.shape != (chains, samples) or not torch.isfinite(pe).all():
+        raise SystemExit("per-step NUTS: bad collected potential energies")
+    if "init_s" not in stats or launches != stats["potential_evals"] + 1:
+        raise SystemExit(
+            f"per-step NUTS launched glm_split {launches} times for "
+            f"{stats['potential_evals']} potential evaluations and 1 init trace"
+        )
+
+
+def model_ecs(X, y):
+    w = npt.sample("w", dist.Normal(torch.zeros(D, device=X.device), 1.0).to_event(1))
+    with npt.plate("N", X.shape[0], subsample_size=SUBSAMPLE):
+        xb = npt.subsample(X, event_dim=1)
+        yb = npt.subsample(y, event_dim=0)
+        npt.sample("obs", dist.Bernoulli(logits=xb @ w), obs=yb)
+
+
+def phase_ecs(X, y, true_w, config, panel_mode="auto", proxy_mode="auto", expect=None):
+    """One MCMC(HMCECS(NUTS)) run with the Taylor proxy at the generating
+    coefficients; returns its stats."""
+    chains, warmup, samples, depth, gate = config
+    kernel = HMCECS(
+        NUTS(model_ecs, max_tree_depth=depth),
+        num_blocks=NUM_BLOCKS,
+        proxy=HMCECS.taylor_proxy({"w": true_w}, mode=proxy_mode),
+        panel_mode=panel_mode,
+    )
+    mcmc = MCMC(kernel, num_warmup=warmup, num_samples=samples, num_chains=chains,
+                chain_method="vectorized")
+    torch.cuda.reset_peak_memory_stats()
+    launches0 = dict(glm.launch_counts)
+    mcmc.run(1, X, y, extra_fields=("accept_prob",))
+    stats = dict(mcmc.last_run_stats)
+    tag = f"[ecs] {chains} chains, panel_mode={panel_mode}, proxy mode={proxy_mode}"
+    draws = mcmc.get_samples(group_by_chain=True)["w"]
+    if draws.device.type != "cuda":
+        raise SystemExit(f"{tag}: the run was not on the GPU")
+    if draws.shape != (chains, samples, D) or not torch.isfinite(draws).all():
+        raise SystemExit(f"{tag}: bad draws, shape {tuple(draws.shape)}")
+    w_err = (draws.mean((0, 1)).cpu() - torch.from_numpy(true_w)).abs().max().item()
+    block_accept = mcmc.get_extra_fields()["accept_prob"].mean().item()
+    idx = mcmc.last_state.z["N"]
+    ess = effective_sample_size(draws)
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    stats.update(
+        w_err=w_err, block_accept=block_accept, modes=dict(kernel.resolved_modes),
+        peak_bytes=torch.cuda.max_memory_allocated(), ess_median=ess.median().item(),
+        ms_per_eval=(stats["warmup_s"] + stats["sample_s"]) / evals * 1e3,
+    )
+    log(
+        f"{tag}: resolved {stats['modes']}; {warmup} + {samples} transitions, depth {depth}, "
+        f"subsample {SUBSAMPLE} of {N}, {NUM_BLOCKS} blocks; init {stats['init_s']:.2f} s, "
+        f"warmup {stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s; potential "
+        f"evaluations init {stats['potential_evals_init']}, warmup "
+        f"{stats['potential_evals_warmup']}, sampling {stats['potential_evals_sample']} "
+        f"({stats['potential_evals_warmup'] / warmup:.1f} / "
+        f"{stats['potential_evals_sample'] / samples:.1f} per transition); "
+        f"{stats['ms_per_eval']:.2f} ms per evaluation; block-accept rate {block_accept:.3f}; "
+        f"ESS median {stats['ess_median']:.1f} (min {ess.min().item():.1f}); "
+        f"max |mean(w) - true_w| {w_err:.4f}; peak memory "
+        f"{stats['peak_bytes'] / 2**30:.2f} GiB"
+    )
+    if expect is not None and stats["modes"] != expect:
+        raise SystemExit(f"{tag}: resolved {stats['modes']}, expected {expect}")
+    if not 0.0 < block_accept < 1.0:
+        raise SystemExit(f"{tag}: block-accept rate {block_accept}")
+    if idx.shape != (chains, SUBSAMPLE) or torch.equal(idx[0], idx[1]):
+        raise SystemExit(f"{tag}: the chains do not carry index panels of their own")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit(f"{tag}: the subsampling path launched a GLM kernel")
+    if not w_err < gate:
+        raise SystemExit(f"{tag}: posterior means off by {w_err:.4f} (>= {gate})")
+    return stats
+
+
 def phase_fused(X, y):
     """One batched potential evaluation per fused-kernel mode, held against
     the plain version (these launches are not the main path's)."""
@@ -336,6 +455,7 @@ def main():
 
     glm.reset_launch_counts()
     stats = {name: phase_main(X, y, true_w, name) for name in RUNS}
+    phase_per_step(X, y)
     counts = dict(glm.launch_counts)
 
     split = stats["glm_split"]
@@ -347,12 +467,16 @@ def main():
         f"warmup+sampling {share_all:.3f} (launches x {split_ms:.3f} ms)")
     phase_fused(X, y)
 
+    phase_ecs(X, y, true_w, ECS_MAIN, expect={"proxy": "stats", "panel": "carry"})
+    for panel_mode, proxy_mode in (("bf16", "stats"), ("lean", "stats"), ("carry", "recompute")):
+        phase_ecs(X, y, true_w, ECS_MODES, panel_mode, proxy_mode)
+
     for name, entry in kernels.items():
         entry["launches"] = counts[name]
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
-    log(card)
-    log(json.dumps({"kernels": list(kernels.values())}))
+    print(card, flush=True)
+    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

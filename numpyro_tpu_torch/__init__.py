@@ -8,7 +8,9 @@ on first use.  The package imports ``torch`` and never ``jax``.
 """
 
 from numpyro_tpu_torch import distributions, handlers
-from numpyro_tpu_torch.primitives import deterministic, factor, sample
+from numpyro_tpu_torch.primitives import (
+    deterministic, factor, get_mask, plate, prng_key, sample, subsample,
+)
 from numpyro_tpu_torch import diagnostics, infer, ops
 
 __version__ = "0.1.0"
@@ -19,8 +21,12 @@ __all__ = [
     "diagnostics",
     "distributions",
     "factor",
+    "get_mask",
     "handlers",
     "infer",
     "ops",
+    "plate",
+    "prng_key",
     "sample",
+    "subsample",
 ]

@@ -1,12 +1,12 @@
 """Constraints (port of the parts of ``numpyro_tpu/distributions/constraints.py``
-that the covtype slice needs: ``real``, ``independent`` and ``interval``).
-Others are not ported yet; see ROADMAP.md."""
+that the ported slices need: ``real``, ``boolean``, ``independent`` and
+``interval``).  Others are not ported yet; see ROADMAP.md."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Constraint", "independent", "interval", "real"]
+__all__ = ["Constraint", "boolean", "independent", "interval", "real"]
 
 
 class Constraint:
@@ -23,6 +23,10 @@ class Constraint:
 
     def __hash__(self):
         return hash(type(self))
+
+    def feasible_like(self, prototype):
+        """A value inside the region with the shape of ``prototype``."""
+        raise NotImplementedError
 
     def __repr__(self):
         return self.__class__.__name__[1:].replace("Constraint", "")
@@ -51,6 +55,9 @@ class _IndependentConstraint(Constraint):
             return result
         return result.flatten(-self.reinterpreted_batch_ndims).all(-1)
 
+    def feasible_like(self, prototype):
+        return self.base_constraint.feasible_like(prototype)
+
     def __eq__(self, other):
         return (
             type(self) is type(other)
@@ -66,6 +73,19 @@ class _Real(Constraint):
     def __call__(self, x):
         return torch.isfinite(x)
 
+    def feasible_like(self, prototype):
+        return torch.zeros_like(prototype)
+
+
+class _Boolean(Constraint):
+    is_discrete = True
+
+    def __call__(self, x):
+        return (x == 0) | (x == 1)
+
+    def feasible_like(self, prototype):
+        return torch.zeros_like(prototype)
+
 
 class _Interval(Constraint):
     def __init__(self, lower_bound, upper_bound):
@@ -75,10 +95,16 @@ class _Interval(Constraint):
     def __call__(self, x):
         return (x >= self.lower_bound) & (x <= self.upper_bound)
 
+    def feasible_like(self, prototype):
+        return torch.broadcast_to(
+            (self.lower_bound + self.upper_bound) / 2, prototype.shape
+        ).to(prototype.dtype)
+
     def __repr__(self):
         return f"interval({self.lower_bound}, {self.upper_bound})"
 
 
+boolean = _Boolean()
 independent = _IndependentConstraint
 interval = _Interval
 real = _Real()

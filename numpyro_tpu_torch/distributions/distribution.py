@@ -1,7 +1,7 @@
 """Distribution base class and structural combinators (port of the parts of
 ``numpyro_tpu/distributions/distribution.py`` that the covtype slice needs:
-``Distribution``, ``ExpandedDistribution``, ``Independent`` / ``to_event``
-and ``Unit``).
+``Distribution``, ``ExpandedDistribution``, ``Independent`` / ``to_event``,
+``MaskedDistribution`` / ``mask`` and ``Unit``).
 
 Distributions hold tensors and never move them between devices: Python
 numbers given as parameters become tensors on the device (and in the dtype)
@@ -16,7 +16,9 @@ import torch
 from . import constraints
 from .util import promote_shapes, sum_rightmost
 
-__all__ = ["Distribution", "ExpandedDistribution", "Independent", "Unit"]
+__all__ = [
+    "Distribution", "ExpandedDistribution", "Independent", "MaskedDistribution", "Unit",
+]
 
 
 def _as_tensors(params):
@@ -105,6 +107,12 @@ class Distribution:
             return self
         return Independent(self, reinterpreted_batch_ndims)
 
+    def mask(self, mask):
+        return self if mask is True else MaskedDistribution(self, mask)
+
+    @property
+    def is_discrete(self):
+        return self.support.is_discrete
 
 
 class _Decorated(Distribution):
@@ -188,6 +196,46 @@ class Independent(_Decorated):
     def expand(self, batch_shape):
         inner = tuple(batch_shape) + self.event_shape[: self.reinterpreted_batch_ndims]
         return self.base_dist.expand(inner).to_event(self.reinterpreted_batch_ndims)
+
+
+class MaskedDistribution(_Decorated):
+    """Zero out ``log_prob`` where ``mask`` is False.  A Python bool masks the
+    whole distribution without evaluating the base ``log_prob``."""
+
+    def __init__(self, base_dist, mask):
+        if isinstance(mask, bool):
+            self._mask = mask
+        else:
+            shape = torch.broadcast_shapes(tuple(mask.shape), tuple(base_dist.batch_shape))
+            self._mask = mask.to(torch.bool).expand(shape)
+            if tuple(base_dist.batch_shape) != shape:
+                base_dist = base_dist.expand(shape)
+        self.base_dist = base_dist
+        super().__init__(base_dist.batch_shape, base_dist.event_shape)
+
+    def _substitute_feasible(self, value):
+        """Masked-out entries become values inside the support, so that the
+        unused ``log_prob`` there cannot put nan into a gradient."""
+        try:
+            filler = self.base_dist.support.feasible_like(value)
+        except NotImplementedError:
+            return value
+        keep = self._mask.reshape(tuple(self._mask.shape) + (1,) * self.event_dim)
+        return torch.where(keep, value, filler)
+
+    def log_prob(self, value):
+        if self._mask is True:
+            return self.base_dist.log_prob(value)
+        if self._mask is False:
+            lead = max(value.dim() - self.event_dim, 0)
+            shape = torch.broadcast_shapes(self.batch_shape, tuple(value.shape[:lead]))
+            return value.new_zeros(shape, dtype=_float_dtype(value))
+        lp = self.base_dist.log_prob(self._substitute_feasible(value))
+        return torch.where(self._mask, lp, torch.zeros_like(lp))
+
+
+def _float_dtype(value):
+    return value.dtype if value.is_floating_point() else torch.get_default_dtype()
 
 
 class Unit(Distribution):

@@ -1,6 +1,8 @@
-"""Effect handlers (port of ``trace``, ``seed``, ``substitute``, ``condition``
-and ``block`` from ``numpyro_tpu/handlers.py``; the rest are listed in
-ROADMAP.md).
+"""Effect handlers (port of ``trace``, ``seed``, ``substitute``, ``condition``,
+``block`` and ``mask`` from ``numpyro_tpu/handlers.py``; the rest are listed
+in ROADMAP.md).  A handler leaves every message type it does not know
+(``plate``, ``subsample``, ``inspect``, ``_gibbs_state``,
+``_subsample_panels``) as it found it.
 
 Random state is an explicit ``torch.Generator``: ``seed`` hands its generator
 to every stochastic site below it, and each draw advances it.  JAX's split
@@ -15,7 +17,7 @@ import torch
 
 from numpyro_tpu_torch.primitives import Messenger, prng_key
 
-__all__ = ["block", "condition", "seed", "substitute", "trace"]
+__all__ = ["block", "condition", "mask", "seed", "substitute", "trace"]
 
 
 class trace(Messenger):
@@ -67,7 +69,7 @@ class block(Messenger):
             return
         msg["stop"] = True
         needs_key = (
-            msg["type"] == "sample"
+            msg["type"] in ("sample", "plate")
             and msg.get("value") is None
             and msg.get("kwargs", {}).get("rng_key") is None
         )
@@ -115,19 +117,41 @@ class condition(_ValueBinder):
 class substitute(_ValueBinder):
     """Fix latent values (sites stay latent, unlike ``condition``)."""
 
-    _site_types = ("sample",)
+    _site_types = ("sample", "plate")
     _both_error = "Only one of `data` or `substitute_fn` should be provided."
 
     def __init__(self, fn=None, data=None, substitute_fn=None):
         super().__init__(fn, data=data, lookup_fn=substitute_fn)
+        self.substitute_fn = substitute_fn
 
     def _bind(self, msg, value):
         msg["value"] = value
+        if msg["type"] == "plate":
+            # subsample indices given from outside
+            msg["args"] = (msg["args"][0], value.shape[0])
+
+
+class mask(Messenger):
+    """Multiply the masks of the sample sites below with ``mask``."""
+
+    def __init__(self, fn=None, mask=True):
+        if not isinstance(mask, bool) and mask.dtype != torch.bool:
+            raise ValueError("`mask` should be a bool array.")
+        self.mask = mask
+        super().__init__(fn)
+
+    def process_message(self, msg):
+        if msg["type"] == "inspect":
+            prior_mask = msg["mask"]
+            msg["mask"] = self.mask if prior_mask is None else self.mask & prior_mask
+        elif msg["type"] == "sample":
+            msg["fn"] = msg["fn"].mask(self.mask)
 
 
 class seed(Messenger):
-    """Give every unobserved sample site below this handler the generator
-    ``rng_seed`` (a ``torch.Generator``, or an int seeding a CPU one)."""
+    """Give every unobserved sample site and every plate that draws its
+    subsample below this handler the generator ``rng_seed`` (a
+    ``torch.Generator``, or an int seeding a CPU one)."""
 
     def __init__(self, fn=None, rng_seed=None, hide_types=None):
         if isinstance(rng_seed, int):
@@ -142,9 +166,11 @@ class seed(Messenger):
         super().__init__(fn)
 
     def process_message(self, msg):
-        if msg["type"] in self.hide_types or msg["type"] not in ("sample", "prng_key"):
+        if msg["type"] in self.hide_types or msg["type"] not in ("sample", "prng_key", "plate"):
             return
-        if msg["type"] == "sample" and (msg["is_observed"] or msg["value"] is not None):
+        if msg["type"] == "sample" and msg["is_observed"]:
+            return
+        if msg["value"] is not None:
             return
         if msg["kwargs"]["rng_key"] is None:
             msg["kwargs"]["rng_key"] = self.rng_key

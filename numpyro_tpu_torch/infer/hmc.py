@@ -1,10 +1,22 @@
-"""NUTS on the chain-batched engine (port of ``numpyro_tpu/infer/hmc.py``).
+"""HMC / NUTS kernels on the chain-batched engine (port of
+``numpyro_tpu/infer/hmc.py``).
 
-The only sampling path is :meth:`HMC.fused_run`: warmup and sampling for all
-chains, with the asynchronous harvest loop of
-:mod:`numpyro_tpu_torch.infer.hmc_core`.  Fixed-trajectory ``HMC``, dense
-mass matrices, forward-mode differentiation and the per-step
-``init``/``sample`` kernel API are not ported yet (ROADMAP.md).
+Two ways to run a kernel:
+
+- :meth:`HMC.fused_run`: warmup and sampling for all chains, with the
+  asynchronous harvest loop of :mod:`numpyro_tpu_torch.infer.hmc_core` (the
+  path that ``MCMC`` takes for plain ``HMC``/``NUTS``).
+- the per-step API, ``init`` then ``sample`` once per transition, on
+  ``(C, ...)`` state panels; a single chain is ``C == 1`` with the chain axis
+  squeezed at the boundary.  The Gibbs-composed kernels stand on it: they
+  hand each chain its own conditioning through ``model_kwargs["_per_chain"]``.
+
+The step index ``i`` of a state is a host integer, so the JAX package's
+``lax.cond(i < num_warmup, ...)`` is a plain ``if``.  ``rng_key`` is a
+``torch.Generator`` or a draw source (see ``hmc_core.GeneratorDraws``).
+
+Dense mass matrices and forward-mode differentiation are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,10 +30,11 @@ import torch
 from numpyro_tpu_torch.infer import hmc_core as core
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
+from numpyro_tpu_torch.infer.mcmc import MCMCKernel
 from numpyro_tpu_torch.infer.util import ParamInfo, initialize_model
-from numpyro_tpu_torch.util import identity
+from numpyro_tpu_torch.util import identity, tree_map
 
-__all__ = ["HMC", "HMCState", "NUTS"]
+__all__ = ["HMC", "HMCState", "NUTS", "hmc"]
 
 HMCState = namedtuple(
     "HMCState",
@@ -31,13 +44,233 @@ HMCState = namedtuple(
         "rng_key",
     ],
 )
-"""Kernel state after a run (field parity with the JAX ``HMCState``); every
-tensor leaf carries a leading chain axis."""
+"""Kernel state (field parity with the JAX ``HMCState``).  In batched mode
+every tensor leaf carries a leading chain axis; ``i`` is a host integer
+(chains are transition-synchronous under the per-step API)."""
+
+# the fields that carry the chain axis (``rng_key`` is one generator for all)
+_CHAIN_FIELDS = (
+    "z", "z_grad", "potential_energy", "energy", "num_steps", "accept_prob",
+    "mean_accept_prob", "diverging", "adapt_state",
+)
 
 
-class HMC:
-    """Hamiltonian Monte Carlo.  Only the NUTS subclass runs in this port:
-    fixed trajectories are not ported yet (ROADMAP.md)."""
+def _expand0(tree):
+    return tree_map(lambda x: x[None], tree)
+
+
+def _squeeze0(tree):
+    return tree_map(lambda x: x[0], tree)
+
+
+def _map_chain_fields(fn, state):
+    return state._replace(**{f: fn(getattr(state, f)) for f in _CHAIN_FIELDS})
+
+
+def hmc(potential_fn=None, potential_fn_gen=None, kinetic_fn=None, algo="NUTS"):
+    """Functional ``(init_kernel, sample_kernel)`` factory on the
+    chain-batched engine (surface parity: ``numpyro_tpu.infer.hmc.hmc``)."""
+    if kinetic_fn is not None:
+        raise NotImplementedError(
+            "custom kinetic_fn is not supported by the chain-batched engine;"
+            " the Euclidean kinetic energy is built in"
+        )
+    if algo not in ("HMC", "NUTS"):
+        raise ValueError("`algo` must be one of `HMC`, `NUTS`.")
+    if (potential_fn is None) == (potential_fn_gen is None):
+        raise ValueError("Exactly one of `potential_fn` or `potential_fn_gen` must be given.")
+
+    # static context shared between init and sample, filled by init_kernel
+    ctx = {}
+
+    def _pe_grad(model_args, model_kwargs):
+        """Batched potential and gradient.  ``model_kwargs["_per_chain"]`` is
+        a pytree of chain-batched conditioning (Gibbs site values, subsample
+        index panels, proxy statistics) mapped by ``vmap`` beside the position
+        panel: each chain's gradient sees its own conditioning."""
+        model_kwargs = dict(model_kwargs or {})
+        per_chain = model_kwargs.pop("_per_chain", None)
+        layout = ctx["layout"]
+        if per_chain is None:
+            pe_fn = potential_fn
+            if potential_fn_gen is not None:
+                pe_fn = potential_fn_gen(*model_args, **model_kwargs)
+            return core.batched_potential(pe_fn, layout)
+        return core.batched_potential(
+            lambda pc: potential_fn_gen(*model_args, **model_kwargs, **pc), layout, per_chain
+        )
+
+    def _build_warmup(pe_grad):
+        return core.build_warmup(
+            pe_grad,
+            ctx["blocks"],
+            ctx["num_warmup"],
+            adapt_step_size=ctx["adapt_step_size"],
+            adapt_mass_matrix=ctx["adapt_mass_matrix"],
+            target_accept_prob=ctx["target_accept_prob"],
+            regularize_mass_matrix=ctx["regularize_mass_matrix"],
+            find_step_size=ctx["adapt_step_size"] and ctx["refine_step_size"],
+            pool_chains=ctx["pooled_adaptation"],
+        )
+
+    def init_kernel(
+        init_params,
+        num_warmup,
+        *,
+        step_size=1.0,
+        inverse_mass_matrix=None,
+        adapt_step_size=True,
+        adapt_mass_matrix=True,
+        dense_mass=False,
+        target_accept_prob=0.8,
+        num_steps=None,
+        trajectory_length=2 * math.pi,
+        max_tree_depth=10,
+        find_heuristic_step_size=False,
+        forward_mode_differentiation=False,
+        regularize_mass_matrix=True,
+        refine_step_size=True,
+        pooled_adaptation=False,
+        model_args=(),
+        model_kwargs=None,
+        rng_key=None,
+        num_chains=None,
+    ):
+        """``num_chains=None`` is one chain with unbatched state; an integer
+        is that many chains with a leading chain axis on every leaf."""
+        if forward_mode_differentiation:
+            raise NotImplementedError(
+                "forward_mode_differentiation is not ported to numpyro_tpu_torch "
+                "yet (see ROADMAP.md)"
+            )
+        if isinstance(init_params, ParamInfo):
+            z, pe, z_grad = init_params
+        else:
+            z, pe, z_grad = init_params, None, None
+        batched = num_chains is not None
+        c = num_chains if batched else 1
+        if rng_key is None:
+            raise ValueError("init_kernel needs an rng_key (a torch.Generator)")
+        draws = core.as_draws(rng_key)
+        leaves = [z[k] for k in sorted(z)]
+        if batched and leaves and all(tuple(x.shape[:1]) == (c,) for x in leaves):
+            z_proto = _squeeze0(z)
+        else:
+            # unbatched params: one chain, or the same start for every chain
+            z_proto = z
+            z = tree_map(lambda x: x.expand((c,) + tuple(x.shape)), z)
+            if batched:
+                pe, z_grad = None, None
+            else:
+                pe = None if pe is None else pe[None]
+                z_grad = None if z_grad is None else _expand0(z_grad)
+
+        layout = core.FlatLayout(z_proto)
+        ctx.update(
+            layout=layout,
+            blocks=core.build_mass_blocks(layout, dense_mass),
+            batched=batched,
+            num_warmup=num_warmup,
+            max_tree_depth=(
+                max_tree_depth if isinstance(max_tree_depth, tuple)
+                else (max_tree_depth, max_tree_depth)
+            ),
+            trajectory_length=trajectory_length,
+            fixed_num_steps=num_steps,
+            adapt_step_size=adapt_step_size,
+            adapt_mass_matrix=adapt_mass_matrix,
+            target_accept_prob=target_accept_prob,
+            regularize_mass_matrix=regularize_mass_matrix,
+            refine_step_size=refine_step_size,
+            pooled_adaptation=pooled_adaptation,
+        )
+        pe_grad = _pe_grad(model_args, model_kwargs)
+        z_flat = layout.ravel_batch(z)
+        if pe is None or z_grad is None:
+            pe, grad_flat = pe_grad(z_flat)
+        else:
+            grad_flat = layout.ravel_batch(z_grad)
+        # the warmup update is rebuilt by every sample call from its own
+        # potential, which may carry that step's conditioning
+        wa_init, _ = _build_warmup(pe_grad)
+        adapt = wa_init(draws, z_flat, pe, grad_flat, step_size, inverse_mass_matrix)
+        zero_f = torch.zeros_like(pe)
+        state = HMCState(
+            0,
+            layout.unravel_batch(z_flat),
+            layout.unravel_batch(grad_flat),
+            pe,
+            pe,
+            None,
+            trajectory_length,
+            torch.zeros((c,), dtype=torch.int32, device=pe.device),
+            zero_f,
+            zero_f,
+            torch.zeros((c,), dtype=torch.bool, device=pe.device),
+            adapt,
+            rng_key,
+        )
+        return state if batched else _map_chain_fields(_squeeze0, state)
+
+    def sample_kernel(state, model_args=(), model_kwargs=None):
+        """One transition for every chain: momentum refresh, trajectory,
+        proposal, and warmup adaptation while ``i < num_warmup``."""
+        layout, blocks = ctx["layout"], ctx["blocks"]
+        batched, num_warmup = ctx["batched"], ctx["num_warmup"]
+        if not batched:
+            state = _map_chain_fields(_expand0, state)
+        pe_grad = _pe_grad(model_args, model_kwargs)
+        z_flat = layout.ravel_batch(state.z)
+        grad_flat = layout.ravel_batch(state.z_grad)
+        draws = core.as_draws(state.rng_key)
+        adapt_draws = draws.fork()
+        adapt = state.adapt_state
+        i = int(state.i)
+        warming = i < num_warmup
+
+        if algo == "NUTS":
+            wa_depth, post_depth = ctx["max_tree_depth"]
+            out = core.nuts_transition(
+                pe_grad, blocks, draws, z_flat, state.potential_energy, grad_flat,
+                adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.step_size,
+                wa_depth if warming else post_depth,
+                k_slots=max(*ctx["max_tree_depth"], 1),
+            )
+        else:
+            out = core.hmc_transition(
+                pe_grad, blocks, draws, z_flat, state.potential_energy, grad_flat,
+                adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.step_size,
+                trajectory_length=ctx["trajectory_length"],
+                num_steps=ctx["fixed_num_steps"],
+            )
+        if warming:
+            _, wa_update = _build_warmup(pe_grad)
+            adapt = wa_update(i, adapt, out.accept_prob, out.z, out.pe, out.grad, adapt_draws)
+        n = i + 1 if warming else i + 1 - num_warmup
+        mean_accept = state.mean_accept_prob + (out.accept_prob - state.mean_accept_prob) / n
+        new_state = HMCState(
+            i + 1,
+            layout.unravel_batch(out.z),
+            layout.unravel_batch(out.grad),
+            out.pe,
+            out.energy,
+            None,
+            state.trajectory_length,
+            out.num_steps,
+            out.accept_prob,
+            mean_accept,
+            out.diverging,
+            adapt,
+            state.rng_key,
+        )
+        return new_state if batched else _map_chain_fields(_squeeze0, new_state)
+
+    return init_kernel, sample_kernel
+
+
+class HMC(MCMCKernel):
+    """Hamiltonian Monte Carlo with a fixed trajectory length (constructor
+    parity with the JAX ``HMC``), natively chain-batched."""
 
     _algo = "HMC"
 
@@ -90,12 +323,16 @@ class HMC:
         self._dense_mass = dense_mass
         self._target_accept_prob = target_accept_prob
         self._num_steps = num_steps
-        self._trajectory_length = trajectory_length
+        self._trajectory_length = (
+            float(trajectory_length) if isinstance(trajectory_length, int) else trajectory_length
+        )
         self._max_tree_depth = 10
         self._init_strategy = init_to_uniform if init_strategy is None else init_strategy
         self._regularize_mass_matrix = regularize_mass_matrix
         self._refine_step_size = refine_step_size
         self._pooled_adaptation = pooled_adaptation
+        self._init_fn = None
+        self._sample_fn = None
         self._potential_fn_gen = None
         self._postprocess_fn = None
         self.last_fused_stats = {}
@@ -117,12 +354,22 @@ class HMC:
             return identity
         return self._postprocess_fn(*args, **kwargs)
 
+    def get_diagnostics_str(self, state):
+        return "{} steps of size {:.2e}. acc. prob={:.2f}".format(
+            state.num_steps, state.adapt_state.step_size, state.mean_accept_prob
+        )
+
+    @property
+    def supports_fused_run(self):
+        return True
+
     def _setup(self, rng_key, num_chains, model_args, model_kwargs, init_params):
         if self._model is None:
             if init_params is None:
                 raise ValueError(
                     "Valid value of `init_params` must be provided with `potential_fn`."
                 )
+            self._init_fn, self._sample_fn = hmc(potential_fn=self._potential_fn, algo=self._algo)
             return init_params
         info = initialize_model(
             rng_key,
@@ -135,7 +382,47 @@ class HMC:
         )
         self._potential_fn_gen = info.potential_fn
         self._postprocess_fn = info.postprocess_fn
+        self._init_fn, self._sample_fn = hmc(potential_fn_gen=info.potential_fn, algo=self._algo)
         return info.param_info if init_params is None else init_params
+
+    def init(
+        self, rng_key, num_warmup, init_params=None, model_args=(), model_kwargs=None,
+        num_chains=None,
+    ):
+        """The state before the first transition.  ``rng_key`` is a
+        ``torch.Generator`` on the device the chains run on (or a draw
+        source); ``num_chains=None`` is one chain with unbatched state."""
+        model_kwargs = {} if model_kwargs is None else model_kwargs
+        generator = getattr(rng_key, "generator", rng_key)
+        found = self._setup(
+            generator, num_chains or 1, model_args, model_kwargs, init_params
+        )
+        if num_chains is None and init_params is None:
+            # the model's own initial values come with a chain axis of one
+            found = ParamInfo(*(_squeeze0(f) for f in found))
+        return self._init_fn(
+            found,
+            num_warmup,
+            step_size=self._step_size,
+            inverse_mass_matrix=self._inverse_mass_matrix,
+            adapt_step_size=self._adapt_step_size,
+            adapt_mass_matrix=self._adapt_mass_matrix,
+            dense_mass=self._dense_mass,
+            target_accept_prob=self._target_accept_prob,
+            num_steps=self._num_steps,
+            trajectory_length=self._trajectory_length,
+            max_tree_depth=self._max_tree_depth,
+            regularize_mass_matrix=self._regularize_mass_matrix,
+            refine_step_size=self._refine_step_size,
+            pooled_adaptation=self._pooled_adaptation,
+            model_args=model_args,
+            model_kwargs=model_kwargs,
+            rng_key=rng_key,
+            num_chains=num_chains,
+        )
+
+    def sample(self, state, model_args, model_kwargs):
+        return self._sample_fn(state, model_args, model_kwargs)
 
     def fused_run(
         self,
@@ -158,14 +445,11 @@ class HMC:
         batched potential evaluations of each phase land in
         ``self.last_fused_stats``.
         """
-        if self._algo != "NUTS":
-            raise NotImplementedError(
-                "fixed-trajectory HMC is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-            )
         model_kwargs = {} if model_kwargs is None else model_kwargs
         t0 = time.perf_counter()
         evals0 = infer_util.potential_evals
-        init_params = self._setup(rng_key, num_chains, model_args, model_kwargs, init_params)
+        generator = getattr(rng_key, "generator", rng_key)
+        init_params = self._setup(generator, num_chains, model_args, model_kwargs, init_params)
         if isinstance(init_params, ParamInfo):
             z, pe, z_grad = init_params
         else:
@@ -189,6 +473,8 @@ class HMC:
             thinning=thinning,
             max_depth=post_depth,
             warmup_max_depth=warm_depth,
+            trajectory_length=self._trajectory_length,
+            fixed_num_steps=self._num_steps,
             adapt_step_size=self._adapt_step_size,
             adapt_mass_matrix=self._adapt_mass_matrix,
             target_accept_prob=self._target_accept_prob,
@@ -196,7 +482,7 @@ class HMC:
             find_step_size=self._adapt_step_size and self._refine_step_size,
             pool_chains=self._pooled_adaptation,
         )
-        draws = core.GeneratorDraws(rng_key)
+        draws = core.as_draws(rng_key)
         z_flat = layout.ravel_batch(z)
         if pe is None or z_grad is None:
             pe, grad_flat = pe_grad(z_flat)

@@ -1,5 +1,5 @@
 """Chain-batched HMC/NUTS engine (port of ``numpyro_tpu/infer/hmc_core.py``
-for NUTS with a diagonal mass matrix).
+for NUTS and fixed-trajectory HMC with a diagonal mass matrix).
 
 As in the JAX package the chain axis is the first dimension of every
 tensor: positions and momenta are ``(C, D)`` panels, and one NUTS "tick"
@@ -14,9 +14,11 @@ What differs from the JAX engine:
   ``torch.Generator`` drawing ``(C,)`` or ``(C, D)`` tensors per call) and
   are passed into :func:`_nuts_tick` and :func:`_init_nuts_carry` as
   arguments, so a test can feed them JAX's draws.
-- ``lax.while_loop`` / ``fori_loop`` are Python loops that read the host
-  condition only every ``CHECK_EVERY`` ticks (one device sync per block of
-  ticks instead of one per leapfrog).  The extra ticks are harmless: every
+- ``lax.while_loop`` / ``fori_loop`` are Python loops that do not read the
+  host condition at every tick (each read is a device sync): the harvest loop
+  and the step-size search read it every ``CHECK_EVERY`` ticks, a synchronous
+  transition where a tree can be whole (after 1, 3, 7, 15, ... ticks).  The
+  extra ticks are harmless: every
   state update of a finished chain is masked by ``active = ~done``, except
   the subtree registers ``s_logw`` and ``s_prefix``, which are never read for
   a finished chain.
@@ -25,8 +27,8 @@ What differs from the JAX engine:
   spare slot (JAX's ``mode="drop"``), cut off at the end; the buffers are
   updated in place.
 
-Dense mass matrices, fixed-trajectory HMC and pooled multi-device
-adaptation are not ported yet (ROADMAP.md).
+Dense mass matrices and pooled multi-device adaptation are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ __all__ = [
     "build_mass_blocks",
     "build_warmup",
     "carry_from_numpy",
+    "hmc_transition",
     "init_mass",
+    "integrate_segment",
     "leapfrog",
     "nuts_transition",
     "popcount",
@@ -107,19 +111,33 @@ class FlatLayout:
         }
 
 
-def batched_potential(potential_fn, layout):
+def batched_potential(potential_fn, layout, per_chain=None):
     """(C, D) panel -> potential (C,) and gradient panel (C, D): the
-    one-chain ``potential_fn`` through ``vmap(grad_and_value(...))``."""
+    one-chain ``potential_fn`` through ``vmap(grad_and_value(...))``.
 
-    def pe_flat(flat):
-        return potential_fn(layout.unravel_one(flat))
+    With ``per_chain`` (a pytree whose leaves carry a leading chain axis)
+    ``potential_fn`` is a function of one chain's slice of that pytree which
+    returns the chain's potential, and the pytree is mapped beside the panel."""
+
+    if per_chain is None:
+
+        def pe_flat(flat):
+            return potential_fn(layout.unravel_one(flat))
+
+        extra = ()
+    else:
+
+        def pe_flat(flat, pc):
+            return potential_fn(pc)(layout.unravel_one(flat))
+
+        extra = (per_chain,)
 
     vg = batched_value_and_grad(pe_flat)
 
     def pe_grad(panel):
         if layout.dim == 0:
             return panel.new_zeros(panel.shape[:1]), panel
-        return vg(panel)
+        return vg(panel, *extra)
 
     return pe_grad
 
@@ -203,6 +221,35 @@ class GeneratorDraws:
         """(u_swap, u_merge, direction) of one NUTS tick."""
         c = like.shape[:1]
         return self._rand(like, c), self._rand(like, c), self.rademacher(like)
+
+    def uniform(self, like):
+        """One uniform per chain (an accept test)."""
+        return self._rand(like, like.shape[:1])
+
+    def hmc_start(self, like):
+        """Momentum noise and accept uniform of a fixed-length trajectory."""
+        return self.normal(like), self.uniform(like)
+
+    def block(self, idx, num_blocks, block_size, size):
+        """A block refresh of the subsample index vectors ``idx`` ``(..., m)``:
+        the number of the block to redraw ``(...)`` and its ``block_size``
+        replacement rows below ``size`` ``(..., block_size)``, as ``int64``."""
+        lead = tuple(idx.shape[:-1])
+        b = torch.randint(num_blocks, lead, generator=self.generator, device=idx.device)
+        repl = torch.randint(
+            size, lead + (block_size,), generator=self.generator, device=idx.device
+        )
+        return b, repl
+
+    def fork(self):
+        """The source of the adaptation's draws within one transition (JAX
+        splits the chain keys in two there; one generator serves both)."""
+        return self
+
+
+def as_draws(rng_key):
+    """A draw source from a ``torch.Generator``; a draw source passes."""
+    return GeneratorDraws(rng_key) if isinstance(rng_key, torch.Generator) else rng_key
 
 
 # ---------------------------------------------------------------------------
@@ -444,17 +491,73 @@ def nuts_transition(
             z, pe, grad, t.e0, torch.ones((c,), dtype=torch.int32, device=z.device),
             torch.ones_like(pe), torch.zeros((c,), dtype=torch.bool, device=z.device),
         )
+    # a tree of depth d is whole after 2^d - 1 leapfrogs, so the host reads
+    # the loop's condition after ticks 1, 3, 7, 15, ...: shallow trees cost no
+    # tick beyond their last, and a tree at the depth cap costs log2 reads
+    ticks, next_check = 0, 1
     while True:
-        for _ in range(CHECK_EVERY):
-            t = _nuts_tick(
-                t, blocks, pe_grad, inv_mass, step_size, max_depth, max_delta_energy,
-                *draws.tick(z),
-            )
-        if bool(t.done.all()):
-            break
+        t = _nuts_tick(
+            t, blocks, pe_grad, inv_mass, step_size, max_depth, max_delta_energy,
+            *draws.tick(z),
+        )
+        ticks += 1
+        if ticks == next_check:
+            if bool(t.done.all()):
+                break
+            next_check = 2 * next_check + 1
     accept_prob = t.accept_sum / t.n_leaf.clamp(min=1)
     return TransitionOut(
         t.prop_z, t.prop_pe, t.prop_grad, t.prop_energy, t.n_leaf, accept_prob, t.diverging
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fixed-trajectory HMC transition (per-chain trajectory lengths)
+
+
+def integrate_segment(pe_grad, blocks, inv_mass, step_size, num_steps, z, r, pe, grad):
+    """Leapfrog every chain for its own ``num_steps`` (C,) (lagging chains are
+    masked; the momentum is carried, not refreshed).  The loop's length is
+    the largest count, read from the device once."""
+    step = torch.zeros_like(num_steps)
+    for _ in range(int(num_steps.max())):
+        live = step < num_steps
+        z_n, r_n, pe_n, grad_n = leapfrog(pe_grad, blocks, inv_mass, step_size, z, r, grad)
+        z, r, grad = _sel(live, z_n, z), _sel(live, r_n, r), _sel(live, grad_n, grad)
+        pe = torch.where(live, pe_n, pe)
+        step = step + live.to(step.dtype)
+    return z, r, pe, grad
+
+
+def hmc_transition(
+    pe_grad, blocks, draws, z, pe, grad, inv_mass, sqrt_mass, step_size,
+    trajectory_length=None, num_steps=None, max_delta_energy=1000.0,
+):
+    """One batched HMC transition; each chain runs ceil(length / step size)
+    leapfrogs (parity target: ``numpyro_tpu.infer.hmc_core.hmc_transition``)."""
+    c, d = z.shape
+    if d == 0:
+        return TransitionOut(
+            z, pe, grad, pe, torch.ones((c,), dtype=torch.int32, device=z.device),
+            torch.ones_like(pe), torch.zeros((c,), dtype=torch.bool, device=z.device),
+        )
+    eps, u_accept = draws.hmc_start(z)
+    r0 = draw_momentum(blocks, sqrt_mass, eps)
+    e0 = pe + kinetic(blocks, inv_mass, r0)
+    if num_steps is None:
+        lengths = torch.ceil(trajectory_length / step_size).to(torch.int32).clamp(min=1)
+    else:
+        lengths = torch.full((c,), num_steps, dtype=torch.int32, device=z.device)
+    z1, r1, pe1, grad1 = integrate_segment(
+        pe_grad, blocks, inv_mass, step_size, lengths, z, r0, pe, grad
+    )
+    e1 = pe1 + kinetic(blocks, inv_mass, r1)
+    delta = torch.where(torch.isnan(e1), math.inf, e1) - e0
+    accept_prob = torch.exp(torch.clamp(-delta, max=0.0))
+    take = torch.log(u_accept) < -delta
+    return TransitionOut(
+        _sel(take, z1, z), torch.where(take, pe1, pe), _sel(take, grad1, grad),
+        torch.where(take, e1, e0), lengths, accept_prob, delta > max_delta_energy,
     )
 
 
@@ -679,10 +782,12 @@ class FusedRun:
     """
 
     def __init__(
-        self, pe_grad, blocks, *, num_warmup, num_samples, thinning=1, max_depth=10,
-        warmup_max_depth=None, max_delta_energy=1000.0, **adapt_kwargs,
+        self, pe_grad, blocks, *, algo="NUTS", num_warmup, num_samples, thinning=1,
+        max_depth=10, warmup_max_depth=None, trajectory_length=None, fixed_num_steps=None,
+        max_delta_energy=1000.0, **adapt_kwargs,
     ):
-        self.pe_grad, self.blocks = pe_grad, blocks
+        self.pe_grad, self.blocks, self.algo = pe_grad, blocks, algo
+        self.trajectory_length, self.fixed_num_steps = trajectory_length, fixed_num_steps
         self.num_warmup, self.num_samples, self.thinning = num_warmup, num_samples, thinning
         self.max_depth = max_depth
         self.warmup_max_depth = warmup_max_depth or max_depth
@@ -690,36 +795,75 @@ class FusedRun:
         self.k_slots = max(max_depth, self.warmup_max_depth, 1)
         self.wa_init, self.wa_update = build_warmup(pe_grad, blocks, num_warmup, **adapt_kwargs)
 
+    def transition(self, draws, z, pe, grad, adapt, depth_cap):
+        if self.algo == "NUTS":
+            return nuts_transition(
+                self.pe_grad, self.blocks, draws, z, pe, grad,
+                adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.step_size,
+                depth_cap, self.max_delta_energy, k_slots=self.k_slots,
+            )
+        return hmc_transition(
+            self.pe_grad, self.blocks, draws, z, pe, grad,
+            adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.step_size,
+            self.trajectory_length, self.fixed_num_steps, self.max_delta_energy,
+        )
+
     def warmup(self, draws, z, pe, grad, step_size, inverse_mass_matrix=None):
         adapt = self.wa_init(draws, z, pe, grad, step_size, inverse_mass_matrix)
         mean_acc = torch.zeros_like(pe)
         for i in range(self.num_warmup):
-            out = nuts_transition(
-                self.pe_grad, self.blocks, draws, z, pe, grad,
-                adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt, adapt.step_size,
-                self.warmup_max_depth, self.max_delta_energy, k_slots=self.k_slots,
-            )
+            out = self.transition(draws, z, pe, grad, adapt, self.warmup_max_depth)
             z, pe, grad = out.z, out.pe, out.grad
             adapt = self.wa_update(i, adapt, out.accept_prob, z, pe, grad, draws)
             mean_acc = mean_acc + (out.accept_prob - mean_acc) / (i + 1)
         return {"z": z, "pe": pe, "grad": grad, "adapt": adapt, "mean_accept_prob": mean_acc}
 
+    def _buffers(self, z, slots):
+        c, d = z.shape
+        dev = z.device
+        return z.new_zeros((c, slots, d)), {
+            "energy": z.new_zeros((c, slots)),
+            "diverging": torch.zeros((c, slots), dtype=torch.bool, device=dev),
+            "num_steps": torch.zeros((c, slots), dtype=torch.int32, device=dev),
+            "accept_prob": z.new_zeros((c, slots)),
+            "mean_accept_prob": z.new_zeros((c, slots)),
+        }
+
+    def _sample_sync(self, draws, z, pe, grad, adapt):
+        """Fixed-trajectory HMC: transitions in lockstep, every ``thinning``-th
+        banked."""
+        num_collect = (self.num_samples + self.thinning - 1) // self.thinning
+        buf_z, buf = self._buffers(z, num_collect)
+        mean_acc = torch.zeros_like(pe)
+        for i in range(self.num_samples):
+            out = self.transition(draws, z, pe, grad, adapt, self.max_depth)
+            z, pe, grad = out.z, out.pe, out.grad
+            mean_acc = mean_acc + (out.accept_prob - mean_acc) / (i + 1)
+            if i % self.thinning == 0:
+                slot = i // self.thinning
+                buf_z[:, slot] = z
+                for name, value in (
+                    ("energy", out.energy), ("diverging", out.diverging),
+                    ("num_steps", out.num_steps), ("accept_prob", out.accept_prob),
+                    ("mean_accept_prob", mean_acc),
+                ):
+                    buf[name][:, slot] = value
+        return {
+            "z": z, "pe": pe, "grad": grad, "samples_z": buf_z, "extras": buf,
+            "adapt": adapt, "mean_accept_prob": mean_acc,
+        }
+
     def sample(self, draws, z, pe, grad, adapt):
         """Harvest loop until every chain has ``num_samples`` transitions."""
+        if self.algo != "NUTS":
+            return self._sample_sync(draws, z, pe, grad, adapt)
         blocks, inv, sqrt = self.blocks, adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt
         c, d = z.shape
         num_samples, thinning = self.num_samples, self.thinning
         num_collect = (num_samples + thinning - 1) // thinning
         dev = z.device
         # slot num_collect is the spare that takes every non-banked write
-        buf_z = z.new_zeros((c, num_collect + 1, d))
-        buf = {
-            "energy": z.new_zeros((c, num_collect + 1)),
-            "diverging": torch.zeros((c, num_collect + 1), dtype=torch.bool, device=dev),
-            "num_steps": torch.zeros((c, num_collect + 1), dtype=torch.int32, device=dev),
-            "accept_prob": z.new_zeros((c, num_collect + 1)),
-            "mean_accept_prob": z.new_zeros((c, num_collect + 1)),
-        }
+        buf_z, buf = self._buffers(z, num_collect + 1)
         t = _init_nuts_carry(z, pe, grad, blocks, inv, sqrt, max(self.max_depth, 1),
                              *draws.start(z))
         trans_idx = torch.zeros((c,), dtype=torch.int32, device=dev)
@@ -768,9 +912,7 @@ class FusedRun:
 
 
 def build_fused_run(pe_grad, blocks, *, algo="NUTS", **kwargs):
-    """The run object for ``algo`` (only NUTS is ported; see ROADMAP.md)."""
-    if algo != "NUTS":
-        raise NotImplementedError(
-            "fixed-trajectory HMC is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-        )
-    return FusedRun(pe_grad, blocks, **kwargs)
+    """The run object for ``algo`` (``"NUTS"`` or ``"HMC"``)."""
+    if algo not in ("HMC", "NUTS"):
+        raise ValueError("`algo` must be one of `HMC`, `NUTS`.")
+    return FusedRun(pe_grad, blocks, algo=algo, **kwargs)

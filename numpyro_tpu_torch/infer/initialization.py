@@ -1,4 +1,4 @@
-"""Init strategies (port of ``init_to_uniform`` from
+"""Init strategies (port of ``init_to_uniform`` and ``init_to_sample`` from
 ``numpyro_tpu/infer/initialization.py``; the others are listed in
 ROADMAP.md)."""
 
@@ -10,7 +10,7 @@ import torch
 
 import numpyro_tpu_torch.distributions as dist
 
-__all__ = ["init_to_uniform"]
+__all__ = ["init_to_sample", "init_to_uniform"]
 
 
 def _strategy(rule):
@@ -46,3 +46,19 @@ def init_to_uniform(site, radius=2.0):
         rng_key, tuple(sample_shape) + to_support.inverse_shape(tuple(site["fn"].shape()))
     )
     return to_support(box)
+
+
+@_strategy
+def _prior_draw(site):
+    if site["value"] is not None:
+        return site["value"]
+    return site["fn"](
+        rng_key=site["kwargs"].get("rng_key"), sample_shape=site["kwargs"].get("sample_shape")
+    )
+
+
+def init_to_sample(site=None):
+    """Initialize to a single prior sample."""
+    if site is None:
+        return init_to_sample
+    return _prior_draw(site)

@@ -1,22 +1,72 @@
 """MCMC driver (port of ``numpyro_tpu/infer/mcmc.py`` for
 ``chain_method="vectorized"``: all chains advance together in one batched
 program).  ``"parallel"`` and ``"sequential"`` are not ported yet
-(ROADMAP.md)."""
+(ROADMAP.md).
+
+A kernel with a fused run (plain ``HMC``/``NUTS``) is driven through it.
+Any other kernel, and a run that resumes from ``post_warmup_state`` or
+collects a field the fused run does not bank, goes through the per-step API:
+``init``, then a Python loop over ``sample`` that writes the collected fields
+into ``(C, n, ...)`` buffers on the device (the counterpart of the JAX
+package's ``fori_collect``).
+"""
 
 from __future__ import annotations
 
 import time
+from abc import ABC, abstractmethod
+from operator import attrgetter
 
 import torch
 
-__all__ = ["MCMC"]
+from numpyro_tpu_torch.infer import util as infer_util
+from numpyro_tpu_torch.util import identity, tree_map
+
+__all__ = ["MCMC", "MCMCKernel"]
+
+
+class MCMCKernel(ABC):
+    """Kernel interface (parity: ``numpyro_tpu.infer.mcmc.MCMCKernel``).
+    ``init`` takes ``num_chains`` beside the JAX signature: ``None`` is one
+    chain with unbatched state, an integer that many chains on a leading
+    axis (JAX reads the same from the shape of its keys)."""
+
+    def postprocess_fn(self, model_args, model_kwargs):
+        return identity
+
+    @abstractmethod
+    def init(self, rng_key, num_warmup, init_params, model_args, model_kwargs, num_chains=None):
+        raise NotImplementedError
+
+    @abstractmethod
+    def sample(self, state, model_args, model_kwargs):
+        raise NotImplementedError
+
+    @property
+    def sample_field(self):
+        raise NotImplementedError
+
+    @property
+    def default_fields(self):
+        return (self.sample_field,)
+
+    def get_diagnostics_str(self, state):
+        return ""
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class MCMC:
     """MCMC driver.
 
-    :param sampler: a ``NUTS`` kernel.
+    :param sampler: an :class:`MCMCKernel`.
     :param chain_method: only ``"vectorized"`` is ported.
+    :param device: where the chains run.  ``None`` is ``torch.device("cuda")``;
+        :meth:`run` raises when that device is not there and never carries on
+        on the CPU.
     """
 
     def __init__(
@@ -30,6 +80,7 @@ class MCMC:
         postprocess_fn=None,
         chain_method="vectorized",
         progress_bar=False,
+        device=None,
     ):
         if chain_method != "vectorized":
             raise NotImplementedError(
@@ -49,59 +100,193 @@ class MCMC:
         self.thinning = thinning
         self.postprocess_fn = postprocess_fn
         self.chain_method = chain_method
+        self.device = torch.device("cuda" if device is None else device)
         self._states = None
         self._states_flat = None
         self._last_state = None
+        self._warmup_state = None
+        self._collection_params = {}
+        self._set_collection_params()
         # wall clock and batched potential evaluations of the last run
         self.last_run_stats = {}
+
+    def _set_collection_params(self, lower=None, upper=None, phase=None):
+        self._collection_params = {
+            "lower": self.num_warmup if lower is None else lower,
+            "upper": self.num_warmup + self.num_samples if upper is None else upper,
+            "phase": phase,
+        }
+
+    @property
+    def post_warmup_state(self):
+        """Set this to ``.last_state`` to skip warmup on the next run."""
+        return self._warmup_state
+
+    @post_warmup_state.setter
+    def post_warmup_state(self, state):
+        self._warmup_state = state
 
     @property
     def last_state(self):
         return self._last_state
 
+    def _generator(self, rng_key):
+        """The run's generator: made from an int seed on the run's device, or
+        the caller's, which must live there."""
+        if isinstance(rng_key, torch.Generator):
+            if rng_key.device.type != self.device.type or (
+                self.device.index is not None and rng_key.device.index != self.device.index
+            ):
+                raise ValueError(
+                    f"rng_key lives on {rng_key.device} and the run on {self.device}; "
+                    "give MCMC that device or run() an int seed"
+                )
+        elif isinstance(rng_key, bool) or not isinstance(rng_key, int):
+            raise TypeError("rng_key must be an int seed or a torch.Generator")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"MCMC runs on {self.device} and no CUDA device is available; "
+                "pass device='cpu' to MCMC to run on the CPU"
+            )
+        if isinstance(rng_key, int):
+            return torch.Generator(device=self.device).manual_seed(rng_key)
+        return rng_key
+
+    def warmup(self, rng_key, *args, extra_fields=(), collect_warmup=False, init_params=None,
+               **kwargs):
+        """Run warmup only; sets ``post_warmup_state``."""
+        self._warmup_state = None
+        if collect_warmup:
+            self._set_collection_params(0, self.num_warmup, phase="warmup")
+        else:
+            self._set_collection_params(self.num_warmup, self.num_warmup, phase="warmup")
+        self.run(rng_key, *args, extra_fields=extra_fields, init_params=init_params, **kwargs)
+        self._warmup_state = self._last_state
+        self._set_collection_params()
+
+    def _can_fuse(self, collect_fields, init_state):
+        return (
+            getattr(self.sampler, "supports_fused_run", False)
+            and init_state is None
+            and self._collection_params["lower"] == self.num_warmup
+            and self._collection_params["upper"] == self.num_warmup + self.num_samples
+            and set(collect_fields) <= set(self.sampler.FUSED_FIELDS)
+        )
+
+    def _run_per_step(self, rng_key, init_state, init_params, args, kwargs, collect_fields):
+        """``init`` and a loop over ``sample``; every ``thinning``-th state
+        of the collected range is written into preallocated buffers."""
+        sampler = self.sampler
+        batched = self.num_chains > 1
+        lower, upper = self._collection_params["lower"], self._collection_params["upper"]
+        stats = {}
+        evals0 = infer_util.potential_evals
+        t0 = time.perf_counter()
+        if init_state is None:
+            state = sampler.init(
+                rng_key, self.num_warmup, init_params, model_args=args, model_kwargs=kwargs,
+                num_chains=self.num_chains if batched else None,
+            )
+            _sync(self.device)
+            stats["init_s"] = time.perf_counter() - t0
+            stats["potential_evals_init"] = infer_util.potential_evals - evals0
+        else:
+            state = init_state
+        remove_sites = tuple(getattr(sampler, "collect_exclude_sites", ()) or ())
+        getters = [attrgetter(f) for f in collect_fields]
+
+        def collect(state):
+            out = [g(state) for g in getters]
+            if remove_sites and isinstance(out[0], dict):
+                out[0] = {k: v for k, v in out[0].items() if k not in remove_sites}
+            return out
+
+        # as the JAX package's ``fori_collect``: whole strides only, counted
+        # back from ``upper``, and the last state of each stride is kept
+        n_collect = (upper - lower) // self.thinning
+        start = lower + (upper - lower) % self.thinning
+        lead = (self.num_chains, n_collect) if batched else (1, n_collect)
+        buffers = None
+        t_phase, evals_phase = time.perf_counter(), infer_util.potential_evals
+        warm_end = self.num_warmup if init_state is None else 0
+        for i in range(upper):
+            if i == warm_end and i > 0:
+                _sync(self.device)
+                stats["warmup_s"] = time.perf_counter() - t_phase
+                stats["potential_evals_warmup"] = infer_util.potential_evals - evals_phase
+                t_phase, evals_phase = time.perf_counter(), infer_util.potential_evals
+            state = sampler.sample(state, args, kwargs)
+            if i >= start and (i - start) % self.thinning == self.thinning - 1:
+                values = collect(state)
+                if not batched:
+                    values = tree_map(lambda x: x[None], values)
+                if buffers is None:
+                    buffers = tree_map(
+                        lambda x: x.new_empty(lead + tuple(x.shape[1:])), values
+                    )
+                slot = (i - start) // self.thinning
+
+                def write(buf, value):
+                    buf[:, slot] = value
+                    return buf
+
+                tree_map(write, buffers, values)
+        _sync(self.device)
+        phase = "warmup" if upper <= warm_end else "sample"
+        stats[f"{phase}_s"] = time.perf_counter() - t_phase
+        stats[f"potential_evals_{phase}"] = infer_util.potential_evals - evals_phase
+        if buffers is None:
+            buffers = [None] * len(collect_fields)
+        return dict(zip(collect_fields, buffers)), state, stats
+
     def run(self, rng_key, *args, extra_fields=(), init_params=None, **kwargs):
-        """Run warmup + sampling and collect fields.  ``rng_key`` is a
-        ``torch.Generator`` on the device the chains should run on."""
-        if not isinstance(rng_key, torch.Generator):
-            raise TypeError("rng_key must be a torch.Generator")
+        """Run warmup + sampling and collect fields.  ``rng_key`` is an int
+        seed, from which the run makes a generator on its device, or a
+        ``torch.Generator`` on that device."""
+        rng_key = self._generator(rng_key)
         # f32 matmuls must not round through TF32 (the counterpart of the JAX
         # driver's matmul_precision="highest": truncated products bias the
         # gradients enough to distort the posterior)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
+        init_state = self._warmup_state
+        if init_state is not None:
+            # resuming from a warmed-up state: no warmup steps to skip
+            self._set_collection_params(0, self.num_samples, phase="sample")
         collect_fields = tuple(
             set((self._sample_field,) + tuple(self._default_fields) + tuple(extra_fields))
         )
         collect_fields = (self._sample_field,) + tuple(
             sorted(f for f in collect_fields if f != self._sample_field)
         )
-        unknown = set(collect_fields) - set(self.sampler.FUSED_FIELDS)
-        if unknown:
-            raise NotImplementedError(f"cannot collect {sorted(unknown)} in this port")
-        fields, last_state = self.sampler.fused_run(
-            rng_key,
-            self.num_chains,
-            self.num_warmup,
-            self.num_samples,
-            thinning=self.thinning,
-            init_params=init_params,
-            model_args=args,
-            model_kwargs=kwargs,
-            collect_fields=collect_fields,
-        )
+        if self._can_fuse(collect_fields, init_state):
+            fields, last_state = self.sampler.fused_run(
+                rng_key,
+                self.num_chains,
+                self.num_warmup,
+                self.num_samples,
+                thinning=self.thinning,
+                init_params=init_params,
+                model_args=args,
+                model_kwargs=kwargs,
+                collect_fields=collect_fields,
+            )
+            stats = dict(self.sampler.last_fused_stats)
+        else:
+            fields, last_state, stats = self._run_per_step(
+                rng_key, init_state, init_params, args, kwargs, collect_fields
+            )
         postprocess_fn = (
             self.sampler.postprocess_fn(args, kwargs)
             if self.postprocess_fn is None
             else self.postprocess_fn
         )
-        fields[self._sample_field] = postprocess_fn(fields[self._sample_field])
+        if fields[self._sample_field] is not None:
+            fields[self._sample_field] = postprocess_fn(fields[self._sample_field])
         self._last_state = last_state
         self._states = fields
-        self._states_flat = {
-            k: _flatten_chains(v) for k, v in fields.items()
-        }
-        stats = dict(self.sampler.last_fused_stats)
+        self._states_flat = {k: _flatten_chains(v) for k, v in fields.items()}
         stats["potential_evals"] = sum(
             v for k, v in stats.items() if k.startswith("potential_evals_")
         )
@@ -119,6 +304,4 @@ class MCMC:
 
 
 def _flatten_chains(x):
-    if isinstance(x, dict):
-        return {k: _flatten_chains(v) for k, v in x.items()}
-    return x.reshape((-1,) + tuple(x.shape[2:]))
+    return tree_map(lambda v: v.reshape((-1,) + tuple(v.shape[2:])), x)

@@ -45,14 +45,15 @@ potential_evals = 0
 
 
 def batched_value_and_grad(fn):
-    """``fn`` maps one chain's params to a scalar; the result maps a
-    chain-batched pytree to ``(values (C,), grads like the input)``."""
+    """``fn`` maps one chain's params (and one chain's slice of any further
+    pytrees) to a scalar; the result maps chain-batched pytrees to
+    ``(values (C,), grads like the first)``."""
     vg = torch.func.vmap(torch.func.grad_and_value(fn))
 
-    def call(batched):
+    def call(batched, *per_chain):
         global potential_evals
         potential_evals += 1
-        grad, value = vg(batched)  # torch.func returns (grad, value)
+        grad, value = vg(batched, *per_chain)  # torch.func returns (grad, value)
         return value, grad
 
     return call

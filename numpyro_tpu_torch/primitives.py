@@ -1,22 +1,34 @@
 """Model-DSL primitives and the effect-handler message stack (port of the
-parts of ``numpyro_tpu/primitives.py`` that the covtype slice needs:
-``Messenger``, ``apply_stack``, ``sample``, ``factor``, ``deterministic``).
+parts of ``numpyro_tpu/primitives.py`` that the ported slices need:
+``Messenger``, ``apply_stack``, ``sample``, ``factor``, ``deterministic``,
+``plate``, ``subsample`` and ``get_mask``).
 
 The handler stack is plain Python that runs whenever the model runs.  Under
 ``torch.func`` transforms (the chain-batched potential) the model runs once
 per batched evaluation, and only the summed log density leaves it.
+
+Subsample indices are ``int64`` tensors everywhere (what ``torch.topk``
+returns and what every indexing path under ``vmap`` accepts); the JAX package
+keeps them as ``int32``.
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
+from collections import namedtuple
 
 import torch
 
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.util import identity
 
-__all__ = ["Messenger", "apply_stack", "deterministic", "factor", "prng_key", "sample"]
+__all__ = [
+    "CondIndepStackFrame", "Messenger", "apply_stack", "deterministic", "factor",
+    "get_mask", "plate", "prng_key", "sample", "subsample",
+]
+
+CondIndepStackFrame = namedtuple("CondIndepStackFrame", ["name", "dim", "size", "subsample_size"])
 
 _PYRO_STACK = []
 
@@ -141,6 +153,142 @@ def deterministic(name, value):
     if not _PYRO_STACK:
         return value
     return _dispatch("deterministic", name, lambda *a, **k: value, value=value)["value"]
+
+
+def get_mask():
+    """The effective mask at the current point in the handler stack."""
+    return _dispatch("inspect", fn=lambda: True, mask=None)["mask"]
+
+
+def subsample(data, event_dim):
+    """Subselect ``data`` along the dims of the active subsampled plates."""
+    if not _PYRO_STACK:
+        return data
+    assert isinstance(event_dim, int) and event_dim >= 0
+    return _dispatch(
+        "subsample", fn=lambda *a, **k: data, value=data, kwargs={"event_dim": event_dim}
+    )["value"]
+
+
+class plate(Messenger):
+    """Conditional-independence context: takes a negative batch dim,
+    broadcasts sample sites into it, scales their log-prob by
+    ``size / subsample_size`` under subsampling, and subselects ``subsample``
+    values along its dim."""
+
+    def __init__(self, name, size, subsample_size=None, dim=None):
+        self.name = name
+        assert size > 0, "size of plate should be positive"
+        self.size = size
+        if dim is not None and dim >= 0:
+            raise ValueError("dim arg must be negative.")
+        self.dim, self._indices = self._subsample(self.name, self.size, subsample_size, dim)
+        self.subsample_size = self._indices.shape[0]
+        super().__init__()
+
+    @staticmethod
+    def _subsample_fn(size, subsample_size, rng_key=None):
+        if rng_key is None:
+            raise ValueError(
+                "Missing random key to generate subsample indices. "
+                "Algorithms like HMC/NUTS do not support subsampling; "
+                "use HMCECS instead."
+            )
+        # a draw without replacement: the top-k of one uniform per row
+        u = torch.rand((size,), generator=rng_key, device=rng_key.device)
+        return torch.topk(u, subsample_size).indices
+
+    @staticmethod
+    def _subsample(name, size, subsample_size, dim):
+        msg = _dispatch(
+            "plate",
+            name,
+            plate._subsample_fn,
+            value=(
+                None
+                if (subsample_size is not None and size != subsample_size)
+                else torch.arange(size)
+            ),
+            kwargs={"rng_key": None},
+            args=(size, subsample_size),
+            scale=1.0,
+        )
+        indices = msg["value"]
+        subsample_size = msg["args"][1]
+        if subsample_size is not None and subsample_size != indices.shape[0]:
+            warnings.warn(
+                "subsample_size does not match len(subsample), "
+                f"{subsample_size} vs {indices.shape[0]}.",
+                stacklevel=2,
+            )
+        occupied_dims = {f.dim for f in msg["cond_indep_stack"]}
+        if dim is None:
+            dim = -1
+            while dim in occupied_dims:
+                dim -= 1
+        else:
+            assert dim not in occupied_dims
+        return dim, indices
+
+    def __enter__(self):
+        super().__enter__()
+        return self._indices
+
+    def _frame(self):
+        return CondIndepStackFrame(self.name, self.dim, self.size, self.subsample_size)
+
+    def _broadcast_into_frame(self, msg):
+        """Expand a sample site's batch shape over every enclosing plate dim
+        (an explicit sample_shape folds into the batch)."""
+        stack = msg["cond_indep_stack"]
+        rank = max(-f.dim for f in stack)
+        plate_shape = [1] * rank
+        for f in stack:
+            plate_shape[f.dim] = f.subsample_size
+        fn_shape = tuple(msg["fn"].batch_shape)
+        sample_shape = tuple(msg["kwargs"].get("sample_shape", ()))
+        if sample_shape:
+            fn_shape = sample_shape + fn_shape
+            msg["kwargs"]["sample_shape"] = ()
+        head = max(rank - len(fn_shape), 0)
+        tail = torch.broadcast_shapes(tuple(plate_shape[head:]), fn_shape)
+        msg["fn"] = msg["fn"].expand(tuple(plate_shape[:head]) + tuple(tail))
+
+    def process_message(self, msg):
+        kind = msg["type"]
+        if kind not in ("sample", "plate", "deterministic"):
+            # "subsample" messages are subselected in postprocess_message
+            return
+        msg["cond_indep_stack"].append(self._frame())
+        if kind == "deterministic":
+            return
+        if kind == "sample":
+            self._broadcast_into_frame(msg)
+        if self.size != self.subsample_size:
+            correction = self.size / self.subsample_size
+            msg["scale"] = correction if msg["scale"] is None else msg["scale"] * correction
+
+    def postprocess_message(self, msg):
+        if msg["type"] != "subsample":
+            return
+        if msg.get("_pregathered"):
+            # a handler above already put the subselected panel in place
+            return
+        event_dim = msg["kwargs"].get("event_dim")
+        if event_dim is None:
+            return
+        axis = self.dim - event_dim
+        shape = tuple(msg["value"].shape)
+        if len(shape) < -axis or shape[axis] == 1:
+            return
+        if shape[axis] != self.size:
+            raise ValueError(
+                f"Inside plate({self.name}, {self.size}, "
+                f"subsample_size={self.subsample_size}) invalid shape of "
+                f"numpyro_tpu_torch.subsample(..., event_dim={event_dim}): {shape}"
+            )
+        if self.subsample_size < self.size:
+            msg["value"] = torch.index_select(msg["value"], axis, self._indices)
 
 
 def factor(name, log_factor):

@@ -1,5 +1,6 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
-PyTorch version, the one-launch vmap rule, and a short NUTS run.
+PyTorch version, the one-launch vmap rule, a short NUTS run, and HMCECS in
+every panel mode.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -12,7 +13,7 @@ import torch
 
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.infer import MCMC, NUTS
+from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS
 from numpyro_tpu_torch.ops import glm
 
 torch.set_num_threads(1)
@@ -114,3 +115,62 @@ def test_short_nuts_run_on_gpu(cuda):
     assert w.device.type == "cuda" and w.shape == (16 * 150, 5)
     assert glm.launch_counts["glm_split"] - before == stats["potential_evals"] + 1
     assert (w.mean(0).cpu() - torch.from_numpy(true_w)).abs().max() < 0.05
+
+
+def _ecs_model(X, y):
+    w = npt.sample("w", dist.Normal(torch.zeros(5, device=X.device), 1.0).to_event(1))
+    with npt.plate("N", X.shape[0], subsample_size=500):
+        xb = npt.subsample(X, event_dim=1)
+        yb = npt.subsample(y, event_dim=0)
+        npt.sample("obs", dist.Bernoulli(logits=xb @ w), obs=yb)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("panel_mode", ["carry", "bf16", "lean"])
+def test_hmcecs_runs_on_gpu(cuda, panel_mode):
+    """64 chains, 10 + 10 transitions, N = 20,000, with no ``device`` given:
+    the run is on the card, the draws are finite and near the generating
+    coefficients, and the subsampling path launches no GLM kernel."""
+    X, y, _, true_w = _problem(cuda, n=20000, d=5, c=1)
+    kernel = HMCECS(NUTS(_ecs_model, max_tree_depth=5), num_blocks=20,
+                    proxy=HMCECS.taylor_proxy({"w": true_w}), panel_mode=panel_mode)
+    mcmc = MCMC(kernel, num_warmup=10, num_samples=10, num_chains=64)
+    assert mcmc.device == torch.device("cuda")
+    before = dict(glm.launch_counts)
+    mcmc.run(0, X, y)
+    w = mcmc.get_samples(group_by_chain=True)["w"]
+    assert w.device.type == "cuda" and w.shape == (64, 10, 5)
+    assert bool(torch.isfinite(w).all())
+    assert (w.mean((0, 1)).cpu() - torch.from_numpy(true_w)).abs().max() < 0.2
+    assert kernel.resolved_modes == {"proxy": "stats", "panel": panel_mode}
+    last = mcmc.last_state
+    assert last.z["N"].device.type == "cuda" and not torch.equal(last.z["N"][0], last.z["N"][1])
+    assert dict(glm.launch_counts) == before
+
+
+@pytest.mark.requires_cuda
+def test_carry_and_lean_give_the_same_potential_on_gpu(cuda):
+    """From generators in the same state, three transitions with carried
+    panels and with gathers inside every evaluation (potential to rtol 1e-5)."""
+    X, y, _, true_w = _problem(cuda, n=20000, d=5, c=1)
+    out = {}
+    for mode in ("carry", "lean"):
+        kernel = HMCECS(NUTS(_ecs_model, max_tree_depth=3), num_blocks=20,
+                        proxy=HMCECS.taylor_proxy({"w": true_w}), panel_mode=mode)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        state = kernel.init(gen, 5, None, (X, y), {}, num_chains=64)
+        for _ in range(3):
+            state = kernel.sample(state, (X, y), {})
+        out[mode] = state
+    assert torch.equal(out["carry"].z["N"], out["lean"].z["N"])
+    torch.testing.assert_close(
+        out["carry"].hmc_state.potential_energy, out["lean"].hmc_state.potential_energy,
+        rtol=1e-5, atol=1e-5,
+    )
+
+
+@pytest.mark.requires_cuda
+def test_generator_of_another_device_raises_on_gpu(cuda):
+    mcmc = MCMC(NUTS(_ecs_model), num_warmup=1, num_samples=1, num_chains=2)
+    with pytest.raises(ValueError, match="lives on cpu and the run on cuda"):
+        mcmc.run(torch.Generator().manual_seed(0))

@@ -54,7 +54,7 @@ def runs():
                chain_method="vectorized", progress_bar=False)
     jm.run(random.PRNGKey(1), jglm.prepare_glm_data(jnp.asarray(X), jnp.asarray(y)))
     tm = MCMC(NUTS(torch_model), num_warmup=WARMUP, num_samples=SAMPLES, num_chains=C,
-              chain_method="vectorized")
+              chain_method="vectorized", device="cpu")
     glm.reset_launch_counts()
     tm.run(torch.Generator().manual_seed(1),
            glm.prepare_glm_data(torch.from_numpy(X), torch.from_numpy(y)),
@@ -117,6 +117,39 @@ def test_unported_options_raise():
         MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method="parallel")
     with pytest.raises(NotImplementedError):
         NUTS(torch_model, dense_mass=True)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="shows the fault on a machine without CUDA")
+def test_default_device_is_cuda_and_never_falls_back_to_the_cpu():
+    """``MCMC`` without ``device`` runs on ``cuda``: where there is none it
+    raises, and a generator on the CPU does not move the run there."""
+    X, y = _data()
+    data = glm.prepare_glm_data(torch.from_numpy(X), torch.from_numpy(y))
+    mcmc = MCMC(NUTS(torch_model), num_warmup=2, num_samples=2, num_chains=2)
+    assert mcmc.device == torch.device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        mcmc.run(0, data)
+    with pytest.raises(ValueError, match="lives on cpu and the run on cuda"):
+        mcmc.run(torch.Generator().manual_seed(0), data)
+    assert mcmc.last_state is None and mcmc.last_run_stats == {}
+
+
+def test_generator_on_another_device_raises():
+    X, y = _data()
+    data = glm.prepare_glm_data(torch.from_numpy(X), torch.from_numpy(y))
+    for device in ("cuda", "cuda:0"):
+        on_card = MCMC(NUTS(torch_model), num_warmup=2, num_samples=2, num_chains=2,
+                       device=device)
+        with pytest.raises(ValueError, match="lives on cpu and the run on cuda"):
+            on_card.run(torch.Generator(device="cpu").manual_seed(0), data)
+    mcmc = MCMC(NUTS(torch_model), num_warmup=2, num_samples=2, num_chains=2, device="cpu")
+    with pytest.raises(TypeError, match="int seed or a torch.Generator"):
+        mcmc.run(1.5, data)
+    # an int seed makes the generator on the run's device; the same seed, the same run
+    mcmc.run(3, data)
+    first = mcmc.get_samples()["w"].clone()
+    mcmc.run(torch.Generator(device="cpu").manual_seed(3), data)
+    assert torch.equal(first, mcmc.get_samples()["w"])
 
 
 def test_import_leaves_jax_out():
