@@ -34,9 +34,24 @@ Phases (each prints on its own lines; any failure exits non-zero):
                device, with the modes that ``auto`` resolves; the posterior means must recover
                the generating coefficients to 0.1.  Then the other modes by
                name (``bf16`` and ``lean`` panels, ``recompute`` proxy) at 256
-               chains, 20 + 20, depth 6, gate 0.2.  This path is plain PyTorch
+               chains, 20 + 5, depth 6, gate 0.2.  This path is plain PyTorch
                (gathers, small products, nested JVPs) and launches none of
                the hand-written kernels.
+7. dense    -- dense and structured mass matrices and forward-mode gradients,
+               all on the GPU: (a) a correlated 5-d Gaussian under a dense
+               mass, whose draws must give its stds to 15% and means to 0.3;
+               (b) the horseshoe regression of
+               ``examples/horseshoe_regression.py`` at its defaults (100 x 20,
+               3 active) under a dense 42 x 42 mass pooled over 256 chains,
+               whose posterior means of ``beta`` must be within ``HS_GATE``
+               of the generating ones, with R-hat below ``HS_RHAT_GATE``; (c)
+               the same with ``dense_mass=[("beta", "lambda")]``, whose
+               exposed mass must be a dict of a 40 x 40 and a diagonal block;
+               (d) the same with forward-mode gradients, which must agree with
+               reverse mode on one batched evaluation; (e) the covtype model in
+               split mode under a dense mass pooled over chains, with the 0.05
+               gate, launching ``glm_split`` once per evaluation (counts set to
+               0 just before, read just after).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -53,7 +68,7 @@ import torch
 
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.diagnostics import effective_sample_size
+from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
 from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
@@ -90,7 +105,38 @@ PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
 # HBM3, 700.00 W), so the main leg caps the depth at 6 in sampling as in warmup.
 SUBSAMPLE, NUM_BLOCKS = 1000, 100
 ECS_MAIN = (1024, 100, 100, 6, 0.1)
-ECS_MODES = (256, 20, 20, 6, 0.2)
+# the other modes by name, their draws cut from 20 to 5 to make room for phase 7
+ECS_MODES = (256, 20, 5, 6, 0.2)
+# phase 7.  Every tick costs 4-12 ms of host time, and warmup waits at every
+# transition for the deepest tree of all chains, so the legs cap the warmup
+# depth low, keep their warmup length and take few draws.
+# (a) the target of tests/infer/test_mcmc.py:36-58: chains, warmup, samples,
+# max_tree_depth
+GAUSS_DIM, GAUSS_RUN = 5, (256, 300, 50, (4, 10))
+# (b-d) the horseshoe at the example's defaults: rows, coefficients, active
+HS_DATA = (100, 20, 3)
+# max(2e, e + 0.05), where e = 0.085 is the line that the JAX package's own
+# run of the example at its defaults prints (`python
+# examples/horseshoe_regression.py` on the CPU: 1 chain, 500 + 500)
+HS_GATE = 0.17
+# chains, warmup, samples, max_tree_depth, extra NUTS options.  A draw costs
+# ~210 leapfrogs after warmup (the funnel of tau and lambda).  The 42 x 42
+# estimate of (b) is pooled over the chains: with per-chain estimates the JAX
+# package's run at 256 chains, 200 + 200 leaves R-hat of beta at 1.096 (1.039
+# pooled; `JAX_PLATFORMS=cpu python3 -m dev.horseshoe_reference`).
+HS_RUNS = {
+    "dense": (256, 200, 30, (5, 10), {"dense_mass": True, "pooled_adaptation": True}),
+    "structured": (64, 100, 5, (4, 10), {"dense_mass": [("beta", "lambda")]}),
+    "forward": (64, 10, 5, 6, {"dense_mass": True, "forward_mode_differentiation": True}),
+}
+# R-hat of beta after 30 draws: 1 + max(2 (r - 1), r - 1 + 0.05), the rule of
+# HS_GATE, where r = 1.111 is what the JAX package's own run of leg (b) gives
+# (`JAX_PLATFORMS=cpu python3 -m dev.horseshoe_reference 256 200 30 5 pooled`;
+# with warmup depth 6, 1.054 at 60 draws and 1.039 at 200, more than the run's
+# time allows)
+HS_RHAT_GATE = 1.222
+# (e) covtype, split mode, dense mass pooled over chains
+DENSE_COVTYPE = (100, 20, (6, 10), 0.05)
 
 
 _T0 = time.perf_counter()
@@ -255,12 +301,13 @@ def model(data):
     npt.factor("lik", glm.bernoulli_logits_loglik(w, data))
 
 
-def phase_main(X, y, true_w, name):
-    """One MCMC(NUTS) run in the mode of kernel ``name``; returns its stats."""
-    warmup, samples, depth, gate = RUNS[name]
+def phase_main(X, y, true_w, name, run=None, tag="main", **nuts_kw):
+    """One MCMC(NUTS) run in the mode of kernel ``name`` (``run``: warmup,
+    samples, depth, gate; ``RUNS[name]`` by default); returns its stats."""
+    warmup, samples, depth, gate = RUNS[name] if run is None else run
     data = glm.prepare_glm_data(X, y, dtype=KERNELS[name][0])
     mcmc = MCMC(
-        NUTS(model, max_tree_depth=depth),
+        NUTS(model, max_tree_depth=depth, **nuts_kw),
         num_warmup=warmup,
         num_samples=samples,
         num_chains=CHAINS,
@@ -277,8 +324,10 @@ def phase_main(X, y, true_w, name):
     w_err = (draws.mean((0, 1)).cpu() - torch.from_numpy(true_w)).abs().max().item()
     ess = effective_sample_size(draws)
     leapfrogs = int(mcmc.get_extra_fields()["num_steps"].sum().item())
+    stats["ms_per_eval"] = (stats["warmup_s"] + stats["sample_s"]) / (
+        stats["potential_evals_warmup"] + stats["potential_evals_sample"]) * 1e3
     log(
-        f"[main] {name}: {warmup} + {samples} transitions, max_tree_depth {depth}; "
+        f"[{tag}] {name}: {warmup} + {samples} transitions, max_tree_depth {depth}; "
         f"warmup {stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s, "
         f"init {stats['init_s']:.2f} s; potential evaluations {stats['potential_evals']} "
         f"(warmup {stats['potential_evals_warmup']}, sampling "
@@ -286,7 +335,7 @@ def phase_main(X, y, true_w, name):
         f"{name} launches {launches}; "
         f"leapfrogs counted in draws {leapfrogs}; ESS median "
         f"{ess.median().item():.1f} (min {ess.min().item():.1f}); "
-        f"max |mean(w) - true_w| {w_err:.4f}"
+        f"max |mean(w) - true_w| {w_err:.4f}; {stats['ms_per_eval']:.2f} ms per evaluation"
     )
     # one launch per batched potential evaluation, plus the one unbatched
     # model trace with which initialization finds the latent sites
@@ -431,6 +480,141 @@ def phase_fused(X, y):
         del data
 
 
+def gauss_problem(device):
+    """The correlated Gaussian of tests/infer/test_mcmc.py:36-58: its
+    covariance (numpy, f64) and the potential of one chain."""
+    a = np.random.RandomState(0).randn(GAUSS_DIM, GAUSS_DIM)
+    cov = a @ a.T + 0.1 * np.eye(GAUSS_DIM)
+    prec = torch.from_numpy(np.linalg.inv(cov).astype(np.float32)).to(device)
+    return cov, lambda z: 0.5 * z["z"] @ prec @ z["z"]
+
+
+def phase_dense_gauss(device):
+    """7a: NUTS under a dense mass on the correlated Gaussian."""
+    chains, warmup, samples, depth = GAUSS_RUN
+    cov, potential = gauss_problem(device)
+    mcmc = MCMC(NUTS(potential_fn=potential, dense_mass=True, max_tree_depth=depth),
+                num_warmup=warmup,
+                num_samples=samples, num_chains=chains)
+    mcmc.run(7, init_params={"z": torch.zeros((chains, GAUSS_DIM), device=device)})
+    stats = mcmc.last_run_stats
+    draws = mcmc.get_samples()["z"].double().cpu().numpy()
+    mean_err = np.abs(draws.mean(0)).max()
+    std_rel = np.abs(draws.std(0) / np.sqrt(np.diag(cov)) - 1).max()
+    inv = mcmc.last_state.adapt_state.inverse_mass_matrix
+    frob = np.linalg.norm(inv.double().mean(0).cpu().numpy() - cov) / np.linalg.norm(cov)
+    log(f"[dense] 7a Gaussian, {chains} chains, {warmup} + {samples}: warmup "
+        f"{stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s, potential evaluations "
+        f"{stats['potential_evals']}; max |mean| {mean_err:.4f} (gate 0.3), max |std / "
+        f"sqrt(diag cov) - 1| {std_rel:.4f} (gate 0.15); mean adapted inverse mass "
+        f"{tuple(inv.shape)} off cov by {frob:.4f} (relative Frobenius)")
+    if inv.shape != (chains, GAUSS_DIM, GAUSS_DIM) or not np.isfinite(draws).all():
+        raise SystemExit("7a: bad inverse mass or draws")
+    if not (mean_err < 0.3 and std_rel < 0.15):
+        raise SystemExit("7a: the draws miss the correlated Gaussian")
+
+
+def horseshoe_data(device):
+    """``examples/horseshoe_regression.py::make_data`` at its defaults, in
+    numpy; X and y in f32 on ``device``."""
+    n, d, active = HS_DATA
+    rng = np.random.RandomState(0)
+    X = rng.randn(n, d)
+    beta = np.zeros(d)
+    beta[:active] = rng.randn(active) * 2.0
+    y = X @ beta + 0.5 * rng.randn(n)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    return to(X), to(y), beta
+
+
+def model_horseshoe(X, y):
+    """``examples/horseshoe_regression.py::model``."""
+    d = X.shape[1]
+    tau = npt.sample("tau", dist.HalfCauchy(0.1))
+    with npt.plate("D", d):
+        lam = npt.sample("lambda", dist.HalfCauchy(1.0))
+    sigma = npt.sample("sigma", dist.HalfNormal(1.0))
+    with npt.plate("D2", d):
+        beta = npt.sample("beta", dist.Normal(0.0, tau * lam))
+    with npt.plate("N", X.shape[0]):
+        npt.sample("y", dist.Normal(X @ beta, sigma), obs=y)
+
+
+def phase_horseshoe(X, y, beta_true, leg):
+    """7b-7d: one MCMC(NUTS) run of the horseshoe; returns the MCMC object."""
+    chains, warmup, samples, depth, nuts_kw = HS_RUNS[leg]
+    mcmc = MCMC(NUTS(model_horseshoe, max_tree_depth=depth, **nuts_kw), num_warmup=warmup,
+                num_samples=samples, num_chains=chains)
+    mcmc.run(11, X, y, extra_fields=("diverging",))
+    stats = mcmc.last_run_stats
+    draws = mcmc.get_samples(group_by_chain=True)["beta"]
+    if draws.shape != (chains, samples, HS_DATA[1]) or not torch.isfinite(draws).all():
+        raise SystemExit(f"7 {leg}: bad draws, shape {tuple(draws.shape)}")
+    err = np.abs(draws.double().mean((0, 1)).cpu().numpy() - beta_true).max()
+    rhat = split_gelman_rubin(draws).max().item()
+    divergent = mcmc.get_extra_fields()["diverging"].float().mean().item()
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    ms = (stats["warmup_s"] + stats["sample_s"]) / evals * 1e3
+    log(f"[dense] horseshoe {leg}, {chains} chains, {warmup} + {samples}, max_tree_depth "
+        f"{depth}, {nuts_kw}: warmup {stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} "
+        f"s, potential evaluations {stats['potential_evals_warmup']} + "
+        f"{stats['potential_evals_sample']}, {ms:.2f} ms per evaluation on the host's clock; "
+        f"max |mean(beta) - beta_true| {err:.4f} (gate {HS_GATE}); split R-hat of beta max "
+        f"{rhat:.4f}; "
+        f"divergent share {divergent:.4f}")
+    if leg != "forward" and not err < HS_GATE:
+        raise SystemExit(f"7 {leg}: posterior means of beta off by {err:.4f} (>= {HS_GATE})")
+    return mcmc, rhat
+
+
+def phase_dense(X, y, true_w):
+    """Phase 7; returns the dense covtype leg's stats and its launch counts."""
+    device = X.device
+    phase_dense_gauss(device)
+    Xh, yh, beta_true = horseshoe_data(device)
+
+    _, rhat = phase_horseshoe(Xh, yh, beta_true, "dense")
+    if not rhat < HS_RHAT_GATE:
+        raise SystemExit(f"7b: R-hat of beta {rhat:.4f} (>= {HS_RHAT_GATE})")
+
+    mcmc, _ = phase_horseshoe(Xh, yh, beta_true, "structured")
+    chains = HS_RUNS["structured"][0]
+    want = {("beta", "lambda"): (chains, 40, 40), ("sigma", "tau"): (chains, 2)}
+    inv = mcmc.last_state.adapt_state.inverse_mass_matrix
+    got = {k: tuple(v.shape) for k, v in inv.items()} if isinstance(inv, dict) else inv.shape
+    log(f"[dense] 7c exposed inverse mass: {got}")
+    if got != want:
+        raise SystemExit(f"7c: exposed inverse mass {got}, expected {want}")
+
+    mcmc, _ = phase_horseshoe(Xh, yh, beta_true, "forward")
+    z = mcmc.last_state.z
+    layout = FlatLayout({k: v[0] for k, v in z.items()})
+    pe_fn = mcmc.sampler._potential_fn_gen(Xh, yh)
+    panel = layout.ravel_batch(z)
+    by_mode = {}
+    for forward in (True, False):
+        pe_grad = batched_potential(pe_fn, layout, forward_mode=forward)
+        pe_grad(panel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        by_mode[forward] = pe_grad(panel)
+        torch.cuda.synchronize()
+        by_mode[forward] += ((time.perf_counter() - t0) * 1e3,)
+    (pe_f, g_f, ms_f), (pe_r, g_r, ms_r) = by_mode[True], by_mode[False]
+    g_err = (g_f - g_r).abs().max().item()
+    log(f"[dense] 7d one batched evaluation at {tuple(panel.shape)}: forward mode {ms_f:.2f} ms, "
+        f"reverse mode {ms_r:.2f} ms on the host's clock; gradient max abs difference "
+        f"{g_err:.3e} on components up to {g_r.abs().max().item():.3e} (rtol 1e-5, atol 1e-5)")
+    if not (torch.allclose(g_f, g_r, rtol=1e-5, atol=1e-5)
+            and torch.allclose(pe_f, pe_r, rtol=1e-5, atol=1e-5)):
+        raise SystemExit("7d: forward- and reverse-mode gradients disagree")
+
+    glm.reset_launch_counts()
+    stats = phase_main(X, y, true_w, "glm_split", run=DENSE_COVTYPE, tag="dense",
+                       dense_mass=True, pooled_adaptation=True)
+    return stats, dict(glm.launch_counts)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -471,10 +655,17 @@ def main():
     for panel_mode, proxy_mode in (("bf16", "stats"), ("lean", "stats"), ("carry", "recompute")):
         phase_ecs(X, y, true_w, ECS_MODES, panel_mode, proxy_mode)
 
+    dense, dense_counts = phase_dense(X, y, true_w)
+    log(f"[dense] 7e covtype, split mode: {dense['ms_per_eval']:.2f} ms per evaluation under "
+        f"the pooled dense mass against {split['ms_per_eval']:.2f} under phase 4's diagonal one; "
+        f"glm_split launches {dense_counts['glm_split']} here, {counts['glm_split']} in phase 4")
+
     for name, entry in kernels.items():
-        entry["launches"] = counts[name]
+        entry["launches"] = counts[name] + dense_counts[name]
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
+    if dense_counts["glm_split"] == 0:
+        raise SystemExit("glm_split was never launched on the dense leg")
     print(card, flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({

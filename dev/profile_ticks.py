@@ -1,6 +1,7 @@
 """Profile a window of NUTS ticks of the covtype model on one NVIDIA GPU.
 
     python3 -m dev.profile_ticks [mode] [chains]
+    python3 -m dev.profile_ticks dense [chains]
     python3 -m dev.profile_ticks ecs [chains]
 
 Run from the root of the repo.  Runs the engine's tick (one leapfrog, that is one batched potential
@@ -11,6 +12,10 @@ up; the next is timed on the host's clock (ending in a synchronize) and traced
 with ``torch.profiler``.  Prints host ms per tick, device ms per tick (the sum
 of the kernels' own device time over the window), the device's idle share and
 the kernels by device time.
+
+With ``dense`` the same window runs in split mode twice, under the diagonal
+mass and then under a dense one that is the same for every chain (as pooled
+adaptation leaves it), and both are printed.
 
 With ``ecs`` the window is HMCECS transitions with the Taylor proxy (1,024
 chains by default, the smoke run's configuration): after a few warmup
@@ -102,7 +107,7 @@ def profile_ecs(chains):
     return 0
 
 
-def profile_nuts(mode, chains):
+def profile_nuts(mode, chains, dense=False):
     dev = torch.device("cuda", 0)
     X, y, true_w, _ = chip_smoke.make_data(dev)
     data = glm.prepare_glm_data(X, y, dtype=MODES[mode])
@@ -112,8 +117,11 @@ def profile_nuts(mode, chains):
     layout = FlatLayout({"w": z[0]})
     pe_fn, _ = infer_util.get_potential_fn(chip_smoke.model, {}, model_args=(data,))
     pe_grad = batched_potential(pe_fn, layout)
-    blocks = build_mass_blocks(layout, False)
-    inv, sqrt, _ = init_mass(blocks, chains, z)
+    blocks = build_mass_blocks(layout, dense)
+    d = chip_smoke.D
+    # one correlated positive definite matrix for every chain
+    pooled = torch.eye(d) + 0.5 * torch.ones(d, d) / d if dense else None
+    inv, sqrt, _ = init_mass(blocks, chains, z, init_inverse=pooled)
     step = torch.full((chains,), 1e-4, device=dev)
     draws = GeneratorDraws(gen)
     pe, grad = pe_grad(z)
@@ -138,7 +146,14 @@ def main(argv):
     print(chip_smoke.smi(), flush=True)
     if mode == "ecs":
         return profile_ecs(int(argv[1]) if len(argv) > 1 else chip_smoke.ECS_MAIN[0])
-    return profile_nuts(mode, int(argv[1]) if len(argv) > 1 else chip_smoke.CHAINS)
+    chains = int(argv[1]) if len(argv) > 1 else chip_smoke.CHAINS
+    if mode == "dense":
+        for dense in (False, True):
+            print(f"split mode, {chains} chains, {'dense' if dense else 'diagonal'} mass:",
+                  flush=True)
+            profile_nuts("split", chains, dense)
+        return 0
+    return profile_nuts(mode, chains)
 
 
 if __name__ == "__main__":

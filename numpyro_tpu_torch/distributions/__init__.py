@@ -1,5 +1,11 @@
 from numpyro_tpu_torch.distributions import constraints
-from numpyro_tpu_torch.distributions.continuous import Normal, Uniform
+from numpyro_tpu_torch.distributions.continuous import (
+    Cauchy,
+    HalfCauchy,
+    HalfNormal,
+    Normal,
+    Uniform,
+)
 from numpyro_tpu_torch.distributions.discrete import Bernoulli, BernoulliLogits, BernoulliProbs
 from numpyro_tpu_torch.distributions.distribution import (
     Distribution,
@@ -14,8 +20,11 @@ __all__ = [
     "Bernoulli",
     "BernoulliLogits",
     "BernoulliProbs",
+    "Cauchy",
     "Distribution",
     "ExpandedDistribution",
+    "HalfCauchy",
+    "HalfNormal",
     "Independent",
     "MaskedDistribution",
     "Normal",

@@ -1,12 +1,16 @@
 """Constraints (port of the parts of ``numpyro_tpu/distributions/constraints.py``
-that the ported slices need: ``real``, ``boolean``, ``independent`` and
-``interval``).  Others are not ported yet; see ROADMAP.md."""
+that the ported slices need: ``real``, ``boolean``, ``independent``,
+``interval``, ``greater_than``/``greater_than_eq`` and their instances
+``positive``/``nonnegative``).  Others are not ported yet; see ROADMAP.md."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Constraint", "boolean", "independent", "interval", "real"]
+__all__ = [
+    "Constraint", "boolean", "greater_than", "greater_than_eq", "independent", "interval",
+    "nonnegative", "positive", "real",
+]
 
 
 class Constraint:
@@ -87,6 +91,38 @@ class _Boolean(Constraint):
         return torch.zeros_like(prototype)
 
 
+class _GreaterThan(Constraint):
+    def __init__(self, lower_bound):
+        self.lower_bound = lower_bound
+
+    def __call__(self, x):
+        return x > self.lower_bound
+
+    def feasible_like(self, prototype):
+        value = torch.as_tensor(self.lower_bound + 1.0, dtype=prototype.dtype,
+                                device=prototype.device)
+        return torch.broadcast_to(value, prototype.shape)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and bool(
+            torch.equal(torch.as_tensor(self.lower_bound), torch.as_tensor(other.lower_bound))
+        )
+
+    def __hash__(self):
+        return hash(type(self))
+
+    def __repr__(self):
+        return f"greater_than({self.lower_bound})"
+
+
+class _GreaterThanEq(_GreaterThan):
+    def __call__(self, x):
+        return x >= self.lower_bound
+
+    def __repr__(self):
+        return f"greater_than_eq({self.lower_bound})"
+
+
 class _Interval(Constraint):
     def __init__(self, lower_bound, upper_bound):
         self.lower_bound = lower_bound
@@ -105,6 +141,10 @@ class _Interval(Constraint):
 
 
 boolean = _Boolean()
+greater_than = _GreaterThan
+greater_than_eq = _GreaterThanEq
 independent = _IndependentConstraint
 interval = _Interval
+nonnegative = _GreaterThanEq(0.0)
+positive = _GreaterThan(0.0)
 real = _Real()

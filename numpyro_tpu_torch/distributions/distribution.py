@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import constraints
-from .util import promote_shapes, sum_rightmost
+from .util import broadcast_shape, promote_shapes, sum_rightmost
 
 __all__ = [
     "Distribution", "ExpandedDistribution", "Independent", "MaskedDistribution", "Unit",
@@ -52,7 +52,7 @@ class Distribution:
         """Promote the named parameters against each other, bind them as
         attributes, and initialise with the broadcast batch shape."""
         params = _as_tensors(params)
-        batch = torch.broadcast_shapes(*(tuple(v.shape) for v in params.values()))
+        batch = broadcast_shape(*(tuple(v.shape) for v in params.values()))
         for name, v in zip(params, promote_shapes(*params.values(), shape=batch)):
             setattr(self, name, v)
         Distribution.__init__(self, batch, event_shape, validate_args=validate_args)
@@ -133,7 +133,7 @@ class ExpandedDistribution(_Decorated):
         requested = tuple(batch_shape)
         while isinstance(base_dist, ExpandedDistribution):
             base_dist = base_dist.base_dist
-        target = torch.broadcast_shapes(tuple(base_dist.batch_shape), requested)
+        target = broadcast_shape(tuple(base_dist.batch_shape), requested)
         if target != requested:
             raise ValueError(
                 f"Cannot broadcast distribution of shape {base_dist.batch_shape} "
@@ -165,7 +165,7 @@ class ExpandedDistribution(_Decorated):
 
     def log_prob(self, value):
         lead = max(value.dim() - self.event_dim, 0)
-        out = torch.broadcast_shapes(self.batch_shape, tuple(value.shape[:lead]))
+        out = broadcast_shape(self.batch_shape, tuple(value.shape[:lead]))
         return self.base_dist.log_prob(value).expand(out)
 
 
@@ -206,7 +206,7 @@ class MaskedDistribution(_Decorated):
         if isinstance(mask, bool):
             self._mask = mask
         else:
-            shape = torch.broadcast_shapes(tuple(mask.shape), tuple(base_dist.batch_shape))
+            shape = broadcast_shape(tuple(mask.shape), tuple(base_dist.batch_shape))
             self._mask = mask.to(torch.bool).expand(shape)
             if tuple(base_dist.batch_shape) != shape:
                 base_dist = base_dist.expand(shape)
@@ -228,7 +228,7 @@ class MaskedDistribution(_Decorated):
             return self.base_dist.log_prob(value)
         if self._mask is False:
             lead = max(value.dim() - self.event_dim, 0)
-            shape = torch.broadcast_shapes(self.batch_shape, tuple(value.shape[:lead]))
+            shape = broadcast_shape(self.batch_shape, tuple(value.shape[:lead]))
             return value.new_zeros(shape, dtype=_float_dtype(value))
         lp = self.base_dist.log_prob(self._substitute_feasible(value))
         return torch.where(self._mask, lp, torch.zeros_like(lp))
@@ -252,5 +252,5 @@ class Unit(Distribution):
         return self.log_factor.new_empty(self.shape(sample_shape))
 
     def log_prob(self, value):
-        out = torch.broadcast_shapes(self.batch_shape, tuple(value.shape[:-1]))
+        out = broadcast_shape(self.batch_shape, tuple(value.shape[:-1]))
         return self.log_factor.expand(out)

@@ -1,18 +1,23 @@
 """Bijective transforms and the ``biject_to`` registry (port of the parts
-of ``numpyro_tpu/distributions/transforms.py`` that the covtype slice needs:
-identity, independent and compose transforms; ``biject_to`` for ``real`` and
-``independent(real)``).  Other constraints raise ``NotImplementedError``;
-their transforms are listed in ROADMAP.md."""
+of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
+identity, independent, compose, affine and exp transforms; ``biject_to`` for
+``real``, ``independent``, ``positive``/``nonnegative`` and
+``greater_than``/``greater_than_eq``).  Other constraints raise
+``NotImplementedError``; their transforms are listed in ROADMAP.md."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import constraints
-from .util import sum_rightmost
+from .util import broadcast_shape, sum_rightmost
 
 __all__ = [
+    "AffineTransform",
     "ComposeTransform",
+    "ExpTransform",
     "IdentityTransform",
     "IndependentTransform",
     "Transform",
@@ -210,6 +215,92 @@ class IndependentTransform(Transform):
         return hash((type(self), self.base_transform, self.reinterpreted_batch_ndims))
 
 
+def _same(a, b):
+    return a is b or bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
+
+
+class AffineTransform(Transform):
+    """y = loc + scale * x"""
+
+    def __init__(self, loc, scale, domain=constraints.real):
+        self.loc = loc
+        self.scale = scale
+        self.domain = domain
+
+    @property
+    def codomain(self):
+        dom = self.domain
+        if dom is constraints.real:
+            return constraints.real
+        if isinstance(dom, constraints.independent):
+            inner = AffineTransform(self.loc, self.scale, dom.base_constraint)
+            return constraints.independent(inner.codomain, dom.reinterpreted_batch_ndims)
+        # the bounded cases assume scale > 0, as the JAX package does
+        if isinstance(dom, constraints.greater_than):
+            return constraints.greater_than(self(dom.lower_bound))
+        if isinstance(dom, constraints.interval):
+            return constraints.interval(self(dom.lower_bound), self(dom.upper_bound))
+        raise NotImplementedError
+
+    def __call__(self, x):
+        return self.loc + self.scale * x
+
+    def _inverse(self, y):
+        return (y - self.loc) / self.scale
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        if isinstance(self.scale, torch.Tensor):
+            return torch.broadcast_to(torch.log(torch.abs(self.scale)), x.shape)
+        return torch.full_like(x, math.log(abs(self.scale)))
+
+    def forward_shape(self, shape):
+        return broadcast_shape(
+            tuple(shape), tuple(torch.as_tensor(self.loc).shape),
+            tuple(torch.as_tensor(self.scale).shape),
+        )
+
+    inverse_shape = forward_shape
+
+    def __eq__(self, other):
+        return (
+            type(self) is type(other)
+            and _same(self.loc, other.loc)
+            and _same(self.scale, other.scale)
+        )
+
+    def __hash__(self):
+        return hash(type(self))
+
+
+def _exp(v):
+    return torch.exp(v) if isinstance(v, torch.Tensor) else math.exp(v)
+
+
+class ExpTransform(Transform):
+    def __init__(self, domain=constraints.real):
+        self.domain = domain
+
+    @property
+    def codomain(self):
+        dom = self.domain
+        if dom is constraints.real:
+            return constraints.positive
+        if isinstance(dom, constraints.greater_than):
+            return constraints.greater_than(_exp(dom.lower_bound))
+        if isinstance(dom, constraints.interval):
+            return constraints.interval(_exp(dom.lower_bound), _exp(dom.upper_bound))
+        raise NotImplementedError
+
+    def __call__(self, x):
+        return torch.exp(x)
+
+    def _inverse(self, y):
+        return torch.log(y)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return x
+
+
 class ConstraintRegistry:
     """constraint type -> factory of the transform onto that constraint."""
 
@@ -235,6 +326,14 @@ class ConstraintRegistry:
 
 
 biject_to = ConstraintRegistry()
+
+
+def _onto_halfline(bound, direction):
+    return ComposeTransform(
+        [ExpTransform(), AffineTransform(bound, direction, domain=constraints.positive)]
+    )
+
+
 biject_to.register(constraints.real, lambda c: IdentityTransform())
 biject_to.register(
     constraints.independent,
@@ -242,3 +341,10 @@ biject_to.register(
         biject_to(c.base_constraint), c.reinterpreted_batch_ndims
     ),
 )
+# The registry is keyed by type, and ``positive`` is a ``_GreaterThan``: in the
+# JAX package's table the ``greater_than`` row comes after the
+# ``positive``/``nonnegative`` row and replaces it, so ``positive`` maps to
+# ``Exp`` followed by ``Affine(0, 1)`` there, and here too.
+for _c in (constraints.greater_than, constraints.greater_than_eq):
+    biject_to.register(_c, lambda c: _onto_halfline(c.lower_bound, 1.0))
+del _c

@@ -5,9 +5,23 @@ from __future__ import annotations
 
 import functools
 
-import torch
+__all__ = ["broadcast_shape", "lazy_property", "promote_shapes", "sum_rightmost"]
 
-__all__ = ["lazy_property", "promote_shapes", "sum_rightmost"]
+
+def broadcast_shape(*shapes):
+    """The broadcast of shapes given as tuples, as ``torch.broadcast_shapes``
+    gives it (a ``RuntimeError`` where they do not broadcast), in plain
+    Python: the torch function runs a Python reference implementation of ~70
+    us a call, and a potential evaluation calls this for every site."""
+    rank = max((len(s) for s in shapes), default=0)
+    out = [1] * rank
+    for shape in shapes:
+        for i, n in enumerate(shape, rank - len(shape)):
+            if n != 1:
+                if out[i] != 1 and out[i] != n:
+                    raise RuntimeError(f"shapes {shapes} do not broadcast")
+                out[i] = n
+    return tuple(out)
 
 
 def promote_shapes(*args, shape=()):
@@ -15,7 +29,7 @@ def promote_shapes(*args, shape=()):
     if shape == () and len(args) < 2:
         return args
     arg_shapes = [tuple(a.shape) for a in args]
-    rank = len(torch.broadcast_shapes(shape, *arg_shapes))
+    rank = len(broadcast_shape(shape, *arg_shapes))
     return [
         a if rank == len(s) else a.reshape((1,) * (rank - len(s)) + s)
         for a, s in zip(args, arg_shapes)

@@ -14,9 +14,8 @@ Two ways to run a kernel:
 The step index ``i`` of a state is a host integer, so the JAX package's
 ``lax.cond(i < num_warmup, ...)`` is a plain ``if``.  ``rng_key`` is a
 ``torch.Generator`` or a draw source (see ``hmc_core.GeneratorDraws``).
-
-Dense mass matrices and forward-mode differentiation are not ported yet
-(ROADMAP.md).
+Every entry point keeps f32 matmuls out of TF32
+(``infer.util.pin_full_f32_matmul``).
 """
 
 from __future__ import annotations
@@ -90,14 +89,15 @@ def hmc(potential_fn=None, potential_fn_gen=None, kinetic_fn=None, algo="NUTS"):
         panel: each chain's gradient sees its own conditioning."""
         model_kwargs = dict(model_kwargs or {})
         per_chain = model_kwargs.pop("_per_chain", None)
-        layout = ctx["layout"]
+        layout, forward_mode = ctx["layout"], ctx["forward_mode"]
         if per_chain is None:
             pe_fn = potential_fn
             if potential_fn_gen is not None:
                 pe_fn = potential_fn_gen(*model_args, **model_kwargs)
-            return core.batched_potential(pe_fn, layout)
+            return core.batched_potential(pe_fn, layout, forward_mode=forward_mode)
         return core.batched_potential(
-            lambda pc: potential_fn_gen(*model_args, **model_kwargs, **pc), layout, per_chain
+            lambda pc: potential_fn_gen(*model_args, **model_kwargs, **pc), layout, per_chain,
+            forward_mode=forward_mode,
         )
 
     def _build_warmup(pe_grad):
@@ -137,12 +137,11 @@ def hmc(potential_fn=None, potential_fn_gen=None, kinetic_fn=None, algo="NUTS"):
         num_chains=None,
     ):
         """``num_chains=None`` is one chain with unbatched state; an integer
-        is that many chains with a leading chain axis on every leaf."""
-        if forward_mode_differentiation:
-            raise NotImplementedError(
-                "forward_mode_differentiation is not ported to numpyro_tpu_torch "
-                "yet (see ROADMAP.md)"
-            )
+        is that many chains with a leading chain axis on every leaf.
+        ``inverse_mass_matrix`` is a tensor or array for the sole mass block or
+        a dict keyed by the blocks' site-name tuples (see
+        ``hmc_core.init_mass``)."""
+        infer_util.pin_full_f32_matmul()
         if isinstance(init_params, ParamInfo):
             z, pe, z_grad = init_params
         else:
@@ -169,6 +168,7 @@ def hmc(potential_fn=None, potential_fn_gen=None, kinetic_fn=None, algo="NUTS"):
         ctx.update(
             layout=layout,
             blocks=core.build_mass_blocks(layout, dense_mass),
+            forward_mode=forward_mode_differentiation,
             batched=batched,
             num_warmup=num_warmup,
             max_tree_depth=(
@@ -215,6 +215,7 @@ def hmc(potential_fn=None, potential_fn_gen=None, kinetic_fn=None, algo="NUTS"):
     def sample_kernel(state, model_args=(), model_kwargs=None):
         """One transition for every chain: momentum refresh, trajectory,
         proposal, and warmup adaptation while ``i < num_warmup``."""
+        infer_util.pin_full_f32_matmul()
         layout, blocks = ctx["layout"], ctx["blocks"]
         batched, num_warmup = ctx["batched"], ctx["num_warmup"]
         if not batched:
@@ -305,15 +306,6 @@ class HMC(MCMCKernel):
             raise NotImplementedError(
                 "custom kinetic_fn is not supported by the chain-batched engine"
             )
-        if forward_mode_differentiation:
-            raise NotImplementedError(
-                "forward_mode_differentiation is not ported to numpyro_tpu_torch "
-                "yet (see ROADMAP.md)"
-            )
-        if dense_mass is not False:
-            raise NotImplementedError(
-                "dense_mass is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-            )
         self._model = model
         self._potential_fn = potential_fn
         self._step_size = float(step_size) if isinstance(step_size, int) else step_size
@@ -328,6 +320,7 @@ class HMC(MCMCKernel):
         )
         self._max_tree_depth = 10
         self._init_strategy = init_to_uniform if init_strategy is None else init_strategy
+        self._forward_mode_differentiation = forward_mode_differentiation
         self._regularize_mass_matrix = regularize_mass_matrix
         self._refine_step_size = refine_step_size
         self._pooled_adaptation = pooled_adaptation
@@ -379,6 +372,7 @@ class HMC(MCMCKernel):
             init_strategy=self._init_strategy,
             model_args=model_args,
             model_kwargs=model_kwargs,
+            forward_mode_differentiation=self._forward_mode_differentiation,
         )
         self._potential_fn_gen = info.potential_fn
         self._postprocess_fn = info.postprocess_fn
@@ -412,6 +406,7 @@ class HMC(MCMCKernel):
             num_steps=self._num_steps,
             trajectory_length=self._trajectory_length,
             max_tree_depth=self._max_tree_depth,
+            forward_mode_differentiation=self._forward_mode_differentiation,
             regularize_mass_matrix=self._regularize_mass_matrix,
             refine_step_size=self._refine_step_size,
             pooled_adaptation=self._pooled_adaptation,
@@ -446,6 +441,7 @@ class HMC(MCMCKernel):
         ``self.last_fused_stats``.
         """
         model_kwargs = {} if model_kwargs is None else model_kwargs
+        infer_util.pin_full_f32_matmul()
         t0 = time.perf_counter()
         evals0 = infer_util.potential_evals
         generator = getattr(rng_key, "generator", rng_key)
@@ -461,7 +457,9 @@ class HMC(MCMCKernel):
             if self._potential_fn_gen is not None
             else self._potential_fn
         )
-        pe_grad = core.batched_potential(pe_fn, layout)
+        pe_grad = core.batched_potential(
+            pe_fn, layout, forward_mode=self._forward_mode_differentiation
+        )
         depth = self._max_tree_depth
         warm_depth, post_depth = depth if isinstance(depth, tuple) else (depth, depth)
         run = core.build_fused_run(

@@ -1,5 +1,6 @@
 """Chain-batched HMC/NUTS engine (port of ``numpyro_tpu/infer/hmc_core.py``
-for NUTS and fixed-trajectory HMC with a diagonal mass matrix).
+for NUTS and fixed-trajectory HMC with diagonal, dense and structured mass
+matrices).
 
 As in the JAX package the chain axis is the first dimension of every
 tensor: positions and momenta are ``(C, D)`` panels, and one NUTS "tick"
@@ -26,9 +27,11 @@ What differs from the JAX engine:
 - The harvest loop banks draws with ``index_put`` into buffers that carry one
   spare slot (JAX's ``mode="drop"``), cut off at the end; the buffers are
   updated in place.
+- A structured mass matrix gathers a panel once into block order and back
+  (``MassBlocks.permutation``), where JAX takes and scatters each block.
 
-Dense mass matrices and pooled multi-device adaptation are not ported yet
-(ROADMAP.md).
+Pooled adaptation pools over the chains of one device; pooling across devices
+is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ __all__ = [
     "build_fused_run",
     "build_mass_blocks",
     "build_warmup",
+    "adapt_from_numpy",
     "carry_from_numpy",
     "hmc_transition",
     "init_mass",
@@ -111,9 +115,10 @@ class FlatLayout:
         }
 
 
-def batched_potential(potential_fn, layout, per_chain=None):
+def batched_potential(potential_fn, layout, per_chain=None, forward_mode=False):
     """(C, D) panel -> potential (C,) and gradient panel (C, D): the
-    one-chain ``potential_fn`` through ``vmap(grad_and_value(...))``.
+    one-chain ``potential_fn`` through ``vmap(grad_and_value(...))``, or with
+    ``forward_mode`` through ``vmap(jacfwd(...))``.
 
     With ``per_chain`` (a pytree whose leaves carry a leading chain axis)
     ``potential_fn`` is a function of one chain's slice of that pytree which
@@ -132,7 +137,7 @@ def batched_potential(potential_fn, layout, per_chain=None):
 
         extra = (per_chain,)
 
-    vg = batched_value_and_grad(pe_flat)
+    vg = batched_value_and_grad(pe_flat, forward_mode=forward_mode)
 
     def pe_grad(panel):
         if layout.dim == 0:
@@ -143,27 +148,108 @@ def batched_potential(potential_fn, layout, per_chain=None):
 
 
 # ---------------------------------------------------------------------------
-# Mass matrix: one diagonal block over the whole flat dimension
+# Mass-matrix blocks
+#
+# The mass matrix is a direct sum of blocks over index sets of the flat
+# dimension; each block is diagonal ``(C, b)`` or dense ``(C, b, b)``.  The
+# mass structure is exposed as a bare tensor for one block and as a dict keyed
+# by the blocks' site-name tuples otherwise, as in the JAX package.
 
-MassBlocks = namedtuple("MassBlocks", ["names", "indices", "dense", "full"])
+
+class MassBlocks(namedtuple("MassBlocks", ["names", "indices", "dense", "full"])):
+    """Static block structure (the JAX ``MassBlocks``).  ``names``: tuple of
+    site-name tuples (or None), ``indices``: tuple of numpy index arrays into
+    the flat dim, ``dense``: tuple of bools, ``full``: one block covering every
+    dim in order.  With more than one block a panel is gathered once into block
+    order, where each block is a contiguous slice, and gathered back once: the
+    two index tensors are made once per device (:meth:`permutation`)."""
+
+    def permutation(self, device):
+        """(order, undo) index tensors on ``device``: ``x[..., order]`` puts
+        the blocks one after another, ``y[..., undo]`` puts them back."""
+        cache = self.__dict__.setdefault("_permutation", {})
+        if device not in cache:
+            order = np.concatenate(self.indices)
+            cache[device] = (
+                torch.as_tensor(order, device=device),
+                torch.as_tensor(np.argsort(order, kind="stable"), device=device),
+            )
+        return cache[device]
 
 
 def build_mass_blocks(layout, dense_mass):
-    if dense_mass is not False:
-        raise NotImplementedError(
-            "dense_mass is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+    """``dense_mass``: a bool (one block over every dim) or a list of tuples of
+    site names, each a dense block; the sites left over form a diagonal one."""
+    d = layout.dim
+    if isinstance(dense_mass, bool):
+        names = (tuple(sorted(layout.site_ranges)) or None,)
+        return MassBlocks(names, (np.arange(d),), (dense_mass,), True)
+    if not layout.site_ranges:
+        raise ValueError(
+            "structured `dense_mass` requires a dict-structured latent "
+            "(use a model, not a raw potential_fn)"
         )
-    names = (tuple(sorted(layout.site_ranges)) or None,)
-    return MassBlocks(names, (np.arange(layout.dim),), (False,), True)
+    def flat_indices(sites):
+        return np.concatenate(
+            [np.arange(o, o + s) for o, s in (layout.site_ranges[k] for k in sites)]
+        )
+
+    names = [tuple(group) for group in dense_mass]
+    dense = [True] * len(names)
+    rest = tuple(sorted(set(layout.site_ranges).difference(*names)))
+    if rest:
+        names.append(rest)
+        dense.append(False)
+    indices = [flat_indices(group) for group in names]
+    full = len(indices) == 1 and np.array_equal(indices[0], np.arange(d))
+    return MassBlocks(tuple(names), tuple(indices), tuple(dense), bool(full))
 
 
-def _diag(inv_mass, r):
-    return inv_mass.reshape(inv_mass.shape[:1] + (1,) * (r.dim() - 2) + inv_mass.shape[1:])
+def _as_parts(blocks, exposed):
+    """Exposed mass structure (bare tensor or name-keyed dict) -> block list."""
+    if isinstance(exposed, dict):
+        return [exposed[k] for k in blocks.names]
+    return [exposed]
+
+
+def _expose(blocks, parts):
+    if len(parts) == 1:
+        return parts[0]
+    return dict(zip(blocks.names, parts))
+
+
+def _block_slices(blocks, x):
+    """Each block's entries of the panel ``x`` ``(C, ..., D)``."""
+    if blocks.full:
+        return [x]
+    order, _ = blocks.permutation(x.device)
+    return list(x.index_select(-1, order).split([len(i) for i in blocks.indices], -1))
+
+
+def _unblock(blocks, parts):
+    """Inverse of :func:`_block_slices`."""
+    if blocks.full:
+        return parts[0]
+    _, undo = blocks.permutation(parts[0].device)
+    return torch.cat(parts, -1).index_select(-1, undo)
+
+
+def _times_block(m, x):
+    """A diagonal ``(C, b)`` or dense ``(C, b, b)`` block times the panel
+    ``x`` ``(C, ..., b)`` (extra axes broadcast)."""
+    if m.dim() == 2:
+        return m.reshape(m.shape[:1] + (1,) * (x.dim() - 2) + m.shape[1:]) * x
+    # JAX's einsum("cij,c...j->c...i") as one batched product, the same
+    # arithmetic at less host time per call than einsum on the CPU
+    rows = x.reshape(x.shape[0], -1, x.shape[-1])
+    return torch.bmm(rows, m.transpose(1, 2)).reshape(x.shape)
 
 
 def apply_inv_mass(blocks, inv_mass, r):
     """v = M^{-1} r over panels ``(C, ..., D)`` (extra axes broadcast)."""
-    return _diag(inv_mass, r) * r
+    return _unblock(blocks, [
+        _times_block(m, x) for m, x in zip(_as_parts(blocks, inv_mass), _block_slices(blocks, r))
+    ])
 
 
 def kinetic(blocks, inv_mass, r):
@@ -173,21 +259,66 @@ def kinetic(blocks, inv_mass, r):
 
 def draw_momentum(blocks, sqrt_mass, eps):
     """r = chol(M) eps for standard normals eps (C, D)."""
-    return sqrt_mass * eps
+    return apply_inv_mass(blocks, sqrt_mass, eps)
+
+
+def _cholesky(x):
+    """Lower Cholesky factor, batched.  Where a matrix is not positive
+    definite its factor is NaN on and below the diagonal, as JAX's
+    ``cholesky`` returns it; ``cholesky_ex`` reports that per matrix without a
+    host sync (``cholesky`` would raise, after a sync on the GPU)."""
+    factor, info = torch.linalg.cholesky_ex(x)
+    return torch.where((info == 0)[..., None, None], factor,
+                       torch.full_like(factor, math.nan).tril())
+
+
+def _precision_factors(cov):
+    """(S, S^{-1}) with S lower-triangular and S S^T = cov^{-1}, batched.
+
+    The flip-reorder trick (JAX's ``[..., ::-1, ::-1]`` is ``torch.flip``): no
+    explicit inverse of cov is formed, and S^{-1} comes out exactly as the
+    flipped factor's transpose."""
+    rev = _cholesky(cov.flip(-2, -1)).flip(-2, -1)
+    sqrt_inv = rev.transpose(-2, -1)
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device).expand(cov.shape)
+    sqrt = torch.linalg.solve_triangular(sqrt_inv, eye, upper=False)
+    return sqrt, sqrt_inv
 
 
 def init_mass(blocks, num_chains, like, init_inverse=None):
-    """Identity (or user-provided diagonal) mass; returns (inv, sqrt, sqrt_inv)."""
-    d = len(blocks.indices[0])
-    if init_inverse is None:
-        inv = like.new_ones((num_chains, d))
-        return inv, inv, inv
-    inv = torch.as_tensor(init_inverse, dtype=like.dtype, device=like.device)
-    if inv.dim() != 1 and inv.dim() != 2:
-        raise NotImplementedError("only diagonal inverse mass matrices are ported")
-    inv = inv.expand(num_chains, d)
-    sqrt_inv = inv.sqrt()
-    return inv, 1.0 / sqrt_inv, sqrt_inv
+    """Identity (or user-provided) mass on the device and in the dtype of
+    ``like``; returns the exposed (inv, sqrt, sqrt_inv).
+
+    ``init_inverse`` may be a bare tensor or array (for the sole block) or a
+    dict keyed by block site-name tuples; a 1-d value for a dense block is its
+    diagonal, and values without a chain axis broadcast over chains."""
+    inv_p, sqrt_p, sqrt_inv_p = [], [], []
+    for name, idx, dense in zip(blocks.names, blocks.indices, blocks.dense):
+        b = len(idx)
+        given = None
+        if init_inverse is not None:
+            given = init_inverse.get(name) if isinstance(init_inverse, dict) else init_inverse
+        if given is None:
+            if dense:
+                inv = torch.eye(b, dtype=like.dtype, device=like.device).expand(num_chains, b, b)
+            else:
+                inv = like.new_ones((num_chains, b))
+            sqrt = sqrt_inv = inv
+        else:
+            inv = torch.as_tensor(given, dtype=like.dtype, device=like.device)
+            if dense and inv.dim() == 1:
+                inv = torch.diag(inv)
+            if inv.dim() == (2 if dense else 1):
+                inv = inv.expand((num_chains,) + tuple(inv.shape))
+            if dense:
+                sqrt, sqrt_inv = _precision_factors(inv)
+            else:
+                sqrt_inv = inv.sqrt()
+                sqrt = 1.0 / sqrt_inv
+        inv_p.append(inv)
+        sqrt_p.append(sqrt)
+        sqrt_inv_p.append(sqrt_inv)
+    return _expose(blocks, inv_p), _expose(blocks, sqrt_p), _expose(blocks, sqrt_inv_p)
 
 
 # ---------------------------------------------------------------------------
@@ -601,7 +732,7 @@ def batched_step_size_search(
 
 # ---------------------------------------------------------------------------
 # Warmup adaptation, batched over chains: Stan windows (75 / 25*2^k / 50),
-# per-chain dual averaging and Welford variance estimates
+# per-chain dual averaging and Welford (co)variance estimates per mass block
 
 AdaptPanel = namedtuple(
     "AdaptPanel",
@@ -609,10 +740,26 @@ AdaptPanel = namedtuple(
         "step_size",  # (C,)
         "inverse_mass_matrix", "mass_matrix_sqrt", "mass_matrix_sqrt_inv",
         "da_log", "da_log_avg", "da_grad_avg", "da_count", "da_anchor",  # (C,)
-        "wf_mean", "wf_m2", "wf_count",  # welford
+        "wf_mean", "wf_m2", "wf_count",  # welford (structured like the mass)
     ],
 )
 """The JAX ``AdaptPanel`` without its ``rng_key`` field."""
+
+
+def _numpy_tree(x, device):
+    """numpy arrays (in dicts) -> tensors on ``device``."""
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v, device) for k, v in x.items()}
+    return None if x is None else torch.from_numpy(np.array(x)).to(device)
+
+
+def adapt_from_numpy(fields, device="cpu"):
+    """The port's ``AdaptPanel`` from the fields of a JAX ``AdaptPanel``
+    given as numpy arrays (a mapping or namedtuple; its ``rng_key`` field is
+    dropped); a mass field may be a dict of them keyed by site-name tuples."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    return AdaptPanel(**{k: _numpy_tree(fields[k], device) for k in AdaptPanel._fields})
 
 
 def stan_windows(num_steps):
@@ -647,38 +794,73 @@ def _window_masks(num_warmup):
     return in_middle, at_end
 
 
-def _welford_init(z):
-    return torch.zeros_like(z), torch.zeros_like(z), z.new_zeros(z.shape[:1])
+def _welford_init(blocks, num_chains, like):
+    means, m2s = [], []
+    for idx, dense in zip(blocks.indices, blocks.dense):
+        b = len(idx)
+        means.append(like.new_zeros((num_chains, b)))
+        m2s.append(like.new_zeros((num_chains, b, b) if dense else (num_chains, b)))
+    return _expose(blocks, means), _expose(blocks, m2s), like.new_zeros((num_chains,))
 
 
-def _welford_update(wf, z_flat):
-    mean, m2, count = wf
+def _welford_update(blocks, wf, z_flat):
+    means, m2s, count = wf
     count = count + 1
-    pre = z_flat - mean
-    mean = mean + pre / count[:, None]
-    post = z_flat - mean
-    return mean, m2 + post * pre, count
+    new_means, new_m2s = [], []
+    for dense, mean, m2, x in zip(
+        blocks.dense, _as_parts(blocks, means), _as_parts(blocks, m2s),
+        _block_slices(blocks, z_flat),
+    ):
+        pre = x - mean
+        mean = mean + pre / count[:, None]
+        post = x - mean
+        new_means.append(mean)
+        new_m2s.append(m2 + (post[:, :, None] * pre[:, None, :] if dense else post * pre))
+    return _expose(blocks, new_means), _expose(blocks, new_m2s), count
 
 
-def _welford_finalize(wf, regularize=True):
-    """Per-chain variance estimate -> (inv_mass, sqrt, sqrt_inv)."""
-    _, m2, count = wf
-    n = count[:, None]
-    cov = m2 / torch.clamp(n - 1, min=1)
-    if regularize:
-        cov = (n / (n + 5.0)) * cov + 1e-3 * (5.0 / (n + 5.0))
-    root = torch.sqrt(cov)
-    return cov, 1.0 / root, root
+def _welford_finalize(blocks, wf, regularize=True):
+    """Per-chain covariance estimate -> exposed (inv_mass, sqrt, sqrt_inv)."""
+    _, m2s, count = wf
+    inv_p, sqrt_p, sqrt_inv_p = [], [], []
+    for dense, m2 in zip(blocks.dense, _as_parts(blocks, m2s)):
+        n = count.reshape(count.shape + (1,) * (m2.dim() - 1))
+        cov = m2 / torch.clamp(n - 1, min=1)
+        if regularize:
+            shrink = (n / (n + 5.0)) * cov
+            ridge = 1e-3 * (5.0 / (n + 5.0))
+            if dense:
+                eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+                cov = shrink + ridge * eye
+            else:
+                cov = shrink + ridge
+        inv_p.append(cov)
+        if dense:
+            sqrt, sqrt_inv = _precision_factors(cov)
+        else:
+            sqrt_inv = torch.sqrt(cov)
+            sqrt = 1.0 / sqrt_inv
+        sqrt_p.append(sqrt)
+        sqrt_inv_p.append(sqrt_inv)
+    return _expose(blocks, inv_p), _expose(blocks, sqrt_p), _expose(blocks, sqrt_inv_p)
 
 
-def _welford_pool(wf):
+def _welford_pool(blocks, wf):
     """Pool per-chain Welford states into one estimate broadcast over chains
     (parallel-Welford merge with the between-chain spread)."""
-    mean, m2, count = wf
-    grand = mean.mean(0, keepdim=True)
-    spread = mean - grand
-    m2_pooled = (m2 + count[:, None] * spread**2).sum(0, keepdim=True)
-    return grand.expand_as(mean), m2_pooled.expand_as(m2), count.sum().expand_as(count)
+    means, m2s, count = wf
+    pooled_means, pooled_m2s = [], []
+    for dense, mean, m2 in zip(blocks.dense, _as_parts(blocks, means), _as_parts(blocks, m2s)):
+        grand = mean.mean(0, keepdim=True)  # equal per-chain counts
+        spread = mean - grand
+        n = count.reshape(count.shape + (1,) * (m2.dim() - 1))
+        between = spread[:, :, None] * spread[:, None, :] if dense else spread**2
+        pooled_means.append(grand.expand_as(mean))
+        pooled_m2s.append((m2 + n * between).sum(0, keepdim=True).expand_as(m2))
+    return (
+        _expose(blocks, pooled_means), _expose(blocks, pooled_m2s),
+        count.sum().expand_as(count),
+    )
 
 
 def _pool_step_size(ss):
@@ -711,7 +893,7 @@ def build_warmup(
         ss = torch.as_tensor(step_size, dtype=z.dtype, device=z.device).expand(c)
         if adapt_step_size and find_step_size and d > 0:
             ss = search(draws, z, pe, grad, inv, sqrt, ss)
-        return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da_reset(ss), *_welford_init(z))
+        return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da_reset(ss), *_welford_init(blocks, c, z))
 
     def _da_update(adapt, accept_prob, is_last):
         if pool_chains:
@@ -740,8 +922,8 @@ def build_warmup(
         if adapt_mass_matrix:
             wf = (adapt.wf_mean, adapt.wf_m2, adapt.wf_count)
             if pool_chains:
-                wf = _welford_pool(wf)
-            inv, sqrt, sqrt_inv = _welford_finalize(wf, regularize=regularize_mass_matrix)
+                wf = _welford_pool(blocks, wf)
+            inv, sqrt, sqrt_inv = _welford_finalize(blocks, wf, regularize=regularize_mass_matrix)
         ss = adapt.step_size
         if adapt_step_size:
             if find_step_size:
@@ -750,7 +932,7 @@ def build_warmup(
         else:
             da = (adapt.da_log, adapt.da_log_avg, adapt.da_grad_avg,
                   adapt.da_count, adapt.da_anchor)
-        return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da, *_welford_init(z))
+        return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da, *_welford_init(blocks, z.shape[0], z))
 
     def update_fn(i, adapt, accept_prob, z, pe, grad, draws):
         """``i``: the warmup step index, the same for every chain."""
@@ -758,7 +940,7 @@ def build_warmup(
         if adapt_step_size:
             adapt = _da_update(adapt, accept_prob, i == num_warmup - 1)
         if adapt_mass_matrix and num_warmup > 0 and in_middle[idx]:
-            wf = _welford_update((adapt.wf_mean, adapt.wf_m2, adapt.wf_count), z)
+            wf = _welford_update(blocks, (adapt.wf_mean, adapt.wf_m2, adapt.wf_count), z)
             adapt = adapt._replace(wf_mean=wf[0], wf_m2=wf[1], wf_count=wf[2])
         if num_warmup > 0 and at_end[idx]:
             adapt = _window_end(adapt, z, pe, grad, draws)

@@ -174,7 +174,8 @@ class HMCGibbs(MCMCKernel):
 
     def _value_and_grad(self, z_hmc, per_chain, model_args, model_kwargs):
         """Potential and gradient of every chain under its own conditioning
-        (``per_chain``: the keyword arguments of one chain's potential)."""
+        (``per_chain``: the keyword arguments of one chain's potential), in
+        forward mode where the inner kernel asks for it."""
 
         def pe_fn(z_c, per_chain_c):
             potential = self.inner_kernel._potential_fn_gen(
@@ -182,7 +183,9 @@ class HMCGibbs(MCMCKernel):
             )
             return potential(z_c)
 
-        return infer_util.batched_value_and_grad(pe_fn)(z_hmc, per_chain)
+        return infer_util.batched_value_and_grad(
+            pe_fn, forward_mode=self.inner_kernel._forward_mode_differentiation
+        )(z_hmc, per_chain)
 
     def sample(self, state, model_args, model_kwargs):
         model_kwargs = {} if model_kwargs is None else model_kwargs
@@ -492,7 +495,8 @@ def ecs_state_from_numpy(fields, device="cpu", rng_key=None):
     numpy arrays (namedtuples or mappings, as ``jax.tree.map(np.asarray,
     state)`` gives them), so that both packages can step from one state.
     JAX's keys are dropped: ``rng_key`` is the generator or draw source the
-    port's state carries instead.  Subsample indices become ``int64``."""
+    port's state carries instead.  Subsample indices become ``int64``; a dense
+    or dict mass goes through ``hmc_core.adapt_from_numpy``."""
 
     def to(x):
         if x is None:
@@ -510,8 +514,7 @@ def ecs_state_from_numpy(fields, device="cpu", rng_key=None):
         return to(x)
 
     hs = _get(fields, "hmc_state")
-    adapt = _get(hs, "adapt_state")
-    adapt_t = core.AdaptPanel(*(to(_get(adapt, f)) for f in core.AdaptPanel._fields))
+    adapt_t = core.adapt_from_numpy(_get(hs, "adapt_state"), device)
     z = tree(dict(_get(fields, "z")))
     hmc_state = HMCState(
         int(_get(hs, "i")),

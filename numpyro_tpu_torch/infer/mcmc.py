@@ -244,11 +244,7 @@ class MCMC:
         seed, from which the run makes a generator on its device, or a
         ``torch.Generator`` on that device."""
         rng_key = self._generator(rng_key)
-        # f32 matmuls must not round through TF32 (the counterpart of the JAX
-        # driver's matmul_precision="highest": truncated products bias the
-        # gradients enough to distort the posterior)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        infer_util.pin_full_f32_matmul()
         t0 = time.perf_counter()
         init_state = self._warmup_state
         if init_state is not None:

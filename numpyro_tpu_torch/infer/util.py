@@ -4,8 +4,9 @@ that the covtype slice needs: ``log_density``, ``potential_energy``,
 
 The potential of a model is written for ONE chain, as in the JAX package;
 :func:`batched_value_and_grad` maps it over the leading chain axis with
-``torch.func.vmap(torch.func.grad_and_value(...))``.  The trace built under
-``vmap`` never leaves the potential: only the summed log density does.
+``torch.func.vmap(torch.func.grad_and_value(...))`` (``jacfwd`` in place of
+``grad_and_value`` in forward mode).  The trace built under ``vmap`` never
+leaves the potential: only the summed log density does.
 """
 
 from __future__ import annotations
@@ -18,13 +19,14 @@ import torch
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
-from numpyro_tpu_torch.distributions.util import sum_rightmost
+from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
 from numpyro_tpu_torch.primitives import factor
-from numpyro_tpu_torch.util import identity
+from numpyro_tpu_torch.util import identity, tree_map
 
 __all__ = [
     "batched_value_and_grad",
+    "pin_full_f32_matmul",
     "find_valid_initial_params",
     "get_potential_fn",
     "initialize_model",
@@ -44,19 +46,39 @@ ParamInfo = namedtuple("ParamInfo", ["z", "potential_energy", "z_grad"])
 potential_evals = 0
 
 
-def batched_value_and_grad(fn):
+def batched_value_and_grad(fn, forward_mode=False):
     """``fn`` maps one chain's params (and one chain's slice of any further
     pytrees) to a scalar; the result maps chain-batched pytrees to
-    ``(values (C,), grads like the first)``."""
-    vg = torch.func.vmap(torch.func.grad_and_value(fn))
+    ``(values (C,), grads like the first)``.
+
+    ``forward_mode`` takes the gradient with ``jacfwd`` (one tangent per
+    parameter, pushed forward together under ``vmap``), whose auxiliary output
+    carries the value, as the JAX package's ``jacfwd`` branch does."""
+    if forward_mode:
+        vg = torch.func.vmap(torch.func.jacfwd(lambda *a: (fn(*a),) * 2, has_aux=True))
+    else:
+        vg = torch.func.vmap(torch.func.grad_and_value(fn))
 
     def call(batched, *per_chain):
         global potential_evals
         potential_evals += 1
         grad, value = vg(batched, *per_chain)  # torch.func returns (grad, value)
+        if forward_mode:
+            # PyTorch pushes the tangent of a 0-d tensor through an op with a
+            # Python number in float64: each gradient takes its site's dtype
+            grad = tree_map(lambda g, p: g.to(p.dtype), grad, batched)
         return value, grad
 
     return call
+
+
+def pin_full_f32_matmul():
+    """Keep f32 matmuls out of TF32, the counterpart of the JAX ``MCMC``'s
+    ``matmul_precision="highest"``: truncated products bias the gradients
+    enough to distort the posterior, and a dense mass matrix multiplies the
+    momentum at every leapfrog."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _site_log_prob(site, *, check_shapes=False):
@@ -64,7 +86,7 @@ def _site_log_prob(site, *, check_shapes=False):
     if check_shapes:
         fn_shape = tuple(site["fn"].shape())
         try:
-            torch.broadcast_shapes(tuple(value.shape), fn_shape)
+            broadcast_shape(tuple(value.shape), fn_shape)
         except RuntimeError:
             raise ValueError(
                 f"Model and guide shapes disagree at site: "
@@ -153,6 +175,7 @@ def find_valid_initial_params(
     model_args=(),
     model_kwargs=None,
     prototype_params=None,
+    forward_mode_differentiation=False,
 ):
     """Draw initial latents for ``num_chains`` chains until the potential and
     its gradient are finite (at most 100 tries per chain).
@@ -182,7 +205,8 @@ def find_valid_initial_params(
         }
 
     score = batched_value_and_grad(
-        partial(potential_energy, model, model_args, model_kwargs)
+        partial(potential_energy, model, model_args, model_kwargs),
+        forward_mode=forward_mode_differentiation,
     )
     params = draw()
     pe, grad = score(params)
@@ -256,6 +280,7 @@ def initialize_model(
     dynamic_args=False,
     model_args=(),
     model_kwargs=None,
+    forward_mode_differentiation=False,
 ):
     """Trace the model, build the potential/postprocess closures and find
     valid initial params for ``num_chains`` chains.  ``rng_key`` is a
@@ -293,6 +318,7 @@ def initialize_model(
         model_args=model_args,
         model_kwargs=model_kwargs,
         prototype_params=prototype_params,
+        forward_mode_differentiation=forward_mode_differentiation,
     )
     if not bool(is_valid.all()):
         raise RuntimeError(

@@ -21,6 +21,7 @@ from collections import namedtuple
 import torch
 
 import numpyro_tpu_torch.distributions as dist
+from numpyro_tpu_torch.distributions.util import broadcast_shape
 from numpyro_tpu_torch.util import identity
 
 __all__ = [
@@ -251,7 +252,7 @@ class plate(Messenger):
             fn_shape = sample_shape + fn_shape
             msg["kwargs"]["sample_shape"] = ()
         head = max(rank - len(fn_shape), 0)
-        tail = torch.broadcast_shapes(tuple(plate_shape[head:]), fn_shape)
+        tail = broadcast_shape(tuple(plate_shape[head:]), fn_shape)
         msg["fn"] = msg["fn"].expand(tuple(plate_shape[:head]) + tuple(tail))
 
     def process_message(self, msg):

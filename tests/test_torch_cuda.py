@@ -174,3 +174,90 @@ def test_generator_of_another_device_raises_on_gpu(cuda):
     mcmc = MCMC(NUTS(_ecs_model), num_warmup=1, num_samples=1, num_chains=2)
     with pytest.raises(ValueError, match="lives on cpu and the run on cuda"):
         mcmc.run(torch.Generator().manual_seed(0))
+
+
+# ---------------------------------------------------------------------------
+# Dense and structured mass matrices on the card
+
+def _mass_problem(structure, c=64):
+    """Sites "a" (3,), "b" () and "w" (40,): the blocks of ``structure``, a
+    random exposed mass (SPD dense blocks, positive diagonals) and a
+    ``(C, K, D)`` panel, all on the CPU."""
+    from numpyro_tpu_torch.infer import hmc_core as core
+
+    layout = core.FlatLayout({"a": torch.zeros(3), "b": torch.zeros(()), "w": torch.zeros(40)})
+    blocks = core.build_mass_blocks(layout, structure)
+    gen = torch.Generator().manual_seed(0)
+    parts = []
+    for idx, dense in zip(blocks.indices, blocks.dense):
+        b = len(idx)
+        if dense:
+            a = torch.randn((c, b, b), generator=gen)
+            parts.append(a @ a.transpose(1, 2) / b + 0.5 * torch.eye(b))
+        else:
+            parts.append(torch.rand((c, b), generator=gen) + 0.5)
+    r = torch.randn((c, 4, layout.dim), generator=gen)
+    return core, blocks, core._expose(blocks, parts), r
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: v.to(device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("structure", [True, [("w", "a")]], ids=["dense", "structured"])
+def test_dense_and_structured_mass_on_gpu_match_the_cpu(cuda, structure):
+    """``apply_inv_mass`` on ``(C, K, D)`` panels, ``draw_momentum`` and the
+    precision factors of every dense block, on the card against the same calls
+    on the CPU (rtol 1e-5; the factors of 40 x 40 blocks to atol 1e-4)."""
+    core, blocks, inv, r = _mass_problem(structure)
+    got = core.apply_inv_mass(blocks, _to(inv, cuda), r.to(cuda))
+    torch.testing.assert_close(got.cpu(), core.apply_inv_mass(blocks, inv, r), rtol=1e-5,
+                               atol=1e-5)
+    eps = r[:, 0]
+    torch.testing.assert_close(core.draw_momentum(blocks, _to(inv, cuda), eps.to(cuda)).cpu(),
+                               core.draw_momentum(blocks, inv, eps), rtol=1e-5, atol=1e-5)
+    for m in core._as_parts(blocks, inv):
+        if m.dim() == 3:
+            for g, w in zip(core._precision_factors(m.to(cuda)), core._precision_factors(m)):
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_precision_factors_make_no_host_sync(cuda):
+    """``cholesky_ex`` reports a matrix that is not positive definite on the
+    device: the factors come back NaN there, with no synchronization."""
+    from numpyro_tpu_torch.infer import hmc_core as core
+
+    _, _, inv, _ = _mass_problem(True, c=8)
+    cov = inv.to(cuda)
+    cov[3] = -cov[3]  # not positive definite
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sqrt, sqrt_inv = core._precision_factors(cov)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isnan(sqrt[3]).all()) and bool(torch.isfinite(sqrt[:3]).all())
+    assert bool(torch.isfinite(sqrt_inv[4:]).all())
+
+
+@pytest.mark.requires_cuda
+def test_dense_mass_nuts_on_a_correlated_gaussian_on_gpu(cuda):
+    """The target of tests/infer/test_mcmc.py:36-58 under a dense mass with
+    64 chains on the card: means within 0.3, stds within 15%."""
+    a = np.random.RandomState(0).randn(5, 5)
+    cov = a @ a.T + 0.1 * np.eye(5)
+    prec = torch.from_numpy(np.linalg.inv(cov).astype(np.float32)).to(cuda)
+    mcmc = MCMC(NUTS(potential_fn=lambda z: 0.5 * z["z"] @ prec @ z["z"], dense_mass=True,
+                     max_tree_depth=(6, 10)), num_warmup=150, num_samples=100, num_chains=64)
+    mcmc.run(0, init_params={"z": torch.zeros((64, 5), device=cuda)})
+    draws = mcmc.get_samples()["z"]
+    assert draws.device.type == "cuda"
+    inv = mcmc.last_state.adapt_state.inverse_mass_matrix
+    assert inv.shape == (64, 5, 5) and inv.device.type == "cuda"
+    draws = draws.double().cpu().numpy()
+    np.testing.assert_allclose(draws.mean(0), np.zeros(5), atol=0.3)
+    np.testing.assert_allclose(draws.std(0), np.sqrt(np.diag(cov)), rtol=0.15)

@@ -185,15 +185,16 @@ def test_stan_windows_match_jax():
 def test_welford_step_and_finalize_match_jax():
     rng = np.random.default_rng(6)
     blocks = jc.build_mass_blocks(jc.FlatLayout({"w": jnp.zeros(D)}), False)
+    t_blocks = core.build_mass_blocks(core.FlatLayout({"w": torch.zeros(D)}), False)
     wf_j = jc._welford_init(blocks, C, jnp.float32)
-    wf_t = core._welford_init(torch.zeros((C, D)))
+    wf_t = core._welford_init(t_blocks, C, torch.zeros(()))
     for _ in range(7):
         z = rng.standard_normal((C, D)).astype(np.float32)
         wf_j = jc._welford_update(blocks, wf_j, jnp.asarray(z))
-        wf_t = core._welford_update(wf_t, torch.from_numpy(z))
+        wf_t = core._welford_update(t_blocks, wf_t, torch.from_numpy(z))
     for a, b in zip(wf_t, wf_j):
         _close(a, b, rtol=1e-6)
-    for a, b in zip(core._welford_finalize(wf_t), jc._welford_finalize(blocks, wf_j)):
+    for a, b in zip(core._welford_finalize(t_blocks, wf_t), jc._welford_finalize(blocks, wf_j)):
         _close(a, b, rtol=1e-6)
 
 

@@ -301,9 +301,3 @@ def test_unported_options_of_the_factory_raise():
         thmc.hmc(potential_fn=lambda z: 0.0, algo="SA")
     with pytest.raises(ValueError):
         thmc.hmc()
-    init, _ = thmc.hmc(potential_fn=lambda z: (z["x"] ** 2).sum())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init({"x": torch.zeros(2)}, 1, rng_key=torch.Generator(), dense_mass=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init({"x": torch.zeros(2)}, 1, rng_key=torch.Generator(),
-             forward_mode_differentiation=True)

@@ -115,8 +115,6 @@ def test_effective_sample_size_matches_jax():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method="parallel")
-    with pytest.raises(NotImplementedError):
-        NUTS(torch_model, dense_mass=True)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="shows the fault on a machine without CUDA")
