@@ -15,8 +15,8 @@ Phases (each prints on its own lines; any failure exits non-zero):
                the split kernel is timed at 64, 256 and 1,024 chains.
 4. main     -- with every launch count set to 0: MCMC(NUTS) with 256
                vectorized chains on the covtype model in each precision mode.
-               Split mode (the bench's) runs 100 + 50 transitions, f32 mode
-               (``prepare_glm_data``'s default) 50 + 25, and both must
+               Split mode (the bench's) runs 100 + 10 transitions, f32 mode
+               (``prepare_glm_data``'s default) 50 + 10, and both must
                recover the generating coefficients to 0.05.  bf16 mode runs a
                short depth-6 chain whose draws must be finite (its quantized
                ``w`` stalls NUTS at this data concentration, so it has no
@@ -30,11 +30,11 @@ Phases (each prints on its own lines; any failure exits non-zero):
                against the plain version.
 6. ecs      -- HMCECS with the Taylor proxy on the same data (the bench's
                second leg): 1,024 chains, subsample 1,000 of 581,012 rows, 100
-               blocks, 100 + 100 transitions at tree depth 6, on the default
+               blocks, 100 + 10 transitions at tree depth 5, on the default
                device, with the modes that ``auto`` resolves; the posterior means must recover
                the generating coefficients to 0.1.  Then the other modes by
                name (``bf16`` and ``lean`` panels, ``recompute`` proxy) at 256
-               chains, 20 + 5, depth 6, gate 0.2.  This path is plain PyTorch
+               chains, 20 + 5, depth 5, gate 0.2.  This path is plain PyTorch
                (gathers, small products, nested JVPs) and launches none of
                the hand-written kernels.
 7. dense    -- dense and structured mass matrices and forward-mode gradients,
@@ -52,11 +52,30 @@ Phases (each prints on its own lines; any failure exits non-zero):
                split mode under a dense mass pooled over chains, with the 0.05
                gate, launching ``glm_split`` once per evaluation (counts set to
                0 just before, read just after).
+8. svi      -- SVI on the default device, each leg with the counts set to 0
+               just before its ``init`` and read just after its last step:
+               (a) the MAP of the covtype model by ``AutoDelta`` with
+               ``Trace_ELBO`` and ``Adam(0.01)``, 500 steps, split mode; (b)
+               ``AutoDiagonalNormal`` with 16 particles, 1,500 steps; (c)
+               ``AutoMultivariateNormal`` with 16 particles, 1,000 steps; each
+               must recover the generating coefficients to 0.05 and launch
+               ``glm_split`` once per step (all particles in one launch) beside
+               its init traces.  (d) the HMCECS example's recipe: ``AutoDelta``
+               on the subsampled model, 500 steps, error under 0.1 and no GLM
+               launch; phase 6's ``lean`` run anchors its Taylor proxy at this
+               MAP, so phase 8 runs before phase 6.  (e) the horseshoe of phase
+               7 under ``AutoNormal`` with ``TraceMeanField_ELBO(8)``, 3,000
+               steps, the median of ``beta`` within ``HS_SVI_GATE``.  One
+               ``Trace_ELBO`` gradient at (b)'s params goes through
+               ``glm_split`` and through the plain version on the same draws
+               and must agree within ``glm.kernel_tolerances``; ``glm_split``
+               is timed at 1 and 16 chains.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -69,10 +88,12 @@ import torch
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
-from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS
+from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS, SVI, Trace_ELBO, TraceMeanField_ELBO
+from numpyro_tpu_torch.infer import autoguide
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
 from numpyro_tpu_torch.ops import _cuda, glm
+from numpyro_tpu_torch.optim import Adam
 
 N, D, CHAINS = 581_012, 55, 256
 # tolerances of kernel against plain version (their reasons stand with
@@ -90,11 +111,14 @@ KERNELS = {
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 RAGGED = (70_000, 70, 100)  # n, d, chains: two d-blocks, a partial chain tile
 SWEEP_CHAINS = (64, 256, 1024)
-# main-path runs: kernel -> (warmup, samples, max_tree_depth, coefficient gate)
+# main-path runs: kernel -> (warmup, samples, max_tree_depth, coefficient gate).
+# The whole script must end within 1,200 s on the slowest host it meets, whose
+# host-bound legs run up to 2.5 times as long as on the fastest: draws are cut
+# (split 50 -> 30 -> 10, f32 25 -> 10, bf16 20 -> 10), never warmup
 RUNS = {
-    "glm_split": (100, 50, (6, 10), 0.05),
-    "glm_fused_f32": (50, 25, (6, 10), 0.05),
-    "glm_fused_bf16": (20, 20, 6, None),
+    "glm_split": (100, 10, (6, 10), 0.05),
+    "glm_fused_f32": (50, 10, (6, 10), 0.05),
+    "glm_fused_bf16": (20, 10, 6, None),
 }
 PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
 # the HMCECS leg: chains, warmup, samples, max_tree_depth, coefficient gate.
@@ -102,11 +126,15 @@ PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
 # transition, and a potential evaluation costs ~25 ms of host time: with the
 # bench's sampling cap of 10 a few chains with a small adapted step size grow
 # trees of 500-1,023 leapfrogs and one transition takes 23 s (NVIDIA H100 80GB
-# HBM3, 700.00 W), so the main leg caps the depth at 6 in sampling as in warmup.
+# HBM3, 700.00 W), so the main leg caps the depth in sampling as in warmup.
+# Every transition fills the capped tree (61.7 of 64 evaluations at depth 6),
+# so the cap sets the leg's time: 5 since the script outgrew its time limit,
+# and the draws are cut from 100 to 50 to 10 (10,240 draws).
 SUBSAMPLE, NUM_BLOCKS = 1000, 100
-ECS_MAIN = (1024, 100, 100, 6, 0.1)
-# the other modes by name, their draws cut from 20 to 5 to make room for phase 7
-ECS_MODES = (256, 20, 5, 6, 0.2)
+ECS_MAIN = (1024, 100, 10, 5, 0.1)
+# the other modes by name, their draws cut from 20 to 5 to make room for phase
+# 7, their depth from 6 to 5 as the main leg's
+ECS_MODES = (256, 20, 5, 5, 0.2)
 # phase 7.  Every tick costs 4-12 ms of host time, and warmup waits at every
 # transition for the deepest tree of all chains, so the legs cap the warmup
 # depth low, keep their warmup length and take few draws.
@@ -120,23 +148,43 @@ HS_DATA = (100, 20, 3)
 # examples/horseshoe_regression.py` on the CPU: 1 chain, 500 + 500)
 HS_GATE = 0.17
 # chains, warmup, samples, max_tree_depth, extra NUTS options.  A draw costs
-# ~210 leapfrogs after warmup (the funnel of tau and lambda).  The 42 x 42
-# estimate of (b) is pooled over the chains: with per-chain estimates the JAX
-# package's run at 256 chains, 200 + 200 leaves R-hat of beta at 1.096 (1.039
-# pooled; `JAX_PLATFORMS=cpu python3 -m dev.horseshoe_reference`).
+# ~210 leapfrogs after warmup (the funnel of tau and lambda), so (b) keeps 10
+# draws and (c) caps its sampling depth at 6 (it has no R-hat gate).  The
+# 42 x 42 estimate of (b) is pooled over the chains: with per-chain estimates
+# the JAX package's run at 256 chains, 200 + 200 leaves R-hat of beta at 1.096
+# (1.039 pooled; `JAX_PLATFORMS=cpu python3 -m dev.horseshoe_reference`).
 HS_RUNS = {
-    "dense": (256, 200, 30, (5, 10), {"dense_mass": True, "pooled_adaptation": True}),
-    "structured": (64, 100, 5, (4, 10), {"dense_mass": [("beta", "lambda")]}),
-    "forward": (64, 10, 5, 6, {"dense_mass": True, "forward_mode_differentiation": True}),
+    "dense": (256, 200, 10, (5, 10), {"dense_mass": True, "pooled_adaptation": True}),
+    "structured": (64, 100, 5, (4, 6), {"dense_mass": [("beta", "lambda")]}),
+    "forward": (64, 10, 5, 5, {"dense_mass": True, "forward_mode_differentiation": True}),
 }
-# R-hat of beta after 30 draws: 1 + max(2 (r - 1), r - 1 + 0.05), the rule of
-# HS_GATE, where r = 1.111 is what the JAX package's own run of leg (b) gives
-# (`JAX_PLATFORMS=cpu python3 -m dev.horseshoe_reference 256 200 30 5 pooled`;
-# with warmup depth 6, 1.054 at 60 draws and 1.039 at 200, more than the run's
-# time allows)
-HS_RHAT_GATE = 1.222
+# R-hat of beta after 10 draws: 1 + max(2 (r - 1), r - 1 + 0.05), the rule of
+# HS_GATE, where r = 1.2115 is what the JAX package's own run of leg (b) gives
+# (`JAX_PLATFORMS=cpu python3 -m dev.horseshoe_reference 256 200 10 5 pooled`;
+# 1.111 at 30 draws, and with warmup depth 6, 1.054 at 60 and 1.039 at 200,
+# more than the run's time allows)
+HS_RHAT_GATE = 1.423
 # (e) covtype, split mode, dense mass pooled over chains
 DENSE_COVTYPE = (100, 20, (6, 10), 0.05)
+# phase 8, SVI with Adam(0.01).  Covtype legs: guide, particles, steps, and the
+# model traces of init that launch the kernel: the guide's prototype trace, its
+# init search (for init_to_median a trace under the strategy and the potential;
+# init_to_uniform draws without a trace) and SVI.init's trace of the model
+SVI_LEGS = {
+    "8a": ("AutoDelta", 1, 500, 4),
+    "8b": ("AutoDiagonalNormal", 16, 1500, 3),
+    "8c": ("AutoMultivariateNormal", 16, 1000, 3),
+}
+SVI_GATE = 0.05
+# (d) AutoDelta on the subsampled model: steps, gate (the ECS gate)
+SVI_ECS = (500, 0.1)
+# (e) the horseshoe under AutoNormal and TraceMeanField_ELBO: particles, steps.
+# The gate is max(2e, e + 0.05), the rule of HS_GATE, for e = 0.0797, what the
+# JAX package's own fit of the same guide, ELBO, optimizer and length gives
+# (`JAX_PLATFORMS=cpu python3 -m dev.svi_horseshoe_reference`; 0.0786-0.0850
+# over five seeds)
+HS_SVI = (8, 3000)
+HS_SVI_GATE = 0.159
 
 
 _T0 = time.perf_counter()
@@ -294,11 +342,13 @@ def phase_kernels(X, y, w_chains):
     return results
 
 
-def model(data):
+def model(data, loglik=glm.bernoulli_logits_loglik):
+    """The covtype model; ``loglik`` is the plain version's op only in the
+    check of an ELBO gradient against the plain version (phase 8)."""
     w = npt.sample(
         "w", dist.Normal(torch.zeros(D, device=data.device), 1.0).to_event(1)
     )
-    npt.factor("lik", glm.bernoulli_logits_loglik(w, data))
+    npt.factor("lik", loglik(w, data))
 
 
 def phase_main(X, y, true_w, name, run=None, tag="main", **nuts_kw):
@@ -322,6 +372,8 @@ def phase_main(X, y, true_w, name, run=None, tag="main", **nuts_kw):
     if draws.shape != (CHAINS, samples, D) or not torch.isfinite(draws).all():
         raise SystemExit(f"{name}: bad draws, shape {tuple(draws.shape)}")
     w_err = (draws.mean((0, 1)).cpu() - torch.from_numpy(true_w)).abs().max().item()
+    flat = draws.reshape(-1, D).double()
+    stats["posterior"] = {"mean": flat.mean(0), "std": flat.std(0), "cov": torch.cov(flat.T)}
     ess = effective_sample_size(draws)
     leapfrogs = int(mcmc.get_extra_fields()["num_steps"].sum().item())
     stats["ms_per_eval"] = (stats["warmup_s"] + stats["sample_s"]) / (
@@ -384,14 +436,15 @@ def model_ecs(X, y):
         npt.sample("obs", dist.Bernoulli(logits=xb @ w), obs=yb)
 
 
-def phase_ecs(X, y, true_w, config, panel_mode="auto", proxy_mode="auto", expect=None):
-    """One MCMC(HMCECS(NUTS)) run with the Taylor proxy at the generating
-    coefficients; returns its stats."""
+def phase_ecs(X, y, true_w, config, panel_mode="auto", proxy_mode="auto", expect=None,
+              anchor=None):
+    """One MCMC(HMCECS(NUTS)) run with the Taylor proxy at ``anchor`` (the
+    generating coefficients by default); returns its stats."""
     chains, warmup, samples, depth, gate = config
     kernel = HMCECS(
         NUTS(model_ecs, max_tree_depth=depth),
         num_blocks=NUM_BLOCKS,
-        proxy=HMCECS.taylor_proxy({"w": true_w}, mode=proxy_mode),
+        proxy=HMCECS.taylor_proxy({"w": true_w if anchor is None else anchor}, mode=proxy_mode),
         panel_mode=panel_mode,
     )
     mcmc = MCMC(kernel, num_warmup=warmup, num_samples=samples, num_chains=chains,
@@ -400,7 +453,8 @@ def phase_ecs(X, y, true_w, config, panel_mode="auto", proxy_mode="auto", expect
     launches0 = dict(glm.launch_counts)
     mcmc.run(1, X, y, extra_fields=("accept_prob",))
     stats = dict(mcmc.last_run_stats)
-    tag = f"[ecs] {chains} chains, panel_mode={panel_mode}, proxy mode={proxy_mode}"
+    tag = (f"[ecs] {chains} chains, panel_mode={panel_mode}, proxy mode={proxy_mode}"
+           + ("" if anchor is None else ", proxy at phase 8d's MAP"))
     draws = mcmc.get_samples(group_by_chain=True)["w"]
     if draws.device.type != "cuda":
         raise SystemExit(f"{tag}: the run was not on the GPU")
@@ -615,6 +669,145 @@ def phase_dense(X, y, true_w):
     return stats, dict(glm.launch_counts)
 
 
+def run_svi(tag, model_fn, guide, loss, steps, *args):
+    """``SVI.init`` and ``steps`` updates on the default device, with every
+    launch count set to 0 just before; returns the result, the launches of
+    init and of the steps, and the host's ms per step."""
+    svi = SVI(model_fn, guide, Adam(0.01), loss)
+    glm.reset_launch_counts()
+    state = svi.init(8, *args)
+    torch.cuda.synchronize()
+    init_launches = dict(glm.launch_counts)
+    t0 = time.perf_counter()
+    res = svi.run(None, steps, *args, init_state=state)
+    losses = res.losses.cpu()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {k: v - init_launches[k] for k, v in glm.launch_counts.items()}
+    if res.losses.device.type != "cuda" or not torch.isfinite(losses).all():
+        raise SystemExit(f"{tag}: the losses are not finite values on the GPU")
+    log(f"[svi] {tag}: {steps} steps, {ms:.2f} ms per step on the host's clock; loss mean of "
+        f"the first 100 {losses[:100].mean().item():.2f}, of the last 100 "
+        f"{losses[-100:].mean().item():.2f}; launches at init {init_launches}, in the "
+        f"steps {launches}")
+    return svi, res, losses, init_launches, launches, ms
+
+
+def phase_svi_covtype(X, y, true_w, leg, posterior):
+    """8a-8c: one guide on the covtype model in split mode; returns the SVI
+    object, its result, the leg's launches and its ms per step."""
+    name, particles, steps, init_traces = SVI_LEGS[leg]
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    guide = getattr(autoguide, name)(model)
+    svi, res, losses, init_l, step_l, ms = run_svi(
+        f"{leg} {name}, {particles} particle(s)", model, guide,
+        Trace_ELBO(num_particles=particles), steps, data)
+    loc = guide.median(res.params)["w"]
+    err = (loc.cpu() - torch.from_numpy(true_w)).abs().max().item()
+    off_mean = (loc.double().cpu() - posterior["mean"].cpu()).abs().max().item()
+    log(f"[svi] {leg}: max |loc - true_w| {err:.4f} (gate {SVI_GATE}); max |loc - phase 4's "
+        f"posterior mean| {off_mean:.4f}")
+    if init_l["glm_split"] != init_traces or step_l["glm_split"] != steps or any(
+            v for k, v in {**init_l, **step_l}.items() if k != "glm_split"):
+        raise SystemExit(f"{leg}: launched {init_l} at init and {step_l} in {steps} steps, "
+                         f"expected {init_traces} and {steps} glm_split launches")
+    if not err < SVI_GATE:
+        raise SystemExit(f"{leg}: the guide's location is off by {err:.4f} (>= {SVI_GATE})")
+    if leg == "8b":
+        if not losses[-100:].mean() < losses[:100].mean():
+            raise SystemExit("8b: the loss did not fall")
+        ratio = res.params["auto_scale"].double().cpu() / posterior["std"].cpu()
+        log(f"[svi] 8b: guide scale / phase 4's posterior std: median "
+            f"{ratio.median().item():.3f}, min {ratio.min().item():.3f}, max "
+            f"{ratio.max().item():.3f}")
+    if leg == "8c":
+        L = res.params["auto_scale_tril"].double().cpu()
+        cov, ref = L @ L.T, posterior["cov"].cpu()
+        frob = (torch.linalg.norm(cov - ref) / torch.linalg.norm(ref)).item()
+        log(f"[svi] 8c: guide covariance off phase 4's sample covariance by {frob:.4f} "
+            f"(relative Frobenius)")
+    return svi, res, data, step_l["glm_split"] + init_l["glm_split"], ms
+
+
+def check_elbo_gradient(svi, res, data):
+    """One Trace_ELBO gradient at 8b's params through ``glm_split`` and
+    through the plain version, on the same draws (two generators from one
+    seed); returns the gradient's max abs error."""
+    u = svi.optim.get_params(res.state.optim_state)
+    loss = Trace_ELBO(num_particles=SVI_LEGS["8b"][1])
+    out = {}
+    model_plain = functools.partial(model, loglik=glm.plain_bernoulli_logits_loglik)
+    for tag, model_fn in (("kernel", model), ("plain", model_plain)):
+        def fn(unconstrained, model_fn=model_fn):
+            gen = torch.Generator(device=data.device).manual_seed(21)
+            return loss.loss(gen, svi.constrain_fn(unconstrained), model_fn, svi.guide, data)
+
+        out[tag] = torch.func.grad_and_value(fn)(u)
+    torch.cuda.synchronize()
+    (g_k, l_k), (g_p, l_p) = out["kernel"], out["plain"]
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", N)
+    l_rel = (abs(l_k - l_p) / abs(l_p)).item()
+    errs = {k: (g_k[k] - g_p[k]).abs().max().item() for k in g_k}
+    need = max((((g_k[k] - g_p[k]).abs() - g_rtol * g_p[k].abs()).max().item() for k in g_k))
+    log(f"[svi] ELBO gradient at 8b's params, glm_split against the plain version: loss rel "
+        f"err {l_rel:.3e} (rtol {ll_rtol}); gradient max abs err {errs} on components up to "
+        f"{max(g_p[k].abs().max().item() for k in g_p):.3e} (rtol {g_rtol}, atol {g_atol:.3e}; "
+        f"the least atol that passes: {need:.3e})")
+    if not (l_rel <= ll_rtol and need <= g_atol):
+        raise SystemExit("the ELBO gradient through glm_split disagrees with the plain version")
+    return max(errs.values())
+
+
+def phase_svi(X, y, true_w, posterior, kernels):
+    """Phase 8; returns the glm_split launches of its legs and 8d's MAP."""
+    launches, summary = 0, {}
+    for leg in SVI_LEGS:
+        svi, res, data, n, ms = phase_svi_covtype(X, y, true_w, leg, posterior)
+        launches += n
+        summary[leg] = ms
+        if leg == "8b":
+            g_err = check_elbo_gradient(svi, res, data)
+            d_pad, n_pad = data.x_t.shape
+            w = res.params["auto_loc"].reshape(1, D) + 0.01 * torch.randn(
+                (16, D), device=X.device, generator=torch.Generator(X.device).manual_seed(4))
+            for b in (1, 16):
+                t = cuda_ms(lambda: glm.glm_value_and_grad(w[:b].contiguous(), data))
+                bound, _ = bound_ms("split", b, d_pad, n_pad)
+                log(f"[svi] glm_split at {b} chain(s): {t:.3f} ms (bound {bound:.4f} ms, "
+                    f"share {bound / t:.3f})")
+                kernels["glm_split"][f"ms_at_{b}_chains"] = t
+            kernels["glm_split"]["svi_elbo_grad_max_abs_err"] = g_err
+        del data
+
+    steps, gate = SVI_ECS
+    guide = autoguide.AutoDelta(model_ecs)
+    _, res, _, init_l, step_l, ms = run_svi("8d AutoDelta, subsampled model", model_ecs, guide,
+                                             Trace_ELBO(), steps, X, y)
+    summary["8d"] = ms
+    w_map = guide.median(res.params)["w"].cpu().numpy()
+    err = np.abs(w_map - true_w).max()
+    log(f"[svi] 8d: max |MAP - true_w| {err:.4f} (gate {gate})")
+    if any(init_l.values()) or any(step_l.values()):
+        raise SystemExit("8d: the subsampled model launched a GLM kernel")
+    if not err < gate:
+        raise SystemExit(f"8d: MAP off by {err:.4f} (>= {gate})")
+
+    particles, steps = HS_SVI
+    Xh, yh, beta_true = horseshoe_data(X.device)
+    guide = autoguide.AutoNormal(model_horseshoe)
+    _, res, losses, _, _, ms = run_svi(
+        f"8e horseshoe, AutoNormal, TraceMeanField_ELBO({particles})", model_horseshoe, guide,
+        TraceMeanField_ELBO(num_particles=particles), steps, Xh, yh)
+    summary["8e"] = ms
+    med = guide.median(res.params)
+    err = np.abs(med["beta"].double().cpu().numpy() - beta_true).max()
+    log(f"[svi] 8e: max |median(beta) - beta_true| {err:.4f} (gate {HS_SVI_GATE}); median "
+        f"tau {med['tau'].item():.4f}, sigma {med['sigma'].item():.4f}")
+    if not err < HS_SVI_GATE:
+        raise SystemExit(f"8e: median of beta off by {err:.4f} (>= {HS_SVI_GATE})")
+    log(f"[svi] ms per step: {summary}")
+    return launches, w_map
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -651,9 +844,14 @@ def main():
         f"warmup+sampling {share_all:.3f} (launches x {split_ms:.3f} ms)")
     phase_fused(X, y)
 
+    t8 = time.perf_counter()
+    svi_launches, w_map = phase_svi(X, y, true_w, split["posterior"], kernels)
+    log(f"[svi] phase 8: {time.perf_counter() - t8:.1f} s, glm_split launches {svi_launches}")
+
     phase_ecs(X, y, true_w, ECS_MAIN, expect={"proxy": "stats", "panel": "carry"})
     for panel_mode, proxy_mode in (("bf16", "stats"), ("lean", "stats"), ("carry", "recompute")):
-        phase_ecs(X, y, true_w, ECS_MODES, panel_mode, proxy_mode)
+        phase_ecs(X, y, true_w, ECS_MODES, panel_mode, proxy_mode,
+                  anchor=w_map if panel_mode == "lean" else None)
 
     dense, dense_counts = phase_dense(X, y, true_w)
     log(f"[dense] 7e covtype, split mode: {dense['ms_per_eval']:.2f} ms per evaluation under "
@@ -661,7 +859,8 @@ def main():
         f"glm_split launches {dense_counts['glm_split']} here, {counts['glm_split']} in phase 4")
 
     for name, entry in kernels.items():
-        entry["launches"] = counts[name] + dense_counts[name]
+        entry["launches"] = counts[name] + dense_counts[name] + (
+            svi_launches if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
     if dense_counts["glm_split"] == 0:

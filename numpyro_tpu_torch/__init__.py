@@ -1,6 +1,6 @@
 """numpyro_tpu_torch -- the PyTorch and CUDA port of numpyro_tpu.
 
-The model DSL, distributions, NUTS engine and MCMC driver of the JAX
+The model DSL, distributions, NUTS engine, MCMC driver and SVI of the JAX
 package, ported slice by slice for NVIDIA GPUs (see ROADMAP.md for what is
 ported).  Every kernel that the JAX package wrote in Pallas for the TPU is a
 CUDA kernel written by hand for Hopper (``numpyro_tpu_torch/csrc``), built
@@ -9,9 +9,9 @@ on first use.  The package imports ``torch`` and never ``jax``.
 
 from numpyro_tpu_torch import distributions, handlers
 from numpyro_tpu_torch.primitives import (
-    deterministic, factor, get_mask, plate, prng_key, sample, subsample,
+    deterministic, factor, get_mask, mutable, param, plate, prng_key, sample, subsample,
 )
-from numpyro_tpu_torch import diagnostics, infer, ops
+from numpyro_tpu_torch import diagnostics, infer, ops, optim
 
 __version__ = "0.1.0"
 
@@ -24,7 +24,10 @@ __all__ = [
     "get_mask",
     "handlers",
     "infer",
+    "mutable",
     "ops",
+    "optim",
+    "param",
     "plate",
     "prng_key",
     "sample",

@@ -3,17 +3,21 @@ from numpyro_tpu_torch.distributions.continuous import (
     Cauchy,
     HalfCauchy,
     HalfNormal,
+    MultivariateNormal,
     Normal,
     Uniform,
 )
 from numpyro_tpu_torch.distributions.discrete import Bernoulli, BernoulliLogits, BernoulliProbs
 from numpyro_tpu_torch.distributions.distribution import (
+    Delta,
     Distribution,
     ExpandedDistribution,
     Independent,
     MaskedDistribution,
+    TransformedDistribution,
     Unit,
 )
+from numpyro_tpu_torch.distributions.kl import kl_divergence
 from numpyro_tpu_torch.distributions.transforms import biject_to
 
 __all__ = [
@@ -21,15 +25,19 @@ __all__ = [
     "BernoulliLogits",
     "BernoulliProbs",
     "Cauchy",
+    "Delta",
     "Distribution",
     "ExpandedDistribution",
     "HalfCauchy",
     "HalfNormal",
     "Independent",
     "MaskedDistribution",
+    "MultivariateNormal",
     "Normal",
+    "TransformedDistribution",
     "Uniform",
     "Unit",
     "biject_to",
     "constraints",
+    "kl_divergence",
 ]

@@ -1,7 +1,9 @@
 """Constraints (port of the parts of ``numpyro_tpu/distributions/constraints.py``
-that the ported slices need: ``real``, ``boolean``, ``independent``,
-``interval``, ``greater_than``/``greater_than_eq`` and their instances
-``positive``/``nonnegative``).  Others are not ported yet; see ROADMAP.md."""
+that the ported slices need: ``real``, ``real_vector``, ``boolean``,
+``independent``, ``interval``, ``greater_than``/``greater_than_eq`` and their
+instances ``positive``/``nonnegative``, ``softplus_positive``,
+``lower_cholesky`` and ``scaled_unit_lower_cholesky``).  Others are not
+ported yet; see ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -9,7 +11,8 @@ import torch
 
 __all__ = [
     "Constraint", "boolean", "greater_than", "greater_than_eq", "independent", "interval",
-    "nonnegative", "positive", "real",
+    "lower_cholesky", "nonnegative", "positive", "real", "real_vector",
+    "scaled_unit_lower_cholesky", "softplus_positive",
 ]
 
 
@@ -123,6 +126,40 @@ class _GreaterThanEq(_GreaterThan):
         return f"greater_than_eq({self.lower_bound})"
 
 
+class _SoftplusPositive(_GreaterThan):
+    """The positive half-line, reached through softplus rather than exp."""
+
+    def __init__(self):
+        super().__init__(0.0)
+
+    def __eq__(self, other):
+        return type(self) is type(other)
+
+    def __hash__(self):
+        return hash(type(self))
+
+    def __repr__(self):
+        return "softplus_positive"
+
+
+class _LowerCholesky(Constraint):
+    """Lower-triangular square matrices with a positive diagonal."""
+
+    event_dim = 2
+
+    def __call__(self, x):
+        tril = (torch.tril(x) == x).flatten(-2).all(-1)
+        return tril & (torch.diagonal(x, dim1=-2, dim2=-1) > 0).all(-1)
+
+    def feasible_like(self, prototype):
+        eye = torch.eye(prototype.shape[-1], dtype=prototype.dtype, device=prototype.device)
+        return torch.broadcast_to(eye, prototype.shape)
+
+
+class _ScaledUnitLowerCholesky(_LowerCholesky):
+    pass
+
+
 class _Interval(Constraint):
     def __init__(self, lower_bound, upper_bound):
         self.lower_bound = lower_bound
@@ -145,6 +182,10 @@ greater_than = _GreaterThan
 greater_than_eq = _GreaterThanEq
 independent = _IndependentConstraint
 interval = _Interval
+lower_cholesky = _LowerCholesky()
 nonnegative = _GreaterThanEq(0.0)
 positive = _GreaterThan(0.0)
 real = _Real()
+real_vector = _IndependentConstraint(real, 1)
+scaled_unit_lower_cholesky = _ScaledUnitLowerCholesky()
+softplus_positive = _SoftplusPositive()

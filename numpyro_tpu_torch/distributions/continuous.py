@@ -1,6 +1,7 @@
 """Continuous distributions (port of ``Normal``, ``Cauchy``, ``HalfCauchy``,
-``HalfNormal`` and ``Uniform`` from ``numpyro_tpu/distributions/continuous.py``;
-the rest are listed in ROADMAP.md).
+``HalfNormal``, ``Uniform`` and ``MultivariateNormal`` from
+``numpyro_tpu/distributions/continuous.py``; the rest are listed in
+ROADMAP.md).
 
 As in the JAX package, the location-scale families derive from ``_LocScale``,
 which owns the affine bookkeeping, and each family supplies its standardized
@@ -14,9 +15,9 @@ import torch
 
 from . import constraints
 from .distribution import Distribution
-from .util import broadcast_shape
+from .util import broadcast_shape, lazy_property, promote_shapes
 
-__all__ = ["Cauchy", "HalfCauchy", "HalfNormal", "Normal", "Uniform"]
+__all__ = ["Cauchy", "HalfCauchy", "HalfNormal", "MultivariateNormal", "Normal", "Uniform"]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2 * math.pi)
 _LOG_2 = 0.6931471805599453
@@ -26,6 +27,7 @@ class _LocScale(Distribution):
     """x = loc + scale * z for a fixed standardized kernel z."""
 
     support = constraints.real
+    has_rsample = True
     # standardized moments (None: undefined)
     _z_mean = 0.0
     _z_var = 1.0
@@ -42,6 +44,9 @@ class _LocScale(Distribution):
 
     def log_prob(self, value):
         return self._z_log_density(self._standardize(value)) - torch.log(self.scale)
+
+    def icdf(self, q):
+        return self.loc + self.scale * self._z_icdf(q)
 
     @property
     def mean(self):
@@ -63,6 +68,9 @@ class Normal(_LocScale):
     def _z_log_density(self, z):
         return -0.5 * z * z - _LOG_SQRT_2PI
 
+    def _z_icdf(self, q):
+        return torch.special.ndtri(q)
+
 
 class Cauchy(_LocScale):
     _z_mean = None
@@ -75,12 +83,16 @@ class Cauchy(_LocScale):
     def _z_log_density(self, z):
         return -math.log(math.pi) - torch.log1p(z * z)
 
+    def _z_icdf(self, q):
+        return torch.tan(math.pi * (q - 0.5))
+
 
 class _FoldedAtZero(Distribution):
     """|X| for a zero-centred symmetric loc-scale X; subclasses set
     ``_full_cls``."""
 
     support = constraints.positive
+    has_rsample = True
 
     def __init__(self, scale=1.0, *, validate_args=None):
         self._mirror = self._full_cls(0.0, scale)
@@ -119,6 +131,8 @@ class HalfNormal(_FoldedAtZero):
 
 
 class Uniform(Distribution):
+    has_rsample = True
+
     def __init__(self, low=0.0, high=1.0, *, validate_args=None):
         self._init_broadcast(validate_args, low=low, high=high)
         self._support = constraints.interval(self.low, self.high)
@@ -137,3 +151,87 @@ class Uniform(Distribution):
     def log_prob(self, value):
         out = broadcast_shape(tuple(value.shape), self.batch_shape)
         return (-torch.log(self.high - self.low)).expand(out)
+
+
+def _tril_logdet(scale_tril):
+    return torch.log(torch.diagonal(scale_tril, dim1=-2, dim2=-1)).sum(-1)
+
+
+class MultivariateNormal(Distribution):
+    """Normal over vectors, held by the Cholesky factor of its covariance
+    (``scale_tril``; a covariance or precision matrix is factored once)."""
+
+    support = constraints.real_vector
+    has_rsample = True
+
+    def __init__(self, loc=0.0, covariance_matrix=None, precision_matrix=None,
+                 scale_tril=None, *, validate_args=None):
+        matrix = next(
+            (m for m in (covariance_matrix, precision_matrix, scale_tril) if m is not None), None
+        )
+        if matrix is None:
+            raise ValueError(
+                "One of covariance_matrix, precision_matrix, scale_tril must be specified."
+            )
+        if not isinstance(loc, torch.Tensor):
+            loc = torch.as_tensor(loc, dtype=matrix.dtype, device=matrix.device)
+        if loc.dim() == 0:
+            loc = loc.reshape(1)
+        # align loc (..., D) against (..., D, D) matrices through a dummy axis
+        col, matrix = promote_shapes(loc[..., None], matrix)
+        if covariance_matrix is not None:
+            self.covariance_matrix = matrix
+            self.scale_tril = torch.linalg.cholesky(matrix)
+        elif precision_matrix is not None:
+            self.precision_matrix = matrix
+            # chol(P^-1) from the Cholesky factor of P with both axes reversed
+            flipped = torch.linalg.cholesky(matrix.flip(-2, -1))
+            upper = flipped.flip(-2, -1).transpose(-2, -1)
+            eye = torch.eye(matrix.shape[-1], dtype=matrix.dtype, device=matrix.device)
+            self.scale_tril = torch.linalg.solve_triangular(
+                upper, torch.broadcast_to(eye, upper.shape), upper=False
+            )
+        else:
+            self.scale_tril = matrix
+        self.loc = col[..., 0]
+        batch = broadcast_shape(tuple(col.shape[:-2]), tuple(self.scale_tril.shape[:-2]))
+        super().__init__(batch, tuple(self.scale_tril.shape[-1:]), validate_args=validate_args)
+
+    def sample(self, key, sample_shape=()):
+        white = torch.randn(
+            self.shape(sample_shape), generator=key, device=self.loc.device, dtype=self.loc.dtype
+        )
+        return self.loc + (self.scale_tril @ white[..., None])[..., 0]
+
+    def log_prob(self, value):
+        diff = value - self.loc
+        shape = broadcast_shape(tuple(diff.shape[:-1]), tuple(self.scale_tril.shape[:-2]))
+        n = diff.shape[-1]
+        solved = torch.linalg.solve_triangular(
+            torch.broadcast_to(self.scale_tril, shape + (n, n)),
+            torch.broadcast_to(diff, shape + (n,))[..., None],
+            upper=False,
+        )
+        quad = (solved**2).sum((-1, -2))
+        return -0.5 * (quad + n * math.log(2.0 * math.pi)) - _tril_logdet(self.scale_tril)
+
+    @lazy_property
+    def covariance_matrix(self):
+        return self.scale_tril @ self.scale_tril.transpose(-2, -1)
+
+    @lazy_property
+    def precision_matrix(self):
+        eye = torch.eye(self.scale_tril.shape[-1], dtype=self.scale_tril.dtype,
+                        device=self.scale_tril.device)
+        root_inv = torch.linalg.solve_triangular(
+            self.scale_tril, torch.broadcast_to(eye, self.scale_tril.shape), upper=False
+        )
+        return root_inv.transpose(-2, -1) @ root_inv
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.loc, self.shape())
+
+    @property
+    def variance(self):
+        return torch.broadcast_to((self.scale_tril**2).sum(-1), self.batch_shape + self.event_shape)

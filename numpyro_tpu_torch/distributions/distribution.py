@@ -1,7 +1,12 @@
 """Distribution base class and structural combinators (port of the parts of
-``numpyro_tpu/distributions/distribution.py`` that the covtype slice needs:
+``numpyro_tpu/distributions/distribution.py`` that the ported slices need:
 ``Distribution``, ``ExpandedDistribution``, ``Independent`` / ``to_event``,
-``MaskedDistribution`` / ``mask`` and ``Unit``).
+``MaskedDistribution`` / ``mask``, ``TransformedDistribution``, ``Delta`` and
+``Unit``).
+
+A draw is differentiable in the parameters wherever ``has_rsample`` holds:
+samplers push standard draws through the parameters with tensor ops, so
+autograd and ``torch.func`` see the reparameterisation.
 
 Distributions hold tensors and never move them between devices: Python
 numbers given as parameters become tensors on the device (and in the dtype)
@@ -14,10 +19,12 @@ from __future__ import annotations
 import torch
 
 from . import constraints
+from .transforms import ComposeTransform, Transform
 from .util import broadcast_shape, promote_shapes, sum_rightmost
 
 __all__ = [
-    "Distribution", "ExpandedDistribution", "Independent", "MaskedDistribution", "Unit",
+    "Delta", "Distribution", "ExpandedDistribution", "Independent", "MaskedDistribution",
+    "TransformedDistribution", "Unit",
 ]
 
 
@@ -39,6 +46,8 @@ class Distribution:
     """Base class with the batch/event shape algebra and combinators."""
 
     support = None
+    # whether draws are differentiable in the parameters
+    has_rsample = False
 
     def __init__(self, batch_shape=(), event_shape=(), *, validate_args=None):
         self._batch_shape = tuple(batch_shape)
@@ -78,6 +87,11 @@ class Distribution:
 
     def sample_with_intermediates(self, key, sample_shape=()):
         return self.sample(key, sample_shape), []
+
+    def rsample(self, key, sample_shape=()):
+        if self.has_rsample:
+            return self.sample(key, sample_shape)
+        raise NotImplementedError(f"{type(self).__name__} is not fully reparametrized")
 
     def __call__(self, *args, **kwargs):
         """Sampler entry point used by the effect-handler stack."""
@@ -121,6 +135,10 @@ class _Decorated(Distribution):
     @property
     def support(self):
         return self.base_dist.support
+
+    @property
+    def has_rsample(self):
+        return self.base_dist.has_rsample
 
     def sample(self, key, sample_shape=()):
         return self.base_dist.sample(key, sample_shape)
@@ -232,6 +250,129 @@ class MaskedDistribution(_Decorated):
             return value.new_zeros(shape, dtype=_float_dtype(value))
         lp = self.base_dist.log_prob(self._substitute_feasible(value))
         return torch.where(self._mask, lp, torch.zeros_like(lp))
+
+
+def _pushforward(base_dist, transforms):
+    """The base distribution (expanded or with batch dims reinterpreted as
+    needed) and the output batch/event split of ``base_dist`` pushed through
+    ``transforms``."""
+    chain = ComposeTransform(transforms)
+    out_shape = chain.forward_shape(base_dist.shape())
+    needed = chain.inverse_shape(out_shape)
+    if needed != base_dist.shape():
+        cut = len(needed) - base_dist.event_dim
+        base_dist = base_dist.expand(needed[:cut])
+    extra_event = chain.domain.event_dim - base_dist.event_dim
+    if extra_event > 0:
+        base_dist = base_dist.to_event(extra_event)
+    split = len(out_shape) - chain.codomain.event_dim
+    return base_dist, out_shape[:split], out_shape[split:]
+
+
+class TransformedDistribution(Distribution):
+    """Pushforward of a base distribution through bijective transforms."""
+
+    def __init__(self, base_distribution, transforms, *, validate_args=None):
+        if isinstance(transforms, Transform):
+            transforms = [transforms]
+        if not isinstance(transforms, list) or not all(
+            isinstance(t, Transform) for t in transforms
+        ):
+            raise ValueError("transforms must be a Transform or list thereof")
+        if isinstance(base_distribution, TransformedDistribution):
+            transforms = base_distribution.transforms + transforms
+            base_distribution = base_distribution.base_dist
+        self.transforms = transforms
+        self.base_dist, batch_shape, event_shape = _pushforward(base_distribution, transforms)
+        super().__init__(batch_shape, event_shape, validate_args=validate_args)
+
+    @property
+    def has_rsample(self):
+        return self.base_dist.has_rsample
+
+    @property
+    def support(self):
+        last = self.transforms[-1].codomain
+        extra = self.event_dim - last.event_dim
+        return constraints.independent(last, extra) if extra else last
+
+    def sample(self, key, sample_shape=()):
+        x = self.base_dist.sample(key, sample_shape)
+        for t in self.transforms:
+            x = t(x)
+        return x
+
+    def sample_with_intermediates(self, key, sample_shape=()):
+        x = self.base_dist.sample(key, sample_shape)
+        intermediates = []
+        for transform in self.transforms:
+            x_in = x
+            x, t_inter = transform.call_with_intermediates(x)
+            intermediates.append([x_in, t_inter])
+        return x, intermediates
+
+    def log_prob(self, value, intermediates=None):
+        """With the ``intermediates`` of :meth:`sample_with_intermediates` the
+        transforms' inputs are read, not recomputed through the inverses."""
+        if intermediates is not None and len(intermediates) != len(self.transforms):
+            raise ValueError("intermediates length mismatch")
+        # walk codomain -> domain, tracking how many of the current event
+        # dims each transform is batched over
+        event_dim, total, y = self.event_dim, 0.0, value
+        for idx in range(len(self.transforms) - 1, -1, -1):
+            t = self.transforms[idx]
+            if intermediates is None:
+                x, cached = t.inv(y), None
+            else:
+                x, cached = intermediates[idx]
+            extra = event_dim - t.codomain.event_dim
+            total = total - sum_rightmost(t.log_abs_det_jacobian(x, y, cached), extra)
+            event_dim = t.domain.event_dim + extra
+            y = x
+        return total + sum_rightmost(
+            self.base_dist.log_prob(y), event_dim - self.base_dist.event_dim
+        )
+
+
+class Delta(Distribution):
+    """A point mass at ``v`` (its rightmost ``event_dim`` dims make one
+    value), carrying ``log_density`` as its log-probability there."""
+
+    has_rsample = True
+
+    def __init__(self, v=0.0, log_density=0.0, event_dim=0, *, validate_args=None):
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(v, dtype=torch.get_default_dtype())
+        vshape = tuple(v.shape)
+        if event_dim > len(vshape):
+            raise ValueError(
+                f"Expected event_dim <= v.dim(), actual {event_dim} vs {len(vshape)}"
+            )
+        split = len(vshape) - event_dim
+        self.v = v
+        if not isinstance(log_density, torch.Tensor):
+            log_density = torch.as_tensor(log_density, dtype=v.dtype, device=v.device)
+        (self.log_density,) = promote_shapes(log_density, shape=vshape[:split])
+        super().__init__(vshape[:split], vshape[split:], validate_args=validate_args)
+
+    @property
+    def support(self):
+        return constraints.independent(constraints.real, self.event_dim)
+
+    def sample(self, key, sample_shape=()):
+        return torch.broadcast_to(self.v, self.shape(sample_shape))
+
+    def log_prob(self, value):
+        hit = torch.where(value == self.v, 0.0, -torch.inf).to(_float_dtype(value))
+        return sum_rightmost(hit, self.event_dim) + self.log_density
+
+    @property
+    def mean(self):
+        return self.v
+
+    @property
+    def variance(self):
+        return torch.zeros_like(self.v).expand(self.shape())
 
 
 def _float_dtype(value):

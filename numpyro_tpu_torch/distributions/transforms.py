@@ -1,9 +1,15 @@
 """Bijective transforms and the ``biject_to`` registry (port of the parts
 of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
-identity, independent, compose, affine and exp transforms; ``biject_to`` for
-``real``, ``independent``, ``positive``/``nonnegative`` and
-``greater_than``/``greater_than_eq``).  Other constraints raise
-``NotImplementedError``; their transforms are listed in ROADMAP.md."""
+identity, independent, compose, affine, exp and softplus transforms, the
+lower-Cholesky transforms, ``UnpackTransform`` and ``LowerCholeskyAffine``;
+``biject_to`` for ``real``, ``independent``, ``positive``/``nonnegative``,
+``greater_than``/``greater_than_eq``, ``softplus_positive``,
+``lower_cholesky`` and ``scaled_unit_lower_cholesky``).  Other constraints
+raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
+
+Matrices are built with out-of-place ops only (``index_copy``, not an
+indexed assignment into a new tensor): under ``torch.func.grad`` an in-place
+write of a tracked value into an untracked tensor is an error."""
 
 from __future__ import annotations
 
@@ -20,8 +26,15 @@ __all__ = [
     "ExpTransform",
     "IdentityTransform",
     "IndependentTransform",
+    "LowerCholeskyAffine",
+    "LowerCholeskyTransform",
+    "ScaledUnitLowerCholeskyTransform",
+    "SoftplusTransform",
     "Transform",
+    "UnpackTransform",
     "biject_to",
+    "matrix_to_tril_vec",
+    "vec_to_tril_matrix",
 ]
 
 
@@ -41,6 +54,9 @@ class Transform:
 
     def log_abs_det_jacobian(self, x, y, intermediates=None):
         raise NotImplementedError
+
+    def call_with_intermediates(self, x):
+        return self(x), None
 
     def forward_shape(self, shape):
         return shape
@@ -138,18 +154,39 @@ class ComposeTransform(Transform):
             y = part.inv(y)
         return y
 
-    def log_abs_det_jacobian(self, x, y, intermediates=None):
-        if intermediates is not None:
-            raise NotImplementedError("intermediates of a composed transform")
-        total, event_dim = 0.0, self.domain.event_dim
+    def call_with_intermediates(self, x):
+        stages = []
         for part in self.parts:
-            y_part = part(x)
-            total = total + sum_rightmost(
-                part.log_abs_det_jacobian(x, y_part),
-                event_dim - part.domain.event_dim,
-            )
-            event_dim += part.codomain.event_dim - part.domain.event_dim
-            x = y_part
+            out, inter = part.call_with_intermediates(x)
+            stages.append([x, inter])
+            x = out
+        return x, stages
+
+    def _stages(self, x, y, intermediates):
+        """``(part, x_i, y_i, intermediates_i)`` for each link of the chain:
+        recomputed forward from ``x``, or read from what
+        :meth:`call_with_intermediates` recorded."""
+        if intermediates is None:
+            inputs, here = [], x
+            for part in self.parts[:-1]:
+                inputs.append((here, None))
+                here = part(here)
+            inputs.append((here, None))
+        else:
+            if len(intermediates) != len(self.parts):
+                raise ValueError("intermediates length mismatch")
+            inputs = [(pair[0], pair[1]) for pair in intermediates]
+        outputs = [pair[0] for pair in inputs[1:]] + [y]
+        for part, (x_i, inter_i), y_i in zip(self.parts, inputs, outputs):
+            yield part, x_i, y_i, inter_i
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        total, event_dim = 0.0, self.domain.event_dim
+        for part, x_i, y_i, inter_i in self._stages(x, y, intermediates):
+            term = part.log_abs_det_jacobian(x_i, y_i, intermediates=inter_i)
+            extra = event_dim - part.domain.event_dim
+            total = total + sum_rightmost(term, extra)
+            event_dim = part.codomain.event_dim + extra
         return total
 
     def forward_shape(self, shape):
@@ -301,6 +338,227 @@ class ExpTransform(Transform):
         return x
 
 
+def _softplus(x):
+    """``log(1 + exp(x))`` as the JAX package computes it (``logaddexp(x,
+    0)``, written out).  ``torch.nn.functional.softplus`` turns into the
+    identity above its threshold of 20, which this does not."""
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+class SoftplusTransform(Transform):
+    """y = log(1 + exp(x)), onto the positive half-line."""
+
+    codomain = constraints.softplus_positive
+
+    def __call__(self, x):
+        return _softplus(x)
+
+    def _inverse(self, y):
+        return y + torch.log(-torch.expm1(-y))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return -_softplus(-x)
+
+
+def _tril_size_to_dim(n, diagonal=0):
+    """Invert N = D(D+1)/2 (a diagonal offset folded in)."""
+    return round(math.sqrt(0.25 + 2 * n) - 0.5) - diagonal
+
+
+def _matrix_forward_shape(shape):
+    if not shape:
+        raise ValueError("Too few dimensions on input")
+    n = shape[-1]
+    d = _tril_size_to_dim(n)
+    if d * (d + 1) // 2 != n:
+        raise ValueError("Input is not a flattened lower-diagonal number")
+    return tuple(shape[:-1]) + (d, d)
+
+
+def _matrix_inverse_shape(shape):
+    if len(shape) < 2:
+        raise ValueError("Too few dimensions on input")
+    if shape[-2] != shape[-1]:
+        raise ValueError("Input is not square")
+    d = shape[-1]
+    return tuple(shape[:-2]) + (d * (d + 1) // 2,)
+
+
+def vec_to_tril_matrix(x, diagonal=0):
+    """Unpack a ``(..., N)`` vector into ``(..., D, D)`` lower-triangular
+    matrices, row by row (the order of ``tril_indices``)."""
+    d = _tril_size_to_dim(x.shape[-1], diagonal)
+    rows, cols = torch.tril_indices(d, d, diagonal, device=x.device)
+    flat = x.new_zeros(tuple(x.shape[:-1]) + (d * d,))
+    return flat.index_copy(-1, rows * d + cols, x).reshape(tuple(x.shape[:-1]) + (d, d))
+
+
+def matrix_to_tril_vec(x, diagonal=0):
+    d = x.shape[-1]
+    rows, cols = torch.tril_indices(d, d, diagonal, device=x.device)
+    return x[..., rows, cols]
+
+
+def _embed_diag(vals):
+    """``(..., D)`` -> ``(..., D, D)`` diagonal matrices."""
+    return vals[..., None] * torch.eye(vals.shape[-1], dtype=vals.dtype, device=vals.device)
+
+
+class LowerCholeskyTransform(Transform):
+    """R^{D(D+1)/2} -> lower-Cholesky matrices: the strictly lower part as
+    it is, then the diagonal through exp."""
+
+    domain = constraints.real_vector
+    codomain = constraints.lower_cholesky
+
+    def _split(self, x):
+        d = _tril_size_to_dim(x.shape[-1])
+        return x[..., :-d], x[..., -d:], d
+
+    def __call__(self, x):
+        below, raw_diag, _ = self._split(x)
+        return vec_to_tril_matrix(below, diagonal=-1) + _embed_diag(torch.exp(raw_diag))
+
+    def _inverse(self, y):
+        below = matrix_to_tril_vec(y, diagonal=-1)
+        raw_diag = torch.log(torch.diagonal(y, dim1=-2, dim2=-1))
+        return torch.cat([below, raw_diag], dim=-1)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return self._split(x)[1].sum(-1)
+
+    def forward_shape(self, shape):
+        return _matrix_forward_shape(shape)
+
+    def inverse_shape(self, shape):
+        return _matrix_inverse_shape(shape)
+
+
+class ScaledUnitLowerCholeskyTransform(LowerCholeskyTransform):
+    """L = diag(s) @ L_unit, where the rows of L_unit have unit norm: the
+    strictly lower part of each row over a unit diagonal, normalised, then
+    scaled by ``exp`` of the last D entries."""
+
+    codomain = constraints.scaled_unit_lower_cholesky
+
+    def _rows(self, x):
+        below, log_scales, d = self._split(x)
+        eye = torch.eye(d, dtype=x.dtype, device=x.device)
+        return vec_to_tril_matrix(below, diagonal=-1) + eye, log_scales
+
+    def __call__(self, x):
+        rows, log_scales = self._rows(x)
+        unit = rows / torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+        return unit * torch.exp(log_scales)[..., None]
+
+    def _inverse(self, y):
+        scales = torch.linalg.vector_norm(y, dim=-1)
+        rows = y / scales[..., None]
+        rows = rows / torch.diagonal(rows, dim1=-2, dim2=-1)[..., None]
+        return torch.cat([matrix_to_tril_vec(rows, diagonal=-1), torch.log(scales)], dim=-1)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        # Row i maps its i free entries and its log-scale t_i onto the i + 1
+        # entries e^{t_i} r_i / |r_i|, r_i = (a_i, 1): a radius e^{t_i} times
+        # a central projection of the plane at distance 1 onto the unit
+        # sphere of R^{i+1}, whose volume factors are e^{(i+1) t_i} and
+        # |r_i|^{-(i+1)}.  The JAX package takes the same determinant
+        # numerically (jacfwd and slogdet).
+        rows, log_scales = self._rows(x)
+        d = log_scales.shape[-1]
+        weights = torch.arange(1, d + 1, dtype=x.dtype, device=x.device)
+        log_norms = torch.log(torch.linalg.vector_norm(rows, dim=-1))
+        return (weights * (log_scales - log_norms)).sum(-1)
+
+
+class UnpackTransform(Transform):
+    """Flat trailing-axis vector -> dict of site values through
+    ``unpack_fn``, which maps one ``(D,)`` vector; leading batch axes are
+    mapped with ``torch.func.vmap`` over a flattened batch.  ``pack_fn``
+    (one unbatched dict -> ``(D,)``) gives the inverse."""
+
+    domain = constraints.real_vector
+
+    def __init__(self, unpack_fn, pack_fn=None):
+        self.unpack_fn = unpack_fn
+        self.pack_fn = pack_fn
+
+    def __call__(self, x):
+        batch_shape = tuple(x.shape[:-1])
+        if not batch_shape:
+            return self.unpack_fn(x)
+        out = torch.func.vmap(self.unpack_fn)(x.reshape(-1, x.shape[-1]))
+        return {k: v.reshape(batch_shape + tuple(v.shape[1:])) for k, v in out.items()}
+
+    def _inverse(self, y):
+        if self.pack_fn is None:
+            raise NotImplementedError("UnpackTransform.inv requires a pack_fn.")
+        return self.pack_fn(y)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return x.new_zeros(tuple(x.shape[:-1]))
+
+    def forward_shape(self, shape):
+        raise NotImplementedError
+
+    def inverse_shape(self, shape):
+        raise NotImplementedError
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, UnpackTransform)
+            and self.unpack_fn is other.unpack_fn
+            and self.pack_fn is other.pack_fn
+        )
+
+    __hash__ = Transform.__hash__
+
+
+class LowerCholeskyAffine(Transform):
+    """y = loc + L @ x with L lower-triangular (the whitening map of a
+    multivariate normal)."""
+
+    domain = constraints.real_vector
+    codomain = constraints.real_vector
+
+    def __init__(self, loc, scale_tril):
+        if scale_tril.dim() != 2:
+            raise ValueError("scale_tril must be a 2D matrix")
+        self.loc = loc
+        self.scale_tril = scale_tril
+
+    def __call__(self, x):
+        return self.loc + (self.scale_tril @ x[..., None])[..., 0]
+
+    def _inverse(self, y):
+        centered = y - self.loc
+        flat_t = centered.reshape(-1, y.shape[-1]).T
+        solved = torch.linalg.solve_triangular(self.scale_tril, flat_t, upper=False)
+        return solved.T.reshape(y.shape)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        half_logdet = torch.log(torch.diagonal(self.scale_tril, dim1=-2, dim2=-1)).sum(-1)
+        return torch.broadcast_to(half_logdet, tuple(x.shape[:-1]))
+
+    def forward_shape(self, shape):
+        if not shape:
+            raise ValueError("Too few dimensions on input")
+        return broadcast_shape(
+            tuple(shape), tuple(self.loc.shape), tuple(self.scale_tril.shape[:-1])
+        )
+
+    inverse_shape = forward_shape
+
+    def __eq__(self, other):
+        return (
+            type(self) is type(other)
+            and _same(self.loc, other.loc)
+            and _same(self.scale_tril, other.scale_tril)
+        )
+
+    __hash__ = Transform.__hash__
+
+
 class ConstraintRegistry:
     """constraint type -> factory of the transform onto that constraint."""
 
@@ -348,3 +606,10 @@ biject_to.register(
 for _c in (constraints.greater_than, constraints.greater_than_eq):
     biject_to.register(_c, lambda c: _onto_halfline(c.lower_bound, 1.0))
 del _c
+# ``softplus_positive`` subclasses ``_GreaterThan`` but is a type of its own,
+# so its row stands beside the half-line rows, as in the JAX package
+biject_to.register(constraints.softplus_positive, lambda c: SoftplusTransform())
+biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
+biject_to.register(
+    constraints.scaled_unit_lower_cholesky, lambda c: ScaledUnitLowerCholeskyTransform()
+)

@@ -1,6 +1,6 @@
 """Effect handlers (port of ``trace``, ``seed``, ``substitute``, ``condition``,
-``block`` and ``mask`` from ``numpyro_tpu/handlers.py``; the rest are listed
-in ROADMAP.md).  A handler leaves every message type it does not know
+``block``, ``mask`` and ``replay`` from ``numpyro_tpu/handlers.py``; the rest
+are listed in ROADMAP.md).  A handler leaves every message type it does not know
 (``plate``, ``subsample``, ``inspect``, ``_gibbs_state``,
 ``_subsample_panels``) as it found it.
 
@@ -17,7 +17,7 @@ import torch
 
 from numpyro_tpu_torch.primitives import Messenger, prng_key
 
-__all__ = ["block", "condition", "mask", "seed", "substitute", "trace"]
+__all__ = ["block", "condition", "mask", "replay", "seed", "substitute", "trace"]
 
 
 class trace(Messenger):
@@ -117,7 +117,7 @@ class condition(_ValueBinder):
 class substitute(_ValueBinder):
     """Fix latent values (sites stay latent, unlike ``condition``)."""
 
-    _site_types = ("sample", "plate")
+    _site_types = ("sample", "param", "mutable", "plate")
     _both_error = "Only one of `data` or `substitute_fn` should be provided."
 
     def __init__(self, fn=None, data=None, substitute_fn=None):
@@ -129,6 +129,29 @@ class substitute(_ValueBinder):
         if msg["type"] == "plate":
             # subsample indices given from outside
             msg["args"] = (msg["args"][0], value.shape[0])
+
+
+class replay(Messenger):
+    """Replay the values of a recorded trace at matching sample and param
+    sites."""
+
+    def __init__(self, fn=None, trace=None):
+        if trace is None:
+            raise ValueError("replay needs a trace")
+        self.trace = trace
+        super().__init__(fn)
+
+    def process_message(self, msg):
+        kind = msg["type"]
+        if kind not in ("sample", "param"):
+            return
+        recorded = self.trace.get(msg["name"])
+        if recorded is None:
+            return
+        if recorded["type"] != kind:
+            raise RuntimeError(f"site {msg['name']} must be {kind} in trace")
+        # the intermediates belong to the recorded fn, not to the replayed one
+        msg["value"] = recorded["value"]
 
 
 class mask(Messenger):

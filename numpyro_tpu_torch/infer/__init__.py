@@ -1,19 +1,46 @@
+from numpyro_tpu_torch.infer import autoguide
+from numpyro_tpu_torch.infer.elbo import (
+    ELBO,
+    RenyiELBO,
+    Trace_ELBO,
+    TraceEnum_ELBO,
+    TraceGraph_ELBO,
+    TraceMeanField_ELBO,
+)
 from numpyro_tpu_torch.infer.hmc import HMC, NUTS
 from numpyro_tpu_torch.infer.hmc_gibbs import HMCECS, DiscreteHMCGibbs, HMCGibbs
-from numpyro_tpu_torch.infer.initialization import init_to_sample, init_to_uniform
+from numpyro_tpu_torch.infer.initialization import (
+    init_to_median,
+    init_to_sample,
+    init_to_uniform,
+    init_to_value,
+)
 from numpyro_tpu_torch.infer.mcmc import MCMC, MCMCKernel
+from numpyro_tpu_torch.infer.svi import SVI, SVIRunResult, SVIState
 from numpyro_tpu_torch.infer.util import initialize_model, log_density, potential_energy
 
 __all__ = [
     "DiscreteHMCGibbs",
+    "ELBO",
     "HMC",
     "HMCECS",
     "HMCGibbs",
     "MCMC",
     "MCMCKernel",
     "NUTS",
+    "RenyiELBO",
+    "SVI",
+    "SVIRunResult",
+    "SVIState",
+    "TraceEnum_ELBO",
+    "TraceGraph_ELBO",
+    "TraceMeanField_ELBO",
+    "Trace_ELBO",
+    "autoguide",
+    "init_to_median",
     "init_to_sample",
     "init_to_uniform",
+    "init_to_value",
     "initialize_model",
     "log_density",
     "potential_energy",

@@ -1,0 +1,227 @@
+"""ELBO objectives for SVI (port of ``Trace_ELBO``, ``TraceMeanField_ELBO``
+and ``RenyiELBO`` from ``numpyro_tpu/infer/elbo.py``).
+
+The particle dispatch and the mutable-state bookkeeping live once on the
+base class; each objective implements ``_particle_elbo``.  Random state is
+the SVI step's ``torch.Generator``: guide and model draw from it in turn.
+
+Particles: ``vectorize_particles=True`` maps one particle's ELBO over the
+particle axis with ``torch.func.vmap(..., randomness="different")``, so
+every draw inside gives a different row per particle and every batched op,
+the GLM kernel's ``vmap`` rule included, sees all particles at once (one
+launch per ELBO evaluation).  ``False`` is a Python loop over particles; a
+callable is applied as given, to the one-particle function and then to the
+particle indices ``torch.arange(num_particles)``.
+
+``TraceEnum_ELBO`` and ``TraceGraph_ELBO`` wait for the HMM slice
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+
+import torch
+
+from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.distributions.kl import kl_divergence
+from numpyro_tpu_torch.infer.util import _without_rsample_stop_gradient, log_density
+
+__all__ = [
+    "ELBO",
+    "RenyiELBO",
+    "TraceEnum_ELBO",
+    "TraceGraph_ELBO",
+    "TraceMeanField_ELBO",
+    "Trace_ELBO",
+]
+
+
+def _sites_of_type(trace, site_type):
+    return {name: site["value"] for name, site in trace.items() if site["type"] == site_type}
+
+
+def check_model_guide_match(model_trace, guide_trace):
+    """Each latent site of the guide must have the model's shape."""
+    for name, site in guide_trace.items():
+        if site["type"] == "sample" and not site.get("is_observed", False):
+            if name in model_trace and model_trace[name]["type"] == "sample":
+                guide_shape = tuple(site["value"].shape)
+                model_shape = tuple(model_trace[name]["value"].shape)
+                if guide_shape != model_shape:
+                    raise ValueError(
+                        f"Model and guide shapes disagree at site: '{name}': "
+                        f"{model_shape} vs {guide_shape}"
+                    )
+
+
+def _loop(fn):
+    return lambda particles: torch.stack([fn(i) for i in particles])
+
+
+def _vmap(fn):
+    return torch.func.vmap(fn, randomness="different")
+
+
+def _scaled_sum(lp, scale):
+    return (lp if scale is None else scale * lp).sum()
+
+
+class ELBO:
+    """Base class: one particle's ELBO, averaged over ``num_particles``."""
+
+    can_infer_discrete = False
+
+    def __init__(self, num_particles=1, vectorize_particles=True):
+        self.num_particles = num_particles
+        self.vectorize_particles = vectorize_particles
+
+    def _assign_particle_fn(self):
+        if callable(self.vectorize_particles):
+            return self.vectorize_particles
+        if self.vectorize_particles is True:
+            return _vmap
+        if self.vectorize_particles is False:
+            return _loop
+        raise ValueError("vectorize_particles must be True, False, or a callable")
+
+    def loss(self, rng_key, param_map, model, guide, *args, **kwargs):
+        return self.loss_with_mutable_state(rng_key, param_map, model, guide, *args, **kwargs)[
+            "loss"
+        ]
+
+    def _particle_elbo(self, rng_key, param_map, model, guide, args, kwargs):
+        """One Monte Carlo particle: ``(elbo, mutable_state or None)``."""
+        raise NotImplementedError
+
+    def loss_with_mutable_state(self, rng_key, param_map, model, guide, *args, **kwargs):
+        one = partial(
+            self._particle_elbo, rng_key, param_map=param_map, model=model, guide=guide,
+            args=args, kwargs=kwargs,
+        )
+        if self.num_particles == 1:
+            elbo, mutable_state = one()
+            return {"loss": -elbo, "mutable_state": mutable_state}
+        particles = torch.arange(self.num_particles, device=rng_key.device)
+        elbos = self._assign_particle_fn()(lambda i: one()[0])(particles)
+        return {"loss": -elbos.mean(), "mutable_state": None}
+
+    def _wrap_mutable(self, elbo, mutable_params):
+        """Mutable state is defined for one particle only."""
+        if not mutable_params:
+            return elbo, None
+        if self.num_particles != 1:
+            raise ValueError("mutable state is currently not supported for multi-particle ELBO")
+        return elbo, mutable_params
+
+
+class Trace_ELBO(ELBO):
+    """Monte Carlo ELBO from the joint guide and model traces; fully
+    differentiable where every guide site is reparameterised."""
+
+    def _particle_elbo(self, rng_key, param_map, model, guide, args, kwargs):
+        guide_ld, guide_trace = log_density(
+            handlers.seed(guide, rng_key), args, kwargs, param_map
+        )
+        mutable_params = _sites_of_type(guide_trace, "mutable")
+        replayed = handlers.replay(handlers.seed(model, rng_key), guide_trace)
+        model_ld, model_trace = log_density(
+            replayed, args, kwargs, {**param_map, **mutable_params}
+        )
+        check_model_guide_match(model_trace, guide_trace)
+        mutable_params.update(_sites_of_type(model_trace, "mutable"))
+        return self._wrap_mutable(model_ld - guide_ld, mutable_params)
+
+
+class TraceMeanField_ELBO(ELBO):
+    """The analytic KL term where a pair is registered, a Monte Carlo term
+    elsewhere; assumes a mean-field dependency structure.  A guide sample
+    site that the model does not have (an auxiliary site, such as the packed
+    latent of ``AutoContinuous``) contributes ``-log q``."""
+
+    @staticmethod
+    def _site_term(model_site, guide_site):
+        """Contribution of one latent site: -KL(q || p), analytic when known."""
+        try:
+            kl_qp = kl_divergence(guide_site["fn"], model_site["fn"])
+        except NotImplementedError:
+            p_lp = model_site["fn"].log_prob(model_site["value"])
+            q_lp = guide_site["fn"].log_prob(guide_site["value"])
+            return _scaled_sum(p_lp, model_site["scale"]) - _scaled_sum(q_lp, guide_site["scale"])
+        return -_scaled_sum(kl_qp, guide_site["scale"])
+
+    def _particle_elbo(self, rng_key, param_map, model, guide, args, kwargs):
+        seeded_guide = handlers.substitute(handlers.seed(guide, rng_key), data=param_map)
+        with _without_rsample_stop_gradient():
+            guide_trace = handlers.trace(seeded_guide).get_trace(*args, **kwargs)
+        mutable_params = _sites_of_type(guide_trace, "mutable")
+        seeded_model = handlers.substitute(
+            handlers.replay(handlers.seed(model, rng_key), guide_trace),
+            data={**param_map, **mutable_params},
+        )
+        model_trace = handlers.trace(seeded_model).get_trace(*args, **kwargs)
+        mutable_params.update(_sites_of_type(model_trace, "mutable"))
+        check_model_guide_match(model_trace, guide_trace)
+
+        elbo = 0.0
+        for name, model_site in model_trace.items():
+            if model_site["type"] != "sample":
+                continue
+            if model_site["is_observed"]:
+                obs_lp = model_site["fn"].log_prob(model_site["value"])
+                elbo = elbo + _scaled_sum(obs_lp, model_site["scale"])
+            else:
+                elbo = elbo + self._site_term(model_site, guide_trace[name])
+        for name, guide_site in guide_trace.items():
+            if guide_site["type"] == "sample" and name not in model_trace:
+                q_lp = guide_site["fn"].log_prob(guide_site["value"])
+                elbo = elbo - _scaled_sum(q_lp, guide_site["scale"])
+        return self._wrap_mutable(elbo, mutable_params)
+
+
+class RenyiELBO(ELBO):
+    """Renyi alpha-divergence bound; its particles are vectorized (the
+    ``vectorize_particles`` attribute, ``True`` here, decides as for the
+    other objectives)."""
+
+    def __init__(self, alpha=0.0, num_particles=2):
+        if alpha == 1:
+            raise ValueError("The order alpha should not be equal to 1. Please use Trace_ELBO.")
+        self.alpha = alpha
+        super().__init__(num_particles=num_particles)
+
+    def _log_weight(self, rng_key, param_map, model, guide, args, kwargs):
+        guide_ld, guide_trace = log_density(
+            handlers.seed(guide, rng_key), args, kwargs, param_map
+        )
+        replayed = handlers.replay(handlers.seed(model, rng_key), guide_trace)
+        model_ld, _ = log_density(replayed, args, kwargs, param_map)
+        return model_ld - guide_ld
+
+    def loss_with_mutable_state(self, rng_key, param_map, model, guide, *args, **kwargs):
+        particles = torch.arange(self.num_particles, device=rng_key.device)
+        log_w = self._assign_particle_fn()(
+            lambda i: self._log_weight(rng_key, param_map, model, guide, args, kwargs)
+        )(particles)
+        tempered = (1.0 - self.alpha) * log_w
+        log_mean = torch.logsumexp(tempered, 0) - math.log(self.num_particles)
+        weights = torch.exp(tempered - log_mean)
+        renyi_bound = log_mean / (1.0 - self.alpha)
+        inner = torch.dot(weights.detach(), log_w) / self.num_particles
+        loss = -((renyi_bound - inner).detach() + inner)
+        return {"loss": loss, "mutable_state": None}
+
+
+class TraceEnum_ELBO(ELBO):
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TraceEnum_ELBO is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        )
+
+
+class TraceGraph_ELBO(ELBO):
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TraceGraph_ELBO is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        )

@@ -1,16 +1,18 @@
-"""Init strategies (port of ``init_to_uniform`` and ``init_to_sample`` from
+"""Init strategies (port of ``init_to_uniform``, ``init_to_sample``,
+``init_to_median`` and ``init_to_value`` from
 ``numpyro_tpu/infer/initialization.py``; the others are listed in
-ROADMAP.md)."""
+ROADMAP.md).  Every strategy draws on the device of the site's generator."""
 
 from __future__ import annotations
 
 import functools
+import warnings
 
 import torch
 
 import numpyro_tpu_torch.distributions as dist
 
-__all__ = ["init_to_sample", "init_to_uniform"]
+__all__ = ["init_to_median", "init_to_sample", "init_to_uniform", "init_to_value"]
 
 
 def _strategy(rule):
@@ -46,6 +48,49 @@ def init_to_uniform(site, radius=2.0):
         rng_key, tuple(sample_shape) + to_support.inverse_shape(tuple(site["fn"].shape()))
     )
     return to_support(box)
+
+
+def _median0(draws):
+    """The median over the leading axis as ``jnp.median`` takes it: the mean
+    of the two middle values for an even count (``torch.median`` returns the
+    lower one)."""
+    ordered = draws.sort(dim=0).values
+    n = ordered.shape[0]
+    if n % 2:
+        return ordered[n // 2]
+    return (ordered[n // 2 - 1] + ordered[n // 2]) / 2
+
+
+@_strategy
+def init_to_median(site, num_samples=15):
+    """Initialize to the median of ``num_samples`` prior draws."""
+    if site["value"] is not None:
+        warnings.warn(
+            f"init_to_median() skipping initialization of site '{site['name']}'"
+            " which already stores a value.",
+            stacklevel=2,
+        )
+        return site["value"]
+    sample_shape = tuple(site["kwargs"].get("sample_shape") or ())
+    try:
+        draws = site["fn"](
+            rng_key=site["kwargs"].get("rng_key"), sample_shape=(num_samples,) + sample_shape
+        )
+    except NotImplementedError:
+        return init_to_uniform(site)
+    return _median0(draws)
+
+
+def init_to_value(site=None, values={}):
+    """Initialize to the given values; a site missing from ``values`` takes
+    ``init_to_uniform``."""
+    if site is None:
+        return functools.partial(init_to_value, values=values)
+    if site["type"] == "sample" and not site["is_observed"]:
+        if site["name"] in values:
+            return values[site["name"]]
+        return init_to_uniform(site)
+    return None
 
 
 @_strategy

@@ -133,24 +133,7 @@ class MCMC:
     def _generator(self, rng_key):
         """The run's generator: made from an int seed on the run's device, or
         the caller's, which must live there."""
-        if isinstance(rng_key, torch.Generator):
-            if rng_key.device.type != self.device.type or (
-                self.device.index is not None and rng_key.device.index != self.device.index
-            ):
-                raise ValueError(
-                    f"rng_key lives on {rng_key.device} and the run on {self.device}; "
-                    "give MCMC that device or run() an int seed"
-                )
-        elif isinstance(rng_key, bool) or not isinstance(rng_key, int):
-            raise TypeError("rng_key must be an int seed or a torch.Generator")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"MCMC runs on {self.device} and no CUDA device is available; "
-                "pass device='cpu' to MCMC to run on the CPU"
-            )
-        if isinstance(rng_key, int):
-            return torch.Generator(device=self.device).manual_seed(rng_key)
-        return rng_key
+        return infer_util.device_generator(rng_key, self.device, "MCMC")
 
     def warmup(self, rng_key, *args, extra_fields=(), collect_warmup=False, init_params=None,
                **kwargs):

@@ -1,6 +1,7 @@
 """Model -> density bridge (port of the parts of ``numpyro_tpu/infer/util.py``
-that the covtype slice needs: ``log_density``, ``potential_energy``,
-``find_valid_initial_params`` and ``initialize_model``).
+that the ported slices need: ``log_density``, ``potential_energy``,
+``find_valid_initial_params``, ``initialize_model``,
+``_without_rsample_stop_gradient`` and ``get_importance_trace``).
 
 The potential of a model is written for ONE chain, as in the JAX package;
 :func:`batched_value_and_grad` maps it over the leading chain axis with
@@ -21,16 +22,18 @@ from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
-from numpyro_tpu_torch.primitives import factor
+from numpyro_tpu_torch.primitives import Messenger, factor
 from numpyro_tpu_torch.util import identity, tree_map
 
 __all__ = [
     "batched_value_and_grad",
-    "pin_full_f32_matmul",
+    "device_generator",
     "find_valid_initial_params",
+    "get_importance_trace",
     "get_potential_fn",
     "initialize_model",
     "log_density",
+    "pin_full_f32_matmul",
     "potential_energy",
     "transform_fn",
 ]
@@ -81,18 +84,47 @@ def pin_full_f32_matmul():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _site_log_prob(site, *, check_shapes=False):
-    value = site["value"]
-    if check_shapes:
-        fn_shape = tuple(site["fn"].shape())
-        try:
-            broadcast_shape(tuple(value.shape), fn_shape)
-        except RuntimeError:
+def device_generator(rng_key, device, owner):
+    """The generator of a run on ``device``: made from an int seed there, or
+    the caller's, which must live there.  Raises when ``device`` is a CUDA
+    device and none is available: a run never carries on on the CPU."""
+    if isinstance(rng_key, torch.Generator):
+        if rng_key.device.type != device.type or (
+            device.index is not None and rng_key.device.index != device.index
+        ):
             raise ValueError(
-                f"Model and guide shapes disagree at site: "
-                f"'{site['name']}': {fn_shape} vs {tuple(value.shape)}"
+                f"rng_key lives on {rng_key.device} and the run on {device}; "
+                f"give {owner} that device or an int seed"
             )
-    lp = site["fn"].log_prob(value)
+    elif isinstance(rng_key, bool) or not isinstance(rng_key, int):
+        raise TypeError("rng_key must be an int seed or a torch.Generator")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner} runs on {device} and no CUDA device is available; "
+            f"pass device='cpu' to {owner} to run on the CPU"
+        )
+    if isinstance(rng_key, int):
+        return torch.Generator(device=device).manual_seed(rng_key)
+    return rng_key
+
+
+def _site_log_prob(site, *, check_shapes=False):
+    """Scaled elementwise log-prob of one sample site; a draw made with its
+    intermediates (``TransformedDistribution``) is scored with them."""
+    value = site["value"]
+    if site.get("intermediates"):
+        lp = site["fn"].log_prob(value, site["intermediates"])
+    else:
+        if check_shapes:
+            fn_shape = tuple(site["fn"].shape())
+            try:
+                broadcast_shape(tuple(value.shape), fn_shape)
+            except RuntimeError:
+                raise ValueError(
+                    f"Model and guide shapes disagree at site: "
+                    f"'{site['name']}': {fn_shape} vs {tuple(value.shape)}"
+                )
+        lp = site["fn"].log_prob(value)
     if site["scale"] is not None:
         lp = site["scale"] * lp
     return lp
@@ -108,6 +140,29 @@ def log_density(model, model_args, model_kwargs, params):
         if site["type"] == "sample":
             log_joint = log_joint + _site_log_prob(site, check_shapes=True).sum()
     return log_joint, trace
+
+
+class _without_rsample_stop_gradient(Messenger):
+    """Stop the gradient through the draws of sites whose samplers are not
+    reparameterised."""
+
+    def postprocess_message(self, msg):
+        if msg["type"] == "sample" and not msg["is_observed"] and not msg["fn"].has_rsample:
+            msg["value"] = msg["value"].detach()
+
+
+def get_importance_trace(model, guide, args, kwargs, params):
+    """Run the guide, replay the model against it; return both traces, each
+    sample site with its scaled ``log_prob``."""
+    guide = handlers.substitute(guide, data=params)
+    with _without_rsample_stop_gradient():
+        guide_trace = handlers.trace(guide).get_trace(*args, **kwargs)
+    model = handlers.substitute(handlers.replay(model, guide_trace), data=params)
+    model_trace = handlers.trace(model).get_trace(*args, **kwargs)
+    for site in [*guide_trace.values(), *model_trace.values()]:
+        if site["type"] == "sample" and "log_prob" not in site:
+            site["log_prob"] = _site_log_prob(site)
+    return model_trace, guide_trace
 
 
 def transform_fn(transforms, params, invert=False):
@@ -166,30 +221,89 @@ def _finite_per_chain(pe, grad):
     return ok
 
 
+def _single_chain_search(rng_key, model, strategy, model_args, model_kwargs,
+                        prototype_params, forward_mode, validate_grad):
+    """One chain, unbatched: draw until the potential (and, with
+    ``validate_grad``, its gradient) is finite, at most 100 tries.
+    ``init_to_uniform`` draws in unconstrained space directly; any other
+    strategy traces the model under it and pulls each latent value back
+    through its support's bijection."""
+    uniform = getattr(strategy, "func", None) is init_to_uniform and prototype_params is not None
+    radius = strategy.keywords.get("radius", 2.0) if uniform else None
+
+    def draw():
+        if uniform:
+            return {
+                name: (torch.rand(tuple(proto.shape), generator=rng_key, device=rng_key.device,
+                                  dtype=proto.dtype) * 2 - 1) * radius
+                for name, proto in sorted(prototype_params.items())
+            }
+        strategized = handlers.substitute(handlers.seed(model, rng_key), substitute_fn=strategy)
+        trace = handlers.trace(strategized).get_trace(*model_args, **model_kwargs)
+        return {
+            name: biject_to(site["fn"].support).inv(site["value"])
+            for name, site in trace.items()
+            if site["type"] == "sample" and not site["is_observed"]
+            and not site["fn"].support.is_discrete
+        }
+
+    pe_fn = partial(potential_energy, model, model_args, model_kwargs)
+    for _ in range(100):
+        params = draw()
+        if not validate_grad:
+            pe, grad = pe_fn(params), None
+            ok = torch.isfinite(pe)
+        else:
+            if forward_mode:
+                # as in batched_value_and_grad: each gradient takes its site's dtype
+                grad = {k: g.to(params[k].dtype)
+                        for k, g in torch.func.jacfwd(pe_fn)(params).items()}
+                pe = pe_fn(params)
+            else:
+                grad, pe = torch.func.grad_and_value(pe_fn)(params)
+            ok = torch.isfinite(pe)
+            for g in grad.values():
+                ok = ok & torch.isfinite(g).all()
+        if bool(ok):
+            break
+    return (params, pe, grad), ok
+
+
 def find_valid_initial_params(
     rng_key,
     model,
     *,
-    num_chains,
+    num_chains=None,
     init_strategy=init_to_uniform,
     model_args=(),
     model_kwargs=None,
     prototype_params=None,
     forward_mode_differentiation=False,
+    validate_grad=True,
 ):
-    """Draw initial latents for ``num_chains`` chains until the potential and
-    its gradient are finite (at most 100 tries per chain).
+    """Draw initial latents until the potential and its gradient are finite
+    (at most 100 tries per chain).
 
-    All chains are scored in one batched evaluation per try; chains that
-    are already valid keep their params (a masked loop in place of the JAX
-    package's batched ``while_loop``).  Returns
-    ``((init_params, pe, grad), is_valid)``, each with a leading chain axis.
+    ``num_chains=None`` searches for one chain, unbatched, under any init
+    strategy; ``validate_grad=False`` then scores the potential alone and
+    returns no gradient.  With ``num_chains`` all chains are scored in one
+    batched evaluation per try, and chains that are already valid keep their
+    params (a masked loop in place of the JAX package's batched
+    ``while_loop``; ``init_to_uniform`` only).  Returns
+    ``((init_params, pe, grad), is_valid)``, with a leading chain axis when
+    ``num_chains`` is given.
     """
     model_kwargs = {} if model_kwargs is None else model_kwargs
     strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
+    if num_chains is None:
+        return _single_chain_search(
+            rng_key, model, strategy, model_args, model_kwargs, prototype_params,
+            forward_mode_differentiation, validate_grad,
+        )
     if getattr(strategy, "func", None) is not init_to_uniform or prototype_params is None:
         raise NotImplementedError(
-            "only init_to_uniform is ported to numpyro_tpu_torch (see ROADMAP.md)"
+            "a batched init search takes only init_to_uniform in numpyro_tpu_torch "
+            "(see ROADMAP.md)"
         )
     radius = strategy.keywords.get("radius", 2.0)
 
@@ -275,16 +389,18 @@ def initialize_model(
     rng_key,
     model,
     *,
-    num_chains,
+    num_chains=None,
     init_strategy=init_to_uniform,
     dynamic_args=False,
     model_args=(),
     model_kwargs=None,
     forward_mode_differentiation=False,
+    validate_grad=True,
 ):
     """Trace the model, build the potential/postprocess closures and find
-    valid initial params for ``num_chains`` chains.  ``rng_key`` is a
-    ``torch.Generator`` on the device the chains should live on."""
+    valid initial params for ``num_chains`` chains (one unbatched chain for
+    ``None``).  ``rng_key`` is a ``torch.Generator`` on the device the chains
+    should live on."""
     model_kwargs = {} if model_kwargs is None else model_kwargs
     strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
     substituted_model = handlers.substitute(
@@ -319,6 +435,7 @@ def initialize_model(
         model_kwargs=model_kwargs,
         prototype_params=prototype_params,
         forward_mode_differentiation=forward_mode_differentiation,
+        validate_grad=validate_grad,
     )
     if not bool(is_valid.all()):
         raise RuntimeError(

@@ -49,6 +49,7 @@ __all__ = [
     "glm_work",
     "kernel_tolerances",
     "launch_counts",
+    "plain_bernoulli_logits_loglik",
     "plain_value_and_grad",
     "prepare_glm_data",
     "reset_launch_counts",
@@ -449,12 +450,13 @@ def glm_value_and_grad(w, data):
 
 class _GLMLoglik(torch.autograd.Function):
     """(loglik, grad) with grad saved for backward; ``vmap`` batches chains
-    into one evaluation."""
+    into one evaluation.  ``value_and_grad`` computes both for ``(B, D)``
+    rows of ``w``."""
 
     @staticmethod
-    def forward(w, data):
+    def forward(w, data, value_and_grad):
         flat = w.reshape(-1, w.shape[-1]).contiguous()
-        ll, g = glm_value_and_grad(flat, data)
+        ll, g = value_and_grad(flat, data)
         return ll.reshape(w.shape[:-1]), g.reshape(w.shape)
 
     @staticmethod
@@ -465,15 +467,15 @@ class _GLMLoglik(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct, _ct_grad):
         (g,) = ctx.saved_tensors
-        return ct[..., None] * g, None
+        return ct[..., None] * g, None, None
 
     @staticmethod
-    def vmap(info, in_dims, w, data):
+    def vmap(info, in_dims, w, data, value_and_grad):
         if in_dims[0] is None:
             w = w.expand(info.batch_size, *w.shape)
         else:
             w = w.movedim(in_dims[0], 0)
-        return _GLMLoglik.apply(w, data), (0, 0)
+        return _GLMLoglik.apply(w, data, value_and_grad), (0, 0)
 
 
 def bernoulli_logits_loglik(w, data):
@@ -483,4 +485,11 @@ def bernoulli_logits_loglik(w, data):
     :func:`prepare_glm_data`.  Use inside a model as
     ``numpyro_tpu_torch.factor("lik", bernoulli_logits_loglik(w, data))``.
     """
-    return _GLMLoglik.apply(w, data)[0]
+    return _GLMLoglik.apply(w, data, glm_value_and_grad)[0]
+
+
+def plain_bernoulli_logits_loglik(w, data):
+    """:func:`bernoulli_logits_loglik` through :func:`plain_value_and_grad`
+    on any device: the reference against which a model's gradients through
+    the kernel are checked on the card.  Never on a model's path."""
+    return _GLMLoglik.apply(w, data, plain_value_and_grad)[0]

@@ -1,7 +1,7 @@
 """Model-DSL primitives and the effect-handler message stack (port of the
 parts of ``numpyro_tpu/primitives.py`` that the ported slices need:
-``Messenger``, ``apply_stack``, ``sample``, ``factor``, ``deterministic``,
-``plate``, ``subsample`` and ``get_mask``).
+``Messenger``, ``apply_stack``, ``sample``, ``param``, ``mutable``,
+``factor``, ``deterministic``, ``plate``, ``subsample`` and ``get_mask``).
 
 The handler stack is plain Python that runs whenever the model runs.  Under
 ``torch.func`` transforms (the chain-batched potential) the model runs once
@@ -26,7 +26,7 @@ from numpyro_tpu_torch.util import identity
 
 __all__ = [
     "CondIndepStackFrame", "Messenger", "apply_stack", "deterministic", "factor",
-    "get_mask", "plate", "prng_key", "sample", "subsample",
+    "get_mask", "mutable", "param", "plate", "prng_key", "sample", "subsample",
 ]
 
 CondIndepStackFrame = namedtuple("CondIndepStackFrame", ["name", "dim", "size", "subsample_size"])
@@ -136,6 +136,38 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
         intermediates=[],
         infer={} if infer is None else infer,
     )["value"]
+
+
+def param(name, init_value=None, **kwargs):
+    """Declare an optimizable parameter.  ``kwargs`` are ``constraint`` (the
+    support of the value, ``constraints.real`` by default) and ``event_dim``;
+    a callable ``init_value`` is called with the generator of the innermost
+    ``seed`` handler."""
+    if not _PYRO_STACK:
+        if callable(init_value):
+            raise ValueError(
+                "A callable init_value needs to be put inside a numpyro_tpu_torch handler."
+            )
+        return init_value
+
+    if callable(init_value):
+
+        def initial_fn(*args, **kw):
+            return init_value(prng_key())
+
+    else:
+
+        def initial_fn(*args, **kw):
+            return init_value
+
+    return _dispatch("param", name, initial_fn, kwargs=kwargs, scale=None)["value"]
+
+
+def mutable(name, init_value=None):
+    """A mutable state site, threaded through SVI steps."""
+    if not _PYRO_STACK:
+        return init_value
+    return _dispatch("mutable", name, lambda *a, **k: init_value, value=init_value)["value"]
 
 
 def prng_key():

@@ -1,6 +1,6 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
-PyTorch version, the one-launch vmap rule, a short NUTS run, and HMCECS in
-every panel mode.
+PyTorch version, the one-launch vmap rule, a short NUTS run, HMCECS in
+every panel mode, dense mass, and SVI through the split kernel.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -13,7 +13,9 @@ import torch
 
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS
+from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS, SVI, Trace_ELBO
+from numpyro_tpu_torch.infer import autoguide
+from numpyro_tpu_torch.optim import Adam
 from numpyro_tpu_torch.ops import glm
 
 torch.set_num_threads(1)
@@ -261,3 +263,63 @@ def test_dense_mass_nuts_on_a_correlated_gaussian_on_gpu(cuda):
     draws = draws.double().cpu().numpy()
     np.testing.assert_allclose(draws.mean(0), np.zeros(5), atol=0.3)
     np.testing.assert_allclose(draws.std(0), np.sqrt(np.diag(cov)), rtol=0.15)
+
+
+def _svi_model(loglik):
+    def model(data):
+        w = npt.sample("w", dist.Normal(torch.zeros(data.d, device=data.device), 1.0).to_event(1))
+        npt.factor("lik", loglik(w, data))
+
+    return model
+
+
+@pytest.mark.requires_cuda
+def test_svi_runs_on_cuda_by_default_with_one_launch_per_step(cuda):
+    X, y, _, true_w = _problem(cuda, n=40000, d=6, c=1)
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    model = _svi_model(glm.bernoulli_logits_loglik)
+    svi = SVI(model, autoguide.AutoDiagonalNormal(model), Adam(0.02), Trace_ELBO(16))
+    assert svi.device == torch.device("cuda")
+    state = svi.init(0, data)
+    before = glm.launch_counts["glm_split"]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    res = svi.run(None, 300, data, init_state=state)
+    # the TF32 pin holds through the run; 16 particles, one launch a step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert glm.launch_counts["glm_split"] - before == 300
+    assert res.losses.device.type == "cuda" and res.params["auto_loc"].device.type == "cuda"
+    loc = res.params["auto_loc"].cpu()
+    assert (loc - torch.from_numpy(true_w)).abs().max() < 0.1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("particles", [1, 16])
+def test_one_elbo_gradient_through_the_kernel_matches_plain(cuda, particles):
+    """AutoDelta at one particle (B = 1), AutoDiagonalNormal at 16 (B = 16):
+    the loss and its gradient through ``glm_split`` against the same through
+    the plain version, on the same draws."""
+    X, y, _, _ = _problem(cuda, n=70000, d=8, c=1)
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    name = "AutoDelta" if particles == 1 else "AutoDiagonalNormal"
+    guide = getattr(autoguide, name)(_svi_model(glm.bernoulli_logits_loglik))
+    svi = SVI(_svi_model(glm.bernoulli_logits_loglik), guide, Adam(0.02), Trace_ELBO(particles))
+    state = svi.init(0, data)
+    u = svi.optim.get_params(state.optim_state)
+    loss = Trace_ELBO(particles)
+    got = {}
+    for tag, loglik in (("kernel", glm.bernoulli_logits_loglik),
+                        ("plain", glm.plain_bernoulli_logits_loglik)):
+        before = dict(glm.launch_counts)
+
+        def fn(v, loglik=loglik):
+            gen = torch.Generator(device=cuda).manual_seed(3)
+            return loss.loss(gen, svi.constrain_fn(v), _svi_model(loglik), guide, data)
+
+        got[tag] = torch.func.grad_and_value(fn)(u)
+        launched = {k: glm.launch_counts[k] - before[k] for k in before}
+        assert launched["glm_split" if tag == "kernel" else "plain"] == 1
+    (g_k, l_k), (g_p, l_p) = got["kernel"], got["plain"]
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", X.shape[0])
+    torch.testing.assert_close(l_k, l_p, rtol=ll_rtol, atol=0)
+    for k in g_p:
+        torch.testing.assert_close(g_k[k], g_p[k], rtol=g_rtol, atol=g_atol)
