@@ -71,6 +71,27 @@ Phases (each prints on its own lines; any failure exits non-zero):
                and must agree within ``glm.kernel_tolerances``; ``glm_split``
                is timed at 1 and 16 chains.
 
+9. eight schools -- ``examples/eight_schools.py`` in its non-centred form
+               (``handlers.reparam`` with ``LocScaleReparam(0)``) under
+               ``NUTS(target_accept_prob=0.9)`` with 64 vectorized chains;
+               ``theta`` comes back as a deterministic site through the
+               postprocessing, shaped ``(C, n, 8)``, and ``mcmc.print_summary()``
+               prints the table.  The posterior means and stds of ``mu``,
+               ``tau`` and ``theta`` must lie within 4 Monte-Carlo standard
+               errors of the JAX package's own run (``EIGHT_SCHOOLS_REF``);
+               ``Predictive`` of ``obs`` must have shape ``(C n, 8)`` and
+               residuals ``obs - theta`` of mean 0 and std ``sigma`` per
+               school; ``log_likelihood`` must equal ``Normal(theta,
+               sigma).log_prob(y)``; then ``AutoNormal`` with ``Trace_ELBO``
+               and one ``Predictive`` through the guide.  No GLM launch.
+10. sv       -- ``examples/stochastic_volatility.py``'s model (``Exponential``,
+               ``GaussianRandomWalk``, ``StudentT``) at T = 100 on returns made
+               in numpy from a seed, 64 chains under pooled adaptation at
+               capped depths; the largest gap over t between the posterior
+               mean of ``s`` and the generating log volatility and the R-hat
+               of ``sigma`` must be within ``SV_GATE`` and ``SV_RHAT_GATE``,
+               which follow the JAX package's own run (``dev/sv_reference.py``).
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -88,8 +109,12 @@ import torch
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
-from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS, SVI, Trace_ELBO, TraceMeanField_ELBO
+from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.infer import (
+    HMCECS, MCMC, NUTS, SVI, Predictive, Trace_ELBO, TraceMeanField_ELBO, log_likelihood,
+)
 from numpyro_tpu_torch.infer import autoguide
+from numpyro_tpu_torch.infer.reparam import LocScaleReparam
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
 from numpyro_tpu_torch.ops import _cuda, glm
@@ -185,6 +210,61 @@ SVI_ECS = (500, 0.1)
 # over five seeds)
 HS_SVI = (8, 3000)
 HS_SVI_GATE = 0.159
+# phase 9, 8-schools (examples/eight_schools.py:13-15), non-centred: chains,
+# warmup, samples, tree depths in warmup and sampling.  Its budget is 20 s on
+# a host where phase 6's main leg takes 24.0 ms per evaluation, on which the
+# phases before it take 492 s, and phases 9 and 10 together may add at most
+# 43 s there.  An evaluation costs 8-12 ms of host time on the card (NVIDIA
+# H100 80GB HBM3, 700.00 W), so the run takes about 1,000: warmup waits at
+# every transition for the deepest of the 64 trees, so its depth is capped
+# at 3 (7 evaluations a transition); sampling runs the chains' trees side by
+# side, about 60 evaluations a draw, so it takes 10 draws.
+ES_Y = (28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0)
+ES_SIGMA = (15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0)
+ES_RUN = (64, 50, 10, (3, 10))
+# the guide leg: Adam step size, steps, predictive draws
+ES_SVI = (0.05, 300, 1000)
+# the JAX package's own run at ES_RUN: posterior mean, std and their
+# Monte-Carlo standard errors (``mc_moments``) per site
+# (`JAX_PLATFORMS=cpu python3 -m dev.eight_schools_reference`, key 0, on the
+# CPU; its runs with keys 1 and 2 are within 0.687 and 0.404 of this gate of
+# these numbers)
+EIGHT_SCHOOLS_REF = {
+    "mu": {
+        "mean": 4.68292,
+        "std": 3.2366,
+        "se_mean": 0.11057,
+        "se_std": 0.15238,
+    },
+    "tau": {
+        "mean": 3.35685,
+        "std": 3.05305,
+        "se_mean": 0.111,
+        "se_std": 0.16472,
+    },
+    "theta": {
+        "mean": [6.19109, 5.0938, 4.22517, 4.9123, 3.99447, 4.29002, 6.27283, 4.94206],
+        "std": [5.53485, 4.58823, 5.1635, 4.38886, 4.4885, 4.41399, 4.78151, 4.89771],
+        "se_mean": [0.18523, 0.14713, 0.1801, 0.15895, 0.13966, 0.15283, 0.15349, 0.17037],
+        "se_std": [0.26195, 0.16153, 0.29944, 0.19308, 0.14249, 0.18409, 0.18468, 0.20465],
+    },
+}
+# phase 10, stochastic volatility at T = 100: chains, warmup, samples, tree
+# depths in warmup and sampling.  Its budget is 30 s on the same host, within
+# the 43 s of both phases, and an evaluation costs 9-14 ms: every tree fills
+# its capped depth, so 100 x 7 + 10 x 31 evaluations.
+SV_T = 100
+SV_RUN = (64, 100, 10, (3, 5))
+# max(2e, e + 0.05), the rule of HS_GATE, where e is the largest gap over t
+# between the posterior mean of s and the generating log volatility in the
+# JAX package's own run at SV_RUN; R-hat of sigma by the rule of HS_RHAT_GATE
+# (`JAX_PLATFORMS=cpu python3 -m dev.sv_reference`, key 0, on the CPU: e =
+# 1.7191, r = 1.8791; keys 1 and 2 give e = 1.7260 and 1.7279, r = 2.0001
+# and 1.8340.  sigma does not mix in any run this budget allows: at 20 draws
+# and depths (5, 6) JAX's r is 1.40-1.51, so the R-hat gate holds the port
+# to the reference's behaviour at this length, not to convergence)
+SV_GATE = 3.4381
+SV_RHAT_GATE = 2.7581
 
 
 _T0 = time.perf_counter()
@@ -669,6 +749,172 @@ def phase_dense(X, y, true_w):
     return stats, dict(glm.launch_counts)
 
 
+def mc_moments(draws):
+    """Posterior mean and std of every coordinate of ``(C, n, ...)`` draws,
+    each with its Monte-Carlo standard error: ``sd / sqrt(ESS)`` for the
+    mean, and for the std the error of the mean of the squared deviations
+    (from their own ESS) over ``2 sd``."""
+    x = torch.tensor(np.asarray(draws), dtype=torch.float64)
+    flat = x.reshape((-1,) + tuple(x.shape[2:]))
+    mean, sd = flat.mean(0), flat.std(0)
+    sq = (x - mean) ** 2
+    sq_flat = sq.reshape(flat.shape)
+    out = {"mean": mean, "std": sd, "se_mean": sd / effective_sample_size(x).sqrt(),
+           "se_std": sq_flat.std(0) / effective_sample_size(sq).sqrt() / (2 * sd)}
+    return {k: v.tolist() for k, v in out.items()}
+
+
+def eight_schools(y, sigma):
+    """``examples/eight_schools.py::model``."""
+    mu = npt.sample("mu", dist.Normal(0.0, 5.0))
+    tau = npt.sample("tau", dist.HalfCauchy(5.0))
+    with npt.plate("J", 8):
+        theta = npt.sample("theta", dist.Normal(mu, tau))
+        npt.sample("obs", dist.Normal(theta, sigma), obs=y)
+
+
+def phase_eight_schools(device):
+    """Phase 9; returns its wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    y = torch.tensor(ES_Y, device=device)
+    sigma = torch.tensor(ES_SIGMA, device=device)
+    model_nc = handlers.reparam(eight_schools, config={"theta": LocScaleReparam(0)})
+    chains, warmup, samples, depth = ES_RUN
+    mcmc = MCMC(NUTS(model_nc, target_accept_prob=0.9, max_tree_depth=depth),
+                num_warmup=warmup, num_samples=samples, num_chains=chains)
+    mcmc.run(9, y, sigma, extra_fields=("diverging",))
+    stats = mcmc.last_run_stats
+    z = mcmc.get_samples(group_by_chain=True)
+    if z["theta"].shape != (chains, samples, 8) or z["theta"].device.type != device.type:
+        raise SystemExit(f"9: theta {tuple(z['theta'].shape)} on {z['theta'].device}")
+    if not all(torch.isfinite(v).all() for v in z.values()):
+        raise SystemExit("9: draws that are not finite")
+    mcmc.print_summary()
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    ms = (stats["warmup_s"] + stats["sample_s"]) / evals * 1e3
+    log(f"[8 schools] {chains} chains, {warmup} + {samples}, max_tree_depth {depth}: init {stats['init_s']:.2f} s, "
+        f"warmup {stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s; potential "
+        f"evaluations {stats['potential_evals_warmup']} + {stats['potential_evals_sample']} "
+        f"({evals / (warmup + samples):.1f} a transition), {ms:.2f} ms per evaluation")
+    within = True
+    for site in ("mu", "tau", "theta"):
+        got, ref = mc_moments(z[site].cpu()), EIGHT_SCHOOLS_REF[site]
+        for m in ("mean", "std"):
+            gap = np.abs(np.subtract(got[m], ref[m]))
+            bound = 4 * np.hypot(got["se_" + m], ref["se_" + m])
+            # a NaN error (no spread in the draws) fails the comparison
+            within = within and bool(np.all(gap < bound))
+            log(f"[8 schools] {m} of {site}: port {np.round(got[m], 3).tolist()}, JAX "
+                f"{np.round(ref[m], 3).tolist()}; largest gap / 4 combined errors "
+                f"{float((gap / bound).max()):.3f}")
+    if not within:
+        raise SystemExit("9: the posterior is off the JAX package's by more than 4 "
+                         "Monte-Carlo standard errors")
+
+    flat = mcmc.get_samples()
+    n = chains * samples
+    pred = Predictive(model_nc, flat, return_sites=["obs"])(10, None, sigma)["obs"]
+    resid = (pred - flat["theta"]) / sigma
+    mean_z = resid.mean(0).abs().max().item()
+    std_z = (resid.std(0) - 1).abs().max().item()
+    log(f"[8 schools] Predictive obs {tuple(pred.shape)}: max |mean((obs - theta) / sigma)| "
+        f"{mean_z:.4f} (gate {4 / np.sqrt(n):.4f}), max |std - 1| {std_z:.4f} (gate "
+        f"{4 / np.sqrt(2 * n):.4f})")
+    if pred.shape != (n, 8) or not torch.isfinite(pred).all():
+        raise SystemExit(f"9: Predictive obs {tuple(pred.shape)}")
+    if not (mean_z < 4 / np.sqrt(n) and std_z < 4 / np.sqrt(2 * n)):
+        raise SystemExit("9: Predictive's obs are not theta + sigma * N(0, 1)")
+    ll = log_likelihood(model_nc, flat, y, sigma)["obs"]
+    ref = dist.Normal(flat["theta"], sigma).log_prob(y)
+    ll_rel = ((ll - ref).abs() / ref.abs()).max().item()
+    log(f"[8 schools] log_likelihood obs {tuple(ll.shape)}: max rel err against "
+        f"Normal(theta, sigma).log_prob(y) {ll_rel:.3e} (gate 1e-5)")
+    if ll.shape != (n, 8) or not torch.isfinite(ll).all() or not ll_rel <= 1e-5:
+        raise SystemExit("9: log_likelihood disagrees")
+
+    lr, steps, draws = ES_SVI
+    guide = autoguide.AutoNormal(model_nc)
+    svi = SVI(model_nc, guide, Adam(lr), Trace_ELBO())
+    res = svi.run(12, steps, y, sigma)
+    got = Predictive(model_nc, guide=guide, params=res.params, num_samples=draws,
+                     return_sites=["mu", "tau", "theta_decentered", "theta", "obs"])(
+        13, None, sigma)
+    theta = got["mu"][:, None] + got["tau"][:, None] * got["theta_decentered"]
+    th_err = (got["theta"] - theta).abs().max().item()
+    losses = res.losses.cpu()
+    log(f"[8 schools] AutoNormal, {steps} steps: loss of the first 50 "
+        f"{losses[:50].mean().item():.2f}, of the last 50 {losses[-50:].mean().item():.2f}; "
+        f"Predictive through the guide obs {tuple(got['obs'].shape)}, mean of mu "
+        f"{got['mu'].mean().item():.3f}, theta against mu + tau theta_decentered {th_err:.2e}")
+    if got["obs"].shape != (draws, 8) or not all(torch.isfinite(v).all() for v in got.values()):
+        raise SystemExit("9: Predictive through the guide")
+    if not (th_err < 1e-4 and torch.isfinite(losses).all()):
+        raise SystemExit("9: the guide's predictive draws break theta's definition")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("9: 8-schools launched a GLM kernel")
+    wall = time.perf_counter() - t0
+    log(f"[8 schools] phase 9: {wall:.1f} s (budget 20 s at 24.0 ms per ECS evaluation)")
+    return wall
+
+
+def sv_data(T=SV_T, seed=0):
+    """``examples/stochastic_volatility.py:28-29`` in numpy: returns with a
+    Gaussian random-walk log volatility, and that log volatility."""
+    rng = np.random.default_rng(seed)
+    log_vol = 0.1 * np.cumsum(rng.standard_normal(T)) * 0.3 - 2
+    returns = np.exp(log_vol) * rng.standard_normal(T)
+    return returns.astype(np.float32), log_vol
+
+
+def stochastic_volatility(returns):
+    """``examples/stochastic_volatility.py::model``."""
+    T = returns.shape[0]
+    sigma = npt.sample("sigma", dist.Exponential(50.0))
+    nu = npt.sample("nu", dist.Exponential(0.1))
+    s = npt.sample("s", dist.GaussianRandomWalk(scale=sigma, num_steps=T))
+    npt.sample("r", dist.StudentT(df=nu, loc=0.0, scale=torch.exp(s)), obs=returns)
+
+
+def phase_sv(device):
+    """Phase 10; returns its wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    returns, log_vol = sv_data()
+    chains, warmup, samples, depth = SV_RUN
+    mcmc = MCMC(NUTS(stochastic_volatility, max_tree_depth=depth, pooled_adaptation=True),
+                num_warmup=warmup, num_samples=samples, num_chains=chains)
+    mcmc.run(14, torch.from_numpy(returns).to(device), extra_fields=("diverging",))
+    stats = mcmc.last_run_stats
+    z = mcmc.get_samples(group_by_chain=True)
+    if z["s"].shape != (chains, samples, SV_T) or z["s"].device.type != device.type:
+        raise SystemExit(f"10: s {tuple(z['s'].shape)} on {z['s'].device}")
+    if not all(torch.isfinite(v).all() for v in z.values()):
+        raise SystemExit("10: draws that are not finite")
+    err = np.abs(z["s"].double().mean((0, 1)).cpu().numpy() - log_vol).max()
+    rhat = split_gelman_rubin(z["sigma"]).item()
+    divergent = mcmc.get_extra_fields()["diverging"].float().mean().item()
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    ms = (stats["warmup_s"] + stats["sample_s"]) / evals * 1e3
+    log(f"[sv] T = {SV_T}, {chains} chains, {warmup} + {samples}, max_tree_depth {depth}, "
+        f"pooled: init {stats['init_s']:.2f} s, warmup {stats['warmup_s']:.2f} s, sampling "
+        f"{stats['sample_s']:.2f} s; potential evaluations {stats['potential_evals_warmup']} + "
+        f"{stats['potential_evals_sample']} ({stats['potential_evals_warmup'] / warmup:.1f} / "
+        f"{stats['potential_evals_sample'] / samples:.1f} a transition), {ms:.2f} ms per "
+        f"evaluation; max |mean(s) - log vol| {err:.4f} (gate {SV_GATE}); R-hat of sigma "
+        f"{rhat:.4f} (gate {SV_RHAT_GATE}); mean sigma {z['sigma'].mean().item():.4f}, nu "
+        f"{z['nu'].mean().item():.2f}; divergent share {divergent:.4f}")
+    if not err < SV_GATE:
+        raise SystemExit(f"10: posterior mean of s off the log volatility by {err:.4f}")
+    if not rhat < SV_RHAT_GATE:
+        raise SystemExit(f"10: R-hat of sigma {rhat:.4f} (>= {SV_RHAT_GATE})")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("10: stochastic volatility launched a GLM kernel")
+    wall = time.perf_counter() - t0
+    log(f"[sv] phase 10: {wall:.1f} s (budget 30 s at 24.0 ms per ECS evaluation)")
+    return wall
+
+
 def run_svi(tag, model_fn, guide, loss, steps, *args):
     """``SVI.init`` and ``steps`` updates on the default device, with every
     launch count set to 0 just before; returns the result, the launches of
@@ -857,6 +1103,8 @@ def main():
     log(f"[dense] 7e covtype, split mode: {dense['ms_per_eval']:.2f} ms per evaluation under "
         f"the pooled dense mass against {split['ms_per_eval']:.2f} under phase 4's diagonal one; "
         f"glm_split launches {dense_counts['glm_split']} here, {counts['glm_split']} in phase 4")
+    phase_eight_schools(device)
+    phase_sv(device)
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

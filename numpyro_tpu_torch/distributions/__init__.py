@@ -1,10 +1,13 @@
 from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.continuous import (
     Cauchy,
+    Exponential,
+    GaussianRandomWalk,
     HalfCauchy,
     HalfNormal,
     MultivariateNormal,
     Normal,
+    StudentT,
     Uniform,
 )
 from numpyro_tpu_torch.distributions.discrete import Bernoulli, BernoulliLogits, BernoulliProbs
@@ -28,12 +31,15 @@ __all__ = [
     "Delta",
     "Distribution",
     "ExpandedDistribution",
+    "Exponential",
+    "GaussianRandomWalk",
     "HalfCauchy",
     "HalfNormal",
     "Independent",
     "MaskedDistribution",
     "MultivariateNormal",
     "Normal",
+    "StudentT",
     "TransformedDistribution",
     "Uniform",
     "Unit",

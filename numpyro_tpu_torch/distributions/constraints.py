@@ -2,7 +2,8 @@
 that the ported slices need: ``real``, ``real_vector``, ``boolean``,
 ``independent``, ``interval``, ``greater_than``/``greater_than_eq`` and their
 instances ``positive``/``nonnegative``, ``softplus_positive``,
-``lower_cholesky`` and ``scaled_unit_lower_cholesky``).  Others are not
+``lower_cholesky``, ``scaled_unit_lower_cholesky`` and ``unit_interval``).
+Others are not
 ported yet; see ROADMAP.md."""
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 __all__ = [
     "Constraint", "boolean", "greater_than", "greater_than_eq", "independent", "interval",
     "lower_cholesky", "nonnegative", "positive", "real", "real_vector",
-    "scaled_unit_lower_cholesky", "softplus_positive",
+    "scaled_unit_lower_cholesky", "softplus_positive", "unit_interval",
 ]
 
 
@@ -177,6 +178,14 @@ class _Interval(Constraint):
         return f"interval({self.lower_bound}, {self.upper_bound})"
 
 
+class _UnitInterval(_Interval):
+    """``interval(0, 1)``, a type of its own: ``biject_to`` maps it with a
+    bare sigmoid, as the JAX package's type-keyed table does."""
+
+    def __init__(self):
+        super().__init__(0.0, 1.0)
+
+
 boolean = _Boolean()
 greater_than = _GreaterThan
 greater_than_eq = _GreaterThanEq
@@ -189,3 +198,4 @@ real = _Real()
 real_vector = _IndependentConstraint(real, 1)
 scaled_unit_lower_cholesky = _ScaledUnitLowerCholesky()
 softplus_positive = _SoftplusPositive()
+unit_interval = _UnitInterval()

@@ -1,5 +1,6 @@
-"""Continuous distributions (port of ``Normal``, ``Cauchy``, ``HalfCauchy``,
-``HalfNormal``, ``Uniform`` and ``MultivariateNormal`` from
+"""Continuous distributions (port of ``Normal``, ``Cauchy``, ``StudentT``,
+``HalfCauchy``, ``HalfNormal``, ``Uniform``, ``Exponential``,
+``MultivariateNormal`` and ``GaussianRandomWalk`` from
 ``numpyro_tpu/distributions/continuous.py``; the rest are listed in
 ROADMAP.md).
 
@@ -14,10 +15,13 @@ import math
 import torch
 
 from . import constraints
-from .distribution import Distribution
+from .distribution import Distribution, _as_tensors
 from .util import broadcast_shape, lazy_property, promote_shapes
 
-__all__ = ["Cauchy", "HalfCauchy", "HalfNormal", "MultivariateNormal", "Normal", "Uniform"]
+__all__ = [
+    "Cauchy", "Exponential", "GaussianRandomWalk", "HalfCauchy", "HalfNormal",
+    "MultivariateNormal", "Normal", "StudentT", "Uniform",
+]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2 * math.pi)
 _LOG_2 = 0.6931471805599453
@@ -87,6 +91,72 @@ class Cauchy(_LocScale):
         return torch.tan(math.pi * (q - 0.5))
 
 
+def _betaln_half(a):
+    """``betaln(a, 1/2)`` through ``lgamma``, which PyTorch has (it has no
+    ``betaln``).  Computed in float64 and returned in ``a``'s dtype: in float32
+    the difference of two ``lgamma`` values of a few thousand loses the
+    digits that the JAX package's ``betaln`` keeps."""
+    a64 = a.to(torch.float64)
+    out = torch.lgamma(a64) + 0.5 * math.log(math.pi) - torch.lgamma(a64 + 0.5)
+    return out.to(a.dtype)
+
+
+class StudentT(_LocScale):
+    """Student's t with ``df`` degrees of freedom.
+
+    A draw is ``normal * sqrt(df / chi2)``, the chi-square made as twice a
+    ``torch._standard_gamma`` draw of ``df / 2``: that op takes the run's
+    generator, and under ``torch.func.vmap(randomness="different")`` each
+    element draws its own value.  ``cdf`` needs the regularized incomplete
+    beta function, which PyTorch lacks, so it raises as ``icdf`` does in the
+    JAX package (ROADMAP.md)."""
+
+    def __init__(self, df, loc=0.0, scale=1.0, *, validate_args=None):
+        self._init_broadcast(validate_args, df=df, loc=loc, scale=scale)
+
+    def _z_sample(self, key, shape):
+        kw = {"generator": key, "device": self.loc.device, "dtype": self.loc.dtype}
+        eps = torch.randn(shape, **kw)
+        half_df = torch.broadcast_to(0.5 * self.df, shape)
+        chi2 = 2.0 * torch._standard_gamma(half_df, generator=key)
+        return eps * torch.sqrt(self.df / chi2)
+
+    def _z_log_density(self, z):
+        half_df = 0.5 * self.df
+        log_norm = 0.5 * torch.log(self.df) + _betaln_half(half_df)
+        return -(half_df + 0.5) * torch.log1p(z * z / self.df) - log_norm
+
+    def cdf(self, value):
+        raise NotImplementedError(
+            "StudentT.cdf needs betainc, which PyTorch lacks; not ported to "
+            "numpyro_tpu_torch (see ROADMAP.md)"
+        )
+
+    def icdf(self, q):
+        raise NotImplementedError
+
+    @property
+    def mean(self):
+        z_mean = torch.where(self.df > 1.0, 0.0, math.nan)
+        return torch.broadcast_to(self.loc + self.scale * z_mean, self.batch_shape)
+
+    @property
+    def variance(self):
+        heavy = torch.where(self.df > 2.0, self.df / (self.df - 2.0), math.inf)
+        z_var = torch.where(self.df > 1.0, heavy, math.nan)
+        return torch.broadcast_to(self.scale**2 * z_var, self.batch_shape)
+
+    def entropy(self):
+        half_df = 0.5 * self.df
+        half_up = half_df + 0.5
+        z_entropy = (
+            half_up * (torch.digamma(half_up) - torch.digamma(half_df))
+            + 0.5 * torch.log(self.df)
+            + _betaln_half(half_df)
+        )
+        return torch.broadcast_to(z_entropy + torch.log(self.scale), self.batch_shape)
+
+
 class _FoldedAtZero(Distribution):
     """|X| for a zero-centred symmetric loc-scale X; subclasses set
     ``_full_cls``."""
@@ -151,6 +221,39 @@ class Uniform(Distribution):
     def log_prob(self, value):
         out = broadcast_shape(tuple(value.shape), self.batch_shape)
         return (-torch.log(self.high - self.low)).expand(out)
+
+
+class Exponential(Distribution):
+    support = constraints.positive
+    has_rsample = True
+
+    def __init__(self, rate=1.0, *, validate_args=None):
+        self._init_broadcast(validate_args, rate=rate)
+
+    def sample(self, key, sample_shape=()):
+        u = torch.rand(self.shape(sample_shape), generator=key, device=self.rate.device,
+                       dtype=self.rate.dtype)
+        return -torch.log1p(-u) / self.rate
+
+    def log_prob(self, value):
+        return torch.log(self.rate) - self.rate * value
+
+    def cdf(self, value):
+        return -torch.expm1(-self.rate * value)
+
+    def icdf(self, q):
+        return -torch.log1p(-q) / self.rate
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(1.0 / self.rate, self.batch_shape)
+
+    @property
+    def variance(self):
+        return torch.broadcast_to(self.rate**-2, self.batch_shape)
+
+    def entropy(self):
+        return torch.broadcast_to(1.0 - torch.log(self.rate), self.batch_shape)
 
 
 def _tril_logdet(scale_tril):
@@ -235,3 +338,42 @@ class MultivariateNormal(Distribution):
     @property
     def variance(self):
         return torch.broadcast_to((self.scale_tril**2).sum(-1), self.batch_shape + self.event_shape)
+
+
+class GaussianRandomWalk(Distribution):
+    """A walk of ``num_steps`` Gaussian steps of size ``scale`` from 0, one
+    event: ``log_prob`` sums the increments' normal densities and ``sample``
+    is a cumulative sum of steps, so neither needs a ``scan``."""
+
+    support = constraints.real_vector
+    has_rsample = True
+
+    def __init__(self, scale=1.0, num_steps=1, *, validate_args=None):
+        if not (isinstance(num_steps, int) and num_steps > 0):
+            raise AssertionError("`num_steps` argument should be a positive integer.")
+        self.scale = _as_tensors({"scale": scale})["scale"]
+        self.num_steps = num_steps
+        super().__init__(tuple(self.scale.shape), (num_steps,), validate_args=validate_args)
+
+    def sample(self, key, sample_shape=()):
+        steps = torch.randn(self.shape(sample_shape), generator=key, device=self.scale.device,
+                            dtype=self.scale.dtype)
+        return self.scale[..., None] * torch.cumsum(steps, -1)
+
+    def log_prob(self, value):
+        # the increments, the first one from 0, are iid N(0, scale)
+        increments = torch.diff(value, dim=-1, prepend=torch.zeros_like(value[..., :1]))
+        z = increments / self.scale[..., None]
+        per_step = -0.5 * z * z - _LOG_SQRT_2PI - torch.log(self.scale)[..., None]
+        return per_step.sum(-1)
+
+    @property
+    def mean(self):
+        return self.scale.new_zeros(self.batch_shape + self.event_shape)
+
+    @property
+    def variance(self):
+        growth = torch.arange(1, self.num_steps + 1, device=self.scale.device,
+                              dtype=self.scale.dtype)
+        return torch.broadcast_to((self.scale**2)[..., None] * growth,
+                                  self.batch_shape + self.event_shape)

@@ -1,10 +1,11 @@
 """Bijective transforms and the ``biject_to`` registry (port of the parts
 of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
-identity, independent, compose, affine, exp and softplus transforms, the
+identity, independent, compose, affine, exp, sigmoid and softplus transforms, the
 lower-Cholesky transforms, ``UnpackTransform`` and ``LowerCholeskyAffine``;
 ``biject_to`` for ``real``, ``independent``, ``positive``/``nonnegative``,
 ``greater_than``/``greater_than_eq``, ``softplus_positive``,
-``lower_cholesky`` and ``scaled_unit_lower_cholesky``).  Other constraints
+``lower_cholesky``, ``scaled_unit_lower_cholesky`` and ``unit_interval``).
+Other constraints
 raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
 
 Matrices are built with out-of-place ops only (``index_copy``, not an
@@ -29,6 +30,7 @@ __all__ = [
     "LowerCholeskyAffine",
     "LowerCholeskyTransform",
     "ScaledUnitLowerCholeskyTransform",
+    "SigmoidTransform",
     "SoftplusTransform",
     "Transform",
     "UnpackTransform",
@@ -345,6 +347,23 @@ def _softplus(x):
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+class SigmoidTransform(Transform):
+    """y = 1 / (1 + exp(-x)), onto the unit interval, clipped inside it as
+    the JAX package clips it (``tiny`` below, ``1 - eps`` above)."""
+
+    codomain = constraints.unit_interval
+
+    def __call__(self, x):
+        info = torch.finfo(x.dtype)
+        return torch.sigmoid(x).clamp(min=info.tiny, max=1.0 - info.eps)
+
+    def _inverse(self, y):
+        return torch.log(y) - torch.log1p(-y)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return -_softplus(x) - _softplus(-x)
+
+
 class SoftplusTransform(Transform):
     """y = log(1 + exp(x)), onto the positive half-line."""
 
@@ -609,6 +628,7 @@ del _c
 # ``softplus_positive`` subclasses ``_GreaterThan`` but is a type of its own,
 # so its row stands beside the half-line rows, as in the JAX package
 biject_to.register(constraints.softplus_positive, lambda c: SoftplusTransform())
+biject_to.register(constraints.unit_interval, lambda c: SigmoidTransform())
 biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
 biject_to.register(
     constraints.scaled_unit_lower_cholesky, lambda c: ScaledUnitLowerCholeskyTransform()

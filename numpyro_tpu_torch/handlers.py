@@ -1,6 +1,6 @@
 """Effect handlers (port of ``trace``, ``seed``, ``substitute``, ``condition``,
-``block``, ``mask`` and ``replay`` from ``numpyro_tpu/handlers.py``; the rest
-are listed in ROADMAP.md).  A handler leaves every message type it does not know
+``block``, ``mask``, ``replay`` and ``reparam`` from
+``numpyro_tpu/handlers.py``; the rest are listed in ROADMAP.md).  A handler leaves every message type it does not know
 (``plate``, ``subsample``, ``inspect``, ``_gibbs_state``,
 ``_subsample_panels``) as it found it.
 
@@ -17,7 +17,7 @@ import torch
 
 from numpyro_tpu_torch.primitives import Messenger, prng_key
 
-__all__ = ["block", "condition", "mask", "replay", "seed", "substitute", "trace"]
+__all__ = ["block", "condition", "mask", "replay", "reparam", "seed", "substitute", "trace"]
 
 
 class trace(Messenger):
@@ -169,6 +169,41 @@ class mask(Messenger):
             msg["mask"] = self.mask if prior_mask is None else self.mask & prior_mask
         elif msg["type"] == "sample":
             msg["fn"] = msg["fn"].mask(self.mask)
+
+
+class reparam(Messenger):
+    """Apply the reparameterizers of ``config`` (a dict keyed by site name,
+    or a callable from a site's message to a reparameterizer or ``None``) to
+    sample sites; see ``infer/reparam.py``."""
+
+    def __init__(self, fn=None, config=None):
+        assert isinstance(config, dict) or callable(config)
+        self.config = config
+        super().__init__(fn)
+
+    def process_message(self, msg):
+        if msg["type"] != "sample":
+            return
+        if isinstance(self.config, dict):
+            chosen = self.config.get(msg["name"])
+        else:
+            chosen = self.config(msg)
+        if chosen is None:
+            return
+        new_fn, value = chosen(msg["name"], msg["fn"], msg["value"])
+        if value is not None:
+            if msg["value"] is None:
+                msg["is_observed"] = True
+            msg["value"] = value
+        if new_fn is None:
+            # the reparameterizer consumed the site: it becomes a
+            # deterministic record of the recomposed value
+            msg["type"] = "deterministic"
+            keep = ("type", "name", "value", "cond_indep_stack")
+            for key in [k for k in msg if k not in keep]:
+                del msg[key]
+        else:
+            msg["fn"] = new_fn
 
 
 class seed(Messenger):

@@ -1,4 +1,4 @@
-from numpyro_tpu_torch.infer import autoguide
+from numpyro_tpu_torch.infer import autoguide, reparam
 from numpyro_tpu_torch.infer.elbo import (
     ELBO,
     RenyiELBO,
@@ -17,7 +17,13 @@ from numpyro_tpu_torch.infer.initialization import (
 )
 from numpyro_tpu_torch.infer.mcmc import MCMC, MCMCKernel
 from numpyro_tpu_torch.infer.svi import SVI, SVIRunResult, SVIState
-from numpyro_tpu_torch.infer.util import initialize_model, log_density, potential_energy
+from numpyro_tpu_torch.infer.util import (
+    Predictive,
+    initialize_model,
+    log_density,
+    log_likelihood,
+    potential_energy,
+)
 
 __all__ = [
     "DiscreteHMCGibbs",
@@ -28,6 +34,7 @@ __all__ = [
     "MCMC",
     "MCMCKernel",
     "NUTS",
+    "Predictive",
     "RenyiELBO",
     "SVI",
     "SVIRunResult",
@@ -43,5 +50,7 @@ __all__ = [
     "init_to_value",
     "initialize_model",
     "log_density",
+    "log_likelihood",
     "potential_energy",
+    "reparam",
 ]

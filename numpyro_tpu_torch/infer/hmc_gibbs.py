@@ -197,9 +197,14 @@ class HMCGibbs(MCMCKernel):
     def _sample_batched(self, state, model_args, model_kwargs):
         z_gibbs = {k: v for k, v in state.z.items() if k not in state.hmc_state.z}
         z_hmc = {k: v for k, v in state.z.items() if k in state.hmc_state.z}
-        mk = dict(model_kwargs)
-        mk["_gibbs_sites"] = z_gibbs
-        constrained = self.inner_kernel.postprocess_fn(model_args, mk)(z_hmc)
+
+        def constrain(z_c, z_gibbs_c):
+            # one chain: a model replay (deterministic sites) sees no chain axis
+            mk = dict(model_kwargs)
+            mk["_gibbs_sites"] = z_gibbs_c
+            return self.inner_kernel.postprocess_fn(model_args, mk)(z_c)
+
+        constrained = torch.func.vmap(constrain, randomness="different")(z_hmc, z_gibbs)
         generator = getattr(state.rng_key, "generator", state.rng_key)
         if not self._chain_mode:
             new = self._gibbs_fn(
@@ -316,9 +321,12 @@ class HMCECS(HMCGibbs):
         }
         self._gibbs_sites = list(self._subsample_plate_sizes)
         assert self._gibbs_sites, "Cannot detect any subsample statements in the model."
-        if not self._collect_subsample_indices:
+        replays = any(site["type"] == "deterministic" for site in tr.values())
+        if not (self._collect_subsample_indices or replays):
             # the (chains, subsample) index panels stay out of the collected
-            # samples; they remain on last_state.z
+            # samples (they remain on last_state.z), unless the replay of the
+            # model's deterministic sites needs each draw's subsample;
+            # postprocess_fn drops them then
             self.collect_exclude_sites = tuple(self._gibbs_sites)
         self._proto_latents = {
             name: site["value"] for name, site in tr.items()

@@ -9,18 +9,25 @@ collects a field the fused run does not bank, goes through the per-step API:
 ``init``, then a Python loop over ``sample`` that writes the collected fields
 into ``(C, n, ...)`` buffers on the device (the counterpart of the JAX
 package's ``fori_collect``).
+
+Postprocessing (constraining the draws, and replaying the model for its
+deterministic sites) is written for one draw and mapped over chains and
+draws with ``util.soft_vmap``, as the JAX package maps it with
+``vmap(vmap(postprocess_fn))``.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from abc import ABC, abstractmethod
 from operator import attrgetter
 
 import torch
 
+from numpyro_tpu_torch.diagnostics import print_summary
 from numpyro_tpu_torch.infer import util as infer_util
-from numpyro_tpu_torch.util import identity, tree_map
+from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
 __all__ = ["MCMC", "MCMCKernel"]
 
@@ -52,6 +59,22 @@ class MCMCKernel(ABC):
 
     def get_diagnostics_str(self, state):
         return ""
+
+
+# draws per vmap call of the postprocessing: bounds the memory of a replay
+POSTPROCESS_CHUNK = 4096
+
+
+def _postprocess_draws(postprocess_fn, draws):
+    """``postprocess_fn`` of one draw, mapped over the ``(C, n)`` leading
+    axes of ``draws``."""
+    lead = tuple(tree_leaves(draws)[0].shape[:2])
+    if math.prod(lead) == 0:
+        return draws
+    out = soft_vmap(postprocess_fn, draws, 2, POSTPROCESS_CHUNK)
+    if math.prod(lead) == 1:  # soft_vmap calls fn on the one draw as it is
+        out = tree_map(lambda y: y.reshape(lead + tuple(y.shape)), out)
+    return out
 
 
 def _sync(device):
@@ -261,8 +284,10 @@ class MCMC:
             if self.postprocess_fn is None
             else self.postprocess_fn
         )
-        if fields[self._sample_field] is not None:
-            fields[self._sample_field] = postprocess_fn(fields[self._sample_field])
+        if fields[self._sample_field] is not None and postprocess_fn is not identity:
+            fields[self._sample_field] = _postprocess_draws(
+                postprocess_fn, fields[self._sample_field]
+            )
         self._last_state = last_state
         self._states = fields
         self._states_flat = {k: _flatten_chains(v) for k, v in fields.items()}
@@ -280,6 +305,19 @@ class MCMC:
     def get_extra_fields(self, group_by_chain=False):
         states = self._states if group_by_chain else self._states_flat
         return {k: v for k, v in states.items() if k != self._sample_field}
+
+    def print_summary(self, prob=0.90, exclude_deterministic=True):
+        """Print the summary table of the samples (sites whose names start
+        with ``_`` left out) and the number of divergences.
+        ``exclude_deterministic`` is accepted and not used, as in the JAX
+        package: deterministic sites are in the table."""
+        states = self._states[self._sample_field]
+        if not isinstance(states, dict):
+            states = {self._sample_field: states}
+        print_summary({k: v for k, v in states.items() if not k.startswith("_")}, prob=prob)
+        extra_fields = self.get_extra_fields()
+        if "diverging" in extra_fields:
+            print("Number of divergences: {}".format(int(extra_fields["diverging"].sum())))
 
 
 def _flatten_chains(x):

@@ -1,0 +1,164 @@
+"""Reparameterizers, applied through the ``handlers.reparam`` handler (port
+of ``Reparam``, ``LocScaleReparam``, ``TransformReparam`` and
+``ExplicitReparam`` from ``numpyro_tpu/infer/reparam.py``).
+
+Each reparameterizer is called as ``reparam(name, fn, obs) -> (new_fn,
+value)``: ``(None, value)`` replaces the site with a deterministic value
+computed from the auxiliary sample sites it introduced.  A site with an
+observation raises ``NotImplementedError``, where the JAX package fails an
+assertion (ROADMAP.md, Queue 3).  ``ProjectedNormalReparam``,
+``CircularReparam`` and ``NeuTraReparam`` are not ported yet and raise when
+made (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+
+import torch
+
+import numpyro_tpu_torch.distributions as dist
+from numpyro_tpu_torch.distributions import constraints
+from numpyro_tpu_torch.primitives import param, sample
+
+__all__ = [
+    "CircularReparam",
+    "ExplicitReparam",
+    "LocScaleReparam",
+    "NeuTraReparam",
+    "ProjectedNormalReparam",
+    "Reparam",
+    "TransformReparam",
+]
+
+
+def _base_support(fn):
+    s = fn.support
+    return s.base_constraint if isinstance(s, constraints.independent) else s
+
+
+def _reject_obs(reparam, obs):
+    if obs is not None:
+        raise NotImplementedError(
+            f"{type(reparam).__name__} of an observed site is not ported to "
+            "numpyro_tpu_torch (see ROADMAP.md)"
+        )
+
+
+class Reparam(ABC):
+    """Base: called as ``reparam(name, fn, obs) -> (new_fn, value)``."""
+
+    @abstractmethod
+    def __call__(self, name, fn, obs):
+        return fn, obs
+
+    @staticmethod
+    def _peel(fn):
+        """Strip ``Independent``/``ExpandedDistribution`` wrappers; returns
+        ``(base, rewrap)``, where ``rewrap`` restores the original batch and
+        event structure on a distribution made from the base's parameters."""
+        full_shape, event_dim = fn.shape(), fn.event_dim
+
+        def rewrap(new_fn):
+            if new_fn.shape() != full_shape:
+                new_fn = new_fn.expand(full_shape[: len(full_shape) - new_fn.event_dim])
+            if new_fn.event_dim < event_dim:
+                new_fn = new_fn.to_event(event_dim - new_fn.event_dim)
+            assert new_fn.event_dim == event_dim
+            return new_fn
+
+        base = fn
+        while isinstance(base, (dist.Independent, dist.ExpandedDistribution)):
+            base = base.base_dist
+        return base, rewrap
+
+
+class LocScaleReparam(Reparam):
+    """Decenter a location-scale family: ``centered`` in [0, 1] interpolates
+    from the fully non-centred form (0) to the original one (1); ``None``
+    learns a value per coordinate as a ``param`` site ``{name}_centered`` in
+    the unit interval (for SVI).  ``shape_params`` names further parameters
+    of the family that the auxiliary site keeps (``df`` of a ``StudentT``)."""
+
+    def __init__(self, centered=None, shape_params=()):
+        if isinstance(centered, (int, float)):
+            assert 0 <= centered <= 1
+        self.centered = centered
+        self.shape_params = shape_params
+
+    def __call__(self, name, fn, obs):
+        _reject_obs(self, obs)
+        if _base_support(fn) is not constraints.real:
+            raise ValueError(
+                f"LocScaleReparam only supports real-valued distributions, "
+                f"but got site {name} with support {fn.support}."
+            )
+        base, rewrap = self._peel(fn)
+        centered = self.centered
+        if centered is None:
+            centered = param(
+                f"{name}_centered",
+                lambda key: base.loc.new_full(fn.shape(), 0.5),
+                constraint=constraints.unit_interval,
+            )
+        if isinstance(centered, (int, float)) and centered == 1.0:
+            return fn, obs
+
+        aux_params = {k: getattr(base, k) for k in self.shape_params}
+        fully = isinstance(centered, (int, float)) and centered == 0.0
+        aux_params["loc"] = torch.zeros_like(base.loc) if fully else base.loc * centered
+        aux_params["scale"] = torch.ones_like(base.scale) if fully else base.scale**centered
+        noise = sample(f"{name}_decentered", rewrap(type(base)(**aux_params)))
+        # undo the partial standardization
+        residual = noise - centered * base.loc
+        return None, base.loc + base.scale ** (1 - centered) * residual
+
+
+class TransformReparam(Reparam):
+    """Split a ``TransformedDistribution`` into a draw of its base,
+    ``{name}_base``, pushed through its transforms."""
+
+    def __call__(self, name, fn, obs):
+        _reject_obs(self, obs)
+        base, _ = self._peel(fn)
+        assert isinstance(base, dist.TransformedDistribution)
+        x = sample(f"{name}_base", base.base_dist)
+        for t in base.transforms:
+            x = t(x)
+        return None, x
+
+
+class ExplicitReparam(Reparam):
+    """Reparameterize through a given bijection: ``{name}_base`` is drawn
+    from the site's distribution pulled back through ``transform``."""
+
+    def __init__(self, transform):
+        self.transform = transform
+
+    def __call__(self, name, fn, obs):
+        _reject_obs(self, obs)
+        pulled_back = dist.TransformedDistribution(fn, self.transform.inv)
+        x = sample(f"{name}_base", pulled_back)
+        return None, self.transform(x)
+
+
+class _Unported(Reparam):
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__} is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        )
+
+    def __call__(self, name, fn, obs):
+        raise NotImplementedError
+
+
+class ProjectedNormalReparam(_Unported):
+    """Not ported yet (ROADMAP.md)."""
+
+
+class CircularReparam(_Unported):
+    """Not ported yet (ROADMAP.md)."""
+
+
+class NeuTraReparam(_Unported):
+    """Not ported yet (ROADMAP.md)."""

@@ -1,20 +1,30 @@
 """Model -> density bridge (port of the parts of ``numpyro_tpu/infer/util.py``
 that the ported slices need: ``log_density``, ``potential_energy``,
-``find_valid_initial_params``, ``initialize_model``,
-``_without_rsample_stop_gradient`` and ``get_importance_trace``).
+``constrain_fn``, ``unconstrain_fn``, ``find_valid_initial_params``,
+``initialize_model``, ``_without_rsample_stop_gradient``,
+``get_importance_trace``, ``Predictive`` and ``log_likelihood``).
 
 The potential of a model is written for ONE chain, as in the JAX package;
 :func:`batched_value_and_grad` maps it over the leading chain axis with
 ``torch.func.vmap(torch.func.grad_and_value(...))`` (``jacfwd`` in place of
 ``grad_and_value`` in forward mode).  The trace built under ``vmap`` never
 leaves the potential: only the summed log density does.
+
+A model with a ``deterministic`` site is replayed to recover it: its
+postprocessing is :func:`constrain_fn` of one draw, which ``MCMC`` maps over
+chains and draws.  ``Predictive`` and ``log_likelihood`` map a one-draw
+function over the batch with ``util.soft_vmap``; all their draws come from
+one ``torch.Generator``, which decides their device.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from collections import namedtuple
 from functools import partial
 
+import numpy as np
 import torch
 
 from numpyro_tpu_torch import handlers
@@ -23,19 +33,24 @@ from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
 from numpyro_tpu_torch.primitives import Messenger, factor
-from numpyro_tpu_torch.util import identity, tree_map
+from numpyro_tpu_torch.util import identity, soft_vmap, tree_map
 
 __all__ = [
+    "Predictive",
     "batched_value_and_grad",
+    "constrain_fn",
     "device_generator",
     "find_valid_initial_params",
     "get_importance_trace",
     "get_potential_fn",
     "initialize_model",
     "log_density",
+    "log_likelihood",
     "pin_full_f32_matmul",
     "potential_energy",
+    "samples_from_numpy",
     "transform_fn",
+    "unconstrain_fn",
 ]
 
 ModelInfo = namedtuple(
@@ -175,6 +190,47 @@ def transform_fn(transforms, params, invert=False):
         return t.inv if invert else t
 
     return {name: pick(name)(value) for name, value in params.items()}
+
+
+def constrain_fn(model, model_args, model_kwargs, params, return_deterministic=False):
+    """Map unconstrained params onto the supports of their sites by running
+    the model with them; with ``return_deterministic`` the model's
+    deterministic sites come back too."""
+
+    def substitute_fn(site):
+        given = params.get(site["name"])
+        if given is None or site["type"] != "sample":
+            return given
+        return biject_to(site["fn"].support)(given)
+
+    substituted_model = handlers.substitute(model, substitute_fn=substitute_fn)
+    model_trace = handlers.trace(substituted_model).get_trace(*model_args, **model_kwargs)
+    return {
+        name: site["value"]
+        for name, site in model_trace.items()
+        if name in params or (return_deterministic and site["type"] == "deterministic")
+    }
+
+
+def unconstrain_fn(model, model_args, model_kwargs, params):
+    """Map constrained params of latent sites into unconstrained space."""
+    model = handlers.substitute(model, data=params)
+    model_trace = handlers.trace(model).get_trace(*model_args, **model_kwargs)
+    transforms = {
+        name: biject_to(site["fn"].support)
+        for name, site in model_trace.items()
+        if site["type"] == "sample" and not site["is_observed"]
+        and site["fn"].support is not None
+    }
+    return transform_fn(transforms, params, invert=True)
+
+
+def samples_from_numpy(samples, device="cpu"):
+    """The port's tensors, on ``device`` and in their own dtypes, from a dict
+    of arrays: the JAX package's posterior samples (``MCMC.get_samples``,
+    grouped by chain or not) or SVI params (``SVI.get_params``), moved over
+    as numpy arrays."""
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in samples.items()}
 
 
 def _unconstrain_reparam(params, site):
@@ -363,25 +419,28 @@ def get_potential_fn(
     model_args=(), model_kwargs=None,
 ):
     """Build the ``(potential_fn, postprocess_fn)`` closures; with
-    ``dynamic_args`` both take the model arguments first."""
-    if replay_model:
-        raise NotImplementedError(
-            "deterministic sites in MCMC postprocessing are not ported to "
-            "numpyro_tpu_torch yet (see ROADMAP.md)"
-        )
+    ``dynamic_args`` both take the model arguments first.  With
+    ``replay_model`` (a model with deterministic sites) the postprocessing
+    of one draw replays the model through :func:`constrain_fn`."""
+
+    def postprocess(args, kwargs):
+        if replay_model:
+            return partial(constrain_fn, model, args, kwargs, return_deterministic=True)
+        return partial(transform_fn, inv_transforms)
+
     if dynamic_args:
 
         def potential_fn(*args, **kwargs):
             return partial(potential_energy, model, args, kwargs)
 
         def postprocess_fn(*args, **kwargs):
-            return partial(transform_fn, inv_transforms)
+            return postprocess(args, kwargs)
 
         return potential_fn, postprocess_fn
     model_kwargs = {} if model_kwargs is None else model_kwargs
     return (
         partial(potential_energy, model, model_args, model_kwargs),
-        partial(transform_fn, inv_transforms),
+        postprocess(model_args, model_kwargs),
     )
 
 
@@ -444,3 +503,196 @@ def initialize_model(
     return ModelInfo(
         ParamInfo(init_params, pe, grad), potential_fn, postprocess_fn, model_trace
     )
+
+
+def _guess_max_plate_nesting(model_trace):
+    """Largest -dim over all plates in a trace."""
+    dims = [
+        frame.dim
+        for site in model_trace.values()
+        if site["type"] == "sample"
+        for frame in site["cond_indep_stack"]
+        if frame.dim is not None
+    ]
+    return -min(dims) if dims else 0
+
+
+def _predictive(rng_key, model, posterior_samples, batch_shape, return_sites=None,
+                parallel=True, model_args=(), model_kwargs=None):
+    """Run ``model`` once per element of ``batch_shape``, each with its
+    element of ``posterior_samples`` substituted and the sites it does not
+    give drawn from ``rng_key``; returns the chosen sites' values."""
+    model_kwargs = {} if model_kwargs is None else model_kwargs
+    masked_model = handlers.mask(model, mask=False)
+
+    def single_prediction(val):
+        _, samples = val
+        substituted_model = handlers.substitute(masked_model, samples)
+        model_trace = handlers.trace(handlers.seed(substituted_model, rng_key)).get_trace(
+            *model_args, **model_kwargs
+        )
+        if return_sites is not None:
+            if return_sites == "":
+                sites = {k for k, site in model_trace.items() if site["type"] != "plate"}
+            else:
+                sites = return_sites
+        else:
+            sites = {
+                k
+                for k, site in model_trace.items()
+                if (site["type"] == "sample" and k not in samples)
+                or site["type"] == "deterministic"
+            }
+        return {name: site["value"] for name, site in model_trace.items() if name in sites}
+
+    num_samples = math.prod(batch_shape)
+    # the element index carries the batch shape, as the JAX package's
+    # per-element keys do: a guide's run has no posterior samples
+    index = torch.arange(num_samples, device=rng_key.device).reshape(batch_shape)
+    chunk_size = num_samples if parallel else 1
+    return soft_vmap(single_prediction, (index, posterior_samples), len(batch_shape), chunk_size)
+
+
+def _common_batch_shape(samples, batch_ndims):
+    """The leading ``batch_ndims`` axes shared by every site of ``samples``
+    (``None`` for no sites); raises where two sites disagree."""
+    shape, witness = None, None
+    for name, value in samples.items():
+        here = tuple(value.shape[:batch_ndims])
+        if shape is not None and here != shape:
+            raise ValueError(
+                f"Batch shapes at site {name} and {witness} should be the "
+                f"same, but got {here} and {shape}"
+            )
+        shape, witness = here, name
+    return shape
+
+
+class Predictive:
+    """Draws of a model's sites given posterior samples, or given a guide and
+    its params, or from the prior.
+
+    As in the JAX package: ``batch_ndims`` leading axes of the samples make
+    the batch (1 by default, 0 with a guide); ``return_sites`` chooses the
+    sites (``""``: every site but the plates; by default the sample sites
+    that the samples do not give and the deterministic sites);
+    ``exclude_deterministic`` is accepted and not used, as the JAX package's
+    is, so deterministic sites are always recomputed from the samples;
+    ``parallel`` maps the whole batch in one ``vmap``, and so does
+    ``parallel=False``, whose chunk of one element ``soft_vmap`` maps whole.
+
+    ``device`` is where the draws are made: ``None`` means ``cuda``, and a
+    call raises where that device is not there.  ``rng_key`` is an int seed
+    or a ``torch.Generator`` on that device; every draw of a call comes from
+    it under ``torch.func.vmap(randomness="different")``.
+    ``infer_discrete=True`` is not ported yet (ROADMAP.md).
+    """
+
+    def __init__(
+        self,
+        model,
+        posterior_samples=None,
+        *,
+        guide=None,
+        params=None,
+        num_samples=None,
+        return_sites=None,
+        infer_discrete=False,
+        parallel=False,
+        batch_ndims=None,
+        exclude_deterministic=True,
+        device=None,
+    ):
+        if infer_discrete:
+            raise NotImplementedError(
+                "Predictive(infer_discrete=True) is not ported to numpyro_tpu_torch yet "
+                "(see ROADMAP.md)"
+            )
+        if posterior_samples is None and num_samples is None:
+            raise ValueError("Either posterior_samples or num_samples must be specified.")
+        if batch_ndims is None:
+            # a guide draws fresh latents per call from unbatched params;
+            # posterior samples carry a leading sample axis
+            batch_ndims = 0 if guide is not None else 1
+        posterior_samples = posterior_samples or {}
+
+        batch_shape = _common_batch_shape(posterior_samples, batch_ndims)
+        if batch_shape is not None:
+            batch_size = math.prod(batch_shape)
+            if num_samples is not None and num_samples != batch_size:
+                warnings.warn(
+                    f"Sample's batch dimension size {batch_size} is different "
+                    f"from the provided {num_samples} num_samples argument. "
+                    f"Defaulting to {batch_size}.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+            num_samples = batch_size
+        elif num_samples is None:
+            raise ValueError("No sample sites in posterior samples to infer `num_samples`.")
+        else:
+            batch_shape = (1,) * (batch_ndims - 1) + (num_samples,)
+
+        if return_sites is not None:
+            assert isinstance(return_sites, (list, tuple, set))
+
+        self.model = model
+        self.posterior_samples = posterior_samples
+        self.num_samples = num_samples
+        self.guide = guide
+        self.params = {} if params is None else params
+        self.return_sites = return_sites
+        self.parallel = parallel
+        self.batch_ndims = batch_ndims
+        self._batch_shape = batch_shape
+        self.exclude_deterministic = exclude_deterministic
+        self.device = torch.device("cuda" if device is None else device)
+
+    def _call_with_params(self, rng_key, params, args, kwargs):
+        posterior_samples = self.posterior_samples
+        if self.guide is not None:
+            # return_sites="" asks for every site of the guide
+            guide = handlers.substitute(self.guide, params)
+            posterior_samples = _predictive(
+                rng_key, guide, posterior_samples, self._batch_shape, return_sites="",
+                parallel=self.parallel, model_args=args, model_kwargs=kwargs,
+            )
+        model = handlers.substitute(self.model, self.params)
+        return _predictive(
+            rng_key, model, posterior_samples, self._batch_shape,
+            return_sites=self.return_sites, parallel=self.parallel,
+            model_args=args, model_kwargs=kwargs,
+        )
+
+    def __call__(self, rng_key, *args, **kwargs):
+        rng_key = device_generator(rng_key, self.device, "Predictive")
+        if self.batch_ndims == 0 or self.params == {} or self.guide is None:
+            return self._call_with_params(rng_key, self.params, args, kwargs)
+        if self.batch_ndims == 1:  # batch over parameters
+            return torch.func.vmap(
+                lambda params: self._call_with_params(rng_key, params, args, kwargs),
+                out_dims=1, randomness="different",
+            )(self.params)
+        raise NotImplementedError
+
+
+def log_likelihood(model, posterior_samples, *args, parallel=False, batch_ndims=1, **kwargs):
+    """The log-probability of every observation of the observed sites, for
+    each posterior sample (its leading ``batch_ndims`` axes), as a dict by
+    site."""
+
+    def single_loglik(samples):
+        substituted = handlers.substitute(model, samples) if isinstance(samples, dict) else model
+        trace = handlers.trace(substituted).get_trace(*args, **kwargs)
+        return {
+            name: site["fn"].log_prob(site["value"])
+            for name, site in trace.items()
+            if site["type"] == "sample" and site["is_observed"]
+        }
+
+    batch_shape = _common_batch_shape(posterior_samples, batch_ndims)
+    if batch_shape is None:  # no posterior draws: a single prior evaluation
+        batch_shape = (1,) * batch_ndims
+        posterior_samples = torch.zeros(batch_shape)
+    chunk_size = math.prod(batch_shape) if parallel else 1
+    return soft_vmap(single_loglik, posterior_samples, len(batch_shape), chunk_size)

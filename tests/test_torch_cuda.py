@@ -1,6 +1,8 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
 PyTorch version, the one-launch vmap rule, a short NUTS run, HMCECS in
-every panel mode, dense mass, and SVI through the split kernel.
+every panel mode, dense mass, SVI through the split kernel, and 8-schools
+and stochastic volatility: ``Predictive``, the new samplers on a CUDA
+generator and ``soft_vmap`` over a model replay.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -13,8 +15,12 @@ import torch
 
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.infer import HMCECS, MCMC, NUTS, SVI, Trace_ELBO
+from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.infer import (
+    HMCECS, MCMC, NUTS, SVI, Predictive, Trace_ELBO, log_likelihood, reparam,
+)
 from numpyro_tpu_torch.infer import autoguide
+from numpyro_tpu_torch.util import soft_vmap
 from numpyro_tpu_torch.optim import Adam
 from numpyro_tpu_torch.ops import glm
 
@@ -323,3 +329,80 @@ def test_one_elbo_gradient_through_the_kernel_matches_plain(cuda, particles):
     torch.testing.assert_close(l_k, l_p, rtol=ll_rtol, atol=0)
     for k in g_p:
         torch.testing.assert_close(g_k[k], g_p[k], rtol=g_rtol, atol=g_atol)
+
+
+def _eight_schools(y, sigma):
+    mu = npt.sample("mu", dist.Normal(0.0, 5.0))
+    tau = npt.sample("tau", dist.HalfCauchy(5.0))
+    with npt.plate("J", 8):
+        theta = npt.sample("theta", dist.Normal(mu, tau))
+        npt.sample("obs", dist.Normal(theta, sigma), obs=y)
+
+
+_Y = (28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0)
+_SIGMA = (15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0)
+
+
+@pytest.mark.requires_cuda
+def test_eight_schools_predictive_on_a_cuda_generator(cuda):
+    """A non-centred run on the card, its deterministic ``theta`` replayed,
+    then ``Predictive`` and ``log_likelihood``: every result on the card
+    and finite."""
+    y, sigma = torch.tensor(_Y, device=cuda), torch.tensor(_SIGMA, device=cuda)
+    model = handlers.reparam(_eight_schools, config={"theta": reparam.LocScaleReparam(0)})
+    mcmc = MCMC(NUTS(model, max_tree_depth=(4, 6)), num_warmup=30, num_samples=20,
+                num_chains=8)
+    mcmc.run(0, y, sigma)
+    z = mcmc.get_samples()
+    assert z["theta"].shape == (160, 8) and z["theta"].device.type == "cuda"
+    pred = Predictive(model, z)(torch.Generator(device=cuda).manual_seed(1), None, sigma)
+    assert pred["obs"].device.type == "cuda" and pred["obs"].shape == (160, 8)
+    assert torch.isfinite(pred["obs"]).all()
+    assert len(torch.unique(pred["obs"][:, 0])) == 160
+    ll = log_likelihood(model, z, y, sigma)["obs"]
+    torch.testing.assert_close(ll, dist.Normal(z["theta"], sigma).log_prob(y),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_student_t_and_exponential_draws_on_a_cuda_generator(cuda):
+    """The gamma draw of ``StudentT`` takes a CUDA generator, also under
+    ``vmap(randomness="different")``, where every element draws anew."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    df = torch.full((4096,), 4.0, device=cuda)
+    t = dist.StudentT(df, 0.0, 1.0).sample(gen)
+    e = dist.Exponential(df).sample(gen)
+    for x in (t, e):
+        assert x.device.type == "cuda" and torch.isfinite(x).all()
+    # the mean of Exponential(4) is 0.25, its std 0.25: within 4 standard errors
+    assert abs(e.mean().item() - 0.25) < 4 * 0.25 / 64
+
+    def one(d):
+        return dist.StudentT(d, 0.0, 1.0).sample(gen) + dist.Exponential(d).sample(gen)
+
+    out = torch.func.vmap(one, randomness="different")(df[:256])
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+    assert len(torch.unique(out)) == 256
+
+
+@pytest.mark.requires_cuda
+def test_soft_vmap_over_a_replay_on_the_card(cuda):
+    """A replay of the model in chunks that do not divide the batch, on the
+    card: the recomputed deterministic site is exact and the draws differ."""
+    sigma = torch.tensor(_SIGMA, device=cuda)
+    model = handlers.reparam(_eight_schools, config={"theta": reparam.LocScaleReparam(0)})
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    samples = {"mu": torch.randn(50, device=cuda, generator=gen),
+               "tau": torch.rand(50, device=cuda, generator=gen) + 0.5,
+               "theta_decentered": torch.randn(50, 8, device=cuda, generator=gen)}
+
+    def one(s):
+        tr = handlers.trace(handlers.seed(handlers.substitute(model, s), gen)).get_trace(
+            None, sigma)
+        return {"theta": tr["theta"]["value"], "obs": tr["obs"]["value"]}
+
+    out = soft_vmap(one, samples, 1, 16)
+    want = samples["mu"][:, None] + samples["tau"][:, None] * samples["theta_decentered"]
+    torch.testing.assert_close(out["theta"], want, rtol=1e-6, atol=1e-6)
+    assert out["obs"].shape == (50, 8) and out["obs"].device.type == "cuda"
+    assert len(torch.unique(out["obs"][:, 0])) == 50
