@@ -16,7 +16,8 @@ Phases (each prints on its own lines; any failure exits non-zero):
 4. main     -- with every launch count set to 0: MCMC(NUTS) with 256
                vectorized chains on the covtype model in each precision mode.
                Split mode (the bench's) runs 100 + 10 transitions, f32 mode
-               (``prepare_glm_data``'s default) 50 + 10, and both must
+               (``prepare_glm_data``'s default) 50 + 10, both at warmup depth
+               5, and both must
                recover the generating coefficients to 0.05.  bf16 mode runs a
                short depth-6 chain whose draws must be finite (its quantized
                ``w`` stalls NUTS at this data concentration, so it has no
@@ -91,6 +92,21 @@ Phases (each prints on its own lines; any failure exits non-zero):
                mean of ``s`` and the generating log volatility and the R-hat
                of ``sigma`` must be within ``SV_GATE`` and ``SV_RHAT_GATE``,
                which follow the JAX package's own run (``dev/sv_reference.py``).
+11. hmm      -- ``examples/hmm_enum.py`` at its full size (T = 50, K = 2, data
+               from numpy seed 0), its discrete states summed out by parallel
+               enumeration: (a) NUTS on the ``scan`` form (the cheaper one per
+               evaluation) with 64 chains, the posterior means of trans[0, 0],
+               trans[1, 1] and sigma within ``HMM_GATE`` of the generating
+               values; (b) a short run of the ``markov`` form, finite draws;
+               (c) the enumerated log joint of both forms at 8 of (a)'s draws
+               against a numpy forward algorithm and scipy's densities, to
+               1e-5 relative; (d) ``AutoNormal`` under ``TraceEnum_ELBO``, the
+               guide's medians within ``HMM_SVI_GATE``; (e)
+               ``Predictive(infer_discrete=True)`` of the ``markov`` form from
+               (a)'s draws, whose most frequent state must be the generating
+               one at a share of the steps of at least ``HMM_DECODE_GATE``.
+               The gates follow the JAX package's own runs
+               (``dev/hmm_reference.py``); no GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -102,6 +118,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -110,8 +127,12 @@ import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
 from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.contrib.control_flow import scan
+from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, markov
+from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
 from numpyro_tpu_torch.infer import (
-    HMCECS, MCMC, NUTS, SVI, Predictive, Trace_ELBO, TraceMeanField_ELBO, log_likelihood,
+    HMCECS, MCMC, NUTS, SVI, Predictive, Trace_ELBO, TraceEnum_ELBO, TraceMeanField_ELBO,
+    log_likelihood,
 )
 from numpyro_tpu_torch.infer import autoguide
 from numpyro_tpu_torch.infer.reparam import LocScaleReparam
@@ -139,10 +160,12 @@ SWEEP_CHAINS = (64, 256, 1024)
 # main-path runs: kernel -> (warmup, samples, max_tree_depth, coefficient gate).
 # The whole script must end within 1,200 s on the slowest host it meets, whose
 # host-bound legs run up to 2.5 times as long as on the fastest: draws are cut
-# (split 50 -> 30 -> 10, f32 25 -> 10, bf16 20 -> 10), never warmup
+# (split 50 -> 30 -> 10, f32 25 -> 10, bf16 20 -> 10), never warmup, and the
+# warmup depth of the split and f32 runs from 6 to 5 to make room for phase 11
+# (nearly every warmup transition filled the cap of 6)
 RUNS = {
-    "glm_split": (100, 10, (6, 10), 0.05),
-    "glm_fused_f32": (50, 10, (6, 10), 0.05),
+    "glm_split": (100, 10, (5, 10), 0.05),
+    "glm_fused_f32": (50, 10, (5, 10), 0.05),
     "glm_fused_bf16": (20, 10, 6, None),
 }
 PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
@@ -265,6 +288,32 @@ SV_RUN = (64, 100, 10, (3, 5))
 # to the reference's behaviour at this length, not to convergence)
 SV_GATE = 3.4381
 SV_RHAT_GATE = 2.7581
+# phase 11, the HMM of examples/hmm_enum.py (BASELINE config 5) at its full
+# size: T = 50 steps, K = 2 states, data from numpy seed 0; the generating
+# trans[0, 0], trans[1, 1] and sigma.  Its budget is 25 s on a host where
+# phase 6's main leg takes 24.0 ms per evaluation.
+HMM_T = 50
+HMM_TRUE = (0.85, 0.75, 0.3)
+HMM_LOCS = (-1.0, 1.0)
+# (a) NUTS on the scan form, the cheaper one per evaluation (16.1 against
+# 91.1 ms inside the whole script on the card, NVIDIA H100 80GB HBM3,
+# 700.00 W): chains, warmup, samples, tree depths in warmup and sampling;
+# (b) the markov form, short.  Cut to fit 25 s: (a)'s draws 20 -> 10 and
+# warmup depth 3 -> 2, (b)'s depths (3, 3) -> (2, 2) -> (1, 1)
+HMM_RUN = (64, 100, 10, (2, 5))
+HMM_OTHER = (64, 10, 10, (1, 1))
+# (d) SVI: Adam step size and steps of AutoNormal under TraceEnum_ELBO
+HMM_SVI = (0.05, 300)
+# max(2e, e + 0.05), the rule of HS_GATE, where e is the largest gap over
+# trans[0, 0], trans[1, 1] and sigma between the posterior mean (for (d) the
+# guide's median) and the generating value in the JAX package's own run at
+# the same configuration, and the decoding share a of (e) less 0.05
+# (`JAX_PLATFORMS=cpu python3 -m dev.hmm_reference`, key 0, on the CPU: e =
+# 0.0581, 0.0813 for (d), a = 1.0; keys 1 and 2 give e = 0.0637 and 0.0587,
+# 0.0765 and 0.1049 for (d), a = 1.0)
+HMM_GATE = 0.1162
+HMM_SVI_GATE = 0.1625
+HMM_DECODE_GATE = 0.95
 
 
 _T0 = time.perf_counter()
@@ -915,6 +964,172 @@ def phase_sv(device):
     return wall
 
 
+def hmm_data(T=HMM_T, seed=0):
+    """``examples/hmm_enum.py::make_data``, with the generating states."""
+    rng = np.random.RandomState(seed)
+    p0 = np.array([0.6, 0.4])
+    trans = np.array([[0.85, 0.15], [0.25, 0.75]])
+    zs = [rng.choice(2, p=p0)]
+    for _ in range(1, T):
+        zs.append(rng.choice(2, p=trans[zs[-1]]))
+    zs = np.array(zs)
+    ys = np.array(HMM_LOCS)[zs] + 0.3 * rng.randn(T)
+    return ys.astype(np.float32), zs
+
+
+def hmm_model(ys):
+    """``examples/hmm_enum.py::model``: the chain through ``markov``."""
+    T = ys.shape[0]
+    probs = npt.sample("trans", dist.Dirichlet(torch.ones((2, 2), device=ys.device)).to_event(1))
+    locs = torch.tensor(HMM_LOCS, device=ys.device)
+    sigma = npt.sample("sigma", dist.HalfNormal(torch.tensor(1.0, device=ys.device)))
+    z = npt.sample("z_0", dist.Categorical(torch.tensor([0.5, 0.5], device=ys.device)),
+                   infer={"enumerate": "parallel"})
+    npt.sample("y_0", dist.Normal(locs[z], sigma), obs=ys[0])
+    for t in markov(range(1, T), history=1):
+        z = npt.sample(f"z_{t}", dist.Categorical(probs[z]), infer={"enumerate": "parallel"})
+        npt.sample(f"y_{t}", dist.Normal(locs[z], sigma), obs=ys[t])
+
+
+def hmm_scan_model(ys):
+    """``examples/hmm_enum.py::scan_model``: the chain through ``scan``."""
+    probs = npt.sample("trans", dist.Dirichlet(torch.ones((2, 2), device=ys.device)).to_event(1))
+    locs = torch.tensor(HMM_LOCS, device=ys.device)
+    sigma = npt.sample("sigma", dist.HalfNormal(torch.tensor(1.0, device=ys.device)))
+
+    def transition(z_prev, y):
+        z = npt.sample("z", dist.Categorical(probs[z_prev]), infer={"enumerate": "parallel"})
+        npt.sample("y", dist.Normal(locs[z], sigma), obs=y)
+        return z, None
+
+    scan(transition, 0, ys)
+
+
+def hmm_log_joint(ys, trans, sigma, init):
+    """The log joint of the HMM with the states summed out, in float64 numpy
+    and scipy: the forward algorithm from ``init``, two Dirichlet(1, 1) rows
+    and a HalfNormal(1)."""
+    from scipy import stats
+    from scipy.special import logsumexp
+
+    ys, trans, sigma = (np.asarray(a, np.float64) for a in (ys, trans, sigma))
+    emit = stats.norm(np.array(HMM_LOCS), sigma).logpdf(ys[:, None])
+    alpha = np.log(init) + emit[0]
+    for t in range(1, len(ys)):
+        alpha = logsumexp(alpha[:, None] + np.log(trans), axis=0) + emit[t]
+    # scipy wants rows that sum to 1 in float64: a float32 draw's rows do not
+    prior = sum(stats.dirichlet(np.ones(2)).logpdf(row / row.sum()) for row in trans)
+    return logsumexp(alpha) + prior + stats.halfnorm().logpdf(sigma)
+
+
+def hmm_decode_share(pred, zs):
+    """The share of steps whose most frequent decoded state is the
+    generating one."""
+    z = torch.stack([pred[f"z_{t}"] for t in range(len(zs))], -1).float()
+    mode = (z.mean(0) > 0.5).long().cpu().numpy()
+    return float((mode == zs).mean())
+
+
+def phase_hmm(device):
+    """Phase 11; returns its wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    ys_np, zs = hmm_data()
+    ys = torch.from_numpy(ys_np).to(device)
+
+    def gap(means):
+        return float(np.abs(np.subtract(means, HMM_TRUE)).max())
+
+    def run(model_fn, config, seed, tag):
+        chains, warmup, samples, depth = config
+        mcmc = MCMC(NUTS(model_fn, max_tree_depth=depth), num_warmup=warmup,
+                    num_samples=samples, num_chains=chains)
+        t = time.perf_counter()
+        mcmc.run(seed, ys)
+        wall = time.perf_counter() - t
+        stats = mcmc.last_run_stats
+        z = mcmc.get_samples(group_by_chain=True)
+        if sorted(z) != ["sigma", "trans"] or z["trans"].shape != (chains, samples, 2, 2):
+            raise SystemExit(f"11{tag}: samples {({k: tuple(v.shape) for k, v in z.items()})}")
+        if not all(torch.isfinite(v).all() for v in z.values()):
+            raise SystemExit(f"11{tag}: draws that are not finite")
+        evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+        ms = (stats["warmup_s"] + stats["sample_s"]) / evals * 1e3
+        means = [z["trans"][..., 0, 0].mean().item(), z["trans"][..., 1, 1].mean().item(),
+                 z["sigma"].mean().item()]
+        log(f"[hmm] 11{tag} {model_fn.__name__}, {chains} chains, {warmup} + {samples}, "
+            f"max_tree_depth {depth}: {wall:.2f} s (init {stats['init_s']:.2f}, warmup "
+            f"{stats['warmup_s']:.2f}, sampling {stats['sample_s']:.2f}); potential "
+            f"evaluations {stats['potential_evals_warmup']} + {stats['potential_evals_sample']}, "
+            f"{ms:.2f} ms per evaluation; means of trans[0, 0], trans[1, 1], sigma "
+            f"{np.round(means, 4).tolist()} (generating {list(HMM_TRUE)})")
+        return mcmc, means
+
+    # (a) the scan form at full size
+    mcmc, means = run(hmm_scan_model, HMM_RUN, 21, "a")
+    err = gap(means)
+    log(f"[hmm] 11a largest gap {err:.4f} (gate {HMM_GATE})")
+    if not err < HMM_GATE:
+        raise SystemExit(f"11a: posterior means off the generating values by {err:.4f}")
+    # (b) the markov form, short
+    run(hmm_model, HMM_OTHER, 22, "b")
+
+    # (c) the enumerated density of each form against numpy at 8 draws, the
+    # 8 in one vmap as a run evaluates them
+    flat = mcmc.get_samples()
+    pick = torch.linspace(0, flat["sigma"].shape[0] - 1, 8).long().to(device)
+    points = {k: v[pick] for k, v in flat.items()}
+    worst = 0.0
+    for model_fn, first in ((hmm_model, False), (hmm_scan_model, True)):
+        wrapped = enum(config_enumerate(model_fn), first_available_dim=-1)
+        got = torch.func.vmap(lambda p: enum_log_density(wrapped, (ys,), {}, p)[0])(points)
+        for j in range(8):
+            trans = points["trans"][j].double().cpu().numpy()
+            init = trans[0] if first else np.array([0.5, 0.5])
+            want = hmm_log_joint(ys_np, trans, points["sigma"][j].item(), init)
+            worst = max(worst, abs(got[j].item() - want) / abs(want))
+    log(f"[hmm] 11c enumerated log joint of both forms at 8 draws against the numpy "
+        f"forward algorithm: max rel err {worst:.2e} (gate 1e-5)")
+    if not worst <= 1e-5:
+        raise SystemExit(f"11c: enumerated log density off by {worst:.2e}")
+
+    # (d) SVI under TraceEnum_ELBO on the scan form
+    lr, steps = HMM_SVI
+    guide = autoguide.AutoNormal(hmm_scan_model)
+    svi = SVI(hmm_scan_model, guide, Adam(lr), TraceEnum_ELBO())
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        # the autoguide warns once per discrete site that it leaves to the ELBO
+        warnings.simplefilter("ignore")
+        res = svi.run(23, steps, ys)
+    wall = time.perf_counter() - t
+    med = guide.median(res.params)
+    svi_err = gap([med["trans"][0, 0].item(), med["trans"][1, 1].item(), med["sigma"].item()])
+    log(f"[hmm] 11d AutoNormal, TraceEnum_ELBO, Adam({lr}), {steps} steps: {wall:.2f} s, "
+        f"{wall / steps * 1e3:.2f} ms a step; loss of the last 50 "
+        f"{res.losses[-50:].mean().item():.3f}; largest gap of the medians {svi_err:.4f} "
+        f"(gate {HMM_SVI_GATE})")
+    if not (torch.isfinite(res.losses).all() and svi_err < HMM_SVI_GATE):
+        raise SystemExit(f"11d: the guide's medians off the generating values by {svi_err:.4f}")
+
+    # (e) decoding: the states' posterior given (a)'s draws
+    t = time.perf_counter()
+    pred = Predictive(hmm_model, flat, infer_discrete=True, parallel=True)(24, ys)
+    wall = time.perf_counter() - t
+    share = hmm_decode_share(pred, zs)
+    n = flat["sigma"].shape[0]
+    log(f"[hmm] 11e Predictive(infer_discrete=True) of {n} draws: {wall:.2f} s; share of "
+        f"steps whose posterior mode is the generating state {share:.4f} (gate "
+        f"{HMM_DECODE_GATE})")
+    if pred["z_1"].shape != (n,) or not share >= HMM_DECODE_GATE:
+        raise SystemExit(f"11e: decoded share {share:.4f}")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("11: the HMM launched a GLM kernel")
+    wall = time.perf_counter() - t0
+    log(f"[hmm] phase 11: {wall:.1f} s (budget 25 s at 24.0 ms per ECS evaluation)")
+    return wall
+
+
 def run_svi(tag, model_fn, guide, loss, steps, *args):
     """``SVI.init`` and ``steps`` updates on the default device, with every
     launch count set to 0 just before; returns the result, the launches of
@@ -1105,6 +1320,7 @@ def main():
         f"glm_split launches {dense_counts['glm_split']} here, {counts['glm_split']} in phase 4")
     phase_eight_schools(device)
     phase_sv(device)
+    phase_hmm(device)
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

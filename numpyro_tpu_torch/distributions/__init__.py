@@ -1,6 +1,7 @@
 from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.continuous import (
     Cauchy,
+    Dirichlet,
     Exponential,
     GaussianRandomWalk,
     HalfCauchy,
@@ -10,7 +11,14 @@ from numpyro_tpu_torch.distributions.continuous import (
     StudentT,
     Uniform,
 )
-from numpyro_tpu_torch.distributions.discrete import Bernoulli, BernoulliLogits, BernoulliProbs
+from numpyro_tpu_torch.distributions.discrete import (
+    Bernoulli,
+    BernoulliLogits,
+    BernoulliProbs,
+    Categorical,
+    CategoricalLogits,
+    CategoricalProbs,
+)
 from numpyro_tpu_torch.distributions.distribution import (
     Delta,
     Distribution,
@@ -27,8 +35,12 @@ __all__ = [
     "Bernoulli",
     "BernoulliLogits",
     "BernoulliProbs",
+    "Categorical",
+    "CategoricalLogits",
+    "CategoricalProbs",
     "Cauchy",
     "Delta",
+    "Dirichlet",
     "Distribution",
     "ExpandedDistribution",
     "Exponential",

@@ -1,8 +1,9 @@
 """Constraints (port of the parts of ``numpyro_tpu/distributions/constraints.py``
 that the ported slices need: ``real``, ``real_vector``, ``boolean``,
-``independent``, ``interval``, ``greater_than``/``greater_than_eq`` and their
-instances ``positive``/``nonnegative``, ``softplus_positive``,
-``lower_cholesky``, ``scaled_unit_lower_cholesky`` and ``unit_interval``).
+``independent``, ``interval``, ``integer_interval``,
+``greater_than``/``greater_than_eq`` and their instances
+``positive``/``nonnegative``, ``softplus_positive``, ``lower_cholesky``,
+``scaled_unit_lower_cholesky``, ``simplex`` and ``unit_interval``).
 Others are not
 ported yet; see ROADMAP.md."""
 
@@ -11,9 +12,10 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "Constraint", "boolean", "greater_than", "greater_than_eq", "independent", "interval",
-    "lower_cholesky", "nonnegative", "positive", "real", "real_vector",
-    "scaled_unit_lower_cholesky", "softplus_positive", "unit_interval",
+    "Constraint", "boolean", "greater_than", "greater_than_eq", "independent",
+    "integer_interval", "interval", "lower_cholesky", "nonnegative", "positive", "real",
+    "real_vector", "scaled_unit_lower_cholesky", "simplex", "softplus_positive",
+    "unit_interval",
 ]
 
 
@@ -178,6 +180,36 @@ class _Interval(Constraint):
         return f"interval({self.lower_bound}, {self.upper_bound})"
 
 
+class _IntegerInterval(Constraint):
+    is_discrete = True
+
+    def __init__(self, lower_bound, upper_bound):
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+
+    def __call__(self, x):
+        in_range = (x >= self.lower_bound) & (x <= self.upper_bound)
+        return in_range & (x == torch.floor(x))
+
+    def feasible_like(self, prototype):
+        return torch.full_like(prototype, self.lower_bound)
+
+    def __repr__(self):
+        return f"integer_interval({self.lower_bound}, {self.upper_bound})"
+
+
+class _Simplex(Constraint):
+    """Nonnegative vectors that sum to one."""
+
+    event_dim = 1
+
+    def __call__(self, x):
+        return (x >= 0).all(-1) & ((x.sum(-1) - 1.0).abs() < 1e-6)
+
+    def feasible_like(self, prototype):
+        return torch.full_like(prototype, 1.0 / prototype.shape[-1])
+
+
 class _UnitInterval(_Interval):
     """``interval(0, 1)``, a type of its own: ``biject_to`` maps it with a
     bare sigmoid, as the JAX package's type-keyed table does."""
@@ -190,6 +222,7 @@ boolean = _Boolean()
 greater_than = _GreaterThan
 greater_than_eq = _GreaterThanEq
 independent = _IndependentConstraint
+integer_interval = _IntegerInterval
 interval = _Interval
 lower_cholesky = _LowerCholesky()
 nonnegative = _GreaterThanEq(0.0)
@@ -197,5 +230,6 @@ positive = _GreaterThan(0.0)
 real = _Real()
 real_vector = _IndependentConstraint(real, 1)
 scaled_unit_lower_cholesky = _ScaledUnitLowerCholesky()
+simplex = _Simplex()
 softplus_positive = _SoftplusPositive()
 unit_interval = _UnitInterval()

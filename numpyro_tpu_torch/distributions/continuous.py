@@ -1,5 +1,5 @@
 """Continuous distributions (port of ``Normal``, ``Cauchy``, ``StudentT``,
-``HalfCauchy``, ``HalfNormal``, ``Uniform``, ``Exponential``,
+``HalfCauchy``, ``HalfNormal``, ``Uniform``, ``Exponential``, ``Dirichlet``,
 ``MultivariateNormal`` and ``GaussianRandomWalk`` from
 ``numpyro_tpu/distributions/continuous.py``; the rest are listed in
 ROADMAP.md).
@@ -19,7 +19,7 @@ from .distribution import Distribution, _as_tensors
 from .util import broadcast_shape, lazy_property, promote_shapes
 
 __all__ = [
-    "Cauchy", "Exponential", "GaussianRandomWalk", "HalfCauchy", "HalfNormal",
+    "Cauchy", "Dirichlet", "Exponential", "GaussianRandomWalk", "HalfCauchy", "HalfNormal",
     "MultivariateNormal", "Normal", "StudentT", "Uniform",
 ]
 
@@ -254,6 +254,50 @@ class Exponential(Distribution):
 
     def entropy(self):
         return torch.broadcast_to(1.0 - torch.log(self.rate), self.batch_shape)
+
+
+class Dirichlet(Distribution):
+    """The Dirichlet distribution on the simplex of the last axis of
+    ``concentration``.
+
+    A draw normalizes ``torch._standard_gamma`` draws, which take the run's
+    generator (one value per element under ``torch.func.vmap(randomness=
+    "different")``), and is clipped into ``[tiny, 1 - eps]`` as the JAX
+    package clips its draws."""
+
+    support = constraints.simplex
+
+    def __init__(self, concentration, *, validate_args=None):
+        if not isinstance(concentration, torch.Tensor):
+            concentration = torch.as_tensor(concentration, dtype=torch.get_default_dtype())
+        if concentration.dim() == 0:
+            raise ValueError("concentration must be at least one-dimensional")
+        self._init_broadcast(
+            validate_args, event_shape=tuple(concentration.shape[-1:]),
+            event_dims={"concentration": 1}, concentration=concentration,
+        )
+
+    def sample(self, key, sample_shape=()):
+        alpha = torch.broadcast_to(self.concentration, self.shape(sample_shape))
+        gammas = torch._standard_gamma(alpha, generator=key)
+        draws = gammas / gammas.sum(-1, keepdim=True)
+        info = torch.finfo(draws.dtype)
+        return draws.clamp(min=info.tiny, max=1.0 - info.eps)
+
+    def log_prob(self, value):
+        alpha = self.concentration
+        log_norm = torch.lgamma(alpha).sum(-1) - torch.lgamma(alpha.sum(-1))
+        return torch.xlogy(alpha - 1.0, value).sum(-1) - log_norm
+
+    @property
+    def mean(self):
+        return self.concentration / self.concentration.sum(-1, keepdim=True)
+
+    @property
+    def variance(self):
+        a = self.concentration
+        total = a.sum(-1, keepdim=True)
+        return a * (total - a) / (total.square() * (total + 1.0))
 
 
 def _tril_logdet(scale_tril):

@@ -1,6 +1,11 @@
-"""Discrete distributions (port of ``BernoulliProbs``, ``BernoulliLogits``
-and the ``Bernoulli`` factory from ``numpyro_tpu/distributions/discrete.py``;
-the rest, and ``enumerate_support``, are listed in ROADMAP.md)."""
+"""Discrete distributions (port of ``BernoulliProbs``, ``BernoulliLogits``,
+``CategoricalProbs``, ``CategoricalLogits`` and their ``Bernoulli`` and
+``Categorical`` factories from ``numpyro_tpu/distributions/discrete.py``,
+with ``enumerate_support``; the rest are listed in ROADMAP.md).
+
+Draws take the run's ``torch.Generator``: a Categorical draw is the argmax of
+the log-probabilities plus Gumbel noise made from ``torch.rand``, which draws
+a value per element under ``torch.func.vmap(randomness="different")``."""
 
 from __future__ import annotations
 
@@ -8,9 +13,12 @@ import torch
 
 from . import constraints
 from .distribution import Distribution
-from .util import lazy_property
+from .util import broadcast_shape, lazy_property
 
-__all__ = ["Bernoulli", "BernoulliLogits", "BernoulliProbs"]
+__all__ = [
+    "Bernoulli", "BernoulliLogits", "BernoulliProbs", "Categorical", "CategoricalLogits",
+    "CategoricalProbs",
+]
 
 
 def _clamp_probs(probs):
@@ -18,8 +26,22 @@ def _clamp_probs(probs):
     return probs.clamp(eps.tiny, 1.0 - eps.eps)
 
 
+def _as_float_tensor(x):
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=torch.get_default_dtype())
+
+
+def _enum_range(count, batch_shape, expand, device):
+    """The support ``0 .. count - 1`` on a new leading axis, before the
+    batch dims (of size one unless ``expand``)."""
+    vals = torch.arange(count, device=device).reshape((-1,) + (1,) * len(batch_shape))
+    if expand:
+        vals = vals.expand((count,) + tuple(batch_shape))
+    return vals
+
+
 class _BernoulliBase(Distribution):
     support = constraints.boolean
+    has_enumerate_support = True
 
     def sample(self, key, sample_shape=()):
         probs = self.probs
@@ -30,9 +52,8 @@ class _BernoulliBase(Distribution):
         return (u < probs).to(torch.int64)
 
     def enumerate_support(self, expand=True):
-        raise NotImplementedError(
-            "enumerate_support is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-        )
+        param = self.__dict__.get("probs", self.__dict__.get("logits"))
+        return _enum_range(2, self.batch_shape, expand, param.device)
 
 
 class BernoulliProbs(_BernoulliBase):
@@ -73,3 +94,80 @@ def Bernoulli(probs=None, logits=None, *, validate_args=None):
     if probs is not None:
         return BernoulliProbs(probs, validate_args=validate_args)
     return BernoulliLogits(logits, validate_args=validate_args)
+
+
+class _CategoricalBase(Distribution):
+    """A category index per batch element; the category axis is the last
+    axis of the parameter and no dim of the batch."""
+
+    has_enumerate_support = True
+
+    def _param(self):
+        raise NotImplementedError
+
+    @property
+    def support(self):
+        return constraints.integer_interval(0, self._param().shape[-1] - 1)
+
+    def sample(self, key, sample_shape=()):
+        table = self._log_pmf
+        shape = tuple(sample_shape) + self.batch_shape + tuple(table.shape[-1:])
+        u = torch.rand(shape, generator=key, device=table.device, dtype=table.dtype)
+        return torch.argmax(table - torch.log(-torch.log(u)), dim=-1)
+
+    def log_prob(self, value):
+        table = self._log_pmf
+        batch = broadcast_shape(tuple(value.shape), self.batch_shape)
+        table = table.expand(batch + tuple(table.shape[-1:]))
+        idx = value.expand(batch).long().unsqueeze(-1)
+        return torch.gather(table, -1, idx).squeeze(-1)
+
+    def enumerate_support(self, expand=True):
+        param = self._param()
+        return _enum_range(param.shape[-1], self.batch_shape, expand, param.device)
+
+
+class CategoricalProbs(_CategoricalBase):
+    def __init__(self, probs, *, validate_args=None):
+        probs = _as_float_tensor(probs)
+        if probs.dim() == 0:
+            raise ValueError("`probs` must carry a category axis.")
+        self._init_broadcast(validate_args, event_dims={"probs": 1}, probs=probs)
+
+    def _param(self):
+        return self.probs
+
+    @lazy_property
+    def _log_pmf(self):
+        return torch.log(self.probs).clamp(min=torch.finfo(self.probs.dtype).min)
+
+    @property
+    def logits(self):
+        return self._log_pmf
+
+
+class CategoricalLogits(_CategoricalBase):
+    def __init__(self, logits, *, validate_args=None):
+        logits = _as_float_tensor(logits)
+        if logits.dim() == 0:
+            raise ValueError("`logits` must carry a category axis.")
+        self._init_broadcast(validate_args, event_dims={"logits": 1}, logits=logits)
+
+    def _param(self):
+        return self.logits
+
+    @lazy_property
+    def _log_pmf(self):
+        return self.logits - torch.logsumexp(self.logits, -1, keepdim=True)
+
+    @lazy_property
+    def probs(self):
+        return torch.softmax(self.logits, -1)
+
+
+def Categorical(probs=None, logits=None, *, validate_args=None):
+    if (probs is None) == (logits is None):
+        raise ValueError("One of `probs` or `logits` must be specified.")
+    if probs is not None:
+        return CategoricalProbs(probs, validate_args=validate_args)
+    return CategoricalLogits(logits, validate_args=validate_args)

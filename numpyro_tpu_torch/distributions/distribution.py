@@ -48,6 +48,8 @@ class Distribution:
     support = None
     # whether draws are differentiable in the parameters
     has_rsample = False
+    # whether ``enumerate_support`` lists the support (finite discrete ones)
+    has_enumerate_support = False
 
     def __init__(self, batch_shape=(), event_shape=(), *, validate_args=None):
         self._batch_shape = tuple(batch_shape)
@@ -57,13 +59,22 @@ class Distribution:
                 "validate_args is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
             )
 
-    def _init_broadcast(self, validate_args=None, event_shape=(), **params):
+    def _init_broadcast(self, validate_args=None, event_shape=(), event_dims=None, **params):
         """Promote the named parameters against each other, bind them as
-        attributes, and initialise with the broadcast batch shape."""
+        attributes, and initialise with the broadcast batch shape.
+        ``event_dims`` maps a parameter to the count of its trailing dims that
+        are not batch dims (a Categorical's category axis); such a parameter
+        is only left-padded."""
         params = _as_tensors(params)
-        batch = broadcast_shape(*(tuple(v.shape) for v in params.values()))
-        for name, v in zip(params, promote_shapes(*params.values(), shape=batch)):
-            setattr(self, name, v)
+        event_dims = event_dims or {}
+        batch_shapes = {
+            name: tuple(v.shape)[: v.dim() - event_dims.get(name, 0)]
+            for name, v in params.items()
+        }
+        batch = broadcast_shape(*batch_shapes.values())
+        for name, v in params.items():
+            pad = len(batch) - len(batch_shapes[name])
+            setattr(self, name, v.reshape((1,) * pad + tuple(v.shape)) if pad else v)
         Distribution.__init__(self, batch, event_shape, validate_args=validate_args)
         return batch
 
@@ -108,6 +119,9 @@ class Distribution:
     def log_prob(self, value):
         raise NotImplementedError(f"{type(self).__name__}.log_prob")
 
+    def enumerate_support(self, expand=True):
+        raise NotImplementedError(f"{type(self).__name__}.enumerate_support")
+
     def expand(self, batch_shape):
         requested = tuple(batch_shape)
         if requested == self._batch_shape:
@@ -140,8 +154,15 @@ class _Decorated(Distribution):
     def has_rsample(self):
         return self.base_dist.has_rsample
 
+    @property
+    def has_enumerate_support(self):
+        return self.base_dist.has_enumerate_support
+
     def sample(self, key, sample_shape=()):
         return self.base_dist.sample(key, sample_shape)
+
+    def enumerate_support(self, expand=True):
+        return self.base_dist.enumerate_support(expand=expand)
 
 
 class ExpandedDistribution(_Decorated):
@@ -185,6 +206,14 @@ class ExpandedDistribution(_Decorated):
         lead = max(value.dim() - self.event_dim, 0)
         out = broadcast_shape(self.batch_shape, tuple(value.shape[:lead]))
         return self.base_dist.log_prob(value).expand(out)
+
+    def enumerate_support(self, expand=True):
+        samples = self.base_dist.enumerate_support(expand=False)
+        enum_shape = tuple(samples.shape[:1])
+        samples = samples.reshape(enum_shape + (1,) * len(self.batch_shape))
+        if expand:
+            samples = samples.expand(enum_shape + self.batch_shape)
+        return samples
 
 
 class Independent(_Decorated):

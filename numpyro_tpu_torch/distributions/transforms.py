@@ -1,10 +1,11 @@
 """Bijective transforms and the ``biject_to`` registry (port of the parts
 of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
-identity, independent, compose, affine, exp, sigmoid and softplus transforms, the
-lower-Cholesky transforms, ``UnpackTransform`` and ``LowerCholeskyAffine``;
-``biject_to`` for ``real``, ``independent``, ``positive``/``nonnegative``,
-``greater_than``/``greater_than_eq``, ``softplus_positive``,
-``lower_cholesky``, ``scaled_unit_lower_cholesky`` and ``unit_interval``).
+identity, independent, compose, affine, exp, sigmoid, softplus and
+stick-breaking transforms, the lower-Cholesky transforms, ``UnpackTransform``
+and ``LowerCholeskyAffine``; ``biject_to`` for ``real``, ``independent``,
+``positive``/``nonnegative``, ``greater_than``/``greater_than_eq``,
+``softplus_positive``, ``lower_cholesky``, ``scaled_unit_lower_cholesky``,
+``simplex`` and ``unit_interval``).
 Other constraints
 raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
 
@@ -32,6 +33,7 @@ __all__ = [
     "ScaledUnitLowerCholeskyTransform",
     "SigmoidTransform",
     "SoftplusTransform",
+    "StickBreakingTransform",
     "Transform",
     "UnpackTransform",
     "biject_to",
@@ -347,6 +349,11 @@ def _softplus(x):
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _clipped_expit(x):
+    info = torch.finfo(x.dtype)
+    return torch.sigmoid(x).clamp(min=info.tiny, max=1.0 - info.eps)
+
+
 class SigmoidTransform(Transform):
     """y = 1 / (1 + exp(-x)), onto the unit interval, clipped inside it as
     the JAX package clips it (``tiny`` below, ``1 - eps`` above)."""
@@ -354,8 +361,7 @@ class SigmoidTransform(Transform):
     codomain = constraints.unit_interval
 
     def __call__(self, x):
-        info = torch.finfo(x.dtype)
-        return torch.sigmoid(x).clamp(min=info.tiny, max=1.0 - info.eps)
+        return _clipped_expit(x)
 
     def _inverse(self, y):
         return torch.log(y) - torch.log1p(-y)
@@ -377,6 +383,55 @@ class SoftplusTransform(Transform):
 
     def log_abs_det_jacobian(self, x, y, intermediates=None):
         return -_softplus(-x)
+
+
+class StickBreakingTransform(Transform):
+    """R^(K-1) -> the K-simplex by stick breaking with logistic sticks.  The
+    k-th coordinate is shifted by ``log(K - 1 - k)`` so that zero maps to the
+    uniform point, as in the JAX package, whose unconstrained coordinates
+    these are."""
+
+    domain = constraints.real_vector
+    codomain = constraints.simplex
+
+    @staticmethod
+    def _stick_offset(x, k_minus_1):
+        return torch.log(torch.arange(k_minus_1, 0, -1, dtype=x.dtype, device=x.device))
+
+    def __call__(self, x):
+        fracs = _clipped_expit(x - self._stick_offset(x, x.shape[-1]))
+        leftover = torch.cumprod(1.0 - fracs, dim=-1)
+        ones = torch.ones_like(fracs[..., :1])
+        return torch.cat([fracs, ones], -1) * torch.cat([ones, leftover], -1)
+
+    def _inverse(self, y):
+        head = y[..., :-1]
+        leftover = (1.0 - torch.cumsum(head, dim=-1)).clamp(min=torch.finfo(y.dtype).tiny)
+        prev_leftover = torch.cat([torch.ones_like(head[..., :1]), leftover[..., :-1]], -1)
+        # the logit of each stick's fraction, then the offset undone
+        raw = torch.log(head) - torch.log(prev_leftover - head)
+        return raw + self._stick_offset(y, y.shape[-1] - 1)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        shifted = x - self._stick_offset(x, x.shape[-1])
+        leftover = 1.0 - torch.cumsum(y[..., :-1], dim=-1)
+        prev_leftover = torch.cat(
+            [torch.ones_like(x[..., :1]),
+             leftover[..., :-1].clamp(min=torch.finfo(x.dtype).tiny)], -1,
+        )
+        # |dy_k / dx_k| = sigmoid'(x_k) prod_{j<k} (1 - z_j)
+        per_stick = -_softplus(shifted) - _softplus(-shifted) + torch.log(prev_leftover)
+        return per_stick.sum(-1)
+
+    def forward_shape(self, shape):
+        if not shape:
+            raise ValueError("Too few dimensions on input")
+        return tuple(shape[:-1]) + (shape[-1] + 1,)
+
+    def inverse_shape(self, shape):
+        if not shape:
+            raise ValueError("Too few dimensions on input")
+        return tuple(shape[:-1]) + (shape[-1] - 1,)
 
 
 def _tril_size_to_dim(n, diagonal=0):
@@ -629,6 +684,7 @@ del _c
 # so its row stands beside the half-line rows, as in the JAX package
 biject_to.register(constraints.softplus_positive, lambda c: SoftplusTransform())
 biject_to.register(constraints.unit_interval, lambda c: SigmoidTransform())
+biject_to.register(constraints.simplex, lambda c: StickBreakingTransform())
 biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
 biject_to.register(
     constraints.scaled_unit_lower_cholesky, lambda c: ScaledUnitLowerCholeskyTransform()

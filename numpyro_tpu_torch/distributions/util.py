@@ -1,11 +1,16 @@
-"""Shape helpers for the distributions layer (port of the parts of
-``numpyro_tpu/distributions/util.py`` that the covtype slice needs)."""
+"""Shape and log-space helpers for the distributions layer (port of the
+parts of ``numpyro_tpu/distributions/util.py`` that the ported slices need)."""
 
 from __future__ import annotations
 
 import functools
 
-__all__ = ["broadcast_shape", "lazy_property", "promote_shapes", "sum_rightmost"]
+import torch
+
+__all__ = [
+    "broadcast_shape", "lazy_property", "logmatmulexp", "promote_shapes", "scale_and_mask",
+    "sum_rightmost",
+]
 
 
 def broadcast_shape(*shapes):
@@ -39,6 +44,23 @@ def promote_shapes(*args, shape=()):
 def sum_rightmost(x, dim):
     """Sum out the ``dim`` rightmost dimensions of ``x``."""
     return x.sum(tuple(range(-dim, 0))) if dim else x
+
+
+def scale_and_mask(x, scale=None, mask=None):
+    """Scale a log-prob tensor, with 0 where ``mask`` is False."""
+    scaled = x if scale is None else x * scale
+    return scaled if mask is None else torch.where(mask, scaled, torch.zeros_like(scaled))
+
+
+def logmatmulexp(x, y):
+    """``log(exp(x) @ exp(y))`` without overflow: each row of ``x`` and column
+    of ``y`` is shifted by its max, held out of the gradient.  The product is
+    ``torch.matmul``, so it runs in full f32 where the caller keeps TF32 off
+    (``infer.util.pin_full_f32_matmul``)."""
+    row_max = x.amax(-1, keepdim=True).detach()
+    col_max = y.amax(-2, keepdim=True).detach()
+    centered = torch.matmul(torch.exp(x - row_max), torch.exp(y - col_max))
+    return torch.log(centered) + row_max + col_max
 
 
 class lazy_property:

@@ -1,8 +1,13 @@
 """Effect handlers (port of ``trace``, ``seed``, ``substitute``, ``condition``,
-``block``, ``mask``, ``replay`` and ``reparam`` from
+``block``, ``mask``, ``replay``, ``reparam`` and ``infer_config`` from
 ``numpyro_tpu/handlers.py``; the rest are listed in ROADMAP.md).  A handler leaves every message type it does not know
 (``plate``, ``subsample``, ``inspect``, ``_gibbs_state``,
 ``_subsample_panels``) as it found it.
+
+A ``control_flow`` message (the effectful ``scan``) carries a
+``substitute_stack``: ``substitute``, ``condition`` and ``replay`` push their
+data onto it, so that the scan applies them to each step's sites; ``seed``
+and ``block`` hand it a generator.
 
 Random state is an explicit ``torch.Generator``: ``seed`` hands its generator
 to every stochastic site below it, and each draw advances it.  JAX's split
@@ -17,7 +22,10 @@ import torch
 
 from numpyro_tpu_torch.primitives import Messenger, prng_key
 
-__all__ = ["block", "condition", "mask", "replay", "reparam", "seed", "substitute", "trace"]
+__all__ = [
+    "block", "condition", "infer_config", "mask", "replay", "reparam", "seed", "substitute",
+    "trace",
+]
 
 
 class trace(Messenger):
@@ -69,7 +77,7 @@ class block(Messenger):
             return
         msg["stop"] = True
         needs_key = (
-            msg["type"] in ("sample", "plate")
+            msg["type"] in ("sample", "plate", "control_flow")
             and msg.get("value") is None
             and msg.get("kwargs", {}).get("rng_key") is None
         )
@@ -80,6 +88,7 @@ class block(Messenger):
 class _ValueBinder(Messenger):
     """Shared machinery of ``condition`` and ``substitute``."""
 
+    _tag = None  # the name it goes by on a control_flow substitute stack
     _site_types = ()
 
     def __init__(self, fn=None, data=None, lookup_fn=None):
@@ -90,7 +99,11 @@ class _ValueBinder(Messenger):
         super().__init__(fn)
 
     def process_message(self, msg):
-        if msg["type"] not in self._site_types:
+        if msg["type"] == "control_flow":
+            source = self.data if self.data is not None else self._lookup_fn
+            msg["kwargs"]["substitute_stack"].append((self._tag, source))
+            return
+        if msg["type"] not in self._site_types or msg.get("_control_flow_done", False):
             return
         bound = self.data.get(msg["name"]) if self.data is not None else self._lookup_fn(msg)
         if bound is not None:
@@ -103,6 +116,7 @@ class _ValueBinder(Messenger):
 class condition(_ValueBinder):
     """Fix the value of sample sites (they become observed)."""
 
+    _tag = "condition"
     _site_types = ("sample",)
     _both_error = "Only one of `data` or `condition_fn` should be provided."
 
@@ -117,6 +131,7 @@ class condition(_ValueBinder):
 class substitute(_ValueBinder):
     """Fix latent values (sites stay latent, unlike ``condition``)."""
 
+    _tag = "substitute"
     _site_types = ("sample", "param", "mutable", "plate")
     _both_error = "Only one of `data` or `substitute_fn` should be provided."
 
@@ -143,6 +158,9 @@ class replay(Messenger):
 
     def process_message(self, msg):
         kind = msg["type"]
+        if kind == "control_flow":
+            msg["kwargs"]["substitute_stack"].append(("replay", self.trace))
+            return
         if kind not in ("sample", "param"):
             return
         recorded = self.trace.get(msg["name"])
@@ -206,6 +224,19 @@ class reparam(Messenger):
             msg["fn"] = new_fn
 
 
+class infer_config(Messenger):
+    """Update the ``infer`` dict of sample and param sites with what
+    ``config_fn(msg)`` returns."""
+
+    def __init__(self, fn=None, config_fn=None):
+        super().__init__(fn)
+        self.config_fn = config_fn
+
+    def process_message(self, msg):
+        if msg["type"] in ("sample", "param"):
+            msg["infer"] = {**msg.get("infer", {}), **self.config_fn(msg)}
+
+
 class seed(Messenger):
     """Give every unobserved sample site and every plate that draws its
     subsample below this handler the generator ``rng_seed`` (a
@@ -224,7 +255,9 @@ class seed(Messenger):
         super().__init__(fn)
 
     def process_message(self, msg):
-        if msg["type"] in self.hide_types or msg["type"] not in ("sample", "prng_key", "plate"):
+        if msg["type"] in self.hide_types or msg["type"] not in (
+            "sample", "prng_key", "plate", "control_flow"
+        ):
             return
         if msg["type"] == "sample" and msg["is_observed"]:
             return

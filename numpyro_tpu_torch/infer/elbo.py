@@ -1,5 +1,5 @@
-"""ELBO objectives for SVI (port of ``Trace_ELBO``, ``TraceMeanField_ELBO``
-and ``RenyiELBO`` from ``numpyro_tpu/infer/elbo.py``).
+"""ELBO objectives for SVI (port of ``Trace_ELBO``, ``TraceMeanField_ELBO``,
+``RenyiELBO`` and ``TraceEnum_ELBO`` from ``numpyro_tpu/infer/elbo.py``).
 
 The particle dispatch and the mutable-state bookkeeping live once on the
 base class; each objective implements ``_particle_elbo``.  Random state is
@@ -13,8 +13,9 @@ launch per ELBO evaluation).  ``False`` is a Python loop over particles; a
 callable is applied as given, to the one-particle function and then to the
 particle indices ``torch.arange(num_particles)``.
 
-``TraceEnum_ELBO`` and ``TraceGraph_ELBO`` wait for the HMM slice
-(ROADMAP.md).
+``TraceEnum_ELBO`` sums the model's enumerable discrete sites out of its
+log density (``contrib.enum``); a guide with an enumerated site raises.
+``TraceGraph_ELBO`` is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from functools import partial
 import torch
 
 from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.contrib import enum as contrib_enum
 from numpyro_tpu_torch.distributions.kl import kl_divergence
 from numpyro_tpu_torch.infer.util import _without_rsample_stop_gradient, log_density
 
@@ -214,10 +216,81 @@ class RenyiELBO(ELBO):
 
 
 class TraceEnum_ELBO(ELBO):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TraceEnum_ELBO is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+    """The ELBO with the model's discrete latent sites of finite support that
+    the guide does not sample summed out exactly (``contrib.enum``); the
+    continuous latents come from the guide as usual.  ``max_plate_nesting``
+    defaults to the deepest plate of the guide and of a probe run of the
+    model; the probe runs once for each model and guide, where the JAX
+    package runs it in every traced step (give ``max_plate_nesting`` where
+    the plates change with the arguments).
+
+    A guide with a site marked ``infer={"enumerate": "parallel"}`` raises:
+    the JAX package's guide-side enumeration sums the model's enumerated
+    dims at the end, not in site order, so under ``markov`` it returns a
+    wrong ELBO without a warning (ROADMAP.md, Queue 3)."""
+
+    can_infer_discrete = True
+
+    def __init__(self, num_particles=1, vectorize_particles=True, max_plate_nesting=None):
+        self.max_plate_nesting = max_plate_nesting
+        self._probed = {}  # (model, guide) -> the plate depth a probe found
+        super().__init__(num_particles, vectorize_particles)
+
+    @staticmethod
+    def _plate_depth(*traces):
+        dims = [
+            frame.dim
+            for trace in traces
+            for site in trace.values()
+            if site["type"] == "sample"
+            for frame in site["cond_indep_stack"]
+            if frame.dim is not None
+        ]
+        return -min(dims) if dims else 0
+
+    @staticmethod
+    def _guide_enum_sites(guide_trace):
+        return [
+            name
+            for name, site in guide_trace.items()
+            if site["type"] == "sample"
+            and not site.get("is_observed", False)
+            and site.get("infer", {}).get("enumerate") == "parallel"
+            and site["fn"].has_enumerate_support
+        ]
+
+    def _particle_elbo(self, rng_key, param_map, model, guide, args, kwargs):
+        guide_ld, guide_trace = log_density(
+            handlers.seed(guide, rng_key), args, kwargs, param_map
         )
+        enumerated = self._guide_enum_sites(guide_trace)
+        if enumerated:
+            raise NotImplementedError(
+                f"TraceEnum_ELBO with a guide that enumerates {enumerated} is not ported to "
+                "numpyro_tpu_torch: the JAX package's guide-side enumeration ignores markov "
+                "dim recycling and returns a wrong ELBO (see ROADMAP.md)"
+            )
+        mutable_params = _sites_of_type(guide_trace, "mutable")
+        params = {**param_map, **mutable_params}
+        max_plate_nesting = self.max_plate_nesting
+        if max_plate_nesting is None:
+            key = (model, guide)
+            if key not in self._probed:
+                # a probe run of the model finds its plates too
+                probe = handlers.trace(
+                    handlers.substitute(handlers.seed(model, rng_key), data=params)
+                ).get_trace(*args, **kwargs)
+                self._probed[key] = self._plate_depth(guide_trace, probe)
+            max_plate_nesting = self._probed[key]
+        enum_model = contrib_enum.enum(
+            contrib_enum.config_enumerate(handlers.seed(model, rng_key)),
+            first_available_dim=-1 - max_plate_nesting,
+        )
+        model_ld, model_trace = contrib_enum.log_density(
+            handlers.replay(enum_model, guide_trace), args, kwargs, params
+        )
+        mutable_params.update(_sites_of_type(model_trace, "mutable"))
+        return self._wrap_mutable(model_ld - guide_ld, mutable_params)
 
 
 class TraceGraph_ELBO(ELBO):

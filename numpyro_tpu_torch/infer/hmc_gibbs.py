@@ -235,8 +235,7 @@ class DiscreteHMCGibbs(HMCGibbs):
 
     def __init__(self, inner_kernel, *, random_walk=False, modified=False):
         raise NotImplementedError(
-            "DiscreteHMCGibbs is not ported to numpyro_tpu_torch yet (see ROADMAP.md): "
-            "it needs Categorical and enumerate_support"
+            "DiscreteHMCGibbs is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
         )
 
 

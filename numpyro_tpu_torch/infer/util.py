@@ -4,6 +4,11 @@ that the ported slices need: ``log_density``, ``potential_energy``,
 ``initialize_model``, ``_without_rsample_stop_gradient``,
 ``get_importance_trace``, ``Predictive`` and ``log_likelihood``).
 
+A model with discrete latent sites of finite support is enumerated, as in
+the JAX package: ``initialize_model`` wraps it in ``contrib.enum.enum``,
+its potential is ``contrib.enum.log_density`` with those sites summed out,
+and its params and samples are its continuous sites.
+
 The potential of a model is written for ONE chain, as in the JAX package;
 :func:`batched_value_and_grad` maps it over the leading chain axis with
 ``torch.func.vmap(torch.func.grad_and_value(...))`` (``jacfwd`` in place of
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.contrib import enum as contrib_enum
 from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
@@ -245,6 +251,12 @@ def _unconstrain_reparam(params, site):
         return p
     support = site["fn"].support
     t = biject_to(support)
+    # inside a scan, a step's site takes its slice of the whole series
+    i = site["infer"].get("_scan_current_index") if "infer" in site else None
+    if i is not None:
+        shift = t.codomain.event_dim - t.domain.event_dim
+        if p.dim() > len(site["fn"].shape()) - shift:
+            p = p[i]
     base = (
         support.base_constraint
         if isinstance(support, constraints._IndependentConstraint)
@@ -261,12 +273,15 @@ def _unconstrain_reparam(params, site):
     return value
 
 
-def potential_energy(model, model_args, model_kwargs, params):
-    """-log p(constrained(params)) - log|det J|: the NUTS target."""
+def potential_energy(model, model_args, model_kwargs, params, enum=False):
+    """-log p(constrained(params)) - log|det J|: the NUTS target.  With
+    ``enum`` the model runs under ``contrib.enum.enum`` and its discrete
+    sites are summed out (``contrib.enum.log_density``)."""
+    density_fn = contrib_enum.log_density if enum else log_density
     reparamed = handlers.substitute(
         model, substitute_fn=partial(_unconstrain_reparam, params)
     )
-    log_joint, _ = log_density(reparamed, model_args, model_kwargs, {})
+    log_joint, _ = density_fn(reparamed, model_args, model_kwargs, {})
     return -log_joint
 
 
@@ -278,7 +293,7 @@ def _finite_per_chain(pe, grad):
 
 
 def _single_chain_search(rng_key, model, strategy, model_args, model_kwargs,
-                        prototype_params, forward_mode, validate_grad):
+                        prototype_params, forward_mode, validate_grad, enum):
     """One chain, unbatched: draw until the potential (and, with
     ``validate_grad``, its gradient) is finite, at most 100 tries.
     ``init_to_uniform`` draws in unconstrained space directly; any other
@@ -303,7 +318,7 @@ def _single_chain_search(rng_key, model, strategy, model_args, model_kwargs,
             and not site["fn"].support.is_discrete
         }
 
-    pe_fn = partial(potential_energy, model, model_args, model_kwargs)
+    pe_fn = partial(potential_energy, model, model_args, model_kwargs, enum=enum)
     for _ in range(100):
         params = draw()
         if not validate_grad:
@@ -331,6 +346,7 @@ def find_valid_initial_params(
     *,
     num_chains=None,
     init_strategy=init_to_uniform,
+    enum=False,
     model_args=(),
     model_kwargs=None,
     prototype_params=None,
@@ -338,7 +354,9 @@ def find_valid_initial_params(
     validate_grad=True,
 ):
     """Draw initial latents until the potential and its gradient are finite
-    (at most 100 tries per chain).
+    (at most 100 tries per chain).  ``enum`` scores the enumerated potential
+    (a model wrapped by ``initialize_model``): its discrete sites take their
+    enumerated values and are never drawn.
 
     ``num_chains=None`` searches for one chain, unbatched, under any init
     strategy; ``validate_grad=False`` then scores the potential alone and
@@ -354,7 +372,7 @@ def find_valid_initial_params(
     if num_chains is None:
         return _single_chain_search(
             rng_key, model, strategy, model_args, model_kwargs, prototype_params,
-            forward_mode_differentiation, validate_grad,
+            forward_mode_differentiation, validate_grad, enum,
         )
     if getattr(strategy, "func", None) is not init_to_uniform or prototype_params is None:
         raise NotImplementedError(
@@ -375,7 +393,7 @@ def find_valid_initial_params(
         }
 
     score = batched_value_and_grad(
-        partial(potential_energy, model, model_args, model_kwargs),
+        partial(potential_energy, model, model_args, model_kwargs, enum=enum),
         forward_mode=forward_mode_differentiation,
     )
     params = draw()
@@ -401,27 +419,38 @@ def _get_model_transforms(model, model_args=(), model_kwargs=None):
     model_trace = handlers.trace(model).get_trace(*model_args, **model_kwargs)
     inv_transforms = {}
     replay_model = False
+    has_enumerate_support = False
     for name, site in model_trace.items():
         if site["type"] == "sample" and not site["is_observed"]:
             if site["fn"].support.is_discrete:
-                raise NotImplementedError(
-                    "discrete latent sites are not ported to numpyro_tpu_torch "
-                    "yet (see ROADMAP.md)"
-                )
-            inv_transforms[name] = biject_to(site["fn"].support)
+                enum_type = site["infer"].get("enumerate")
+                if enum_type is not None and enum_type != "parallel":
+                    raise RuntimeError(
+                        "This algorithm might only work for discrete sites with "
+                        "enumerate marked 'parallel'."
+                    )
+                if enum_type is None and not site["fn"].has_enumerate_support:
+                    raise RuntimeError(
+                        f"MCMC marginalization requires discrete site '{name}' to have "
+                        "enumerate support."
+                    )
+                has_enumerate_support = True
+            else:
+                inv_transforms[name] = biject_to(site["fn"].support)
         elif site["type"] == "deterministic":
             replay_model = True
-    return inv_transforms, replay_model, model_trace
+    return inv_transforms, replay_model, has_enumerate_support, model_trace
 
 
 def get_potential_fn(
-    model, inv_transforms, *, replay_model=False, dynamic_args=False,
+    model, inv_transforms, *, enum=False, replay_model=False, dynamic_args=False,
     model_args=(), model_kwargs=None,
 ):
     """Build the ``(potential_fn, postprocess_fn)`` closures; with
     ``dynamic_args`` both take the model arguments first.  With
     ``replay_model`` (a model with deterministic sites) the postprocessing
-    of one draw replays the model through :func:`constrain_fn`."""
+    of one draw replays the model through :func:`constrain_fn`; ``enum``
+    makes the potential the enumerated one."""
 
     def postprocess(args, kwargs):
         if replay_model:
@@ -431,7 +460,7 @@ def get_potential_fn(
     if dynamic_args:
 
         def potential_fn(*args, **kwargs):
-            return partial(potential_energy, model, args, kwargs)
+            return partial(potential_energy, model, args, kwargs, enum=enum)
 
         def postprocess_fn(*args, **kwargs):
             return postprocess(args, kwargs)
@@ -439,7 +468,7 @@ def get_potential_fn(
         return potential_fn, postprocess_fn
     model_kwargs = {} if model_kwargs is None else model_kwargs
     return (
-        partial(potential_energy, model, model_args, model_kwargs),
+        partial(potential_energy, model, model_args, model_kwargs, enum=enum),
         postprocess(model_args, model_kwargs),
     )
 
@@ -459,18 +488,26 @@ def initialize_model(
     """Trace the model, build the potential/postprocess closures and find
     valid initial params for ``num_chains`` chains (one unbatched chain for
     ``None``).  ``rng_key`` is a ``torch.Generator`` on the device the chains
-    should live on."""
+    should live on.  A model with discrete latent sites runs under
+    ``enum(config_enumerate(model), -1 - max_plate_nesting)`` from here on:
+    its potential sums them out, and the params are its continuous sites."""
     model_kwargs = {} if model_kwargs is None else model_kwargs
     strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
     substituted_model = handlers.substitute(
         handlers.seed(model, rng_key), substitute_fn=strategy
     )
-    inv_transforms, replay_model, model_trace = _get_model_transforms(
+    inv_transforms, replay_model, has_enumerate_support, model_trace = _get_model_transforms(
         substituted_model, model_args, model_kwargs
     )
+    if has_enumerate_support:
+        max_plate_nesting = _guess_max_plate_nesting(model_trace)
+        model = contrib_enum.enum(
+            contrib_enum.config_enumerate(model), first_available_dim=-1 - max_plate_nesting
+        )
     potential_fn, postprocess_fn = get_potential_fn(
         model,
         inv_transforms,
+        enum=has_enumerate_support,
         replay_model=replay_model,
         dynamic_args=dynamic_args,
         model_args=model_args,
@@ -482,6 +519,7 @@ def initialize_model(
             k: v["value"]
             for k, v in model_trace.items()
             if v["type"] == "sample" and not v["is_observed"]
+            and not v["fn"].support.is_discrete
         },
         invert=True,
     )
@@ -490,6 +528,7 @@ def initialize_model(
         model,
         num_chains=num_chains,
         init_strategy=strategy,
+        enum=has_enumerate_support,
         model_args=model_args,
         model_kwargs=model_kwargs,
         prototype_params=prototype_params,
@@ -517,20 +556,42 @@ def _guess_max_plate_nesting(model_trace):
     return -min(dims) if dims else 0
 
 
+def _guess_max_plate_nesting_from_model(model, model_args, model_kwargs, rng_key):
+    """Trace the model once, seeded, for its deepest plate dim."""
+    with handlers.block():
+        tr = handlers.trace(handlers.seed(model, rng_key)).get_trace(*model_args, **model_kwargs)
+    return _guess_max_plate_nesting(tr)
+
+
 def _predictive(rng_key, model, posterior_samples, batch_shape, return_sites=None,
-                parallel=True, model_args=(), model_kwargs=None):
+                infer_discrete=False, parallel=True, model_args=(), model_kwargs=None):
     """Run ``model`` once per element of ``batch_shape``, each with its
     element of ``posterior_samples`` substituted and the sites it does not
-    give drawn from ``rng_key``; returns the chosen sites' values."""
+    give drawn from ``rng_key``; returns the chosen sites' values.  With
+    ``infer_discrete`` the enumerated discrete sites are drawn from their
+    posterior given the element's samples (``contrib.enum.infer_discrete``)."""
     model_kwargs = {} if model_kwargs is None else model_kwargs
     masked_model = handlers.mask(model, mask=False)
 
     def single_prediction(val):
         _, samples = val
-        substituted_model = handlers.substitute(masked_model, samples)
-        model_trace = handlers.trace(handlers.seed(substituted_model, rng_key)).get_trace(
-            *model_args, **model_kwargs
-        )
+        if infer_discrete:
+            conditioned = handlers.substitute(model, samples)
+            first_available_dim = -1 - _guess_max_plate_nesting_from_model(
+                conditioned, model_args, model_kwargs, rng_key
+            )
+            sampled_model = contrib_enum.infer_discrete(
+                conditioned, first_available_dim=first_available_dim, temperature=1,
+                rng_key=rng_key,
+            )
+            model_trace = handlers.trace(
+                handlers.seed(handlers.mask(sampled_model, mask=False), rng_key)
+            ).get_trace(*model_args, **model_kwargs)
+        else:
+            substituted_model = handlers.substitute(masked_model, samples)
+            model_trace = handlers.trace(handlers.seed(substituted_model, rng_key)).get_trace(
+                *model_args, **model_kwargs
+            )
         if return_sites is not None:
             if return_sites == "":
                 sites = {k for k, site in model_trace.items() if site["type"] != "plate"}
@@ -585,7 +646,10 @@ class Predictive:
     call raises where that device is not there.  ``rng_key`` is an int seed
     or a ``torch.Generator`` on that device; every draw of a call comes from
     it under ``torch.func.vmap(randomness="different")``.
-    ``infer_discrete=True`` is not ported yet (ROADMAP.md).
+    ``infer_discrete=True`` draws the enumerated discrete sites from their
+    posterior given each sample (forward filtering, backward sampling); it
+    raises on the sites of an enumerated ``scan``, which the JAX package
+    draws from their prior there.  A call keeps f32 matmuls out of TF32.
     """
 
     def __init__(
@@ -603,11 +667,6 @@ class Predictive:
         exclude_deterministic=True,
         device=None,
     ):
-        if infer_discrete:
-            raise NotImplementedError(
-                "Predictive(infer_discrete=True) is not ported to numpyro_tpu_torch yet "
-                "(see ROADMAP.md)"
-            )
         if posterior_samples is None and num_samples is None:
             raise ValueError("Either posterior_samples or num_samples must be specified.")
         if batch_ndims is None:
@@ -641,6 +700,7 @@ class Predictive:
         self.num_samples = num_samples
         self.guide = guide
         self.params = {} if params is None else params
+        self.infer_discrete = infer_discrete
         self.return_sites = return_sites
         self.parallel = parallel
         self.batch_ndims = batch_ndims
@@ -660,12 +720,13 @@ class Predictive:
         model = handlers.substitute(self.model, self.params)
         return _predictive(
             rng_key, model, posterior_samples, self._batch_shape,
-            return_sites=self.return_sites, parallel=self.parallel,
-            model_args=args, model_kwargs=kwargs,
+            return_sites=self.return_sites, infer_discrete=self.infer_discrete,
+            parallel=self.parallel, model_args=args, model_kwargs=kwargs,
         )
 
     def __call__(self, rng_key, *args, **kwargs):
         rng_key = device_generator(rng_key, self.device, "Predictive")
+        pin_full_f32_matmul()
         if self.batch_ndims == 0 or self.params == {} or self.guide is None:
             return self._call_with_params(rng_key, self.params, args, kwargs)
         if self.batch_ndims == 1:  # batch over parameters

@@ -289,6 +289,10 @@ class plate(Messenger):
 
     def process_message(self, msg):
         kind = msg["type"]
+        if kind == "control_flow":
+            raise NotImplementedError(
+                "Cannot use control flow primitive under a `plate` primitive."
+            )
         if kind not in ("sample", "plate", "deterministic"):
             # "subsample" messages are subselected in postprocess_message
             return

@@ -1,8 +1,11 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
 PyTorch version, the one-launch vmap rule, a short NUTS run, HMCECS in
-every panel mode, dense mass, SVI through the split kernel, and 8-schools
-and stochastic volatility: ``Predictive``, the new samplers on a CUDA
-generator and ``soft_vmap`` over a model replay.
+every panel mode, dense mass, SVI through the split kernel, 8-schools
+and stochastic volatility (``Predictive``, the new samplers on a CUDA
+generator and ``soft_vmap`` over a model replay), and the HMM slice
+(``Categorical`` and ``Dirichlet`` draws, the enumerated density of both
+forms of ``examples/hmm_enum.py`` against a numpy forward algorithm, the
+error past 25 dims).
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -16,6 +19,8 @@ import torch
 import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.contrib.control_flow import scan
+from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, log_density, markov
 from numpyro_tpu_torch.infer import (
     HMCECS, MCMC, NUTS, SVI, Predictive, Trace_ELBO, log_likelihood, reparam,
 )
@@ -406,3 +411,123 @@ def test_soft_vmap_over_a_replay_on_the_card(cuda):
     torch.testing.assert_close(out["theta"], want, rtol=1e-6, atol=1e-6)
     assert out["obs"].shape == (50, 8) and out["obs"].device.type == "cuda"
     assert len(torch.unique(out["obs"][:, 0])) == 50
+
+
+@pytest.mark.requires_cuda
+def test_categorical_and_dirichlet_draws_on_a_cuda_generator(cuda):
+    """Gumbel-max and gamma draws take a CUDA generator; under
+    ``vmap(randomness="different")`` every element draws anew."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    probs = torch.tensor([0.2, 0.5, 0.3], device=cuda)
+    c = dist.Categorical(probs).sample(gen, (20000,))
+    freq = torch.bincount(c, minlength=3).double().cpu().numpy() / 20000
+    assert c.device.type == cuda.type
+    assert np.all(np.abs(freq - [0.2, 0.5, 0.3]) < 4 * np.sqrt(0.25 / 20000))
+    conc = torch.tensor([1.0, 2.0, 3.0], device=cuda)
+    d = dist.Dirichlet(conc).sample(gen, (20000,))
+    assert d.device.type == cuda.type and torch.allclose(d.sum(-1), torch.ones((), device=cuda))
+    assert np.all(np.abs(d.mean(0).cpu().numpy() - [1 / 6, 2 / 6, 3 / 6]) < 0.01)
+
+    def one(p):
+        return dist.Categorical(p).sample(gen, (8,)).float() + dist.Dirichlet(conc).sample(gen)[0]
+
+    out = torch.func.vmap(one, randomness="different")(probs.expand(256, 3))
+    assert out.device.type == cuda.type and len(torch.unique(out[:, 0])) == 256
+
+
+def _hmm_data(T=30):
+    rng = np.random.RandomState(0)
+    trans = np.array([[0.85, 0.15], [0.25, 0.75]])
+    z = [rng.choice(2, p=[0.6, 0.4])]
+    for _ in range(1, T):
+        z.append(rng.choice(2, p=trans[z[-1]]))
+    return (np.array([-1.0, 1.0])[z] + 0.3 * rng.randn(T)).astype(np.float32)
+
+
+def _hmm_markov(ys):
+    locs = torch.tensor([-1.0, 1.0], device=ys.device)
+    probs = npt.sample("trans", dist.Dirichlet(torch.ones((2, 2), device=ys.device)).to_event(1))
+    sigma = npt.sample("sigma", dist.HalfNormal(torch.tensor(1.0, device=ys.device)))
+    z = npt.sample("z_0", dist.Categorical(torch.tensor([0.5, 0.5], device=ys.device)),
+                   infer={"enumerate": "parallel"})
+    npt.sample("y_0", dist.Normal(locs[z], sigma), obs=ys[0])
+    for t in markov(range(1, ys.shape[0])):
+        z = npt.sample(f"z_{t}", dist.Categorical(probs[z]), infer={"enumerate": "parallel"})
+        npt.sample(f"y_{t}", dist.Normal(locs[z], sigma), obs=ys[t])
+
+
+def _hmm_scan(ys):
+    locs = torch.tensor([-1.0, 1.0], device=ys.device)
+    probs = npt.sample("trans", dist.Dirichlet(torch.ones((2, 2), device=ys.device)).to_event(1))
+    sigma = npt.sample("sigma", dist.HalfNormal(torch.tensor(1.0, device=ys.device)))
+
+    def transition(z_prev, y):
+        z = npt.sample("z", dist.Categorical(probs[z_prev]), infer={"enumerate": "parallel"})
+        npt.sample("y", dist.Normal(locs[z], sigma), obs=y)
+        return z, None
+
+    scan(transition, 0, ys)
+
+
+def _forward(ys, trans, sigma, init):
+    """log p(ys) by the forward algorithm in float64 numpy."""
+    emit = -0.5 * ((ys[:, None] - np.array([-1.0, 1.0])) / sigma) ** 2 - np.log(
+        sigma * np.sqrt(2 * np.pi))
+    alpha = np.log(init) + emit[0]
+    for t in range(1, len(ys)):
+        a = alpha[:, None] + np.log(trans)
+        alpha = np.log(np.exp(a - a.max(0)).sum(0)) + a.max(0) + emit[t]
+    return np.log(np.exp(alpha - alpha.max()).sum()) + alpha.max()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("form", ["markov", "scan"])
+def test_enumerated_hmm_density_on_the_card_matches_numpy(cuda, form):
+    """The enumerated log joint of both forms of ``examples/hmm_enum.py``
+    on the card, batched over 16 chains as a run evaluates it: the forward
+    algorithm plus the HalfNormal(1) prior (the Dirichlet(1, 1) rows have
+    density 1), to 1e-5 relative."""
+    ys_np = _hmm_data()
+    ys = torch.from_numpy(ys_np).to(cuda)
+    model = _hmm_markov if form == "markov" else _hmm_scan
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    trans = dist.Dirichlet(torch.ones(2, device=cuda)).sample(gen, (16, 2))
+    sigma = 0.2 + torch.rand(16, device=cuda, generator=gen)
+    wrapped = enum(config_enumerate(model), first_available_dim=-1)
+    got = torch.func.vmap(
+        lambda t, s: log_density(wrapped, (ys,), {}, {"trans": t, "sigma": s})[0]
+    )(trans, sigma)
+    assert got.device.type == cuda.type
+    for i in range(16):
+        tr = trans[i].double().cpu().numpy()
+        s = sigma[i].item()
+        init = tr[0] if form == "scan" else np.array([0.5, 0.5])
+        want = _forward(ys_np.astype(np.float64), tr, s, init) + (
+            0.5 * np.log(2 / np.pi) - 0.5 * s * s)
+        np.testing.assert_allclose(got[i].item(), want, rtol=1e-5)
+
+
+def _many_bernoullis(n, device):
+    def model():
+        x = npt.sample("x", dist.Normal(torch.tensor(0.0, device=device), 1.0))
+        for i in range(n):
+            npt.sample(f"b{i}", dist.Bernoulli(logits=x), infer={"enumerate": "parallel"})
+    return model
+
+
+@pytest.mark.requires_cuda
+def test_more_than_25_dims_raise_clearly_on_the_card(cuda):
+    """24 enumeration dims under the chain vmap make 25 dims, which the
+    card takes; 25 make 26, which raise before any kernel is launched."""
+    xs = torch.linspace(-1.0, 1.0, 3, device=cuda)
+
+    def density(n):
+        wrapped = enum(config_enumerate(_many_bernoullis(n, cuda)), first_available_dim=-1)
+        return torch.func.vmap(lambda x: log_density(wrapped, (), {}, {"x": x})[0])(xs)
+
+    got = density(24)
+    # each enumerated Bernoulli sums out to 1: only the Normal prior is left
+    want = -0.5 * xs**2 - 0.5 * np.log(2 * np.pi)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(RuntimeError, match="more than the 25"):
+        density(25)

@@ -60,8 +60,11 @@ def test_bernoulli_factory_and_support():
     np.testing.assert_array_equal(
         constraints.boolean(torch.tensor([0.0, 1.0, 2.0, 0.5])).numpy(), [True, True, False, False]
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d.enumerate_support()
+    # the support on a leading axis, as the JAX package lays it out
+    want = jdist.Bernoulli(logits=jnp.zeros(3)).enumerate_support(expand=False)
+    assert d.has_enumerate_support and jdist.Bernoulli(logits=jnp.zeros(3)).has_enumerate_support
+    np.testing.assert_array_equal(d.enumerate_support(expand=False).numpy(), np.asarray(want))
+    assert d.enumerate_support().shape == (2, 3)
 
 
 def test_mask_matches_jax():
@@ -110,3 +113,23 @@ def test_bernoulli_sample_frequencies():
         assert set(draws.unique().tolist()) == {0, 1}
         se = np.sqrt(probs * (1 - probs) / n)
         assert (np.abs(draws.float().mean(0).numpy() - probs) < 4 * se).all()
+
+
+@pytest.mark.parametrize("batch_shape", [(), (3,), (2, 3)])
+def test_bernoulli_enumerate_support_matches_jax(batch_shape):
+    """The support on a new leading axis, expanded over the batch or not,
+    also through ``expand`` and ``mask`` as a plate and a mask wrap it."""
+    logits = np.linspace(-2, 2, int(np.prod(batch_shape))).reshape(batch_shape).astype(np.float32)
+    t = dist.Bernoulli(logits=torch.from_numpy(logits))
+    j = jdist.Bernoulli(logits=jnp.asarray(logits))
+    for expand in (False, True):
+        np.testing.assert_array_equal(t.enumerate_support(expand).numpy(),
+                                      np.asarray(j.enumerate_support(expand)))
+    te = t.expand((4,) + batch_shape).mask(False)
+    je = j.expand((4,) + batch_shape).mask(False)
+    assert te.has_enumerate_support and je.has_enumerate_support
+    np.testing.assert_array_equal(te.enumerate_support(False).numpy(),
+                                  np.asarray(je.enumerate_support(False)))
+    assert not dist.Normal(0.0, 1.0).has_enumerate_support
+    with pytest.raises(NotImplementedError):
+        dist.Normal(0.0, 1.0).enumerate_support()

@@ -253,8 +253,9 @@ def test_predictive_defaults_to_cuda_and_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pred(0, None, SIGMA_T)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictive(TMODEL, num_samples=3, infer_discrete=True)
+    # infer_discrete is ported: a model without discrete sites draws as without it
+    drawn = Predictive(TMODEL, num_samples=3, infer_discrete=True, device="cpu")(0, None, SIGMA_T)
+    assert drawn["obs"].shape == (3, 8) and torch.isfinite(drawn["obs"]).all()
     with pytest.raises(ValueError, match="num_samples"):
         Predictive(TMODEL)
     with pytest.raises(ValueError, match="Batch shapes"):
