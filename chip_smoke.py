@@ -107,6 +107,20 @@ Phases (each prints on its own lines; any failure exits non-zero):
                one at a share of the steps of at least ``HMM_DECODE_GATE``.
                The gates follow the JAX package's own runs
                (``dev/hmm_reference.py``); no GLM launch.
+12. samplers -- the other MCMC kernels, each leg printing its seconds,
+               evaluations and ms per evaluation: (a) ``SMC`` on 8-schools
+               non-centred, 4,096 particles, the means of ``mu`` and ``tau``
+               within ``SMC_GATE`` of ``EIGHT_SCHOOLS_REF`` and the log
+               evidence within ``SMC_EVIDENCE`` of the JAX package's; (b)
+               ``SMC`` on a conjugate Gaussian, the log evidence within 0.2
+               of the exact one; (c) ``DiscreteHMCGibbs(NUTS)`` and (d)
+               ``MixedHMC(HMC)`` on the mixtures of the JAX package's tests,
+               under those tests' gates; (e) ``BarkerMH``, ``SA``, ``AIES`` and
+               ``ESS`` on 8-schools non-centred, 64 chains each, and (f)
+               ``BarkerMH`` with two ``"sequential"`` chains, the means of
+               ``mu`` and ``tau`` within ``KERNEL_GATES`` of
+               ``EIGHT_SCHOOLS_REF`` (``dev/smc_reference.py`` and
+               ``dev/kernels_reference.py``).  Plain PyTorch; no GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -131,8 +145,8 @@ from numpyro_tpu_torch.contrib.control_flow import scan
 from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, markov
 from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
 from numpyro_tpu_torch.infer import (
-    HMCECS, MCMC, NUTS, SVI, Predictive, Trace_ELBO, TraceEnum_ELBO, TraceMeanField_ELBO,
-    log_likelihood,
+    AIES, ESS, HMC, HMCECS, MCMC, NUTS, SA, SMC, SVI, BarkerMH, DiscreteHMCGibbs, MixedHMC,
+    Predictive, Trace_ELBO, TraceEnum_ELBO, TraceMeanField_ELBO, log_likelihood,
 )
 from numpyro_tpu_torch.infer import autoguide
 from numpyro_tpu_torch.infer.reparam import LocScaleReparam
@@ -314,6 +328,43 @@ HMM_SVI = (0.05, 300)
 HMM_GATE = 0.1162
 HMM_SVI_GATE = 0.1625
 HMM_DECODE_GATE = 0.95
+# phase 12, the other MCMC kernels.  Its budget is 20 s on a host where phase
+# 6's main leg takes 24.0 ms per evaluation.  (a) SMC on 8-schools
+# non-centred: particles, the defaults otherwise; (b) SMC on the conjugate
+# Gaussian of tests/infer/test_smc.py: particles, MH steps a stage
+SMC_RUN = 4096
+SMC_GAUSS = (2000, 10)
+# (c) DiscreteHMCGibbs(NUTS) on the mixture of tests/infer/test_hmc_gibbs.py
+# and (d) MixedHMC(HMC(trajectory_length=1.2), num_discrete_updates=4) on the
+# mixture of tests/infer/test_mixed_hmc.py: chains, warmup, samples (and NUTS's
+# tree depths in warmup and sampling); their gates are those tests' own
+GIBBS_RUN = (256, 60, 40, (2, 3))
+MIXED_RUN = (256, 60, 24)
+# (e) BarkerMH, SA, AIES and ESS on 8-schools non-centred, 64 chains each:
+# warmup and samples, cut so that each leg takes at most 2 s; (f) BarkerMH
+# with two chains run one after the other (chain_method="sequential")
+KERNEL_RUNS = {"BarkerMH": (64, 100, 50), "SA": (64, 100, 100), "AIES": (64, 30, 20),
+               "ESS": (64, 8, 6)}
+SEQ_RUN = (2, 50, 25)
+# max(2e, e + 0.05), the rule of HS_GATE, per site, where e is the largest gap
+# over keys 0-2 between the JAX package's posterior mean at the leg's
+# configuration and EIGHT_SCHOOLS_REF's; the log evidence within max(2d, d +
+# 0.05) of JAX's key-0 value, d the spread of JAX's values over keys 0-2
+# (`JAX_PLATFORMS=cpu python3 -m dev.smc_reference` and `python3 -m
+# dev.kernels_reference`, on the CPU)
+# (dev.smc_reference: means of mu 4.3321, 4.5978, 4.2095 and of tau 3.5225,
+# 3.6769, 3.6544 for keys 0-2; log evidence -31.3360, -31.2186, -31.2944.
+# dev.kernels_reference: at these lengths the kernels are far from converged
+# on 8-schools, SA furthest, and the gates follow the reference's spread)
+SMC_GATE = {"mu": 0.9468, "tau": 0.6402}
+SMC_EVIDENCE = (-31.3360, 0.2347)
+KERNEL_GATES = {
+    "BarkerMH": {"mu": 1.8411, "tau": 1.1633},
+    "SA": {"mu": 8.9837, "tau": 2.3502},
+    "AIES": {"mu": 4.1842, "tau": 1.7345},
+    "ESS": {"mu": 6.6601, "tau": 3.0264},
+    "sequential": {"mu": 3.8619, "tau": 5.1245},
+}
 
 
 _T0 = time.perf_counter()
@@ -1130,6 +1181,168 @@ def phase_hmm(device):
     return wall
 
 
+GIBBS_PROBS = (0.15, 0.3, 0.3, 0.25)
+GIBBS_LOCS = (-1.0, 0.0, 1.0, 2.0)
+MIXED_PROBS = (0.3, 0.7)
+MIXED_LOCS = (-0.5, 1.0)
+
+
+def gibbs_mixture(probs, locs):
+    """``tests/infer/test_hmc_gibbs.py``'s mixture (scale 0.5)."""
+    c = npt.sample("c", dist.Categorical(probs))
+    npt.sample("x", dist.Normal(locs[c], 0.5))
+
+
+def mixed_mixture(probs, locs):
+    """``tests/infer/test_mixed_hmc.py``'s first mixture (scale 0.8)."""
+    c = npt.sample("c", dist.Categorical(probs))
+    npt.sample("x", dist.Normal(locs[c], 0.8))
+
+
+def gauss_model(y):
+    """``tests/infer/test_smc.py``'s conjugate Gaussian."""
+    mu = npt.sample("mu", dist.Normal(0.0, 1.0))
+    with npt.plate("N", y.shape[0]):
+        npt.sample("y", dist.Normal(mu, 1.0), obs=y)
+
+
+def gauss_log_evidence(y):
+    """log N(y; 0, I + 1 1^T), the exact evidence of ``gauss_model``."""
+    n = len(y)
+    cov = np.eye(n) + np.ones((n, n))
+    _, logdet = np.linalg.slogdet(cov)
+    y = np.asarray(y, np.float64)
+    return float(-0.5 * (y @ np.linalg.solve(cov, y) + logdet + n * np.log(2 * np.pi)))
+
+
+def schools_gaps(samples):
+    """The posterior means of ``mu`` and ``tau`` and their gaps to
+    ``EIGHT_SCHOOLS_REF``'s."""
+    means = {site: samples[site].double().mean().item() for site in ("mu", "tau")}
+    return means, {site: abs(means[site] - EIGHT_SCHOOLS_REF[site]["mean"]) for site in means}
+
+
+def phase_samplers(device, ecs_ms):
+    """Phase 12; returns its wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    y = torch.tensor(ES_Y, device=device)
+    sigma = torch.tensor(ES_SIGMA, device=device)
+    model_nc = handlers.reparam(eight_schools, config={"theta": LocScaleReparam(0)})
+
+    def leg(tag, what, fn):
+        evals0 = infer_util.potential_evals
+        t = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        evals = infer_util.potential_evals - evals0
+        log(f"[samplers] 12{tag} {what}: {wall:.2f} s, {evals} evaluations, "
+            f"{wall / max(evals, 1) * 1e3:.2f} ms per evaluation")
+        return out
+
+    def hold(tag, gaps, gates):
+        log(f"[samplers] 12{tag} gaps of the means of mu, tau to EIGHT_SCHOOLS_REF "
+            f"{[round(gaps[k], 4) for k in ('mu', 'tau')]} (gates "
+            f"{[gates[k] for k in ('mu', 'tau')]})")
+        if not all(gaps[k] < gates[k] for k in gates):
+            raise SystemExit(f"12{tag}: posterior means off EIGHT_SCHOOLS_REF: {gaps}")
+
+    # (a) SMC on 8-schools
+    res = leg("a", f"SMC, 8-schools non-centred, {SMC_RUN} particles",
+              lambda: SMC(model_nc, num_particles=SMC_RUN).run(31, y, sigma))
+    if sorted(res.samples) != ["mu", "tau", "theta_decentered"] or res.samples["mu"].shape != (
+            SMC_RUN,) or not all(torch.isfinite(v).all() for v in res.samples.values()):
+        raise SystemExit(f"12a: samples {({k: tuple(v.shape) for k, v in res.samples.items()})}")
+    means, gaps = schools_gaps(res.samples)
+    ev_gap = abs(res.log_evidence - SMC_EVIDENCE[0])
+    log(f"[samplers] 12a {len(res.betas) - 1} stages, means {[round(means[k], 3) for k in means]}, "
+        f"log evidence {res.log_evidence:.4f} (JAX's key 0 {SMC_EVIDENCE[0]}, gap {ev_gap:.4f}, "
+        f"gate {SMC_EVIDENCE[1]})")
+    hold("a", gaps, SMC_GATE)
+    if not ev_gap < SMC_EVIDENCE[1]:
+        raise SystemExit(f"12a: log evidence {res.log_evidence:.4f}")
+
+    # (b) SMC's evidence on the conjugate Gaussian
+    yg = (0.5, 1.5, 1.0, 0.8, 1.2)
+    particles, steps = SMC_GAUSS
+    res = leg("b", f"SMC, conjugate Gaussian, {particles} particles, {steps} MH steps",
+              lambda: SMC(gauss_model, num_particles=particles, num_mcmc_steps=steps).run(
+                  32, torch.tensor(yg, device=device)))
+    exact = gauss_log_evidence(yg)
+    log(f"[samplers] 12b log evidence {res.log_evidence:.4f}, exact {exact:.4f} (gate 0.2)")
+    if not abs(res.log_evidence - exact) < 0.2 or res.betas[-1] != 1.0:
+        raise SystemExit(f"12b: log evidence {res.log_evidence:.4f} against {exact:.4f}")
+
+    def mixture_moments(tag, x, probs, locs, scale, mean_gate, var_gate):
+        p, m = np.asarray(probs), np.asarray(locs)
+        true_mean = float(p @ m)
+        true_var = float(p @ (m - true_mean) ** 2) + scale**2
+        got_mean, got_var = x.double().mean().item(), x.double().var().item()
+        log(f"[samplers] 12{tag} mean of x {got_mean:.4f} (exact {true_mean:.4f}, gate "
+            f"{mean_gate}), var {got_var:.4f} (exact {true_var:.4f}, gate {var_gate})")
+        if not (abs(got_mean - true_mean) < mean_gate and abs(got_var - true_var) < var_gate):
+            raise SystemExit(f"12{tag}: the mixture's moments are off")
+
+    # (c) DiscreteHMCGibbs(NUTS) on a 4-component mixture
+    chains, warmup, samples, depth = GIBBS_RUN
+    probs = torch.tensor(GIBBS_PROBS, device=device)
+    locs = torch.tensor(GIBBS_LOCS, device=device)
+    mcmc = MCMC(DiscreteHMCGibbs(NUTS(gibbs_mixture, max_tree_depth=depth)), num_warmup=warmup,
+                num_samples=samples, num_chains=chains)
+    leg("c", f"DiscreteHMCGibbs(NUTS), {chains} chains, {warmup} + {samples}, depths {depth}",
+        lambda: mcmc.run(33, probs, locs))
+    z = mcmc.get_samples()
+    if z["c"].shape != (chains * samples,) or z["c"].dtype != torch.int64:
+        raise SystemExit(f"12c: c {tuple(z['c'].shape)} {z['c'].dtype}")
+    mixture_moments("c", z["x"], GIBBS_PROBS, GIBBS_LOCS, 0.5, 0.1, 0.3)
+
+    # (d) MixedHMC on a 2-component mixture
+    chains, warmup, samples = MIXED_RUN
+    probs = torch.tensor(MIXED_PROBS, device=device)
+    locs = torch.tensor(MIXED_LOCS, device=device)
+    mcmc = MCMC(MixedHMC(HMC(mixed_mixture, trajectory_length=1.2), num_discrete_updates=4),
+                num_warmup=warmup, num_samples=samples, num_chains=chains)
+    leg("d", f"MixedHMC(HMC), {chains} chains, {warmup} + {samples}",
+        lambda: mcmc.run(34, probs, locs))
+    z = mcmc.get_samples()
+    freqs = torch.bincount(z["c"], minlength=2).double().cpu().numpy() / z["c"].numel()
+    log(f"[samplers] 12d frequencies of c {np.round(freqs, 4).tolist()} (exact "
+        f"{list(MIXED_PROBS)}, gate 0.06)")
+    if not np.all(np.abs(freqs - np.asarray(MIXED_PROBS)) < 0.06):
+        raise SystemExit("12d: the discrete site's frequencies are off")
+    mixture_moments("d", z["x"], MIXED_PROBS, MIXED_LOCS, 0.8, 0.1, 0.2)
+
+    # (e) the gradient-free and ensemble kernels, and (f) sequential chains
+    makers = {"BarkerMH": BarkerMH, "SA": SA, "AIES": AIES, "ESS": ESS}
+    for i, (name, (chains, warmup, samples)) in enumerate(KERNEL_RUNS.items()):
+        mcmc = MCMC(makers[name](model_nc), num_warmup=warmup, num_samples=samples,
+                    num_chains=chains)
+        leg("e", f"{name}, 8-schools non-centred, {chains} chains, {warmup} + {samples}",
+            lambda: mcmc.run(35 + i, y, sigma))
+        z = mcmc.get_samples(group_by_chain=True)
+        if z["theta"].shape != (chains, samples, 8) or not torch.isfinite(z["theta"]).all():
+            raise SystemExit(f"12e {name}: theta {tuple(z['theta'].shape)}")
+        hold(f"e {name}", schools_gaps(z)[1], KERNEL_GATES[name])
+    chains, warmup, samples = SEQ_RUN
+    mcmc = MCMC(BarkerMH(model_nc), num_warmup=warmup, num_samples=samples, num_chains=chains,
+                chain_method="sequential")
+    leg("f", f"BarkerMH, sequential, {chains} chains, {warmup} + {samples}",
+        lambda: mcmc.run(40, y, sigma))
+    z = mcmc.get_samples(group_by_chain=True)
+    if z["theta"].shape != (chains, samples, 8) or torch.equal(z["mu"][0], z["mu"][1]):
+        raise SystemExit(f"12f: theta {tuple(z['theta'].shape)}, or the chains are one")
+    hold("f", schools_gaps(z)[1], KERNEL_GATES["sequential"])
+
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("12: a sampler launched a GLM kernel")
+    wall = time.perf_counter() - t0
+    log(f"[samplers] phase 12: {wall:.1f} s, about {wall * 24.0 / ecs_ms:.1f} s on a host where "
+        f"the ECS leg takes 24.0 ms per evaluation (here {ecs_ms:.2f}; budget 20 s)")
+    return wall
+
+
 def run_svi(tag, model_fn, guide, loss, steps, *args):
     """``SVI.init`` and ``steps`` updates on the default device, with every
     launch count set to 0 just before; returns the result, the launches of
@@ -1309,7 +1522,7 @@ def main():
     svi_launches, w_map = phase_svi(X, y, true_w, split["posterior"], kernels)
     log(f"[svi] phase 8: {time.perf_counter() - t8:.1f} s, glm_split launches {svi_launches}")
 
-    phase_ecs(X, y, true_w, ECS_MAIN, expect={"proxy": "stats", "panel": "carry"})
+    ecs = phase_ecs(X, y, true_w, ECS_MAIN, expect={"proxy": "stats", "panel": "carry"})
     for panel_mode, proxy_mode in (("bf16", "stats"), ("lean", "stats"), ("carry", "recompute")):
         phase_ecs(X, y, true_w, ECS_MODES, panel_mode, proxy_mode,
                   anchor=w_map if panel_mode == "lean" else None)
@@ -1321,6 +1534,7 @@ def main():
     phase_eight_schools(device)
     phase_sv(device)
     phase_hmm(device)
+    phase_samplers(device, ecs["ms_per_eval"])
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

@@ -6,7 +6,9 @@ ROADMAP.md).
 
 As in the JAX package, the location-scale families derive from ``_LocScale``,
 which owns the affine bookkeeping, and each family supplies its standardized
-kernel; the half distributions fold a zero-centred family at zero."""
+kernel; the half distributions fold a zero-centred family at zero.  A draw is
+made on the device of its generator, where 0-dim parameters (a Python number
+becomes one on the CPU) broadcast as they are."""
 
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ class _LocScale(Distribution):
 
 class Normal(_LocScale):
     def _z_sample(self, key, shape):
-        return torch.randn(shape, generator=key, device=self.loc.device, dtype=self.loc.dtype)
+        return torch.randn(shape, generator=key, device=key.device, dtype=self.loc.dtype)
 
     def _z_log_density(self, z):
         return -0.5 * z * z - _LOG_SQRT_2PI
@@ -81,7 +83,7 @@ class Cauchy(_LocScale):
     _z_var = None
 
     def _z_sample(self, key, shape):
-        u = torch.rand(shape, generator=key, device=self.loc.device, dtype=self.loc.dtype)
+        u = torch.rand(shape, generator=key, device=key.device, dtype=self.loc.dtype)
         return torch.tan(math.pi * (u - 0.5))
 
     def _z_log_density(self, z):
@@ -115,9 +117,9 @@ class StudentT(_LocScale):
         self._init_broadcast(validate_args, df=df, loc=loc, scale=scale)
 
     def _z_sample(self, key, shape):
-        kw = {"generator": key, "device": self.loc.device, "dtype": self.loc.dtype}
+        kw = {"generator": key, "device": key.device, "dtype": self.loc.dtype}
         eps = torch.randn(shape, **kw)
-        half_df = torch.broadcast_to(0.5 * self.df, shape)
+        half_df = torch.broadcast_to(0.5 * self.df, shape).to(key.device)
         chi2 = 2.0 * torch._standard_gamma(half_df, generator=key)
         return eps * torch.sqrt(self.df / chi2)
 
@@ -214,7 +216,7 @@ class Uniform(Distribution):
     def sample(self, key, sample_shape=()):
         u = torch.rand(
             tuple(sample_shape) + self.batch_shape, generator=key,
-            device=self.low.device, dtype=self.low.dtype,
+            device=key.device, dtype=self.low.dtype,
         )
         return self.low + u * (self.high - self.low)
 
@@ -231,7 +233,7 @@ class Exponential(Distribution):
         self._init_broadcast(validate_args, rate=rate)
 
     def sample(self, key, sample_shape=()):
-        u = torch.rand(self.shape(sample_shape), generator=key, device=self.rate.device,
+        u = torch.rand(self.shape(sample_shape), generator=key, device=key.device,
                        dtype=self.rate.dtype)
         return -torch.log1p(-u) / self.rate
 
@@ -278,7 +280,7 @@ class Dirichlet(Distribution):
         )
 
     def sample(self, key, sample_shape=()):
-        alpha = torch.broadcast_to(self.concentration, self.shape(sample_shape))
+        alpha = torch.broadcast_to(self.concentration, self.shape(sample_shape)).to(key.device)
         gammas = torch._standard_gamma(alpha, generator=key)
         draws = gammas / gammas.sum(-1, keepdim=True)
         info = torch.finfo(draws.dtype)
@@ -346,7 +348,7 @@ class MultivariateNormal(Distribution):
 
     def sample(self, key, sample_shape=()):
         white = torch.randn(
-            self.shape(sample_shape), generator=key, device=self.loc.device, dtype=self.loc.dtype
+            self.shape(sample_shape), generator=key, device=key.device, dtype=self.loc.dtype
         )
         return self.loc + (self.scale_tril @ white[..., None])[..., 0]
 
@@ -400,7 +402,7 @@ class GaussianRandomWalk(Distribution):
         super().__init__(tuple(self.scale.shape), (num_steps,), validate_args=validate_args)
 
     def sample(self, key, sample_shape=()):
-        steps = torch.randn(self.shape(sample_shape), generator=key, device=self.scale.device,
+        steps = torch.randn(self.shape(sample_shape), generator=key, device=key.device,
                             dtype=self.scale.dtype)
         return self.scale[..., None] * torch.cumsum(steps, -1)
 

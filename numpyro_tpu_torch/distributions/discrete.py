@@ -47,7 +47,7 @@ class _BernoulliBase(Distribution):
         probs = self.probs
         u = torch.rand(
             tuple(sample_shape) + self.batch_shape, generator=key,
-            device=probs.device, dtype=probs.dtype,
+            device=key.device, dtype=probs.dtype,
         )
         return (u < probs).to(torch.int64)
 
@@ -112,7 +112,7 @@ class _CategoricalBase(Distribution):
     def sample(self, key, sample_shape=()):
         table = self._log_pmf
         shape = tuple(sample_shape) + self.batch_shape + tuple(table.shape[-1:])
-        u = torch.rand(shape, generator=key, device=table.device, dtype=table.dtype)
+        u = torch.rand(shape, generator=key, device=key.device, dtype=table.dtype)
         return torch.argmax(table - torch.log(-torch.log(u)), dim=-1)
 
     def log_prob(self, value):

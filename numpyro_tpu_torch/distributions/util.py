@@ -8,7 +8,7 @@ import functools
 import torch
 
 __all__ = [
-    "broadcast_shape", "lazy_property", "logmatmulexp", "promote_shapes", "scale_and_mask",
+    "broadcast_shape", "cholesky_update", "lazy_property", "logmatmulexp", "promote_shapes", "scale_and_mask",
     "sum_rightmost",
 ]
 
@@ -50,6 +50,33 @@ def scale_and_mask(x, scale=None, mask=None):
     """Scale a log-prob tensor, with 0 where ``mask`` is False."""
     scaled = x if scale is None else x * scale
     return scaled if mask is None else torch.where(mask, scaled, torch.zeros_like(scaled))
+
+
+def cholesky_update(L, x, coef=1):
+    """Cholesky factor of ``L @ L.T + coef * outer(x, x)``, batched, by the
+    rank-one LDL update of Gill, Golub, Murray and Saunders (parity:
+    ``cholesky_update`` of ``numpyro_tpu/distributions/util.py``): a Python
+    loop over the ``n`` columns, each step on the whole batch."""
+    batch_shape = broadcast_shape(tuple(L.shape[:-2]), tuple(x.shape[:-1]))
+    n = x.shape[-1]
+    L = L.expand(batch_shape + (n, n))
+    w = x.expand(batch_shape + (n,))
+    diag = L.diagonal(dim1=-2, dim2=-1)
+    Lu = L / diag[..., None, :]  # unit-diagonal lower triangular
+    D = diag.square()
+    rows = torch.arange(n, device=L.device)
+    a = torch.full(batch_shape, float(coef), dtype=x.dtype, device=x.device)
+    d_new, cols = [], []
+    for j in range(n):
+        d_j, col = D[..., j], Lu[..., :, j]
+        p = w[..., j]
+        gamma = d_j + a * p.square()
+        beta = p * a / gamma
+        a = a * d_j / gamma
+        w = w - p[..., None] * col
+        cols.append(col + beta[..., None] * w * (rows > j))
+        d_new.append(gamma)
+    return torch.stack(cols, -1) * torch.stack(d_new, -1).sqrt()[..., None, :]
 
 
 def logmatmulexp(x, y):

@@ -1,4 +1,5 @@
 from numpyro_tpu_torch.infer import autoguide, reparam
+from numpyro_tpu_torch.infer.barker import BarkerMH
 from numpyro_tpu_torch.infer.elbo import (
     ELBO,
     RenyiELBO,
@@ -7,6 +8,7 @@ from numpyro_tpu_torch.infer.elbo import (
     TraceGraph_ELBO,
     TraceMeanField_ELBO,
 )
+from numpyro_tpu_torch.infer.ensemble import AIES, ESS, EnsembleSampler
 from numpyro_tpu_torch.infer.hmc import HMC, NUTS
 from numpyro_tpu_torch.infer.hmc_gibbs import HMCECS, DiscreteHMCGibbs, HMCGibbs
 from numpyro_tpu_torch.infer.initialization import (
@@ -16,6 +18,9 @@ from numpyro_tpu_torch.infer.initialization import (
     init_to_value,
 )
 from numpyro_tpu_torch.infer.mcmc import MCMC, MCMCKernel
+from numpyro_tpu_torch.infer.mixed_hmc import MixedHMC
+from numpyro_tpu_torch.infer.sa import SA
+from numpyro_tpu_torch.infer.smc import SMC, SMCResult
 from numpyro_tpu_torch.infer.svi import SVI, SVIRunResult, SVIState
 from numpyro_tpu_torch.infer.util import (
     Predictive,
@@ -26,16 +31,24 @@ from numpyro_tpu_torch.infer.util import (
 )
 
 __all__ = [
+    "AIES",
+    "BarkerMH",
     "DiscreteHMCGibbs",
+    "ESS",
+    "EnsembleSampler",
     "ELBO",
     "HMC",
     "HMCECS",
     "HMCGibbs",
     "MCMC",
     "MCMCKernel",
+    "MixedHMC",
     "NUTS",
     "Predictive",
     "RenyiELBO",
+    "SA",
+    "SMC",
+    "SMCResult",
     "SVI",
     "SVIRunResult",
     "SVIState",

@@ -75,44 +75,53 @@ CHECK_EVERY = 8
 
 
 class FlatLayout:
-    """How a dict of latent sites packs into a flat vector, built once from a
-    single-chain prototype (sites in sorted-key order, as JAX flattens)."""
+    """How a dict of latent sites (or one bare tensor, a ``potential_fn``'s
+    params) packs into a flat vector, built once from a single-chain prototype
+    (sites in sorted-key order, as JAX flattens).  Integer and boolean sites
+    (a Gibbs sweep's discrete values beside real ones) are cast back to their
+    dtype on the way out, as JAX's ``ravel_pytree`` does; real sites keep the
+    panel's dtype."""
 
     def __init__(self, z_proto):
-        if not isinstance(z_proto, dict):
-            raise NotImplementedError("FlatLayout needs a dict of latent sites")
-        self.names = tuple(sorted(z_proto))
-        self.shapes = tuple(tuple(z_proto[k].shape) for k in self.names)
+        self.is_tensor = isinstance(z_proto, torch.Tensor)
+        if not self.is_tensor and not isinstance(z_proto, dict):
+            raise NotImplementedError("FlatLayout needs a dict of latent sites or a tensor")
+        proto = {None: z_proto} if self.is_tensor else z_proto
+        self.names = (None,) if self.is_tensor else tuple(sorted(z_proto))
+        self.shapes = tuple(tuple(proto[k].shape) for k in self.names)
+        self.dtypes = tuple(
+            None if proto[k].dtype.is_floating_point else proto[k].dtype for k in self.names
+        )
         self.sizes = tuple(math.prod(s) for s in self.shapes)
         self.dim = int(sum(self.sizes))
-        self.site_ranges = {}
-        offset = 0
-        for name, size in zip(self.names, self.sizes):
-            self.site_ranges[name] = (offset, size)
-            offset += size
+        offsets = np.cumsum((0,) + self.sizes[:-1]).tolist()
+        self._slices = tuple(zip(offsets, self.sizes))
+        self.site_ranges = {} if self.is_tensor else dict(zip(self.names, self._slices))
+
+    def _out(self, parts):
+        parts = [x if dt is None or x.dtype == dt else x.to(dt)
+                 for x, dt in zip(parts, self.dtypes)]
+        return parts[0] if self.is_tensor else dict(zip(self.names, parts))
 
     def unravel_one(self, flat):
-        return {
-            k: flat[o : o + s].reshape(shape)
-            for k, shape, (o, s) in zip(
-                self.names, self.shapes, (self.site_ranges[k] for k in self.names)
-            )
-        }
+        return self._out([
+            flat[o : o + s].reshape(shape) for shape, (o, s) in zip(self.shapes, self._slices)
+        ])
 
     def ravel_batch(self, tree):
-        """Dict of ``(C, *s)`` tensors -> ``(C, D)`` panel."""
+        """Dict of ``(C, *s)`` tensors (or one tensor) -> ``(C, D)`` panel."""
+        if self.is_tensor:
+            return tree.reshape(tree.shape[0], -1)
         c = tree[self.names[0]].shape[0]
         return torch.cat([tree[k].reshape(c, -1) for k in self.names], dim=1)
 
     def unravel_batch(self, panel):
-        """``(C, D)`` panel -> dict of ``(C, *s)`` tensors."""
+        """``(C, D)`` panel -> dict of ``(C, *s)`` tensors (or one tensor)."""
         c = panel.shape[0]
-        return {
-            k: panel[:, o : o + s].reshape((c,) + shape)
-            for k, shape, (o, s) in zip(
-                self.names, self.shapes, (self.site_ranges[k] for k in self.names)
-            )
-        }
+        return self._out([
+            panel[:, o : o + s].reshape((c,) + shape)
+            for shape, (o, s) in zip(self.shapes, self._slices)
+        ])
 
 
 def batched_potential(potential_fn, layout, per_chain=None, forward_mode=False):
@@ -376,6 +385,56 @@ class GeneratorDraws:
         """The source of the adaptation's draws within one transition (JAX
         splits the chain keys in two there; one generator serves both)."""
         return self
+
+    # The draws of the other kernels (SMC, the Gibbs sweeps, MixedHMC,
+    # BarkerMH, SA and the ensembles): plain shapes on the device and in the
+    # dtype of ``like``.  Each kernel documents the order of its calls, which
+    # a test's draw source follows to hand the port JAX's draws.
+
+    def normals(self, shape, like):
+        return torch.randn(shape, generator=self.generator, device=like.device, dtype=like.dtype)
+
+    def uniforms(self, shape, like):
+        return self._rand(like, shape)
+
+    def exponentials(self, shape, like):
+        return -torch.log1p(-self._rand(like, shape))
+
+    def gumbels(self, shape, like):
+        """Standard Gumbel noise (``random.categorical`` is the argmax of the
+        logits plus this)."""
+        u = self._rand(like, shape).clamp(min=torch.finfo(like.dtype).tiny)
+        return -torch.log(-torch.log(u))
+
+    def randints(self, low, high, shape, like):
+        """``int64`` uniform in ``[low, high)``; ``high`` is a number or a
+        tensor that broadcasts against ``shape`` (one bound per chain)."""
+        u = torch.rand(shape, generator=self.generator, device=like.device, dtype=torch.float64)
+        span = torch.as_tensor(high, device=like.device) - low
+        return (low + torch.minimum(torch.floor(u * span), span - 1)).to(torch.int64)
+
+    def permutations(self, shape, like):
+        """Independent uniform permutations of ``range(shape[-1])``, one per
+        leading index."""
+        return self._rand(like, shape).argsort(-1)
+
+    def choice(self, weights):
+        """An index drawn with probability proportional to ``weights``, as a
+        host integer (one sync)."""
+        return int(torch.multinomial(weights, 1, generator=self.generator))
+
+    def categorical(self, weights, shape):
+        """``int64`` indices of ``shape`` drawn with replacement in
+        proportion to ``weights``."""
+        n = math.prod(shape)
+        idx = torch.multinomial(weights, n, replacement=True, generator=self.generator)
+        return idx.reshape(shape)
+
+    def prior(self, draw_fn, num):
+        """``num`` independent runs of ``draw_fn(generator)`` under one
+        ``vmap`` (each draws its own values)."""
+        dummy = torch.zeros(num, device=self.generator.device)
+        return torch.func.vmap(lambda _: draw_fn(self.generator), randomness="different")(dummy)
 
 
 def as_draws(rng_key):

@@ -1,6 +1,5 @@
-"""Gibbs-composed HMC kernels, natively chain-batched (port of ``HMCGibbs``
-and ``HMCECS`` from ``numpyro_tpu/infer/hmc_gibbs.py``; ``DiscreteHMCGibbs``
-is not ported yet, see ROADMAP.md).
+"""Gibbs-composed HMC kernels, natively chain-batched (port of ``HMCGibbs``,
+``DiscreteHMCGibbs`` and ``HMCECS`` from ``numpyro_tpu/infer/hmc_gibbs.py``).
 
 - The outer Gibbs state (site values, subsample index panels, proxy
   statistics, data panels) carries a leading chain axis; a single chain is
@@ -11,8 +10,8 @@ is not ported yet, see ROADMAP.md).
 - Where the JAX package maps a per-chain function over one key per chain, the
   port works on all chains at once and draws ``(C, ...)`` tensors from one
   draw source (``hmc_core.GeneratorDraws``): the block refresh, the
-  pseudo-marginal accept, and a user's ``gibbs_fn``, which is called once with
-  chain-batched sites and the run's ``torch.Generator``.
+  pseudo-marginal accept, the discrete sweep, and a user's ``gibbs_fn``, which
+  is called once with chain-batched sites and the run's ``torch.Generator``.
 - The gradient under the accepted conditioning is selected per chain between
   the proposal's (evaluated with its potential in one batched call) and the
   carried one, which is the gradient under the kept conditioning.
@@ -47,7 +46,7 @@ from numpyro_tpu_torch.util import identity, tree_map
 
 __all__ = [
     "DiscreteHMCGibbs", "HMCECS", "HMCECSState", "HMCGibbs", "HMCGibbsState",
-    "ecs_state_from_numpy",
+    "ecs_state_from_numpy", "gibbs_state_from_numpy", "hmc_state_from_numpy",
 ]
 
 HMCGibbsState = namedtuple("HMCGibbsState", "z, hmc_state, rng_key")
@@ -230,13 +229,200 @@ class HMCGibbs(MCMCKernel):
         return state
 
 
+# ---------------------------------------------------------------------------
+# Discrete-site conditionals
+
+
+def _site_element_layout(support_sizes):
+    """Flatten {site: per-element support size} into host-side arrays."""
+    names = sorted(support_sizes)
+    sizes = np.concatenate(
+        [np.asarray(support_sizes[k]).reshape(-1) for k in names]
+    ).astype(np.int32)
+    return names, sizes
+
+
+def _one_hot_set(flat, idx, value):
+    """``flat[c, idx[c]] = value[c]`` for every chain, by a select (no
+    scatter)."""
+    pos = torch.arange(flat.shape[-1], device=flat.device)
+    return torch.where(pos == idx[:, None], value[:, None].to(flat.dtype), flat)
+
+
+def _element_proposal(pe_cand, pe_one, draws, flat, pe, idx, size, smax, mode):
+    """Propose a new value for discrete element ``idx`` ``(C,)`` of every
+    chain's flat discrete values ``flat`` ``(C, n)``, whose support size is
+    ``size`` ``(C,)``.
+
+    Returns ``(flat_prop, pe_prop, log_ratio)``, ``log_ratio`` the MH
+    log-acceptance ratio (0 for the exact conditional of ``"gibbs"``, which
+    needs no correction).  The conditional modes evaluate every candidate
+    value of every chain in one batched call: ``pe_cand`` maps ``(C, smax,
+    n)`` candidates to ``(C, smax)`` potentials; ``pe_one`` maps ``(C, n)``
+    to ``(C,)``.  A categorical draw is the argmax of its logits plus
+    ``draws.gumbels``, as ``jax.random.categorical`` draws it.
+
+    ``mode``: ``"gibbs"`` (exact conditional), ``"modified-gibbs"``
+    (never-stay), ``"rw"`` (uniform), ``"modified-rw"`` (uniform over the
+    other values)."""
+    c, n = flat.shape
+    rows = torch.arange(c, device=flat.device)
+    cur = flat[rows, idx]
+    if mode in ("gibbs", "modified-gibbs"):
+        cand = torch.arange(smax, device=flat.device)
+        pos = torch.arange(n, device=flat.device)
+        z_cand = torch.where(
+            pos[None, None, :] == idx[:, None, None],
+            cand[None, :, None].to(flat.dtype),
+            flat[:, None, :],
+        )
+        pe_c = pe_cand(z_cand)
+        logw = torch.where(cand[None, :] < size[:, None], -pe_c, -torch.inf)
+        logw = torch.where(torch.isnan(logw), -torch.inf, logw)
+        gumbel = draws.gumbels((c, smax), pe)
+        if mode == "gibbs":
+            new = torch.argmax(gumbel + logw, -1)
+            return _one_hot_set(flat, idx, new), pe_c[rows, new], torch.zeros_like(pe)
+        # never-stay proposal: q(z'|z) proportional to w(z') over z' != z, so
+        # the MH ratio is the sum of w over k != z against that over k != z'
+        logw_others = torch.where(cand[None, :] == cur[:, None], -torch.inf, logw)
+        prop = torch.argmax(gumbel + logw_others, -1)
+        log_fwd = torch.logsumexp(logw_others, -1)
+        log_bwd = torch.logsumexp(torch.where(cand[None, :] == prop[:, None], -torch.inf, logw), -1)
+        return _one_hot_set(flat, idx, prop), pe_c[rows, prop], log_fwd - log_bwd
+    if mode == "rw":
+        prop = draws.randints(0, size, (c,), pe)
+    else:  # modified-rw: uniform over the other values (symmetric)
+        raw = draws.randints(0, size - 1, (c,), pe)
+        prop = torch.where(raw >= cur, raw + 1, raw)
+    flat_prop = _one_hot_set(flat, idx, prop)
+    pe_prop = pe_one(flat_prop)
+    pe_prop = torch.where(torch.isnan(pe_prop), torch.inf, pe_prop)
+    return flat_prop, pe_prop, pe - pe_prop
+
+
+def _discrete_sweep(pe_cand, pe_one, draws, z_flat, pe, sizes, *, mode, smax):
+    """One Metropolis-within-Gibbs sweep over every discrete element of every
+    chain, each chain visiting its elements in its own random order
+    (``draws.permutations``); per element the proposal's draws, then
+    ``draws.uniforms((C,))`` for the accept test.  ``sizes`` is the support
+    size of each element, a ``(n,)`` tensor."""
+    c, nd = z_flat.shape
+    order = draws.permutations((c, nd), pe)
+    flat = z_flat
+    for j in range(nd):
+        idx = order[:, j]
+        flat_prop, pe_prop, log_ratio = _element_proposal(
+            pe_cand, pe_one, draws, flat, pe, idx, sizes[idx], smax, mode
+        )
+        take = torch.log(draws.uniforms((c,), pe)) < log_ratio
+        flat = torch.where(take[:, None], flat_prop, flat)
+        pe = torch.where(take, pe_prop, pe)
+    return flat, pe
+
+
 class DiscreteHMCGibbs(HMCGibbs):
-    """Metropolis-within-Gibbs over discrete sites: not ported yet."""
+    """Metropolis-within-Gibbs over the model's discrete latent sites with
+    enumerable support, and the inner HMC/NUTS over the rest.  A discrete site
+    marked ``infer={"enumerate": "parallel"}`` stays with the inner kernel,
+    which sums it out.
+
+    A transition visits every discrete element of every chain in turn (a
+    random order per chain): with N discrete elements it makes N batched
+    evaluations of the potential, each over all chains and, in the
+    conditional modes, all candidate values at once (``vmap`` over chains of
+    ``vmap`` over candidates), then the inner kernel's transition.
+
+    :param random_walk: propose uniformly (``True``) instead of from the exact
+        conditional.
+    :param modified: never propose the current value."""
 
     def __init__(self, inner_kernel, *, random_walk=False, modified=False):
-        raise NotImplementedError(
-            "DiscreteHMCGibbs is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        super().__init__(inner_kernel, identity, None)
+        self._random_walk = random_walk
+        self._modified = modified
+        self._mode = {
+            (False, False): "gibbs",
+            (False, True): "modified-gibbs",
+            (True, False): "rw",
+            (True, True): "modified-rw",
+        }[(random_walk, modified)]
+        self._gibbs_layout = None
+
+    def init(self, rng_key, num_warmup, init_params=None, model_args=(), model_kwargs=None,
+             num_chains=None):
+        model_kwargs = {} if model_kwargs is None else model_kwargs.copy()
+        tr = self._prototype(getattr(rng_key, "generator", rng_key), model_args, model_kwargs)
+        discrete = {
+            name: site for name, site in tr.items()
+            if site["type"] == "sample" and not site["is_observed"]
+            and site["fn"].has_enumerate_support
+        }
+        self._gibbs_sites = [
+            name for name, site in discrete.items()
+            if site["infer"].get("enumerate", "") != "parallel"
+        ]
+        assert self._gibbs_sites, "Cannot detect any discrete latent variables."
+        self._support_sizes = {
+            name: np.broadcast_to(
+                discrete[name]["fn"].enumerate_support(False).shape[0],
+                tuple(discrete[name]["value"].shape),
+            )
+            for name in self._gibbs_sites
+        }
+        self._gibbs_layout = core.FlatLayout(
+            {name: tr[name]["value"] for name in self._gibbs_sites}
         )
+        return super().init(rng_key, num_warmup, init_params, model_args, model_kwargs,
+                            num_chains=num_chains)
+
+    def _chain_potential(self, model_args, model_kwargs):
+        """The potential of one chain: (gibbs values, hmc sites) -> scalar."""
+
+        def pe(z_gibbs_c, z_hmc_c):
+            return self.inner_kernel._potential_fn_gen(
+                *model_args, _gibbs_sites=z_gibbs_c, **model_kwargs
+            )(z_hmc_c)
+
+        return pe
+
+    def _candidate_potentials(self, model_args, model_kwargs, z_hmc):
+        """``(pe_cand, pe_one)`` of :func:`_element_proposal` at the chains'
+        continuous values ``z_hmc`` (a dict of ``(C, ...)`` tensors or a
+        ``(C, D)`` panel with ``unravel``)."""
+        pe = self._chain_potential(model_args, model_kwargs)
+        unravel = self._gibbs_layout.unravel_one
+
+        def one(flat_c, z_hmc_c):
+            return pe(unravel(flat_c), z_hmc_c)
+
+        pe_one = infer_util.batched_value(one)
+        pe_cand = infer_util.batched_value(torch.func.vmap(one, in_dims=(0, None)))
+        return (lambda cand: pe_cand(cand, z_hmc)), (lambda flat: pe_one(flat, z_hmc))
+
+    def _sample_batched(self, state, model_args, model_kwargs):
+        draws = core.as_draws(state.rng_key)
+        z_gibbs = {k: v for k, v in state.z.items() if k not in state.hmc_state.z}
+        z_hmc = {k: v for k, v in state.z.items() if k in state.hmc_state.z}
+        names, sizes_np = _site_element_layout(self._support_sizes)
+        layout = self._gibbs_layout
+        pe_cand, pe_one = self._candidate_potentials(model_args, model_kwargs, z_hmc)
+        pe = state.hmc_state.potential_energy
+        flat, pe = _discrete_sweep(
+            pe_cand, pe_one, draws, layout.ravel_batch(z_gibbs), pe,
+            torch.as_tensor(sizes_np, dtype=torch.int64, device=pe.device),
+            mode=self._mode, smax=int(sizes_np.max()),
+        )
+        z_gibbs = layout.unravel_batch(flat)
+        per_chain = {"_gibbs_sites": z_gibbs}
+        # the gradient under the new conditioning (the potential is exact)
+        _, grad = self._value_and_grad(state.hmc_state.z, per_chain, model_args, model_kwargs)
+        hmc_state = state.hmc_state._replace(z_grad=grad, potential_energy=pe)
+        inner_kwargs = dict(model_kwargs)
+        inner_kwargs["_per_chain"] = per_chain
+        hmc_state = self.inner_kernel.sample(hmc_state, model_args, inner_kwargs)
+        z = {**z_gibbs, **hmc_state.z}
+        return HMCGibbsState(z, hmc_state, state.rng_key)
 
 
 # ---------------------------------------------------------------------------
@@ -493,8 +679,32 @@ class HMCECS(HMCGibbs):
 # State carried across from the JAX package
 
 
-def _get(fields, name):
-    return fields[name] if isinstance(fields, dict) else getattr(fields, name)
+def hmc_state_from_numpy(hs, device="cpu", rng_key=None):
+    """The port's ``HMCState`` from a JAX ``HMCState`` given as numpy arrays
+    (a dense or dict mass goes through ``hmc_core.adapt_from_numpy``)."""
+    get = partial(infer_util.state_field, hs)
+    to = partial(infer_util.tree_from_numpy, device=device)
+    traj = get("trajectory_length")
+    return HMCState(
+        int(get("i")), to(dict(get("z"))), to(dict(get("z_grad"))), to(get("potential_energy")),
+        to(get("energy")), None, float(traj) if traj is not None else None,
+        to(get("num_steps")).to(torch.int32), to(get("accept_prob")),
+        to(get("mean_accept_prob")), to(get("diverging")),
+        core.adapt_from_numpy(get("adapt_state"), device), rng_key,
+    )
+
+
+def gibbs_state_from_numpy(fields, device="cpu", rng_key=None):
+    """The port's ``HMCGibbsState`` (of ``HMCGibbs`` or ``DiscreteHMCGibbs``)
+    from a JAX one whose leaves are numpy arrays; JAX's keys are dropped:
+    ``rng_key`` is the generator or draw source of both the outer and the
+    inner state.  Discrete values become ``int64``."""
+    get = partial(infer_util.state_field, fields)
+    return HMCGibbsState(
+        infer_util.tree_from_numpy(dict(get("z")), device),
+        hmc_state_from_numpy(get("hmc_state"), device, rng_key),
+        rng_key,
+    )
 
 
 def ecs_state_from_numpy(fields, device="cpu", rng_key=None):
@@ -504,46 +714,15 @@ def ecs_state_from_numpy(fields, device="cpu", rng_key=None):
     JAX's keys are dropped: ``rng_key`` is the generator or draw source the
     port's state carries instead.  Subsample indices become ``int64``; a dense
     or dict mass goes through ``hmc_core.adapt_from_numpy``."""
-
-    def to(x):
-        if x is None:
-            return None
-        t = torch.from_numpy(np.array(x))
-        if t.dtype in (torch.int32, torch.int16, torch.uint8):
-            t = t.to(torch.int64)
-        return t.to(device)
-
-    def tree(x):
-        if isinstance(x, dict):
-            return {k: tree(v) for k, v in x.items()}
-        if isinstance(x, (tuple, list)):
-            return tuple(tree(v) for v in x)
-        return to(x)
-
-    hs = _get(fields, "hmc_state")
-    adapt_t = core.adapt_from_numpy(_get(hs, "adapt_state"), device)
-    z = tree(dict(_get(fields, "z")))
-    hmc_state = HMCState(
-        int(_get(hs, "i")),
-        tree(dict(_get(hs, "z"))),
-        tree(dict(_get(hs, "z_grad"))),
-        to(_get(hs, "potential_energy")),
-        to(_get(hs, "energy")),
-        None,
-        float(_get(hs, "trajectory_length")) if _get(hs, "trajectory_length") is not None else None,
-        to(_get(hs, "num_steps")).to(torch.int32),
-        to(_get(hs, "accept_prob")),
-        to(_get(hs, "mean_accept_prob")),
-        to(_get(hs, "diverging")),
-        adapt_t,
-        rng_key,
-    )
-    gs = _get(fields, "gibbs_state")
+    get = partial(infer_util.state_field, fields)
+    to = partial(infer_util.tree_from_numpy, device=device)
+    gs = get("gibbs_state")
     if isinstance(gs, tuple) and len(gs) == 0:
         gibbs_state = ()
     else:
-        gibbs_state = TaylorProxyStats(tree(dict(_get(gs, "value"))), tree(dict(_get(gs, "grad"))))
+        gibbs_state = TaylorProxyStats(to(dict(infer_util.state_field(gs, "value"))),
+                                       to(dict(infer_util.state_field(gs, "grad"))))
     return HMCECSState(
-        z, hmc_state, rng_key, gibbs_state, to(_get(fields, "accept_prob")),
-        tree(_get(fields, "panels")),
+        to(dict(get("z"))), hmc_state_from_numpy(get("hmc_state"), device, rng_key),
+        rng_key, gibbs_state, to(get("accept_prob")), to(get("panels")),
     )

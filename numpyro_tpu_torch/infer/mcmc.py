@@ -1,7 +1,16 @@
-"""MCMC driver (port of ``numpyro_tpu/infer/mcmc.py`` for
-``chain_method="vectorized"``: all chains advance together in one batched
-program).  ``"parallel"`` and ``"sequential"`` are not ported yet
-(ROADMAP.md).
+"""MCMC driver (port of ``numpyro_tpu/infer/mcmc.py``).
+
+Chain methods:
+
+- ``"vectorized"``: all chains advance together in one batched program.
+- ``"parallel"``: the JAX package shards the vectorized program's chain axis
+  over a device mesh.  On one card the port runs it as the vectorized
+  program, so the same seed gives the same draws.
+- ``"sequential"``: one single-chain run per chain, one after another, with
+  the results stacked on a leading chain axis.  Chain ``i`` runs on its own
+  generator, seeded with the ``i``-th of ``num_chains`` integers that the
+  run's generator draws first (:func:`chain_generators`).
+- A callable (a JAX transform mapped over chains) is not ported (ROADMAP.md).
 
 A kernel with a fused run (plain ``HMC``/``NUTS``) is driven through it.
 Any other kernel, and a run that resumes from ``post_warmup_state`` or
@@ -29,7 +38,7 @@ from numpyro_tpu_torch.diagnostics import print_summary
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
-__all__ = ["MCMC", "MCMCKernel"]
+__all__ = ["MCMC", "MCMCKernel", "chain_generators"]
 
 
 class MCMCKernel(ABC):
@@ -60,6 +69,32 @@ class MCMCKernel(ABC):
     def get_diagnostics_str(self, state):
         return ""
 
+    @property
+    def is_ensemble_kernel(self):
+        """An ensemble kernel pairs its chains inside ``sample``, over the
+        whole ``(C, ...)`` panel; the driver hands it the panel as it does
+        for any kernel."""
+        return False
+
+
+def chain_generators(rng_key, device, num_chains):
+    """The generators of a ``"sequential"`` run's chains: chain ``i``'s is
+    seeded with the ``i``-th of ``num_chains`` integers drawn from the run's
+    generator (made from ``rng_key`` on ``device`` as ``MCMC.run`` makes
+    it)."""
+    generator = infer_util.device_generator(rng_key, device, "MCMC")
+    seeds = torch.randint(0, 2**62, (num_chains,), generator=generator, device=device).tolist()
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+
+
+def _stack_chains(parts, batched):
+    """Per-chain results on a new leading chain axis: ``batched`` parts carry
+    a chain axis of one already (a fused run's), the others none.  Leaves
+    that are not tensors (the step index, a generator) come from the first
+    chain."""
+    join = torch.cat if batched else torch.stack
+    return tree_map(lambda *xs: join(xs), parts[0], *parts[1:])
+
 
 # draws per vmap call of the postprocessing: bounds the memory of a replay
 POSTPROCESS_CHUNK = 4096
@@ -86,7 +121,8 @@ class MCMC:
     """MCMC driver.
 
     :param sampler: an :class:`MCMCKernel`.
-    :param chain_method: only ``"vectorized"`` is ported.
+    :param chain_method: ``"vectorized"``, ``"parallel"`` (the vectorized
+        program on one card) or ``"sequential"`` (see the module docstring).
     :param device: where the chains run.  ``None`` is ``torch.device("cuda")``;
         :meth:`run` raises when that device is not there and never carries on
         on the CPU.
@@ -105,10 +141,15 @@ class MCMC:
         progress_bar=False,
         device=None,
     ):
-        if chain_method != "vectorized":
+        if callable(chain_method):
             raise NotImplementedError(
-                f"chain_method={chain_method!r} is not ported to numpyro_tpu_torch "
-                "yet (see ROADMAP.md); use 'vectorized'"
+                "a callable chain_method is not ported to numpyro_tpu_torch yet (see "
+                "ROADMAP.md); use 'vectorized', 'parallel' or 'sequential'"
+            )
+        if chain_method not in ("parallel", "vectorized", "sequential"):
+            raise ValueError(
+                "Only supporting the following methods to draw chains:"
+                ' "sequential", "parallel", "vectorized", or a callable'
             )
         if progress_bar:
             raise NotImplementedError("progress_bar is not ported to numpyro_tpu_torch yet")
@@ -179,11 +220,12 @@ class MCMC:
             and set(collect_fields) <= set(self.sampler.FUSED_FIELDS)
         )
 
-    def _run_per_step(self, rng_key, init_state, init_params, args, kwargs, collect_fields):
+    def _run_per_step(self, rng_key, init_state, init_params, args, kwargs, collect_fields,
+                      num_chains):
         """``init`` and a loop over ``sample``; every ``thinning``-th state
         of the collected range is written into preallocated buffers."""
         sampler = self.sampler
-        batched = self.num_chains > 1
+        batched = num_chains > 1
         lower, upper = self._collection_params["lower"], self._collection_params["upper"]
         stats = {}
         evals0 = infer_util.potential_evals
@@ -191,7 +233,7 @@ class MCMC:
         if init_state is None:
             state = sampler.init(
                 rng_key, self.num_warmup, init_params, model_args=args, model_kwargs=kwargs,
-                num_chains=self.num_chains if batched else None,
+                num_chains=num_chains if batched else None,
             )
             _sync(self.device)
             stats["init_s"] = time.perf_counter() - t0
@@ -211,7 +253,7 @@ class MCMC:
         # back from ``upper``, and the last state of each stride is kept
         n_collect = (upper - lower) // self.thinning
         start = lower + (upper - lower) % self.thinning
-        lead = (self.num_chains, n_collect) if batched else (1, n_collect)
+        lead = (num_chains, n_collect) if batched else (1, n_collect)
         buffers = None
         t_phase, evals_phase = time.perf_counter(), infer_util.potential_evals
         warm_end = self.num_warmup if init_state is None else 0
@@ -245,6 +287,61 @@ class MCMC:
             buffers = [None] * len(collect_fields)
         return dict(zip(collect_fields, buffers)), state, stats
 
+    def _run_chains(self, rng_key, init_state, init_params, args, kwargs, collect_fields,
+                    num_chains):
+        """``num_chains`` chains in one program: the kernel's fused run where
+        it has one, else the per-step loop.  Returns the fields, the last
+        state, the run's statistics and whether the fused run took it."""
+        if self._can_fuse(collect_fields, init_state):
+            fields, last_state = self.sampler.fused_run(
+                rng_key,
+                num_chains,
+                self.num_warmup,
+                self.num_samples,
+                thinning=self.thinning,
+                init_params=init_params,
+                model_args=args,
+                model_kwargs=kwargs,
+                collect_fields=collect_fields,
+            )
+            return fields, last_state, dict(self.sampler.last_fused_stats), True
+        fields, last_state, stats = self._run_per_step(
+            rng_key, init_state, init_params, args, kwargs, collect_fields, num_chains
+        )
+        return fields, last_state, stats, False
+
+    def _run_sequential(self, rng_key, init_state, init_params, args, kwargs, collect_fields):
+        """One single-chain run per chain (as ``num_chains=1`` runs it), on
+        the chain's generator (:func:`chain_generators`), stacked.  A state
+        to resume from is sliced per chain, and its generators are replaced
+        by the chains' generators of this run."""
+        generators = chain_generators(rng_key, self.device, self.num_chains)
+        outs, fused = [], []
+        for i, generator in enumerate(generators):
+            state_i = params_i = None
+            if init_state is not None:
+                state_i = _replace_generators(tree_map(lambda x: x[i], init_state), generator)
+            if init_params is not None:
+                # a fused run takes params with a chain axis, the per-step
+                # API one chain's without
+                one = slice(i, i + 1) if self._can_fuse(collect_fields, state_i) else i
+                params_i = tree_map(lambda x: x[one], init_params)
+            fields, last, stats, was_fused = self._run_chains(
+                generator, state_i, params_i, args, kwargs, collect_fields, 1
+            )
+            outs.append((fields, last, stats))
+            fused.append(was_fused)
+        fields = {
+            k: None if outs[0][0][k] is None else _stack_chains([o[0][k] for o in outs], True)
+            for k in collect_fields
+        }
+        last_state = _stack_chains([o[1] for o in outs], fused[0])
+        stats = {}
+        for _, _, chain_stats in outs:
+            for k, v in chain_stats.items():
+                stats[k] = stats.get(k, 0) + v
+        return fields, last_state, stats
+
     def run(self, rng_key, *args, extra_fields=(), init_params=None, **kwargs):
         """Run warmup + sampling and collect fields.  ``rng_key`` is an int
         seed, from which the run makes a generator on its device, or a
@@ -262,22 +359,13 @@ class MCMC:
         collect_fields = (self._sample_field,) + tuple(
             sorted(f for f in collect_fields if f != self._sample_field)
         )
-        if self._can_fuse(collect_fields, init_state):
-            fields, last_state = self.sampler.fused_run(
-                rng_key,
-                self.num_chains,
-                self.num_warmup,
-                self.num_samples,
-                thinning=self.thinning,
-                init_params=init_params,
-                model_args=args,
-                model_kwargs=kwargs,
-                collect_fields=collect_fields,
-            )
-            stats = dict(self.sampler.last_fused_stats)
-        else:
-            fields, last_state, stats = self._run_per_step(
+        if self.chain_method == "sequential" and self.num_chains > 1:
+            fields, last_state, stats = self._run_sequential(
                 rng_key, init_state, init_params, args, kwargs, collect_fields
+            )
+        else:
+            fields, last_state, stats, _ = self._run_chains(
+                rng_key, init_state, init_params, args, kwargs, collect_fields, self.num_chains
             )
         postprocess_fn = (
             self.sampler.postprocess_fn(args, kwargs)
@@ -318,6 +406,20 @@ class MCMC:
         extra_fields = self.get_extra_fields()
         if "diverging" in extra_fields:
             print("Number of divergences: {}".format(int(extra_fields["diverging"].sum())))
+
+
+def _replace_generators(tree, generator):
+    """``tree`` with every generator or draw source in it replaced by
+    ``generator``."""
+    if isinstance(tree, torch.Generator) or hasattr(tree, "generator"):
+        return generator
+    if isinstance(tree, dict):
+        return {k: _replace_generators(v, generator) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_replace_generators(v, generator) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_replace_generators(v, generator) for v in tree)
+    return tree
 
 
 def _flatten_chains(x):

@@ -39,10 +39,11 @@ from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
 from numpyro_tpu_torch.primitives import Messenger, factor
-from numpyro_tpu_torch.util import identity, soft_vmap, tree_map
+from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
 __all__ = [
     "Predictive",
+    "batched_value",
     "batched_value_and_grad",
     "constrain_fn",
     "device_generator",
@@ -55,7 +56,9 @@ __all__ = [
     "pin_full_f32_matmul",
     "potential_energy",
     "samples_from_numpy",
+    "state_field",
     "transform_fn",
+    "tree_from_numpy",
     "unconstrain_fn",
 ]
 
@@ -70,6 +73,28 @@ ParamInfo = namedtuple("ParamInfo", ["z", "potential_energy", "z_grad"])
 potential_evals = 0
 
 
+def _has_integer_scalars(trees):
+    """Whether any chain-batched leaf of ``trees`` is an integer scalar per
+    chain (a ``(C,)`` integer tensor): a discrete Gibbs site's value."""
+    return any(
+        x.dim() == 1 and not x.is_floating_point() for t in trees for x in tree_leaves(t)
+    )
+
+
+def _vmap_then_autograd(fn, batched, *per_chain):
+    """Values and gradients of a chain-batched call by reverse-mode autograd
+    through ``vmap(fn)`` (the chains' potentials are independent, so the
+    gradient of their sum is each chain's own)."""
+    with torch.enable_grad():
+        params = tree_map(lambda x: x.detach().requires_grad_(), batched)
+        leaves = tree_leaves(params)
+        value = torch.func.vmap(fn)(params, *per_chain)
+        grads = iter(torch.autograd.grad(value.sum(), leaves, allow_unused=True))
+    grad = tree_map(lambda p: (lambda g: torch.zeros_like(p) if g is None else g)(next(grads)),
+                    params)
+    return value.detach(), grad
+
+
 def batched_value_and_grad(fn, forward_mode=False):
     """``fn`` maps one chain's params (and one chain's slice of any further
     pytrees) to a scalar; the result maps chain-batched pytrees to
@@ -77,7 +102,12 @@ def batched_value_and_grad(fn, forward_mode=False):
 
     ``forward_mode`` takes the gradient with ``jacfwd`` (one tangent per
     parameter, pushed forward together under ``vmap``), whose auxiliary output
-    carries the value, as the JAX package's ``jacfwd`` branch does."""
+    carries the value, as the JAX package's ``jacfwd`` branch does.
+
+    Where a further pytree holds an integer scalar per chain (a discrete Gibbs
+    site, which a model may use as an index, ``locs[c]``), reverse mode runs
+    ordinary autograd through ``vmap(fn)``: under ``vmap(grad(...))`` PyTorch
+    reads such an index with ``.item()``, which the transform refuses."""
     if forward_mode:
         vg = torch.func.vmap(torch.func.jacfwd(lambda *a: (fn(*a),) * 2, has_aux=True))
     else:
@@ -86,12 +116,29 @@ def batched_value_and_grad(fn, forward_mode=False):
     def call(batched, *per_chain):
         global potential_evals
         potential_evals += 1
+        if not forward_mode and per_chain and _has_integer_scalars(per_chain):
+            return _vmap_then_autograd(fn, batched, *per_chain)
         grad, value = vg(batched, *per_chain)  # torch.func returns (grad, value)
         if forward_mode:
             # PyTorch pushes the tangent of a 0-d tensor through an op with a
             # Python number in float64: each gradient takes its site's dtype
             grad = tree_map(lambda g, p: g.to(p.dtype), grad, batched)
         return value, grad
+
+    return call
+
+
+def batched_value(fn):
+    """``fn`` maps one element's params (and one element's slice of any
+    further pytrees) to a scalar; the result maps batched pytrees to the
+    values ``(B,)``, for the kernels that take no gradient (SMC, SA and the
+    ensembles).  Each call counts as one batched potential evaluation."""
+    vfn = torch.func.vmap(fn)
+
+    def call(batched, *rest):
+        global potential_evals
+        potential_evals += 1
+        return vfn(batched, *rest)
 
     return call
 
@@ -237,6 +284,27 @@ def samples_from_numpy(samples, device="cpu"):
     grouped by chain or not) or SVI params (``SVI.get_params``), moved over
     as numpy arrays."""
     return {k: torch.from_numpy(np.array(v)).to(device) for k, v in samples.items()}
+
+
+def tree_from_numpy(x, device="cpu"):
+    """numpy arrays (or numbers) in dicts, tuples and lists -> tensors on
+    ``device``, for the ``*_state_from_numpy`` converters of the kernels'
+    states; narrow integers become ``int64``, the port's index dtype."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: tree_from_numpy(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return tuple(tree_from_numpy(v, device) for v in x)
+    t = torch.from_numpy(np.array(x))
+    if t.dtype in (torch.int32, torch.int16, torch.uint8):
+        t = t.to(torch.int64)
+    return t.to(device)
+
+
+def state_field(fields, name):
+    """A field of a state given as a namedtuple or a mapping."""
+    return fields[name] if isinstance(fields, dict) else getattr(fields, name)
 
 
 def _unconstrain_reparam(params, site):

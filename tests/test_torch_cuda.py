@@ -5,7 +5,8 @@ and stochastic volatility (``Predictive``, the new samplers on a CUDA
 generator and ``soft_vmap`` over a model replay), and the HMM slice
 (``Categorical`` and ``Dirichlet`` draws, the enumerated density of both
 forms of ``examples/hmm_enum.py`` against a numpy forward algorithm, the
-error past 25 dims).
+error past 25 dims), and one step of SMC, the Gibbs sweep, BarkerMH, SA,
+AIES and ESS against the CPU on the same draws.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -531,3 +532,180 @@ def test_more_than_25_dims_raise_clearly_on_the_card(cuda):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(RuntimeError, match="more than the 25"):
         density(25)
+
+
+# ---------------------------------------------------------------------------
+# SMC, the Gibbs sweep and the gradient-free and ensemble kernels: one step
+# on the card against the CPU, on the same draws (this file imports no JAX,
+# so the draws come from numpy)
+
+
+class NumpyDraws:
+    """The port's draw-source protocol, drawn by numpy from a seed and put on
+    the device of ``like``: two sources made from one seed give the CPU and
+    the card the same numbers."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def _put(self, x, like, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=like.device)
+
+    def normals(self, shape, like):
+        return self._put(self.rng.standard_normal(shape), like)
+
+    def uniforms(self, shape, like):
+        return self._put(self.rng.random(shape), like)
+
+    def exponentials(self, shape, like):
+        return self._put(self.rng.exponential(size=shape), like)
+
+    def gumbels(self, shape, like):
+        return self._put(self.rng.gumbel(size=shape), like)
+
+    def randints(self, low, high, shape, like):
+        high = torch.as_tensor(high).cpu().numpy()
+        return self._put(self.rng.integers(low, high, size=shape), like, torch.int64)
+
+    def permutations(self, shape, like):
+        return self._put(self.rng.random(shape).argsort(-1), like, torch.int64)
+
+    def choice(self, weights):
+        w = weights.cpu().numpy()
+        return int(self.rng.choice(len(w), p=w / w.sum()))
+
+    def categorical(self, weights, shape):
+        w = weights.cpu().numpy().astype(np.float64)
+        return self._put(self.rng.choice(len(w), size=shape, p=w / w.sum()), weights,
+                         torch.int64)
+
+    def fork(self):
+        return self
+
+
+def _assert_trees_close(a, b, rtol=1e-5, atol=1e-5):
+    """Two states (namedtuples of tensors, numbers and draw sources), one of
+    them on the card, equal within the tolerance: float32 arithmetic in
+    another order on the card."""
+    if isinstance(a, torch.Tensor):
+        b = b.to(a.device)
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        else:
+            assert torch.equal(a, b)
+    elif isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            _assert_trees_close(a[k], b[k], rtol, atol)
+    elif isinstance(a, (tuple, list)):
+        for x, y in zip(a, b):
+            _assert_trees_close(x, y, rtol, atol)
+    elif isinstance(a, (int, float)):
+        assert a == b
+
+
+def _schools(y, sigma):
+    mu = npt.sample("mu", dist.Normal(0.0, 5.0))
+    tau = npt.sample("tau", dist.HalfCauchy(5.0))
+    with npt.plate("J", 8):
+        theta = npt.sample("theta", dist.Normal(mu, tau))
+        npt.sample("obs", dist.Normal(theta, sigma), obs=y)
+
+
+@pytest.mark.requires_cuda
+def test_one_smc_stage_on_the_card_matches_the_cpu(cuda):
+    """8-schools non-centred, 1,024 particles: the initial cloud from numpy,
+    then one tempering stage (bisection, reweighting, resampling, 5 MH steps)
+    on each device from the same particles and draws."""
+    from numpyro_tpu_torch.infer import SMC
+    from numpyro_tpu_torch.infer.reparam import LocScaleReparam
+
+    model = handlers.reparam(_schools, config={"theta": LocScaleReparam(0)})
+    y = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
+    sigma = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
+    p = 1024
+    cloud = np.random.default_rng(0).standard_normal((p, 10)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        smc = SMC(model, num_particles=p, device=device)
+        args = (torch.tensor(y, device=device), torch.tensor(sigma, device=device))
+        smc._setup(torch.Generator(device=device).manual_seed(0), args, {})
+        particles = torch.from_numpy(cloud).to(device)
+        _, log_lik = smc._split_log_probs(particles)
+        out[device.type] = smc._stage(NumpyDraws(1), particles, torch.zeros(p, device=device),
+                                      log_lik, 0.0, torch.zeros((), device=device))
+    got, want = out["cuda"], out["cpu"]
+    assert abs(got[4] - want[4]) <= 1e-6 * max(abs(want[4]), 1e-3)  # the next temperature
+    _assert_trees_close(want[:4], got[:4], rtol=1e-4, atol=1e-4)
+    assert got[0].device.type == "cuda"
+
+
+@pytest.mark.requires_cuda
+def test_one_gibbs_sweep_on_the_card_matches_the_cpu(cuda):
+    """``_discrete_sweep`` over two discrete sites of 64 chains, every
+    candidate of every chain in one batched evaluation of the model."""
+    from numpyro_tpu_torch.infer import DiscreteHMCGibbs
+    from numpyro_tpu_torch.infer.hmc_gibbs import _discrete_sweep, _site_element_layout
+
+    def make_model(device):
+        locs = torch.tensor([-1.0, 0.0, 1.0, 2.0], device=device)
+
+        def model():
+            c = npt.sample("c", dist.Categorical(torch.tensor([0.1, 0.4, 0.3, 0.2],
+                                                              device=device)))
+            d = npt.sample("d", dist.Bernoulli(torch.tensor(0.3, device=device)))
+            npt.sample("x", dist.Normal(locs[c] + d, 0.5))
+
+        return model
+
+    c_chains = 64
+    rng = np.random.default_rng(2)
+    c0, d0 = rng.integers(0, 4, c_chains), rng.integers(0, 2, c_chains)
+    x0 = (1.5 * rng.standard_normal(c_chains)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        kernel = DiscreteHMCGibbs(NUTS(make_model(device), max_tree_depth=2))
+        kernel.init(torch.Generator(device=device).manual_seed(0), 2, None, (), {},
+                    num_chains=c_chains)
+        z_hmc = {"x": torch.from_numpy(x0).to(device)}
+        pe_cand, pe_one = kernel._candidate_potentials((), {}, z_hmc)
+        flat = kernel._gibbs_layout.ravel_batch({
+            "c": torch.from_numpy(c0).to(device),
+            "d": torch.from_numpy(d0).to(device, torch.float32)})
+        _, sizes = _site_element_layout(kernel._support_sizes)
+        pe = pe_one(flat)
+        out[device.type] = _discrete_sweep(
+            pe_cand, pe_one, NumpyDraws(3), flat, pe, torch.as_tensor(sizes, device=device).long(),
+            mode="gibbs", smax=4)
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1].cpu(), out["cpu"][1], rtol=1e-5, atol=1e-5)
+
+
+def _gauss_pe(z):
+    return 0.5 * (((z - 1.0) / 2.0) ** 2).sum()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel", ["barker", "sa", "aies", "ess"])
+def test_one_step_of_each_gradient_free_or_ensemble_kernel_on_the_card(cuda, kernel):
+    """``init`` and two ``sample`` calls of BarkerMH, SA, AIES and ESS, 16
+    chains of a 3-d Gaussian, on each device from the same params and
+    draws."""
+    from numpyro_tpu_torch.infer import AIES, ESS, SA, BarkerMH
+
+    make = {"barker": lambda: BarkerMH(potential_fn=_gauss_pe),
+            "sa": lambda: SA(potential_fn=_gauss_pe, adapt_state_size=8),
+            "aies": lambda: AIES(potential_fn=_gauss_pe, moves={AIES.DEMove(): 0.5,
+                                                                AIES.StretchMove(): 0.5}),
+            "ess": lambda: ESS(potential_fn=_gauss_pe)}[kernel]
+    z0 = np.random.default_rng(4).standard_normal((16, 3)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        k = make()
+        draws = NumpyDraws(5)
+        state = k.init(draws, 5, torch.from_numpy(z0).to(device), (), {}, num_chains=16)
+        for _ in range(2):
+            state = k.sample(state, (), {})
+        out[device.type] = state
+    assert out["cuda"].z.device.type == "cuda"
+    _assert_trees_close(out["cpu"], out["cuda"], rtol=1e-4, atol=1e-5)

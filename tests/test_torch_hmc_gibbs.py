@@ -112,8 +112,16 @@ def test_hmc_gibbs_recovers_a_conjugate_posterior():
 def test_hmc_gibbs_constructor_errors():
     from numpyro_tpu_torch.infer import DiscreteHMCGibbs
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiscreteHMCGibbs(NUTS(full_model))
+    # DiscreteHMCGibbs is built and takes one step (its behaviour is in
+    # test_torch_discrete_gibbs.py)
+    def mixture():
+        c = npt.sample("c", dist.Categorical(torch.tensor([0.3, 0.7])))
+        npt.sample("x", dist.Normal(torch.tensor([-1.0, 1.0])[c], 1.0))
+
+    kernel = DiscreteHMCGibbs(NUTS(mixture, max_tree_depth=2))
+    state = kernel.init(torch.Generator().manual_seed(0), 2, None, (), {}, num_chains=3)
+    state = kernel.sample(state, (), {})
+    assert state.z["c"].shape == (3,) and state.hmc_state.i == 1
     with pytest.raises(ValueError, match="HMC or NUTS"):
         HMCGibbs(object(), gibbs_fn=lambda **k: {}, gibbs_sites=[])
     with pytest.raises(ValueError, match="callable"):

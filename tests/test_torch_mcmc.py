@@ -113,8 +113,69 @@ def test_effective_sample_size_matches_jax():
 
 
 def test_unported_options_raise():
+    """A callable ``chain_method`` and the progress bar stay unported."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method=lambda f: f)
     with pytest.raises(NotImplementedError):
-        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method="parallel")
+        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, progress_bar=True)
+    with pytest.raises(ValueError, match="sequential"):
+        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method="pmap")
+
+
+def _small_model():
+    a = npt.sample("a", dist.Normal(0.0, 1.0))
+    npt.sample("b", dist.Normal(a, 0.5).expand([2]).to_event(1))
+
+
+@pytest.mark.parametrize("kernel", ["nuts", "barker"])
+def test_sequential_chains_equal_one_chain_runs_on_their_generators(kernel):
+    """Chain i of a ``"sequential"`` run equals a one-chain run on the i-th
+    generator of ``chain_generators``, on the fused path (NUTS) and on the
+    per-step path (BarkerMH)."""
+    from numpyro_tpu_torch.infer import BarkerMH
+    from numpyro_tpu_torch.infer.mcmc import chain_generators
+
+    make = (lambda: NUTS(_small_model, max_tree_depth=3)) if kernel == "nuts" else (
+        lambda: BarkerMH(_small_model))
+    seq = MCMC(make(), num_warmup=15, num_samples=10, num_chains=3, chain_method="sequential",
+               device="cpu")
+    seq.run(7, extra_fields=("potential_energy",) if kernel == "barker" else ())
+    draws = seq.get_samples(group_by_chain=True)
+    assert draws["b"].shape == (3, 10, 2)
+    gens = chain_generators(7, torch.device("cpu"), 3)
+    for i, gen in enumerate(gens):
+        one = MCMC(make(), num_warmup=15, num_samples=10, num_chains=1, device="cpu")
+        one.run(gen, extra_fields=("potential_energy",) if kernel == "barker" else ())
+        for name in ("a", "b"):
+            np.testing.assert_array_equal(draws[name][i].numpy(),
+                                          one.get_samples(group_by_chain=True)[name][0].numpy())
+    assert not torch.equal(draws["a"][0], draws["a"][1])
+    stats = seq.last_run_stats
+    assert stats["potential_evals"] > 0 and stats["total_s"] > 0
+    assert seq.last_state.z["a"].shape[0] == 3
+    # warmup alone, then a run that resumes from its state, chain by chain
+    seq.warmup(8)
+    assert seq.post_warmup_state.z["a"].shape == (3,)
+    seq.run(9)
+    assert seq.get_samples(group_by_chain=True)["b"].shape == (3, 10, 2)
+
+
+@pytest.mark.parametrize("kernel", ["nuts", "barker"])
+def test_parallel_equals_vectorized(kernel):
+    """On one card ``"parallel"`` runs the vectorized program: the same seed
+    gives the same draws."""
+    from numpyro_tpu_torch.infer import BarkerMH
+
+    out = {}
+    for method in ("vectorized", "parallel"):
+        k = NUTS(_small_model, max_tree_depth=3) if kernel == "nuts" else BarkerMH(_small_model)
+        m = MCMC(k, num_warmup=10, num_samples=10, num_chains=4, chain_method=method,
+                 device="cpu")
+        m.run(3)
+        out[method] = m.get_samples(group_by_chain=True)
+    for name in ("a", "b"):
+        np.testing.assert_array_equal(out["parallel"][name].numpy(),
+                                      out["vectorized"][name].numpy())
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="shows the fault on a machine without CUDA")
