@@ -122,6 +122,22 @@ Phases (each prints on its own lines; any failure exits non-zero):
                ``EIGHT_SCHOOLS_REF`` (``dev/smc_reference.py`` and
                ``dev/kernels_reference.py``).  Plain PyTorch; no GLM launch.
 
+13. chees/guides -- (a) ``CheesHMC`` on the covtype model in split mode, 256
+               chains, at most 16 leapfrog steps a transition: every step is
+               one batched evaluation and one ``glm_split`` launch for all
+               chains (launches = evaluations + the init search's model
+               traces), the posterior means within ``CHEES_GATE`` of the
+               generating coefficients; (b) one ``TraceGraph_ELBO`` loss and
+               gradient with 20,000 particles on the model of
+               ``tests/infer/test_gradient.py``, within 0.05 of the closed-form
+               gradient; (c) ``AutoLowRankMultivariateNormal`` on 8-schools
+               non-centred, the medians of ``mu`` and ``tau`` within
+               ``LOWRANK_GATE`` of ``EIGHT_SCHOOLS_REF``; (d)
+               ``AutoLaplaceApproximation`` fitted by ``Minimize()`` (BFGS) on
+               the same model from a fixed start, its MAP and standard
+               deviations within ``LAPLACE_GATE`` of the JAX package's
+               (``dev/chees_reference.py``, ``dev/guides_reference.py``).
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -145,15 +161,16 @@ from numpyro_tpu_torch.contrib.control_flow import scan
 from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, markov
 from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
 from numpyro_tpu_torch.infer import (
-    AIES, ESS, HMC, HMCECS, MCMC, NUTS, SA, SMC, SVI, BarkerMH, DiscreteHMCGibbs, MixedHMC,
-    Predictive, Trace_ELBO, TraceEnum_ELBO, TraceMeanField_ELBO, log_likelihood,
+    AIES, ESS, HMC, HMCECS, MCMC, NUTS, SA, SMC, SVI, BarkerMH, CheesHMC, DiscreteHMCGibbs,
+    MixedHMC, Predictive, Trace_ELBO, TraceEnum_ELBO, TraceGraph_ELBO, TraceMeanField_ELBO,
+    init_to_value, log_likelihood,
 )
 from numpyro_tpu_torch.infer import autoguide
 from numpyro_tpu_torch.infer.reparam import LocScaleReparam
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
 from numpyro_tpu_torch.ops import _cuda, glm
-from numpyro_tpu_torch.optim import Adam
+from numpyro_tpu_torch.optim import Adam, Minimize
 
 N, D, CHAINS = 581_012, 55, 256
 # tolerances of kernel against plain version (their reasons stand with
@@ -365,6 +382,41 @@ KERNEL_GATES = {
     "ESS": {"mu": 6.6601, "tau": 3.0264},
     "sequential": {"mu": 3.8619, "tau": 5.1245},
 }
+
+# phase 13.  Its budget is 20 s on a host where phase 6's main leg takes 24.0
+# ms per evaluation.  (a) ChEES on covtype in split mode: chains, warmup,
+# samples, max_num_steps, and the first step size and trajectory length,
+# chosen in a CPU rehearsal at a tenth of the rows (the step size there
+# scaled by sqrt(1/10)); every transition takes num_steps + 1 evaluations
+# (at most 17), so 120 transitions take at most 2,040
+CHEES_RUN = (256, 100, 20, 16, 0.005, 0.05)
+# the model traces of ChEES's init (the prototype trace; init_to_uniform
+# draws without one), each one glm_split launch at one chain, beside the
+# counted batched evaluations
+CHEES_INIT_TRACES = 1
+# the bench's 0.05 (bench.py:268-272): the JAX package's own CheesHMC at
+# CHEES_RUN meets it (`JAX_PLATFORMS=cpu python3 -m dev.chees_reference`)
+CHEES_GATE = 0.05
+# (b) TraceGraph_ELBO on the model of tests/infer/test_gradient.py:70-108:
+# particles, the guide's logit; the gate is that test's own
+TG_RUN = (20000, 0.2)
+TG_GATE = 0.05
+# (c) AutoLowRankMultivariateNormal on 8-schools non-centred at ES_SVI's
+# step size and steps.  max(2e, e + 0.05), the rule of HS_GATE, per site,
+# where e is the largest gap over keys 0-2 between the JAX package's guide
+# median after the same fit and EIGHT_SCHOOLS_REF's mean (its packed guides
+# drop log q, ROADMAP Queue 3, so its fit sits near the MAP, far from the
+# posterior mean: `JAX_PLATFORMS=cpu python3 -m dev.guides_reference`)
+LOWRANK_GATE = {"mu": 6.2028, "tau": 50.1045}
+# (d) AutoLaplaceApproximation with Minimize() from LAPLACE_START: the JAX
+# package's MAP (the packed unconstrained latent: mu, log tau, then
+# theta_decentered) and Laplace standard deviations there, and the gate,
+# max(2e, e + 0.05) for e the largest gap between the JAX package's float32
+# and float64 fits (dev.guides_reference)
+LAPLACE_START = {"mu": 0.0, "tau": 1.0, "theta_decentered": 0.0}
+LAPLACE_MAP = (1.4329, 3.3664, 0.7231, 0.2025, -0.1172, 0.1679, -0.0766, -0.0131, 0.5109, 0.2631)
+LAPLACE_STD = (4.9267, 0.9397, 0.5862, 0.3672, 0.5098, 0.3857, 0.35, 0.3862, 0.4786, 0.5435)
+LAPLACE_GATE = 0.05
 
 
 _T0 = time.perf_counter()
@@ -1343,6 +1395,143 @@ def phase_samplers(device, ecs_ms):
     return wall
 
 
+def phase_chees(X, y, true_w, nuts):
+    """13a: ChEES on the covtype model in split mode; returns its glm_split
+    launches (``nuts``: phase 4's split-mode stats)."""
+    chains, warmup, samples, max_steps, step_size, traj = CHEES_RUN
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    mcmc = MCMC(CheesHMC(model, step_size=step_size, trajectory_length=traj,
+                         max_num_steps=max_steps),
+                num_warmup=warmup, num_samples=samples, num_chains=chains)
+    before = dict(glm.launch_counts)
+    mcmc.run(13, data, extra_fields=("num_steps", "accept_prob"))
+    launches = {k: v - before[k] for k, v in glm.launch_counts.items()}
+    stats = mcmc.last_run_stats
+    draws = mcmc.get_samples(group_by_chain=True)["w"]
+    extra = mcmc.get_extra_fields(group_by_chain=True)
+    if draws.shape != (chains, samples, D) or not torch.isfinite(draws).all():
+        raise SystemExit(f"13a: bad draws, shape {tuple(draws.shape)}")
+    err = (draws.mean((0, 1)).cpu() - torch.from_numpy(true_w)).abs().max().item()
+    adapt = mcmc.last_state.adapt_state
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    wall = stats["warmup_s"] + stats["sample_s"]
+    steps = extra["num_steps"][0].double()
+    nuts_evals = nuts["potential_evals_sample"] / RUNS["glm_split"][1]
+    nuts_s = nuts["sample_s"] / RUNS["glm_split"][1]
+    log(f"[chees] 13a CheesHMC, covtype split mode, {chains} chains, {warmup} + {samples}, "
+        f"max_num_steps {max_steps}: init {stats['init_s']:.2f} s, warmup {stats['warmup_s']:.2f} "
+        f"s, sampling {stats['sample_s']:.2f} s; evaluations {stats['potential_evals_init']} + "
+        f"{stats['potential_evals_warmup']} + {stats['potential_evals_sample']}; glm_split "
+        f"launches {launches['glm_split']}; {wall / evals * 1e3:.2f} ms per evaluation; pooled "
+        f"accept {extra['accept_prob'].mean().item():.4f}; final step size "
+        f"{adapt.step_size.item():.5f}, trajectory length {adapt.trajectory_length.item():.5f}; "
+        f"leapfrog steps a sampling transition {steps.mean().item():.2f} (min "
+        f"{steps.min().item():.0f}, max {steps.max().item():.0f}); a sampling transition "
+        f"(one draw of every chain): {stats['potential_evals_sample'] / samples:.2f} evaluations "
+        f"and {stats['sample_s'] / samples:.3f} s, against NUTS's {nuts_evals:.2f} and "
+        f"{nuts_s:.3f} s (phase 4, split mode, {CHAINS} chains); max |mean(w) - true_w| "
+        f"{err:.4f} (gate {CHEES_GATE})")
+    if launches["glm_split"] != stats["potential_evals"] + CHEES_INIT_TRACES or any(
+            v for k, v in launches.items() if k != "glm_split"):
+        raise SystemExit(f"13a: launched {launches} for {stats['potential_evals']} evaluations "
+                         f"and {CHEES_INIT_TRACES} init traces")
+    if not err < CHEES_GATE:
+        raise SystemExit(f"13a: posterior means off by {err:.4f} (>= {CHEES_GATE})")
+    return launches["glm_split"]
+
+
+def tg_model(mus, data):
+    """``tests/infer/test_gradient.py``'s model: a Bernoulli latent picks
+    the mean of an observed Normal."""
+    z = npt.sample("z", dist.Bernoulli(0.3))
+    npt.sample("x", dist.Normal(mus[z.long()], 1.0), obs=data)
+
+
+def tg_exact_loss(phi, mus, data):
+    """Minus the ELBO of ``tg_model`` under ``Bernoulli(logits=phi)``, in
+    closed form."""
+    q = torch.sigmoid(phi)
+    terms = []
+    for z in (0, 1):
+        zi = torch.tensor(float(z), device=phi.device)
+        terms.append(dist.Bernoulli(0.3).log_prob(zi) + dist.Normal(mus[z], 1.0).log_prob(data)
+                     - dist.Bernoulli(logits=phi).log_prob(zi))
+    return -((1 - q) * terms[0] + q * terms[1])
+
+
+def phase_guides(device, ecs_ms):
+    """Phase 13's legs (b)-(d); returns their wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    # (b) TraceGraph_ELBO
+    particles, phi0 = TG_RUN
+    mus = torch.tensor([-1.0, 1.0], device=device)
+    data = torch.tensor(1.0, device=device)
+    phi = torch.tensor(phi0, device=device)
+    elbo = TraceGraph_ELBO(num_particles=particles)
+
+    def loss(phi):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return elbo.loss(gen, {}, tg_model, lambda m, d: npt.sample(
+            "z", dist.Bernoulli(logits=phi)), mus, data)
+
+    t = time.perf_counter()
+    got = torch.func.grad(loss)(phi).item()
+    wall_b = time.perf_counter() - t
+    want = torch.func.grad(tg_exact_loss)(phi, mus, data).item()
+    log(f"[guides] 13b TraceGraph_ELBO, {particles} particles, one loss and gradient: "
+        f"{wall_b:.2f} s; gradient {got:.4f} against the closed form {want:.4f} (gate {TG_GATE})")
+    if not abs(got - want) < TG_GATE:
+        raise SystemExit(f"13b: the surrogate's gradient {got} is off {want}")
+
+    # (c) AutoLowRankMultivariateNormal
+    y = torch.tensor(ES_Y, device=device)
+    sigma = torch.tensor(ES_SIGMA, device=device)
+    model_nc = handlers.reparam(eight_schools, config={"theta": LocScaleReparam(0)})
+    lr, steps, _ = ES_SVI
+    guide = autoguide.AutoLowRankMultivariateNormal(model_nc)
+    t = time.perf_counter()
+    res = SVI(model_nc, guide, Adam(lr), Trace_ELBO()).run(14, steps, y, sigma)
+    losses = res.losses.cpu()
+    wall_c = time.perf_counter() - t
+    med = guide.median(res.params)
+    gaps = {k: abs(med[k].item() - EIGHT_SCHOOLS_REF[k]["mean"]) for k in ("mu", "tau")}
+    log(f"[guides] 13c AutoLowRankMultivariateNormal (rank "
+        f"{res.params['auto_cov_factor'].shape[1]}), {steps} steps: {wall_c:.2f} s, "
+        f"{wall_c / steps * 1e3:.2f} ms per step; loss of the first 50 "
+        f"{losses[:50].mean().item():.2f}, of the last 50 {losses[-50:].mean().item():.2f}; "
+        f"medians mu {med['mu'].item():.3f}, tau {med['tau'].item():.3f}; gaps to "
+        f"EIGHT_SCHOOLS_REF {[round(gaps[k], 4) for k in gaps]} (gates "
+        f"{[LOWRANK_GATE[k] for k in gaps]})")
+    if not torch.isfinite(losses).all() or not all(gaps[k] < LOWRANK_GATE[k] for k in gaps):
+        raise SystemExit(f"13c: the low-rank guide's medians are off: {gaps}")
+
+    # (d) AutoLaplaceApproximation with Minimize
+    start = {k: torch.full((8,) if k == "theta_decentered" else (), v, device=device)
+             for k, v in LAPLACE_START.items()}
+    guide = autoguide.AutoLaplaceApproximation(model_nc, init_loc_fn=init_to_value(values=start))
+    t = time.perf_counter()
+    res = SVI(model_nc, guide, Minimize(), Trace_ELBO()).run(15, 1, y, sigma)
+    posterior = guide.get_posterior(res.params)
+    std = posterior.covariance_matrix.diagonal().sqrt()
+    wall_d = time.perf_counter() - t
+    loc = res.params["auto_loc"].cpu().numpy()
+    map_gap = float(np.abs(loc - np.asarray(LAPLACE_MAP)).max())
+    std_gap = float(np.abs(std.cpu().numpy() - np.asarray(LAPLACE_STD)).max())
+    log(f"[guides] 13d AutoLaplaceApproximation, Minimize (BFGS): {wall_d:.2f} s; loss "
+        f"{res.losses[0].item():.4f}; MAP {np.round(loc.astype(np.float64), 4).tolist()}, largest gap to JAX's "
+        f"{map_gap:.5f}; stds {np.round(std.cpu().numpy().astype(np.float64), 4).tolist()}, largest gap "
+        f"{std_gap:.5f} (gate {LAPLACE_GATE})")
+    if not (map_gap < LAPLACE_GATE and std_gap < LAPLACE_GATE):
+        raise SystemExit("13d: the Laplace approximation is off the JAX package's")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("13b-d: a guide leg launched a GLM kernel")
+    wall = time.perf_counter() - t0
+    log(f"[guides] 13b-d: {wall:.1f} s, about {wall * 24.0 / ecs_ms:.1f} s on a host where the "
+        f"ECS leg takes 24.0 ms per evaluation")
+    return wall
+
+
 def run_svi(tag, model_fn, guide, loss, steps, *args):
     """``SVI.init`` and ``steps`` updates on the default device, with every
     launch count set to 0 just before; returns the result, the launches of
@@ -1535,10 +1724,17 @@ def main():
     phase_sv(device)
     phase_hmm(device)
     phase_samplers(device, ecs["ms_per_eval"])
+    t13 = time.perf_counter()
+    chees_launches = phase_chees(X, y, true_w, split)
+    phase_guides(device, ecs["ms_per_eval"])
+    wall = time.perf_counter() - t13
+    log(f"[chees/guides] phase 13: {wall:.1f} s, about {wall * 24.0 / ecs['ms_per_eval']:.1f} s "
+        f"on a host where the ECS leg takes 24.0 ms per evaluation (here "
+        f"{ecs['ms_per_eval']:.2f}; budget 20 s)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (
-            svi_launches if name == "glm_split" else 0)
+            svi_launches + chees_launches if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
     if dense_counts["glm_split"] == 0:

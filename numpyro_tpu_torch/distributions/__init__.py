@@ -6,6 +6,7 @@ from numpyro_tpu_torch.distributions.continuous import (
     GaussianRandomWalk,
     HalfCauchy,
     HalfNormal,
+    LowRankMultivariateNormal,
     MultivariateNormal,
     Normal,
     StudentT,
@@ -48,6 +49,7 @@ __all__ = [
     "HalfCauchy",
     "HalfNormal",
     "Independent",
+    "LowRankMultivariateNormal",
     "MaskedDistribution",
     "MultivariateNormal",
     "Normal",

@@ -1,6 +1,7 @@
 """Continuous distributions (port of ``Normal``, ``Cauchy``, ``StudentT``,
 ``HalfCauchy``, ``HalfNormal``, ``Uniform``, ``Exponential``, ``Dirichlet``,
-``MultivariateNormal`` and ``GaussianRandomWalk`` from
+``MultivariateNormal``, ``LowRankMultivariateNormal`` and
+``GaussianRandomWalk`` from
 ``numpyro_tpu/distributions/continuous.py``; the rest are listed in
 ROADMAP.md).
 
@@ -22,7 +23,7 @@ from .util import broadcast_shape, lazy_property, promote_shapes
 
 __all__ = [
     "Cauchy", "Dirichlet", "Exponential", "GaussianRandomWalk", "HalfCauchy", "HalfNormal",
-    "MultivariateNormal", "Normal", "StudentT", "Uniform",
+    "LowRankMultivariateNormal", "MultivariateNormal", "Normal", "StudentT", "Uniform",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2 * math.pi)
@@ -384,6 +385,103 @@ class MultivariateNormal(Distribution):
     @property
     def variance(self):
         return torch.broadcast_to((self.scale_tril**2).sum(-1), self.batch_shape + self.event_shape)
+
+
+def _add_diag(matrix, diag):
+    return matrix + torch.diag_embed(torch.broadcast_to(diag, matrix.shape[:-1]))
+
+
+class LowRankMultivariateNormal(Distribution):
+    """Normal over vectors with covariance ``cov_factor @ cov_factor.T +
+    diag(cov_diag)``: ``log_prob`` takes the Woodbury identity and the
+    matrix-determinant lemma, ``O(D K^2)`` for a ``(D, K)`` factor.
+    ``sample`` draws from its generator the factor's noise ``(*sample_shape,
+    *batch_shape, K)`` first, then the diagonal's ``(*sample_shape,
+    *batch_shape, D)``."""
+
+    support = constraints.real_vector
+    has_rsample = True
+
+    def __init__(self, loc, cov_factor, cov_diag, *, validate_args=None):
+        if loc.dim() < 1:
+            raise ValueError("`loc` must be at least one-dimensional.")
+        dim = tuple(loc.shape[-1:])
+        if cov_factor.dim() < 2 or tuple(cov_factor.shape[-2:-1]) != dim:
+            raise ValueError("`cov_factor` must have shape (..., D, K)")
+        if tuple(cov_diag.shape[-1:]) != dim:
+            raise ValueError("`cov_diag` must have shape (..., D)")
+        loc_col, factor, diag_col = promote_shapes(loc[..., None], cov_factor, cov_diag[..., None])
+        self.loc = loc_col[..., 0]
+        self.cov_factor = factor
+        self.cov_diag = diag_col[..., 0]
+        batch = broadcast_shape(tuple(loc_col.shape), tuple(factor.shape),
+                                tuple(diag_col.shape))[:-2]
+        super().__init__(batch, dim, validate_args=validate_args)
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.loc, self.shape())
+
+    @lazy_property
+    def variance(self):
+        marginal = self.cov_factor.square().sum(-1) + self.cov_diag
+        return torch.broadcast_to(marginal, self.batch_shape + self.event_shape)
+
+    @lazy_property
+    def _whitened_factor(self):
+        """``W^T D^{-1}``, ``(K, D)``."""
+        return self.cov_factor.transpose(-2, -1) / self.cov_diag[..., None, :]
+
+    @lazy_property
+    def _capacitance_tril(self):
+        """``chol(I + W^T D^{-1} W)``, ``(K, K)``."""
+        cap = self._whitened_factor @ self.cov_factor
+        return torch.linalg.cholesky(_add_diag(cap, cap.new_ones(())))
+
+    @lazy_property
+    def covariance_matrix(self):
+        return _add_diag(self.cov_factor @ self.cov_factor.transpose(-2, -1), self.cov_diag)
+
+    @lazy_property
+    def scale_tril(self):
+        return torch.linalg.cholesky(self.covariance_matrix)
+
+    @lazy_property
+    def precision_matrix(self):
+        # Woodbury: D^-1 - D^-1 W (I + W^T D^-1 W)^-1 W^T D^-1
+        half = torch.linalg.solve_triangular(
+            self._capacitance_tril, self._whitened_factor, upper=False
+        )
+        return torch.diag_embed(1.0 / self.cov_diag) - half.transpose(-2, -1) @ half
+
+    def sample(self, key, sample_shape=()):
+        batched = tuple(sample_shape) + self.batch_shape
+        eps_low = torch.randn(batched + tuple(self.cov_factor.shape[-1:]), generator=key,
+                              device=key.device, dtype=self.loc.dtype)
+        eps_diag = torch.randn(batched + self.event_shape, generator=key, device=key.device,
+                               dtype=self.loc.dtype)
+        return (self.loc + (self.cov_factor @ eps_low[..., None])[..., 0]
+                + torch.sqrt(self.cov_diag) * eps_diag)
+
+    def _half_log_det(self):
+        # the matrix-determinant lemma: log|C| = log|cap| + log|D|
+        return _tril_logdet(self._capacitance_tril) + 0.5 * torch.log(self.cov_diag).sum(-1)
+
+    def log_prob(self, value):
+        gap = value - self.loc
+        projected = (self._whitened_factor @ gap[..., None])[..., 0]
+        cap = torch.broadcast_to(
+            self._capacitance_tril, projected.shape[:-1] + self._capacitance_tril.shape[-2:]
+        )
+        correction = torch.linalg.solve_triangular(cap, projected[..., None], upper=False)[..., 0]
+        quad = (gap.square() / self.cov_diag).sum(-1) - correction.square().sum(-1)
+        dim = self.loc.shape[-1]
+        return -0.5 * (dim * math.log(2.0 * math.pi) + quad) - self._half_log_det()
+
+    def entropy(self):
+        dim = self.loc.shape[-1]
+        gauss = 0.5 * dim * (1.0 + math.log(2.0 * math.pi))
+        return torch.broadcast_to(gauss + self._half_log_det(), self.batch_shape)
 
 
 class GaussianRandomWalk(Distribution):

@@ -1,5 +1,6 @@
 from numpyro_tpu_torch.infer import autoguide, reparam
 from numpyro_tpu_torch.infer.barker import BarkerMH
+from numpyro_tpu_torch.infer.chees import CheesHMC
 from numpyro_tpu_torch.infer.elbo import (
     ELBO,
     RenyiELBO,
@@ -33,6 +34,7 @@ from numpyro_tpu_torch.infer.util import (
 __all__ = [
     "AIES",
     "BarkerMH",
+    "CheesHMC",
     "DiscreteHMCGibbs",
     "ESS",
     "EnsembleSampler",

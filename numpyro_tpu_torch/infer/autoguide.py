@@ -1,7 +1,8 @@
-"""Automatic guides for SVI (port of ``AutoGuide``, ``AutoNormal``,
-``AutoDelta``, ``AutoContinuous``, ``AutoDiagonalNormal`` and
-``AutoMultivariateNormal`` from ``numpyro_tpu/infer/autoguide.py``; the other
-guides are listed in ROADMAP.md).
+"""Automatic guides for SVI (port of ``AutoGuide``, ``AutoGuideList``,
+``AutoNormal``, ``AutoDelta``, ``AutoContinuous``, ``AutoDiagonalNormal``,
+``AutoMultivariateNormal``, ``AutoLowRankMultivariateNormal`` and
+``AutoLaplaceApproximation`` from ``numpyro_tpu/infer/autoguide.py``; the
+other guides are listed in ROADMAP.md).
 
 A guide traces its model once (the prototype), recreates the model's plates
 with their subsample sizes, and declares its parameters with ``param``.  The
@@ -45,6 +46,9 @@ __all__ = [
     "AutoDelta",
     "AutoDiagonalNormal",
     "AutoGuide",
+    "AutoGuideList",
+    "AutoLaplaceApproximation",
+    "AutoLowRankMultivariateNormal",
     "AutoMultivariateNormal",
     "AutoNormal",
 ]
@@ -174,6 +178,50 @@ class AutoGuide(ABC):
 
     def quantiles(self, params, quantiles):
         raise NotImplementedError
+
+
+class AutoGuideList(AutoGuide):
+    """Part guides over disjoint sets of sites, appended in order; each part
+    sees its sites of the model through ``handlers.block``.
+    ``sample_posterior`` draws from the one generator, part by part, in the
+    order of the parts."""
+
+    def __init__(self, model, *, prefix="auto", create_plates=None):
+        self._guides = []
+        super().__init__(model, prefix=prefix, create_plates=create_plates)
+
+    def append(self, part):
+        self._guides.append(part)
+
+    def _merged(self, method, *args, **kwargs):
+        merged = {}
+        for part in self._guides:
+            merged.update(getattr(part, method)(*args, **kwargs))
+        return merged
+
+    def __call__(self, *args, **kwargs):
+        if self.prototype_trace is None:
+            self._setup_prototype(*args, **kwargs)
+        return self._merged("__call__", *args, **kwargs)
+
+    def __getitem__(self, key):
+        return self._guides[key]
+
+    def __len__(self):
+        return len(self._guides)
+
+    def __iter__(self):
+        yield from self._guides
+
+    def sample_posterior(self, rng_key, params, *args, sample_shape=(), **kwargs):
+        return self._merged("sample_posterior", rng_key, params, *args,
+                            sample_shape=sample_shape, **kwargs)
+
+    def median(self, params):
+        return self._merged("median", params)
+
+    def quantiles(self, params, quantiles):
+        return self._merged("quantiles", params, quantiles)
 
 
 class AutoNormal(AutoGuide):
@@ -464,3 +512,95 @@ class AutoMultivariateNormal(_PackedNormalGuide):
     def _marginal_normal(self, params):
         root = params[self._pname("scale_tril")]
         return dist.Normal(params[self._pname("loc")], torch.linalg.vector_norm(root, dim=-1))
+
+
+class AutoLowRankMultivariateNormal(_PackedNormalGuide):
+    """A Normal over the packed latent whose covariance is a rank-``rank``
+    factor plus a diagonal (``round(sqrt(D))`` by default): ``cov_factor``
+    and ``scale`` are learned, the factor of the covariance is
+    ``cov_factor * scale[:, None]`` and its diagonal ``scale ** 2``."""
+
+    scale_constraint = constraints.softplus_positive
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=init_to_uniform, init_scale=0.1,
+                 rank=None, create_plates=None):
+        self.rank = rank
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn, init_scale=init_scale,
+                         create_plates=create_plates)
+
+    def _get_posterior(self):
+        rank = int(round(self.latent_dim**0.5)) if self.rank is None else self.rank
+        loc = param(self._pname("loc"), self._init_latent)
+        raw_factor = param(self._pname("cov_factor"),
+                           self._init_latent.new_zeros((self.latent_dim, rank)))
+        scale = param(
+            self._pname("scale"), torch.full_like(self._init_latent, self._init_scale),
+            constraint=self.scale_constraint,
+        )
+        return dist.LowRankMultivariateNormal(loc, raw_factor * scale[..., None], scale.square())
+
+    def get_posterior(self, params):
+        scale = params[self._pname("scale")]
+        return dist.LowRankMultivariateNormal(
+            params[self._pname("loc")], params[self._pname("cov_factor")] * scale[..., None],
+            scale.square(),
+        )
+
+    def _marginal_normal(self, params):
+        posterior = self.get_posterior(params)
+        return dist.Normal(posterior.loc, torch.sqrt(posterior.variance))
+
+
+class AutoLaplaceApproximation(AutoContinuous):
+    """A point mass fitted at the MAP (``Delta``), then a Normal there whose
+    covariance is the inverse of the Hessian of the potential
+    (``torch.func.hessian``, forward over reverse mode, by default).  The
+    Hessian cannot pass through ``ops.glm.bernoulli_logits_loglik``, which
+    has no forward mode (nor has the JAX package's op): it raises there."""
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=init_to_uniform, create_plates=None,
+                 hessian_fn=None):
+        self._hessian_fn = (
+            hessian_fn if hessian_fn is not None else (lambda f, x: torch.func.hessian(f)(x))
+        )
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn,
+                         create_plates=create_plates)
+
+    def _get_posterior(self):
+        return dist.Delta(param(self._pname("loc"), self._init_latent), event_dim=1)
+
+    def get_base_dist(self):
+        return dist.Normal(self._init_latent.new_zeros(self.latent_dim), 1.0).to_event(1)
+
+    def _neg_log_joint(self, packed):
+        return self._potential_fn(self._unpack_latent(packed))
+
+    def get_posterior(self, params):
+        """The Normal at the fitted ``loc`` with the inverse Hessian as its
+        covariance; where that is not positive definite, a warning and a
+        zero ``scale_tril`` (the draws are the MAP point)."""
+        point = params[self._pname("loc")]
+        curvature = self._hessian_fn(self._neg_log_joint, point)
+        cov, inv_info = torch.linalg.inv_ex(curvature)
+        scale_tril, chol_info = torch.linalg.cholesky_ex(cov)
+        if bool((inv_info != 0) | (chol_info != 0) | torch.isnan(scale_tril).any()):
+            warnings.warn(
+                "Hessian of log posterior at the MAP point is singular. Posterior samples "
+                "from AutoLaplaceApproximation will be constant (equal to the MAP point).",
+                stacklevel=2,
+            )
+            scale_tril = torch.zeros_like(scale_tril)
+        return dist.MultivariateNormal(point, scale_tril=scale_tril)
+
+    def sample_posterior(self, rng_key, params, *args, sample_shape=(), **kwargs):
+        packed = self.get_posterior(params).sample(rng_key, tuple(sample_shape))
+        return self._unpack_and_constrain(packed, params)
+
+    def median(self, params):
+        return self._unpack_and_constrain(params[self._pname("loc")], params)
+
+    def quantiles(self, params, quantiles):
+        posterior = self.get_posterior(params)
+        q = torch.as_tensor(quantiles, dtype=posterior.loc.dtype, device=posterior.loc.device)
+        latent = dist.Normal(posterior.loc, torch.sqrt(posterior.variance)).icdf(q[..., None])
+        return self._unpack_and_constrain(latent, params)

@@ -15,12 +15,14 @@ particle indices ``torch.arange(num_particles)``.
 
 ``TraceEnum_ELBO`` sums the model's enumerable discrete sites out of its
 log density (``contrib.enum``); a guide with an enumerated site raises.
-``TraceGraph_ELBO`` is not ported yet (ROADMAP.md).
+``TraceGraph_ELBO`` finds the costs downstream of each non-reparameterised
+guide site with ``ops.provenance``, once per loss call.
 """
 
 from __future__ import annotations
 
 import math
+from collections import defaultdict
 from functools import partial
 
 import torch
@@ -28,15 +30,23 @@ import torch
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.contrib import enum as contrib_enum
 from numpyro_tpu_torch.distributions.kl import kl_divergence
-from numpyro_tpu_torch.infer.util import _without_rsample_stop_gradient, log_density
+from numpyro_tpu_torch.infer.util import (
+    _without_rsample_stop_gradient,
+    get_importance_trace,
+    log_density,
+)
+from numpyro_tpu_torch.ops.provenance import eval_provenance
 
 __all__ = [
     "ELBO",
+    "MultiFrameTensor",
     "RenyiELBO",
     "TraceEnum_ELBO",
     "TraceGraph_ELBO",
     "TraceMeanField_ELBO",
     "Trace_ELBO",
+    "get_importance_log_probs",
+    "get_nonreparam_deps",
 ]
 
 
@@ -98,8 +108,14 @@ class ELBO:
         raise NotImplementedError
 
     def loss_with_mutable_state(self, rng_key, param_map, model, guide, *args, **kwargs):
+        return self._particle_mean(self._particle_elbo, rng_key, param_map, model, guide, args,
+                                   kwargs)
+
+    def _particle_mean(self, particle_elbo, rng_key, param_map, model, guide, args, kwargs):
+        """The loss (minus the ELBO averaged over ``num_particles``) and the
+        mutable state of ``particle_elbo`` (one particle's ELBO)."""
         one = partial(
-            self._particle_elbo, rng_key, param_map=param_map, model=model, guide=guide,
+            particle_elbo, rng_key, param_map=param_map, model=model, guide=guide,
             args=args, kwargs=kwargs,
         )
         if self.num_particles == 1:
@@ -293,8 +309,143 @@ class TraceEnum_ELBO(ELBO):
         return self._wrap_mutable(model_ld - guide_ld, mutable_params)
 
 
+class MultiFrameTensor(dict):
+    """Sums of tensors that live in different plate contexts, keyed by their
+    frames; ``sum_to`` reduces every entry onto a target
+    ``cond_indep_stack``."""
+
+    def __init__(self, *items):
+        super().__init__()
+        self.add(*items)
+
+    def add(self, *items):
+        for cond_indep_stack, value in items:
+            frames = frozenset(cond_indep_stack)
+            assert all(f.dim < 0 and -value.dim() <= f.dim for f in frames)
+            self[frames] = self[frames] + value if frames in self else value
+
+    def sum_to(self, target_frames):
+        total = None
+        for frames, value in self.items():
+            for f in frames:
+                if f not in target_frames and value.shape[f.dim] != 1:
+                    value = value.sum(f.dim, keepdim=True)
+            while value.dim() and value.shape[0] == 1:
+                value = value.squeeze(0)
+            total = value if total is None else total + value
+        return 0.0 if total is None else total
+
+
+def get_importance_log_probs(model, guide, args, kwargs, params):
+    """The log-probs of the guide's sample sites and of the model's,
+    replayed against the guide, by site name."""
+    model_tr, guide_tr = get_importance_trace(model, guide, args, kwargs, params)
+
+    def log_probs(trace):
+        return {n: s["log_prob"] for n, s in trace.items() if s["type"] == "sample"}
+
+    return log_probs(model_tr), log_probs(guide_tr)
+
+
+def _substitute_nonreparam(data, msg):
+    """The given value of a site that has no reparameterised sampler, made
+    to depend on the site's parameters as a draw of it does."""
+    if msg["name"] in data and not msg["fn"].has_rsample:
+        drawn = msg["fn"](*msg["args"], **msg["kwargs"])
+        return 0 * drawn + data[msg["name"]]
+
+
+def _seed0(fn, device):
+    return handlers.seed(fn, torch.Generator(device=device).manual_seed(0))
+
+
+def _get_latents(model, guide, args, kwargs, params, device):
+    """One particle's latent values (of the guide and the model), drawn from
+    a generator of seed 0 on ``device``."""
+    guide_tr = handlers.trace(
+        handlers.substitute(_seed0(guide, device), data=params)
+    ).get_trace(*args, **kwargs)
+    model_tr = handlers.trace(
+        handlers.replay(handlers.substitute(_seed0(model, device), data=params), guide_tr)
+    ).get_trace(*args, **kwargs)
+    model_tr.update(guide_tr)
+    return {
+        name: site["value"]
+        for name, site in model_tr.items()
+        if site["type"] == "sample" and not site.get("is_observed", False)
+    }
+
+
+def get_nonreparam_deps(model, guide, args, kwargs, param_map, latents=None, device=None):
+    """Which latent sites without a reparameterised sampler each log-prob
+    of the model and of the guide depends on: ``(model_deps, guide_deps)``,
+    dicts of ``frozenset``s by site name (``ops.provenance``).  ``latents``
+    (one particle's values, by default drawn from seed 0 on ``device``) only
+    give the pass its shapes: the dependencies are the same for every
+    particle."""
+    param_map = {k: v.detach() for k, v in param_map.items()}
+    if latents is None:
+        latents = _get_latents(model, guide, args, kwargs, param_map, device)
+    latents = {k: v.detach() for k, v in latents.items()}
+    if latents:
+        device = next(iter(latents.values())).device
+
+    def fn(**latents):
+        subs_fn = partial(_substitute_nonreparam, latents)
+        subs_model = handlers.substitute(_seed0(model, device), substitute_fn=subs_fn)
+        subs_guide = handlers.substitute(_seed0(guide, device), substitute_fn=subs_fn)
+        return get_importance_log_probs(subs_model, subs_guide, args, kwargs, param_map)
+
+    return eval_provenance(fn, **latents)
+
+
 class TraceGraph_ELBO(ELBO):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TraceGraph_ELBO is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+    """The ELBO with score-function terms for guide sites without a
+    reparameterised sampler (Schulman et al., "Gradient Estimation Using
+    Stochastic Computation Graphs"): each such site's score is weighted by
+    the costs downstream of it only, found by provenance tracking and summed
+    onto the site's plates (Rao-Blackwellization).
+
+    The provenance pass runs once per loss call, on one particle's latents
+    and outside the particle map (a tensor subclass inside ``vmap`` is
+    fragile): the dependencies are structural and the same for every
+    particle, where the JAX package finds them inside each particle
+    (ROADMAP.md, Queue 3)."""
+
+    can_infer_discrete = True
+
+    def loss_with_mutable_state(self, rng_key, param_map, model, guide, *args, **kwargs):
+        deps = get_nonreparam_deps(model, guide, args, kwargs, param_map,
+                                   device=rng_key.device)
+        return self._particle_mean(partial(self._particle_elbo, deps=deps), rng_key, param_map,
+                                   model, guide, args, kwargs)
+
+    def _particle_elbo(self, rng_key, param_map, model, guide, args, kwargs, deps):
+        model_deps, guide_deps = deps
+        model_trace, guide_trace = get_importance_trace(
+            handlers.seed(model, rng_key), handlers.seed(guide, rng_key), args, kwargs, param_map
         )
+        elbo = 0.0
+        # the costs downstream of each non-reparameterised site
+        downstream_costs = defaultdict(MultiFrameTensor)
+        for name, site in model_trace.items():
+            if site["type"] != "sample":
+                continue
+            elbo = elbo + site["log_prob"].sum()
+            for key in model_deps[name]:
+                downstream_costs[key].add((site["cond_indep_stack"], site["log_prob"]))
+        for name, site in guide_trace.items():
+            if site["type"] != "sample":
+                continue
+            q_lp_sum = site["log_prob"].sum()
+            if not site["fn"].has_rsample:
+                q_lp_sum = q_lp_sum.detach()
+            elbo = elbo - q_lp_sum
+            for key in guide_deps[name]:
+                downstream_costs[key].add((site["cond_indep_stack"], -site["log_prob"]))
+        for node, cost in downstream_costs.items():
+            guide_site = guide_trace[node]
+            reduced = cost.sum_to(guide_site["cond_indep_stack"])
+            surrogate = (guide_site["log_prob"] * torch.as_tensor(reduced).detach()).sum()
+            elbo = elbo + surrogate - surrogate.detach()
+        return elbo, None

@@ -55,6 +55,8 @@ __all__ = [
     "build_mass_blocks",
     "build_warmup",
     "adapt_from_numpy",
+    "covariance_factors",
+    "dual_averaging_step",
     "carry_from_numpy",
     "hmc_transition",
     "init_mass",
@@ -63,6 +65,7 @@ __all__ = [
     "nuts_transition",
     "popcount",
     "stan_windows",
+    "welford_step",
 ]
 
 # ticks between two reads of a loop's host condition (each read is a device
@@ -862,6 +865,39 @@ def _welford_init(blocks, num_chains, like):
     return _expose(blocks, means), _expose(blocks, m2s), like.new_zeros((num_chains,))
 
 
+def welford_step(mean, m2, n, x, dense):
+    """One Welford update of ``(mean, m2)`` by the sample ``x``; ``n`` is the
+    count with ``x``, broadcast against ``mean``.  The engine's per-chain
+    panels and ``hmc_util.welford_covariance`` share it."""
+    pre = x - mean
+    mean = mean + pre / n
+    post = x - mean
+    return mean, m2 + (post[..., :, None] * pre[..., None, :] if dense else post * pre)
+
+
+def covariance_factors(m2, n, dense, regularize=True):
+    """Welford's ``m2`` over ``n`` samples -> ``(cov, sqrt, sqrt_inv)``: the
+    covariance, shrunk towards ``1e-3`` times the identity when
+    ``regularize``, and the mass-matrix factors (``sqrt`` the Cholesky factor
+    of its inverse, ``sqrt_inv`` that factor's inverse).  ``n`` broadcasts
+    against ``m2``."""
+    cov = m2 / torch.clamp(n - 1, min=1)
+    if regularize:
+        shrink = (n / (n + 5.0)) * cov
+        ridge = 1e-3 * (5.0 / (n + 5.0))
+        if dense:
+            eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+            cov = shrink + ridge * eye
+        else:
+            cov = shrink + ridge
+    if dense:
+        sqrt, sqrt_inv = _precision_factors(cov)
+    else:
+        sqrt_inv = torch.sqrt(cov)
+        sqrt = 1.0 / sqrt_inv
+    return cov, sqrt, sqrt_inv
+
+
 def _welford_update(blocks, wf, z_flat):
     means, m2s, count = wf
     count = count + 1
@@ -870,11 +906,9 @@ def _welford_update(blocks, wf, z_flat):
         blocks.dense, _as_parts(blocks, means), _as_parts(blocks, m2s),
         _block_slices(blocks, z_flat),
     ):
-        pre = x - mean
-        mean = mean + pre / count[:, None]
-        post = x - mean
+        mean, m2 = welford_step(mean, m2, count[:, None], x, dense)
         new_means.append(mean)
-        new_m2s.append(m2 + (post[:, :, None] * pre[:, None, :] if dense else post * pre))
+        new_m2s.append(m2)
     return _expose(blocks, new_means), _expose(blocks, new_m2s), count
 
 
@@ -884,21 +918,8 @@ def _welford_finalize(blocks, wf, regularize=True):
     inv_p, sqrt_p, sqrt_inv_p = [], [], []
     for dense, m2 in zip(blocks.dense, _as_parts(blocks, m2s)):
         n = count.reshape(count.shape + (1,) * (m2.dim() - 1))
-        cov = m2 / torch.clamp(n - 1, min=1)
-        if regularize:
-            shrink = (n / (n + 5.0)) * cov
-            ridge = 1e-3 * (5.0 / (n + 5.0))
-            if dense:
-                eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
-                cov = shrink + ridge * eye
-            else:
-                cov = shrink + ridge
+        cov, sqrt, sqrt_inv = covariance_factors(m2, n, dense, regularize)
         inv_p.append(cov)
-        if dense:
-            sqrt, sqrt_inv = _precision_factors(cov)
-        else:
-            sqrt_inv = torch.sqrt(cov)
-            sqrt = 1.0 / sqrt_inv
         sqrt_p.append(sqrt)
         sqrt_inv_p.append(sqrt_inv)
     return _expose(blocks, inv_p), _expose(blocks, sqrt_p), _expose(blocks, sqrt_inv_p)
@@ -920,6 +941,21 @@ def _welford_pool(blocks, wf):
         _expose(blocks, pooled_means), _expose(blocks, pooled_m2s),
         count.sum().expand_as(count),
     )
+
+
+def dual_averaging_step(g, t, g_avg, x_avg, prox_center, t0=10.0, kappa=0.75, gamma=0.05):
+    """One step of Nesterov's dual averaging on the noisy gradient ``g``:
+    ``(x_t, x_avg, g_avg, t)`` after it, from the step count ``t`` (a float
+    or an integer tensor), the running gradient ``g_avg``, the averaged
+    iterate ``x_avg`` and the centre ``prox_center``.  The engine's step-size
+    warmup and ``hmc_util.dual_averaging`` share it."""
+    t = t + 1
+    n = t if t.is_floating_point() else t.to(g_avg.dtype)
+    g_avg = (1 - 1 / (n + t0)) * g_avg + g / (n + t0)
+    x_t = prox_center - torch.sqrt(n) / gamma * g_avg
+    w = n ** (-kappa)
+    x_avg = (1 - w) * x_avg + w * x_t
+    return x_t, x_avg, g_avg, t
 
 
 def _pool_step_size(ss):
@@ -960,12 +996,10 @@ def build_warmup(
             # (numpyro_tpu/infer/hmc_core.py:1011)
             pooled = torch.exp(torch.log(torch.clamp(accept_prob, min=1e-6)).mean())
             accept_prob = pooled.expand_as(accept_prob)
-        g = target_accept_prob - accept_prob
-        count = adapt.da_count + 1
-        grad_avg = (1 - 1 / (count + da_t0)) * adapt.da_grad_avg + g / (count + da_t0)
-        log_ss = adapt.da_anchor - torch.sqrt(count) / da_gamma * grad_avg
-        w = count ** (-da_kappa)
-        log_avg = (1 - w) * adapt.da_log_avg + w * log_ss
+        log_ss, log_avg, grad_avg, count = dual_averaging_step(
+            target_accept_prob - accept_prob, adapt.da_count, adapt.da_grad_avg,
+            adapt.da_log_avg, adapt.da_anchor, da_t0, da_kappa, da_gamma,
+        )
         step_size = torch.exp(log_avg if is_last else log_ss)
         finfo = torch.finfo(step_size.dtype)
         step_size = torch.clamp(step_size, finfo.tiny, finfo.max)

@@ -121,8 +121,14 @@ class SVI:
     def _advance(self, svi_state, args, kwargs, fwd_mode, stable):
         pin_full_f32_matmul()
         held_mutable = svi_state.mutable_state
+        # an optimizer that evaluates the loss many times in a step
+        # (Minimize) sees the same draws at every evaluation
+        replay = getattr(self.optim, "replays_draws", False)
+        start = svi_state.rng_key.get_state() if replay else None
 
         def loss_fn(unconstrained):
+            if replay:
+                svi_state.rng_key.set_state(start)
             site_values = self.constrain_fn(unconstrained)
             if held_mutable is not None:
                 site_values.update(held_mutable)

@@ -470,6 +470,14 @@ class _GLMLoglik(torch.autograd.Function):
         return ct[..., None] * g, None, None
 
     @staticmethod
+    def jvp(ctx, w_tangent, _data_tangent, _vg_tangent):
+        raise NotImplementedError(
+            "bernoulli_logits_loglik has no forward-mode derivative (nor has the JAX "
+            "package's custom_vjp op), so forward mode and Hessians (jacfwd over the "
+            "gradient, AutoLaplaceApproximation) cannot pass through it"
+        )
+
+    @staticmethod
     def vmap(info, in_dims, w, data, value_and_grad):
         if in_dims[0] is None:
             w = w.expand(info.batch_size, *w.shape)

@@ -12,7 +12,8 @@ dict of tensors; every update is out of place and stays on their device.
 
 ``step_size`` is a number or a callable of the step count (an ``int32``
 tensor), as optax takes it.  ``optax_to_numpyro`` (a bridge to optax) is not
-ported; ``Minimize`` waits for ``AutoLaplaceApproximation`` (ROADMAP.md).
+ported (ROADMAP.md).  ``Minimize`` runs a whole BFGS fit in one step
+(``numpyro_tpu_torch.optimize``, JAX's algorithm written out on tensors).
 """
 
 from __future__ import annotations
@@ -22,12 +23,15 @@ from collections.abc import Callable
 
 import torch
 
+from numpyro_tpu_torch.infer.hmc_core import FlatLayout
+from numpyro_tpu_torch.optimize import minimize
 from numpyro_tpu_torch.util import tree_map
 
 __all__ = [
     "Adam",
     "Adagrad",
     "ClippedAdam",
+    "Minimize",
     "Momentum",
     "RMSProp",
     "RMSPropMomentum",
@@ -316,3 +320,43 @@ def SM3(step_size=1e-3, momentum=0.9) -> _NumPyroOptim:
         return {k: u.reshape(updates[k].shape) for k, u in out.items()}, state
 
     return _NumPyroOptim(GradientTransformation(init, update))
+
+
+class Minimize:
+    """A whole minimization in one step (BFGS, ``optimize.minimize``), with
+    the state of the other optimizers: ``(step, (params, None))``.  It only
+    works through ``eval_and_update`` (``SVI.update``/``run``); every
+    evaluation of the loss in a step sees the same draws (``SVI`` replays its
+    generator for an optimizer with ``replays_draws``), as the JAX package's
+    fixed key gives.  ``minimize_kwargs`` go to ``optimize.minimize``."""
+
+    replays_draws = True
+
+    def __init__(self, method="BFGS", **minimize_kwargs):
+        self._method = method
+        self._kwargs = minimize_kwargs
+
+    def init(self, params):
+        return _count(params), (params, None)
+
+    def get_params(self, state):
+        _, (params, _) = state
+        return params
+
+    def update(self, g, state):
+        raise ValueError("Minimize optimizer only works with eval_and_update; use SVI.run")
+
+    def eval_and_update(self, fn: Callable, state, forward_mode_differentiation=False):
+        """One whole fit of ``fn(params) -> (loss, aux)`` from the current
+        params (``forward_mode_differentiation`` is ignored, as in the JAX
+        package)."""
+        step, (params, _) = state
+        layout = FlatLayout(params)
+        flat = torch.cat([params[k].reshape(-1) for k in layout.names])
+        results = minimize(lambda x: fn(layout.unravel_one(x))[0], flat, (),
+                           method=self._method, **self._kwargs)
+        params = layout.unravel_one(results.x)
+        _, aux = fn(params)
+        return (results.fun, aux), (step + 1, (params, None))
+
+    eval_and_stable_update = eval_and_update

@@ -709,3 +709,162 @@ def test_one_step_of_each_gradient_free_or_ensemble_kernel_on_the_card(cuda, ker
         out[device.type] = state
     assert out["cuda"].z.device.type == "cuda"
     _assert_trees_close(out["cpu"], out["cuda"], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# ChEES, the low-rank Normal, BFGS and TraceGraph_ELBO against the CPU
+
+
+def _chees_glm_model(data):
+    w = npt.sample("w", dist.Normal(torch.zeros(data.d, device=data.device), 1.0).to_event(1))
+    npt.factor("lik", glm.bernoulli_logits_loglik(w, data))
+
+
+@pytest.mark.requires_cuda
+def test_one_chees_transition_on_the_card_matches_the_cpu(cuda):
+    """32 chains on a 20,000 x 10 logistic regression in split mode, two
+    transitions after warmup from the same state on numpy draws: every
+    leapfrog step is one ``glm_split`` launch on the card (the plain version
+    on the CPU).  Positions and potentials at rtol 1e-4; the accept
+    probabilities at atol 1e-3, since each is the exponential of a difference
+    of two Hamiltonians of about 1.2e4, whose float32 rounding in another
+    order is about 1e-3."""
+    from numpyro_tpu_torch.infer import CheesHMC
+
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((20000, 10)).astype(np.float32)
+    true_w = (0.3 * rng.standard_normal(10)).astype(np.float32)
+    y = (rng.random(20000) < 1 / (1 + np.exp(-X @ true_w))).astype(np.float32)
+    w0 = (true_w + 0.01 * rng.standard_normal((32, 10))).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        data = glm.prepare_glm_data(torch.from_numpy(X).to(device), torch.from_numpy(y).to(device),
+                                    dtype="split")
+        kernel = CheesHMC(_chees_glm_model, step_size=0.01, trajectory_length=0.08,
+                          max_num_steps=16)
+        state = kernel.init(torch.Generator(device=device).manual_seed(0), 0,
+                            {"w": torch.from_numpy(w0).to(device)}, (data,), {}, num_chains=32)
+        state = state._replace(rng_key=NumpyDraws(7))
+        counter = "glm_split" if device.type == "cuda" else "plain"
+        for _ in range(2):
+            before = glm.launch_counts[counter]
+            state = kernel.sample(state, (data,), {})
+            # the first gradient and one launch a leapfrog step
+            assert glm.launch_counts[counter] - before == int(state.num_steps) + 1
+        out[device.type] = state
+    got, want = out["cuda"], out["cpu"]
+    assert got.z["w"].device.type == "cuda" and got.i == want.i == 2
+    assert int(got.num_steps) == int(want.num_steps)
+    assert torch.equal(got.diverging.cpu(), want.diverging)
+    _assert_trees_close((want.z, want.potential_energy, want.adapt_state),
+                        (got.z, got.potential_energy, got.adapt_state), rtol=1e-4, atol=1e-5)
+    _assert_trees_close((want.accept_prob, want.mean_accept_prob),
+                        (got.accept_prob, got.mean_accept_prob), rtol=0, atol=1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_low_rank_normal_log_prob_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(8)
+    loc = rng.standard_normal((4, 30)).astype(np.float32)
+    factor = (0.3 * rng.standard_normal((30, 5))).astype(np.float32)
+    diag = (0.5 + rng.random(30)).astype(np.float32)
+    value = rng.standard_normal((6, 4, 30)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        d = dist.LowRankMultivariateNormal(*(torch.from_numpy(a).to(device)
+                                             for a in (loc, factor, diag)))
+        out[device.type] = (d.log_prob(torch.from_numpy(value).to(device)), d.variance,
+                            d.entropy())
+    _assert_trees_close(out["cpu"], out["cuda"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_a_minimize_fit_on_the_card_matches_the_cpu(cuda):
+    """BFGS on a logistic regression's negative log likelihood (2,000 x 6) in
+    float64, where the gradient's rounding is far below gtol and both devices
+    take the same iterations, and one ``Minimize`` step of ``AutoDelta`` on
+    a conjugate model in float32."""
+    from numpyro_tpu_torch.infer import SVI, Trace_ELBO
+    from numpyro_tpu_torch.optim import Minimize
+    from numpyro_tpu_torch.optimize import minimize
+
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((2000, 6)).astype(np.float32)
+    y = (rng.random(2000) < 1 / (1 + np.exp(-X @ np.linspace(-1, 1, 6)))).astype(np.float32)
+    ys = rng.normal(2.0, 1.0, 40).astype(np.float32)
+
+    def model(ys):
+        mu = npt.sample("mu", dist.Normal(0.0, 5.0))
+        with npt.plate("N", ys.shape[0]):
+            npt.sample("y", dist.Normal(mu, 1.0), obs=ys)
+
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        Xd = torch.from_numpy(X).to(device, torch.float64)
+        yd = torch.from_numpy(y).to(device, torch.float64)
+
+        def nll(w):
+            logits = Xd @ w
+            return (torch.nn.functional.softplus(logits) - yd * logits).mean()
+
+        res = minimize(nll, torch.zeros(6, device=device, dtype=torch.float64), method="BFGS")
+        guide = autoguide.AutoDelta(model)
+        svi = SVI(model, guide, Minimize(), Trace_ELBO(), device=device)
+        fit = svi.run(0, 1, torch.from_numpy(ys).to(device))
+        out[device.type] = (res.x, res.fun, res.nit, fit.params["auto_mu_loc"], fit.losses)
+    assert out["cuda"][0].device.type == "cuda" and out["cuda"][2] == out["cpu"][2]
+    _assert_trees_close(out["cpu"], out["cuda"], rtol=1e-4, atol=1e-5)
+
+
+class _GivenDraw(dist.Distribution):
+    """``base`` whose draw is the given value (a site's value from numpy)."""
+
+    def __init__(self, base, value):
+        self.base, self.value = base, value
+        self.support, self.has_rsample = base.support, base.has_rsample
+        super().__init__(base.batch_shape, base.event_shape)
+
+    def sample(self, key, sample_shape=()):
+        return self.value
+
+    def log_prob(self, value):
+        return self.base.log_prob(value)
+
+
+@pytest.mark.requires_cuda
+def test_the_tracegraph_surrogate_gradient_on_the_card_matches_the_cpu(cuda):
+    """A plate of 64 Bernoulli latents with a reparameterised global, at the
+    same latents (numpy) on both devices: the provenance pass, the
+    Rao-Blackwellized costs and the surrogate's gradient."""
+    from numpyro_tpu_torch.infer import TraceGraph_ELBO
+
+    rng = np.random.default_rng(10)
+    data = rng.standard_normal(64).astype(np.float32)
+    z = (rng.random(64) < 0.5).astype(np.int64)
+    phi = rng.standard_normal(64).astype(np.float32)
+    eps = np.float32(0.3)
+    out = {}
+    for device in (torch.device("cpu"), cuda):
+        zd, dd = torch.from_numpy(z).to(device), torch.from_numpy(data).to(device)
+
+        def model():
+            loc = npt.sample("loc", dist.Normal(torch.zeros((), device=device), 1.0))
+            with npt.plate("N", 64):
+                zz = npt.sample("z", dist.Bernoulli(torch.full((), 0.4, device=device)))
+                npt.sample("x", dist.Normal(loc + zz, 1.0), obs=dd)
+
+        def loss(p):
+            def guide():
+                base = dist.Normal(p["m"], 0.5)
+                npt.sample("loc", _GivenDraw(base, base.loc + base.scale * eps))
+                with npt.plate("N", 64):
+                    npt.sample("z", _GivenDraw(dist.Bernoulli(logits=p["phi"]), zd))
+
+            return TraceGraph_ELBO().loss(torch.Generator(device=device).manual_seed(0), {},
+                                          model, guide)
+
+        params = {"m": torch.tensor(0.2, device=device),
+                  "phi": torch.from_numpy(phi).to(device)}
+        out[device.type] = torch.func.grad_and_value(loss)(params)
+    assert out["cuda"][1].device.type == "cuda"
+    _assert_trees_close(out["cpu"], out["cuda"], rtol=1e-4, atol=1e-5)
