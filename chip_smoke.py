@@ -137,6 +137,24 @@ Phases (each prints on its own lines; any failure exits non-zero):
                the same model from a fixed start, its MAP and standard
                deviations within ``LAPLACE_GATE`` of the JAX package's
                (``dev/chees_reference.py``, ``dev/guides_reference.py``).
+14. flows   -- the flow guides, NeuTra, DAIS and the batched guides: (a)
+               ``AutoIAFNormal`` (3 flows, hidden [55, 55], ELU) on the
+               covtype model in split mode at full size, ``IAF_RUN``: one
+               ``glm_split`` launch a step for all particles beside the init
+               traces, the mean of ``IAF_DRAWS`` draws of ``sample_posterior``
+               within ``IAF_GATE`` of the generating coefficients, one ELBO
+               gradient through the kernel against the plain version; (b)
+               NUTS with 256 chains on ``NeuTraReparam`` of (a)'s guide, one
+               launch an evaluation, ``transform_sample``'s posterior means
+               within 0.05, the potential and gradient at 256 chains through
+               the kernel against the plain version; (c) ``examples/neutra.py``'s
+               dual moon through ``AutoBNAFNormal`` and NUTS on the NeuTra
+               model, its draws on the moons' ring; (d) ``examples/dais_demo.py``'s
+               ``AutoDAIS`` beside ``AutoDiagonalNormal``, within
+               ``DAIS_GATE`` of the JAX package's run; (e)
+               ``AutoSurrogateLikelihoodDAIS`` and the two batched guides on
+               the models of ``tests/infer/test_autoguide_extra.py``, within
+               0.3 (``dev/flows_reference.py``).  (c)-(e) launch no kernel.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -144,6 +162,7 @@ The last two lines are a JSON summary of the kernels and
 
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -166,11 +185,13 @@ from numpyro_tpu_torch.infer import (
     init_to_value, log_likelihood,
 )
 from numpyro_tpu_torch.infer import autoguide
-from numpyro_tpu_torch.infer.reparam import LocScaleReparam
+from numpyro_tpu_torch.infer.reparam import LocScaleReparam, NeuTraReparam
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
+from numpyro_tpu_torch.infer.mcmc import POSTPROCESS_CHUNK
 from numpyro_tpu_torch.ops import _cuda, glm
 from numpyro_tpu_torch.optim import Adam, Minimize
+from numpyro_tpu_torch.util import tree_leaves
 
 N, D, CHAINS = 581_012, 55, 256
 # tolerances of kernel against plain version (their reasons stand with
@@ -417,6 +438,64 @@ LAPLACE_START = {"mu": 0.0, "tau": 1.0, "theta_decentered": 0.0}
 LAPLACE_MAP = (1.4329, 3.3664, 0.7231, 0.2025, -0.1172, 0.1679, -0.0766, -0.0131, 0.5109, 0.2631)
 LAPLACE_STD = (4.9267, 0.9397, 0.5862, 0.3672, 0.5098, 0.3857, 0.35, 0.3862, 0.4786, 0.5435)
 LAPLACE_GATE = 0.05
+
+# phase 14, the flow guides, NeuTra, DAIS and the batched guides.  Its budget
+# is 30 s on a host where phase 6's main leg takes 24.0 ms per evaluation.
+# (a) AutoIAFNormal on covtype in split mode: 3 flows of hidden widths [D, D]
+# and ELU, Trace_ELBO's particles and steps (Adam(0.01), as phase 8); the draws of
+# sample_posterior whose mean is gated; the model traces of SVI.init that
+# launch the kernel (the guide's prototype trace and the potential of its
+# init search, then SVI.init's trace of the model)
+IAF_RUN = (4, 300)
+IAF_DRAWS = 1000
+IAF_INIT_TRACES = 3
+# max(2e, e + 0.05), the rule of HS_GATE, for e = 0.0256, the largest over
+# keys 0-2 of the JAX package's own run at IAF_RUN (0.0256, 0.0254, 0.0245:
+# 300 steps leave its fit short of the MAP; `JAX_PLATFORMS=cpu python3 -m
+# dev.flows_reference iaf`, 50 s a key on the CPU)
+IAF_GATE = 0.0756
+# (b) NUTS on NeuTraReparam(14a's guide): chains, warmup, samples, tree
+# depths in warmup and sampling, the covtype gate (bench.py:268-272)
+NEUTRA_RUN = (256, 50, 10, (3, 4), 0.05)
+# (c) examples/neutra.py's dual moon: SVI steps of AutoBNAFNormal(hidden
+# factors [8, 8]) at the example's Adam(3e-3), then NUTS on the NeuTra model:
+# chains, warmup, samples, depths; the least share of draws on the moons'
+# ring (| |x| - 2 | under three of its widths, 0.4).  The share of draws
+# with x0 > 0 is printed, not gated: reverse KL puts the BNAF fit on one
+# moon for about half of the seeds (5 of 10 at 500 steps in a CPU run), and
+# the JAX package's own run of the example visits one moon (share 1.00 at
+# its defaults), so only the ring is gated
+DUAL_MOON = (200, 3e-3, 64, 20, 10, (3, 4), 0.9)
+# (d) examples/dais_demo.py's correlated logistic regression (100 rows): SVI
+# steps at the example's Adam(5e-3) of AutoDiagonalNormal and
+# AutoDAIS(K=4, eta_init=0.01), both started at w = 0 (init_to_value, so that
+# runs differ only in their noise), Trace_ELBO's particles, draws of
+# sample_posterior.  At 100 steps the annealing's step size grows in most
+# runs and stays clipped at 0 in some (then the fit is a mean-field one):
+# with 8 particles in 3 of 100 of the JAX package's runs and 13 of 100 of
+# the port's, with 16 in 0 of 40 and 1 of 40 (CPU; `dev.flows_reference
+# dais_spread`, `dev.dais_spread`; both packages' steps agree on the same
+# draws, tests/test_torch_dais.py).  The reference: the JAX package's own
+# AutoDAIS run at this configuration, key 0 (the posterior mean and sd of
+# each coordinate of w's draws, and their correlation); the gates
+# max(2e, e + 0.05), the rule of HS_GATE, for e the largest gap of keys 1-4
+# to key 0: 0.0196 in the mean and sd, 0.1365 in the correlation.  The
+# example's point is that the annealing recovers the correlation mean-field
+# misses: the JAX package's mean-field runs miss both gates (mean and sd
+# 0.133-0.140 off, correlation 0.387-0.433 off), and so must the port's
+# (`JAX_PLATFORMS=cpu python3 -m dev.flows_reference dais 0 1 2 3 4`)
+DAIS_DEMO = (100, 100, 5e-3, 16, 1000)
+DAIS_GATE = {"mean": (0.222, 0.2351), "sd": (0.2004, 0.2098), "corr": -0.4115,
+             "gate": 0.0696, "corr_gate": 0.2729}
+# (e) tests/infer/test_autoguide_extra.py's models: steps, Adam step size
+# and Trace_ELBO's particles of AutoSurrogateLikelihoodDAIS (K=2) on
+# sum_model and of the two batched guides on batched_model (their step size
+# decays from 0.1, so that 100 steps reach the optimum and settle there);
+# those tests' gate.  In a CPU rehearsal over five seeds the largest gaps
+# were 0.154 (surrogate) and 0.162 (batched)
+SMALL_GUIDES = {"surrogate": (150, 0.05, 4), "batched_mvn": (100, "decay", 4),
+                "batched_lowrank": (100, "decay", 4)}
+SMALL_GATE = 0.3
 
 
 _T0 = time.perf_counter()
@@ -1546,8 +1625,13 @@ def run_svi(tag, model_fn, guide, loss, steps, *args):
     losses = res.losses.cpu()
     ms = (time.perf_counter() - t0) / steps * 1e3
     launches = {k: v - init_launches[k] for k, v in glm.launch_counts.items()}
-    if res.losses.device.type != "cuda" or not torch.isfinite(losses).all():
-        raise SystemExit(f"{tag}: the losses are not finite values on the GPU")
+    if res.losses.device.type != svi.device.type:
+        raise SystemExit(f"{tag}: the losses are on {res.losses.device}, not on the run's device")
+    bad = (~torch.isfinite(losses)).nonzero().flatten()
+    if len(bad):
+        raise SystemExit(f"{tag}: {len(bad)} of {steps} losses are not finite, the first at step "
+                         f"{bad[0].item()} ({losses[bad[0]].item()}; the step before "
+                         f"{losses[bad[0] - 1].item() if bad[0] else 'none'})")
     log(f"[svi] {tag}: {steps} steps, {ms:.2f} ms per step on the host's clock; loss mean of "
         f"the first 100 {losses[:100].mean().item():.2f}, of the last 100 "
         f"{losses[-100:].mean().item():.2f}; launches at init {init_launches}, in the "
@@ -1591,30 +1675,33 @@ def phase_svi_covtype(X, y, true_w, leg, posterior):
     return svi, res, data, step_l["glm_split"] + init_l["glm_split"], ms
 
 
-def check_elbo_gradient(svi, res, data):
-    """One Trace_ELBO gradient at 8b's params through ``glm_split`` and
-    through the plain version, on the same draws (two generators from one
-    seed); returns the gradient's max abs error."""
+def check_elbo_gradient(svi, res, data, particles=SVI_LEGS["8b"][1], tag="8b"):
+    """One Trace_ELBO gradient at a fitted guide's params through
+    ``glm_split`` and through the plain version, on the same draws (two
+    generators from one seed); returns the gradient's max abs error."""
     u = svi.optim.get_params(res.state.optim_state)
-    loss = Trace_ELBO(num_particles=SVI_LEGS["8b"][1])
+    loss = Trace_ELBO(num_particles=particles)
     out = {}
     model_plain = functools.partial(model, loglik=glm.plain_bernoulli_logits_loglik)
-    for tag, model_fn in (("kernel", model), ("plain", model_plain)):
+    for version, model_fn in (("kernel", model), ("plain", model_plain)):
         def fn(unconstrained, model_fn=model_fn):
             gen = torch.Generator(device=data.device).manual_seed(21)
             return loss.loss(gen, svi.constrain_fn(unconstrained), model_fn, svi.guide, data)
 
-        out[tag] = torch.func.grad_and_value(fn)(u)
+        out[version] = torch.func.grad_and_value(fn)(u)
     torch.cuda.synchronize()
     (g_k, l_k), (g_p, l_p) = out["kernel"], out["plain"]
     ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", N)
     l_rel = (abs(l_k - l_p) / abs(l_p)).item()
-    errs = {k: (g_k[k] - g_p[k]).abs().max().item() for k in g_k}
-    need = max((((g_k[k] - g_p[k]).abs() - g_rtol * g_p[k].abs()).max().item() for k in g_k))
-    log(f"[svi] ELBO gradient at 8b's params, glm_split against the plain version: loss rel "
-        f"err {l_rel:.3e} (rtol {ll_rtol}); gradient max abs err {errs} on components up to "
-        f"{max(g_p[k].abs().max().item() for k in g_p):.3e} (rtol {g_rtol}, atol {g_atol:.3e}; "
-        f"the least atol that passes: {need:.3e})")
+    # a guide's param may be a tree (a network's layers): compare its leaves
+    pairs = {k: list(zip(tree_leaves(g_k[k]), tree_leaves(g_p[k]))) for k in g_k}
+    errs = {k: max((a - b).abs().max().item() for a, b in v) for k, v in pairs.items()}
+    need = max(((a - b).abs() - g_rtol * b.abs()).max().item()
+               for v in pairs.values() for a, b in v)
+    top = max(b.abs().max().item() for v in pairs.values() for _, b in v)
+    log(f"[svi] ELBO gradient at {tag}'s params, glm_split against the plain version: loss "
+        f"rel err {l_rel:.3e} (rtol {ll_rtol}); gradient max abs err {errs} on components up to "
+        f"{top:.3e} (rtol {g_rtol}, atol {g_atol:.3e}; the least atol that passes: {need:.3e})")
     if not (l_rel <= ll_rtol and need <= g_atol):
         raise SystemExit("the ELBO gradient through glm_split disagrees with the plain version")
     return max(errs.values())
@@ -1669,6 +1756,272 @@ def phase_svi(X, y, true_w, posterior, kernels):
         raise SystemExit(f"8e: median of beta off by {err:.4f} (>= {HS_SVI_GATE})")
     log(f"[svi] ms per step: {summary}")
     return launches, w_map
+
+
+def phase_iaf(X, y, true_w):
+    """14a: AutoIAFNormal on the covtype model in split mode; returns the
+    guide, its result, the data, the leg's glm_split launches and ms per
+    step."""
+    particles, steps = IAF_RUN
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    guide = autoguide.AutoIAFNormal(model, num_flows=3, hidden_dims=[D, D])
+    svi, res, losses, init_l, step_l, ms = run_svi(
+        f"14a AutoIAFNormal (3 flows, hidden [{D}, {D}], ELU), {particles} particles", model,
+        guide, Trace_ELBO(num_particles=particles), steps, data)
+    t0 = time.perf_counter()
+    draws = guide.sample_posterior(torch.Generator(device=X.device).manual_seed(14),
+                                   res.params, sample_shape=(IAF_DRAWS,))["w"]
+    draw_s = time.perf_counter() - t0
+    if draws.shape != (IAF_DRAWS, D) or not torch.isfinite(draws).all():
+        raise SystemExit(f"14a: bad draws, shape {tuple(draws.shape)}")
+    err = (draws.mean(0).cpu() - torch.from_numpy(true_w)).abs().max().item()
+    std = draws.double().std(0)
+    log(f"[flows] 14a: {IAF_DRAWS} draws of sample_posterior in {draw_s:.2f} s; max |mean(w) - "
+        f"true_w| {err:.4f} (gate {IAF_GATE}); draws' std median {std.median().item():.5f} "
+        f"(min {std.min().item():.5f}, max {std.max().item():.5f}); loss of the first 50 "
+        f"{losses[:50].mean().item():.2f}, of the last 50 {losses[-50:].mean().item():.2f}")
+    if init_l["glm_split"] != IAF_INIT_TRACES or step_l["glm_split"] != steps or any(
+            v for k, v in {**init_l, **step_l}.items() if k != "glm_split"):
+        raise SystemExit(f"14a: launched {init_l} at init and {step_l} in {steps} steps, "
+                         f"expected {IAF_INIT_TRACES} and {steps} glm_split launches")
+    if not err < IAF_GATE:
+        raise SystemExit(f"14a: the guide's posterior mean is off by {err:.4f} (>= {IAF_GATE})")
+    check_elbo_gradient(svi, res, data, particles, "14a")
+    return guide, res, data, init_l["glm_split"] + step_l["glm_split"], ms
+
+
+def phase_neutra(X, y, true_w, guide, params, data, nuts):
+    """14b: NUTS on the covtype model reparameterised through 14a's flow;
+    returns its glm_split launches (``nuts``: phase 4's split-mode stats)."""
+    chains, warmup, samples, depth, gate = NEUTRA_RUN
+    neutra = NeuTraReparam(guide, params)
+    neutra_model = neutra.reparam(model)
+    mcmc = MCMC(NUTS(neutra_model, max_tree_depth=depth), num_warmup=warmup,
+                num_samples=samples, num_chains=chains)
+    before = dict(glm.launch_counts)
+    mcmc.run(torch.Generator(device=X.device).manual_seed(14), data)
+    launches = {k: v - before[k] for k, v in glm.launch_counts.items()}
+    stats = mcmc.last_run_stats
+    got = mcmc.get_samples(group_by_chain=True)
+    z = got["w_shared_latent"]
+    w = neutra.transform_sample(z)["w"]
+    if w.shape != (chains, samples, D) or not torch.isfinite(w).all():
+        raise SystemExit(f"14b: bad draws, shape {tuple(w.shape)}")
+    if not torch.allclose(w, got["w"], rtol=1e-5, atol=1e-6):
+        raise SystemExit("14b: transform_sample disagrees with the run's deterministic w")
+    err = (w.mean((0, 1)).cpu() - torch.from_numpy(true_w)).abs().max().item()
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    wall = stats["warmup_s"] + stats["sample_s"]
+    per_draw = stats["potential_evals_sample"] / samples
+    # the deterministic site w is replayed after the run, one vmap (and one
+    # launch) per chunk of draws
+    replays = math.ceil(chains * samples / POSTPROCESS_CHUNK)
+    nuts_per_draw = nuts["potential_evals_sample"] / RUNS["glm_split"][1]
+    log(f"[flows] 14b NUTS on NeuTraReparam(14a), covtype split mode, {chains} chains, "
+        f"{warmup} + {samples}, depths {depth}: init {stats['init_s']:.2f} s, warmup "
+        f"{stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s; evaluations "
+        f"{stats['potential_evals_warmup']} + {stats['potential_evals_sample']} + "
+        f"{stats['init_traces']} init trace(s) + {replays} replay(s) of the draws; glm_split "
+        f"launches {launches['glm_split']}; "
+        f"{wall / evals * 1e3:.2f} ms per evaluation against phase 4's "
+        f"{nuts['ms_per_eval']:.2f}; {per_draw:.1f} evaluations a sampling transition against "
+        f"phase 4's {nuts_per_draw:.1f}; max |mean(w) - true_w| {err:.4f} (gate {gate})")
+    if launches["glm_split"] != stats["potential_evals"] + stats["init_traces"] + replays or any(
+            v for k, v in launches.items() if k != "glm_split"):
+        raise SystemExit(f"14b: launched {launches} for {stats['potential_evals']} evaluations, "
+                         f"{stats['init_traces']} init trace(s) and {replays} replay(s)")
+    if not err < gate:
+        raise SystemExit(f"14b: posterior means off by {err:.4f} (>= {gate})")
+
+    # the potential and its gradient at the last draws of all chains,
+    # through glm_split and through the plain version (not counted)
+    layout = FlatLayout({"w_shared_latent": z[0, 0]})
+    panel = z[:, -1].contiguous()
+    out = {}
+    plain_model = neutra.reparam(functools.partial(model, loglik=glm.plain_bernoulli_logits_loglik))
+    for tag, fn in (("kernel", neutra_model), ("plain", plain_model)):
+        pe_fn, _ = infer_util.get_potential_fn(fn, {}, model_args=(data,))
+        out[tag] = batched_potential(pe_fn, layout)(panel)
+    torch.cuda.synchronize()
+    (pe_k, g_k), (pe_p, g_p) = out["kernel"], out["plain"]
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", N)
+    pe_rel = ((pe_k - pe_p).abs() / pe_p.abs()).max().item()
+    need = ((g_k - g_p).abs() - g_rtol * g_p.abs()).max().item()
+    log(f"[flows] 14b potential at {chains} chains through glm_split against the plain "
+        f"version: max rel err {pe_rel:.3e} (rtol {ll_rtol}); gradient max abs err "
+        f"{(g_k - g_p).abs().max().item():.3e} on components up to "
+        f"{g_p.abs().max().item():.3e} (rtol {g_rtol}, atol {g_atol:.3e}; the least atol that "
+        f"passes: {need:.3e})")
+    if not (pe_rel <= ll_rtol and need <= g_atol):
+        raise SystemExit("14b: the NeuTra potential through glm_split disagrees with the plain "
+                         "version")
+    return launches["glm_split"]
+
+
+def dual_moon(zeros):
+    """``examples/neutra.py``'s model: two half-moons at x0 = +-2."""
+    x = npt.sample("x", dist.Normal(zeros, 10.0).to_event(1))
+    term1 = 0.5 * ((torch.linalg.vector_norm(x, dim=-1) - 2) / 0.4) ** 2
+    # the example's log(sum over the shifts -2 and 2 of exp(term2))
+    left, right = (-0.5 * ((x[..., 0] + shift) / 0.6) ** 2 for shift in (-2.0, 2.0))
+    npt.factor("dual_moon", -(term1 - torch.log(torch.exp(left) + torch.exp(right))))
+
+
+def dais_demo_data(n, device):
+    """``examples/dais_demo.py``'s strongly correlated design, numpy seed 0."""
+    rng = np.random.RandomState(0)
+    base = rng.randn(n, 1)
+    X = np.concatenate([base + 0.1 * rng.randn(n, 1), base + 0.1 * rng.randn(n, 1)], 1)
+    y = (rng.rand(n) < 0.5).astype(np.float32)
+    return (torch.tensor(X, dtype=torch.float32, device=device),
+            torch.tensor(y, device=device))
+
+
+def dais_demo_model(X, y):
+    w = npt.sample("w", dist.Normal(torch.zeros(X.shape[1], device=X.device), 1.0).to_event(1))
+    with npt.plate("N", X.shape[0]):
+        npt.sample("y", dist.Bernoulli(logits=X @ w), obs=y)
+
+
+def sum_model(y):
+    """``tests/infer/test_autoguide_extra.py``'s model: the posterior mean
+    of x0 + x1 given y = 2 is 16 / 9."""
+    x = npt.sample("x", dist.Normal(torch.zeros(2, device=y.device), 1.0).to_event(1))
+    npt.sample("y", dist.Normal(x.sum(), 0.5), obs=y)
+
+
+def sum_surrogate(y):
+    """A surrogate likelihood of ``sum_model`` with a learned scale."""
+    def surrogate():
+        x = npt.sample("x", dist.Normal(torch.zeros(2, device=y.device), 1.0).to_event(1))
+        s = npt.param("surrogate_scale", torch.tensor(0.7, device=y.device),
+                      constraint=dist.constraints.positive)
+        npt.sample("y", dist.Normal(x.sum(), s), obs=y)
+
+    return surrogate
+
+
+def batched_model(y):
+    with npt.plate("B", 3):
+        x = npt.sample("x", dist.Normal(torch.zeros(2, device=y.device), 1.0).to_event(1))
+        npt.sample("y", dist.Normal(x.sum(-1), 0.5), obs=y)
+
+
+def phase_flow_examples(device):
+    """14c-e: the dual moon through a BNAF flow, the DAIS demo, and the
+    surrogate DAIS and batched guides; returns their wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    # (c) the dual moon
+    steps, lr, chains, warmup, samples, depth, on_ring = DUAL_MOON
+    zeros = torch.zeros(2, device=device)
+    guide = autoguide.AutoBNAFNormal(dual_moon, hidden_factors=[8, 8])
+    t = time.perf_counter()
+    res = SVI(dual_moon, guide, Adam(lr), Trace_ELBO()).run(141, steps, zeros)
+    losses = res.losses.cpu()
+    svi_s = time.perf_counter() - t
+    neutra = NeuTraReparam(guide, res.params)
+    mcmc = MCMC(NUTS(neutra.reparam(dual_moon), max_tree_depth=depth), num_warmup=warmup,
+                num_samples=samples, num_chains=chains)
+    mcmc.run(142, zeros)
+    stats = mcmc.last_run_stats
+    x = neutra.transform_sample(mcmc.get_samples()["x_shared_latent"])["x"]
+    share = (x[:, 0] > 0).double().mean().item()
+    ring = ((torch.linalg.vector_norm(x, dim=-1) - 2).abs() < 3 * 0.4).double().mean().item()
+    wall_c = time.perf_counter() - t
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    log(f"[flows] 14c dual moon: AutoBNAFNormal {steps} steps in {svi_s:.2f} s "
+        f"({svi_s / steps * 1e3:.2f} ms a step), loss {losses[:20].mean().item():.2f} -> "
+        f"{losses[-20:].mean().item():.2f}; NUTS on the NeuTra model, {chains} chains, {warmup} + "
+        f"{samples}, depths {depth}: {stats['warmup_s'] + stats['sample_s']:.2f} s, {evals} "
+        f"evaluations ({(stats['warmup_s'] + stats['sample_s']) / evals * 1e3:.2f} ms each); "
+        f"share of draws with x0 > 0: {share:.3f} (not gated); share on the ring {ring:.3f} "
+        f"(gate {on_ring}); {wall_c:.2f} s")
+    if not (torch.isfinite(x).all() and ring >= on_ring
+            and losses[-20:].mean() < losses[:20].mean()):
+        raise SystemExit(f"14c: {ring:.3f} of the draws on the moons' ring (< {on_ring}) or the "
+                         "loss did not fall")
+
+    # (d) the DAIS demo
+    n, steps, lr, particles, draws = DAIS_DEMO
+    X, y = dais_demo_data(n, device)
+    start = init_to_value(values={"w": torch.zeros(2, device=device)})
+    t = time.perf_counter()
+    gaps = {}
+    for name, guide in (
+            ("mean-field", autoguide.AutoDiagonalNormal(dais_demo_model, init_loc_fn=start)),
+            ("AutoDAIS", autoguide.AutoDAIS(dais_demo_model, K=4, eta_init=0.01,
+                                            init_loc_fn=start))):
+        ts = time.perf_counter()
+        res = SVI(dais_demo_model, guide, Adam(lr), Trace_ELBO(num_particles=particles)).run(
+            143, steps, X, y)
+        w = guide.sample_posterior(torch.Generator(device=device).manual_seed(144), res.params,
+                                   sample_shape=(draws,))["w"].double()
+        if not torch.isfinite(w).all():
+            raise SystemExit(f"14d: {name}'s draws are not finite")
+        mean, sd = w.mean(0).cpu().numpy(), w.std(0).cpu().numpy()
+        corr = torch.corrcoef(w.T)[0, 1].item()
+        gaps[name] = (max(np.abs(mean - np.asarray(DAIS_GATE["mean"])).max(),
+                          np.abs(sd - np.asarray(DAIS_GATE["sd"])).max()),
+                      abs(corr - DAIS_GATE["corr"]))
+        log(f"[flows] 14d {name}, {particles} particles: {steps} steps and {draws} draws in "
+            f"{time.perf_counter() - ts:.2f} s; final loss {res.losses[-20:].mean().item():.2f}; "
+            f"posterior mean {np.round(mean, 4).tolist()}, sd {np.round(sd, 4).tolist()}, "
+            f"correlation {corr:.4f}; gaps to the JAX package's AutoDAIS: mean and sd "
+            f"{gaps[name][0]:.4f} (gate {DAIS_GATE['gate']}), correlation {gaps[name][1]:.4f} "
+            f"(gate {DAIS_GATE['corr_gate']})")
+    wall_d = time.perf_counter() - t
+    inside = {k: v[0] < DAIS_GATE["gate"] and v[1] < DAIS_GATE["corr_gate"]
+              for k, v in gaps.items()}
+    log(f"[flows] 14d within the gates: {inside}; {wall_d:.2f} s")
+    if not inside["AutoDAIS"]:
+        raise SystemExit(f"14d: AutoDAIS's posterior is off the JAX package's: {gaps}")
+    if inside["mean-field"]:
+        raise SystemExit("14d: the mean-field guide passes the DAIS gates, which then cannot "
+                         "tell the annealing from a mean-field fit")
+
+    # (e) the surrogate DAIS guide and the batched guides
+    walls = {}
+    y2 = torch.tensor(2.0, device=device)
+    yb = torch.tensor([1.0, 2.0, -1.0], device=device)
+    legs = {
+        "surrogate": (sum_model, autoguide.AutoSurrogateLikelihoodDAIS(
+            sum_model, sum_surrogate(y2), K=2), y2, 16 / 9),
+        "batched_mvn": (batched_model, autoguide.AutoBatchedMultivariateNormal(
+            batched_model, batch_ndim=1), yb, 2 * yb.cpu() / 2.25),
+        "batched_lowrank": (batched_model, autoguide.AutoBatchedLowRankMultivariateNormal(
+            batched_model, batch_ndim=1), yb, 2 * yb.cpu() / 2.25),
+    }
+    for leg, (model_fn, guide, obs, want) in legs.items():
+        steps, lr, particles = SMALL_GUIDES[leg]
+        if lr == "decay":
+            lr = lambda i: 0.1 / (1 + i / 20)  # noqa: E731
+        ts = time.perf_counter()
+        res = SVI(model_fn, guide, Adam(lr), Trace_ELBO(num_particles=particles)).run(
+            145, steps, obs)
+        if leg == "surrogate":
+            s = guide.sample_posterior(torch.Generator(device=device).manual_seed(146),
+                                       res.params, sample_shape=(500,))
+            got = s["x"].sum(-1).mean().cpu()
+        else:
+            got = guide.median(res.params)["x"].sum(-1).cpu()
+        walls[leg] = time.perf_counter() - ts
+        gap = (torch.as_tensor(got) - torch.as_tensor(want)).abs().max().item()
+        scale = res.params["surrogate_scale"].item() if leg == "surrogate" else None
+        extra = ("" if scale is None else
+                 f"; surrogate scale {scale:.4f} (initial 0.7, no gradient)")
+        log(f"[flows] 14e {leg}: {steps} steps in {walls[leg]:.2f} s; x0 + x1 "
+            f"{np.round(np.atleast_1d(got.numpy()), 4).tolist()} against "
+            f"{np.round(np.atleast_1d(np.asarray(want)), 4).tolist()}, gap {gap:.4f} (gate "
+            f"{SMALL_GATE}){extra}")
+        if not (torch.isfinite(res.losses).all() and gap < SMALL_GATE):
+            raise SystemExit(f"14e: {leg} is off by {gap:.4f}")
+        if scale is not None and abs(scale - 0.7) > 1e-6:
+            raise SystemExit(f"14e: the surrogate's param moved to {scale:.4f}; like the JAX "
+                             "package's it gets no gradient")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("14c-e: a leg launched a GLM kernel")
+    return time.perf_counter() - t0
 
 
 def main():
@@ -1731,10 +2084,23 @@ def main():
     log(f"[chees/guides] phase 13: {wall:.1f} s, about {wall * 24.0 / ecs['ms_per_eval']:.1f} s "
         f"on a host where the ECS leg takes 24.0 ms per evaluation (here "
         f"{ecs['ms_per_eval']:.2f}; budget 20 s)")
+    t14 = time.perf_counter()
+    guide, res, iaf_data, iaf_launches, iaf_ms = phase_iaf(X, y, true_w)
+    t14b = time.perf_counter()
+    neutra_launches = phase_neutra(X, y, true_w, guide, res.params, iaf_data, split)
+    wall_b = time.perf_counter() - t14b
+    del iaf_data
+    wall_ce = phase_flow_examples(device)
+    wall = time.perf_counter() - t14
+    log(f"[flows] phase 14: {wall:.1f} s (14a {t14b - t14:.1f} s at {iaf_ms:.2f} ms a step, "
+        f"14b {wall_b:.1f} s, 14c-e {wall_ce:.1f} s), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 30 s); glm_split launches 14a {iaf_launches}, 14b {neutra_launches}")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (
-            svi_launches + chees_launches if name == "glm_split" else 0)
+            svi_launches + chees_launches + iaf_launches + neutra_launches
+            if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
     if dense_counts["glm_split"] == 0:

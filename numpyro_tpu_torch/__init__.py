@@ -9,9 +9,9 @@ on first use.  The package imports ``torch`` and never ``jax``.
 
 from numpyro_tpu_torch import distributions, handlers
 from numpyro_tpu_torch.primitives import (
-    deterministic, factor, get_mask, mutable, param, plate, prng_key, sample, subsample,
+    deterministic, factor, get_mask, module, mutable, param, plate, prng_key, sample, subsample,
 )
-from numpyro_tpu_torch import diagnostics, infer, ops, optim
+from numpyro_tpu_torch import diagnostics, infer, nn, ops, optim
 
 __version__ = "0.1.0"
 
@@ -24,7 +24,9 @@ __all__ = [
     "get_mask",
     "handlers",
     "infer",
+    "module",
     "mutable",
+    "nn",
     "ops",
     "optim",
     "param",

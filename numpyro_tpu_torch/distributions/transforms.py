@@ -2,10 +2,11 @@
 of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
 identity, independent, compose, affine, exp, sigmoid, softplus and
 stick-breaking transforms, the lower-Cholesky transforms, ``UnpackTransform``
-and ``LowerCholeskyAffine``; ``biject_to`` for ``real``, ``independent``,
-``positive``/``nonnegative``, ``greater_than``/``greater_than_eq``,
-``softplus_positive``, ``lower_cholesky``, ``scaled_unit_lower_cholesky``,
-``simplex`` and ``unit_interval``).
+and ``LowerCholeskyAffine``, ``PermuteTransform`` and ``ReshapeTransform``;
+``biject_to`` for ``real``, ``independent``, ``positive``/``nonnegative``,
+``greater_than``/``greater_than_eq``, ``softplus_positive``,
+``lower_cholesky``, ``scaled_unit_lower_cholesky``, ``simplex``,
+``unit_interval`` and ``interval``).
 Other constraints
 raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
 
@@ -17,7 +18,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from numpyro_tpu_torch.util import HostArray
 
 from . import constraints
 from .util import broadcast_shape, sum_rightmost
@@ -30,6 +34,8 @@ __all__ = [
     "IndependentTransform",
     "LowerCholeskyAffine",
     "LowerCholeskyTransform",
+    "PermuteTransform",
+    "ReshapeTransform",
     "ScaledUnitLowerCholeskyTransform",
     "SigmoidTransform",
     "SoftplusTransform",
@@ -633,6 +639,85 @@ class LowerCholeskyAffine(Transform):
     __hash__ = Transform.__hash__
 
 
+class PermuteTransform(Transform):
+    """Permute the last axis: ``y = x[..., permutation]``."""
+
+    domain = constraints.real_vector
+    codomain = constraints.real_vector
+
+    def __init__(self, permutation):
+        self.permutation = np.asarray(permutation, dtype=np.int64)
+        self._forward = HostArray(self.permutation)
+        self._undo = HostArray(np.argsort(self.permutation))
+
+    def __call__(self, x):
+        return x[..., self._forward.on(x.device)]
+
+    def _inverse(self, y):
+        return y[..., self._undo.on(y.device)]
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return x.new_zeros(tuple(x.shape[:-1]))
+
+    def __eq__(self, other):
+        return type(self) is type(other) and np.array_equal(self.permutation,
+                                                            other.permutation)
+
+    __hash__ = Transform.__hash__
+
+
+class ReshapeTransform(Transform):
+    """Reshape the rightmost dims from ``inverse_shape`` to
+    ``forward_shape``."""
+
+    def __init__(self, forward_shape, inverse_shape):
+        if math.prod(forward_shape) != math.prod(inverse_shape):
+            raise ValueError("shape sizes must match")
+        self._forward_shape = tuple(forward_shape)
+        self._inverse_shape = tuple(inverse_shape)
+
+    @property
+    def domain(self):
+        return constraints.independent(constraints.real, len(self._inverse_shape))
+
+    @property
+    def codomain(self):
+        return constraints.independent(constraints.real, len(self._forward_shape))
+
+    @staticmethod
+    def _swap_event(shape, source, target):
+        shape = tuple(shape)
+        keep = len(shape) - len(source)
+        if keep < 0 or shape[keep:] != source:
+            raise ValueError(f"cannot reshape {shape}")
+        return shape[:keep] + target
+
+    def forward_shape(self, shape):
+        return self._swap_event(shape, self._inverse_shape, self._forward_shape)
+
+    def inverse_shape(self, shape):
+        return self._swap_event(shape, self._forward_shape, self._inverse_shape)
+
+    def __call__(self, x):
+        return x.reshape(self.forward_shape(x.shape))
+
+    def _inverse(self, y):
+        return y.reshape(self.inverse_shape(y.shape))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        keep = x.dim() - len(self._inverse_shape)
+        return x.new_zeros(tuple(x.shape[:keep]))
+
+    def __eq__(self, other):
+        return (
+            type(self) is type(other)
+            and self._forward_shape == other._forward_shape
+            and self._inverse_shape == other._inverse_shape
+        )
+
+    __hash__ = Transform.__hash__
+
+
 class ConstraintRegistry:
     """constraint type -> factory of the transform onto that constraint."""
 
@@ -684,6 +769,14 @@ del _c
 # so its row stands beside the half-line rows, as in the JAX package
 biject_to.register(constraints.softplus_positive, lambda c: SoftplusTransform())
 biject_to.register(constraints.unit_interval, lambda c: SigmoidTransform())
+biject_to.register(
+    constraints.interval,
+    lambda c: ComposeTransform([
+        SigmoidTransform(),
+        AffineTransform(c.lower_bound, c.upper_bound - c.lower_bound,
+                        domain=constraints.unit_interval),
+    ]),
+)
 biject_to.register(constraints.simplex, lambda c: StickBreakingTransform())
 biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
 biject_to.register(

@@ -1,8 +1,12 @@
 """Automatic guides for SVI (port of ``AutoGuide``, ``AutoGuideList``,
 ``AutoNormal``, ``AutoDelta``, ``AutoContinuous``, ``AutoDiagonalNormal``,
-``AutoMultivariateNormal``, ``AutoLowRankMultivariateNormal`` and
-``AutoLaplaceApproximation`` from ``numpyro_tpu/infer/autoguide.py``; the
-other guides are listed in ROADMAP.md).
+``AutoMultivariateNormal``, ``AutoLowRankMultivariateNormal``,
+``AutoLaplaceApproximation``, the flow guides ``AutoIAFNormal`` and
+``AutoBNAFNormal``, the DAIS guides ``AutoDAIS`` and
+``AutoSurrogateLikelihoodDAIS``, and the batched guides
+``AutoBatchedMultivariateNormal`` and ``AutoBatchedLowRankMultivariateNormal``
+from ``numpyro_tpu/infer/autoguide.py``; ``AutoSemiDAIS`` is listed in
+ROADMAP.md and raises when made).
 
 A guide traces its model once (the prototype), recreates the model's plates
 with their subsample sizes, and declares its parameters with ``param``.  The
@@ -14,24 +18,41 @@ One departure from the JAX package: there ``AutoContinuous`` samples its
 packed latent from ``posterior.mask(False)``, which drops ``log q`` from the
 guide's density (the ELBO then has no entropy term and the scales collapse
 towards zero).  Here the packed latent is an auxiliary site with its full log
-density, as in NumPyro (ROADMAP.md, Queue 3).
+density, as in NumPyro (ROADMAP.md, Queue 3).  The flow guides take it from
+the intermediates of ``TransformedDistribution.sample_with_intermediates``,
+so the network runs once per draw.
+
+The DAIS guides anneal with a Python loop over ``K`` steps (the JAX package's
+``lax.scan``); each step takes ``torch.func.grad`` of the base density and
+of the model's log density, which SVI differentiates again (reverse over
+reverse).  The GLM op has no second derivative and raises there.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from abc import ABC, abstractmethod
 from contextlib import ExitStack
 
+import numpy as np
 import torch
+from torch.nn.functional import elu
 
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions import constraints
+from numpyro_tpu_torch.distributions.flows import (
+    BlockNeuralAutoregressiveTransform,
+    InverseAutoregressiveTransform,
+)
 from numpyro_tpu_torch.distributions.transforms import (
     AffineTransform,
+    ComposeTransform,
     IndependentTransform,
     LowerCholeskyAffine,
+    PermuteTransform,
+    ReshapeTransform,
     UnpackTransform,
     biject_to,
 )
@@ -39,18 +60,26 @@ from numpyro_tpu_torch.distributions.util import sum_rightmost
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout
 from numpyro_tpu_torch.infer.initialization import init_to_median, init_to_uniform
-from numpyro_tpu_torch.primitives import get_mask, param, plate, prng_key, sample
+from numpyro_tpu_torch.nn import AutoregressiveNN, BlockNeuralAutoregressiveNN
+from numpyro_tpu_torch.primitives import factor, get_mask, module, param, plate, prng_key, sample
 
 __all__ = [
+    "AutoBNAFNormal",
+    "AutoBatchedLowRankMultivariateNormal",
+    "AutoBatchedMultivariateNormal",
     "AutoContinuous",
+    "AutoDAIS",
     "AutoDelta",
     "AutoDiagonalNormal",
     "AutoGuide",
     "AutoGuideList",
+    "AutoIAFNormal",
     "AutoLaplaceApproximation",
     "AutoLowRankMultivariateNormal",
     "AutoMultivariateNormal",
     "AutoNormal",
+    "AutoSemiDAIS",
+    "AutoSurrogateLikelihoodDAIS",
 ]
 
 
@@ -419,6 +448,24 @@ class AutoContinuous(AutoGuide):
 
         return _map_leading_axes(one, latent_sample, latent_sample.dim() - 1)
 
+    def get_base_dist(self):
+        """The fixed base distribution of the learned transport."""
+        raise NotImplementedError
+
+    def get_transform(self, params):
+        """The bijection from the base distribution to the posterior over
+        the packed latent (what ``NeuTraReparam`` pushes through): the
+        posterior rebuilt under ``params``, its transforms composed."""
+        posterior = handlers.substitute(self._get_posterior, data=params)()
+        if not isinstance(posterior, dist.TransformedDistribution):
+            raise NotImplementedError("posterior is not a transformed distribution")
+        chain = posterior.transforms
+        return ComposeTransform(chain) if len(chain) > 1 else chain[0]
+
+    def get_posterior(self, params):
+        """The posterior over the packed unconstrained latent."""
+        return dist.TransformedDistribution(self.get_base_dist(), self.get_transform(params))
+
     def sample_posterior(self, rng_key, params, *args, sample_shape=(), **kwargs):
         packed = handlers.substitute(
             handlers.seed(self._sample_latent, rng_key), data=params
@@ -604,3 +651,381 @@ class AutoLaplaceApproximation(AutoContinuous):
         q = torch.as_tensor(quantiles, dtype=posterior.loc.dtype, device=posterior.loc.device)
         latent = dist.Normal(posterior.loc, torch.sqrt(posterior.variance)).icdf(q[..., None])
         return self._unpack_and_constrain(latent, params)
+
+
+class _FlowGuide(AutoContinuous):
+    """A stack of learned flow layers over a standard Normal, with a
+    reversing permutation between two layers; each layer's network is a
+    ``module`` whose params are one ``param`` site."""
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=None, num_flows=1):
+        self.num_flows = num_flows
+        # the networks, made once (their masks with them) and bound to the
+        # params of each call
+        self._networks = {}
+        super().__init__(model, prefix=prefix,
+                         init_loc_fn=init_to_uniform if init_loc_fn is None else init_loc_fn)
+
+    def _network(self, i):
+        raise NotImplementedError
+
+    def _flow_layer(self, i):
+        raise NotImplementedError
+
+    def _bound_network(self, i):
+        if i not in self._networks:
+            self._networks[i] = self._network(i)
+        return module(self._pname(f"arn__{i}"), self._networks[i], (self.latent_dim,))
+
+    def _get_posterior(self):
+        if self.latent_dim == 1:
+            raise ValueError("latent dim = 1. Consider using AutoDiagonalNormal instead")
+        reverse = np.arange(self.latent_dim)[::-1].copy()
+        layers = []
+        for i in range(self.num_flows):
+            if i:
+                layers.append(PermuteTransform(reverse))
+            layers.append(self._flow_layer(i))
+        return dist.TransformedDistribution(self.get_base_dist(), layers)
+
+    def get_base_dist(self):
+        return dist.Normal(self._init_latent.new_zeros(self.latent_dim), 1.0).to_event(1)
+
+
+class AutoIAFNormal(_FlowGuide):
+    """A standard Normal pushed through ``num_flows`` inverse autoregressive
+    flows over the packed latent (Kingma et al. 2016).  ``hidden_dims`` are
+    the conditioner's widths (``[D, D]`` by default) and ``nonlinearity`` a
+    callable on tensors (ELU by default, the JAX package's ``stax.Elu``)."""
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=None, num_flows=3,
+                 hidden_dims=None, skip_connections=False, nonlinearity=None):
+        self._hidden_dims = hidden_dims
+        self._skip_connections = skip_connections
+        self._nonlinearity = elu if nonlinearity is None else nonlinearity
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn, num_flows=num_flows)
+
+    def _network(self, i):
+        widths = (
+            [self.latent_dim, self.latent_dim] if self._hidden_dims is None
+            else self._hidden_dims
+        )
+        return AutoregressiveNN(
+            self.latent_dim, widths, permutation=np.arange(self.latent_dim),
+            skip_connections=self._skip_connections, nonlinearity=self._nonlinearity,
+        )
+
+    def _flow_layer(self, i):
+        return InverseAutoregressiveTransform(self._bound_network(i))
+
+
+class AutoBNAFNormal(_FlowGuide):
+    """A standard Normal pushed through block neural autoregressive flows
+    (De Cao et al.); every layer but the last has a gated residual."""
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=None, num_flows=1,
+                 hidden_factors=(8, 8)):
+        self._hidden_factors = list(hidden_factors)
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn, num_flows=num_flows)
+
+    def _network(self, i):
+        residual = "gated" if i < (self.num_flows - 1) else None
+        return BlockNeuralAutoregressiveNN(self.latent_dim, self._hidden_factors, residual)
+
+    def _flow_layer(self, i):
+        return BlockNeuralAutoregressiveTransform(self._bound_network(i))
+
+
+def _check_dais_hyperparams(K, eta_init, eta_max, gamma_init, init_scale):
+    if K < 1:
+        raise ValueError(f"K must satisfy K >= 1 (got K = {K})")
+    if eta_init <= 0.0 or eta_init >= eta_max:
+        raise ValueError("eta_init must be positive with eta_init < eta_max.")
+    if eta_max <= 0.0:
+        raise ValueError("eta_max must be positive.")
+    if gamma_init <= 0.0 or gamma_init >= 1.0:
+        raise ValueError("gamma_init must be in the open interval (0, 1).")
+    if init_scale <= 0.0:
+        raise ValueError("init_scale must be positive.")
+
+
+def _dais_anneal(z_0, eps_seq, beta_seq, *, eta0, eta_coeff, eta_max, gamma, inv_mass,
+                 momentum_lp, base_grad, target_grad, widen, log_factor_0):
+    """The K uncorrected-leapfrog annealing steps of the DAIS guides: a
+    Python loop over the leading axis of ``eps_seq`` and ``beta_seq`` whose
+    carry is (position, velocity, accumulated log-weight correction).
+    ``widen`` right-expands per-instance scalars (eta, beta, gamma) onto the
+    latent axis (the identity for ``AutoDAIS``)."""
+    # the last refresh draw is never consumed; it is the initial velocity
+    z, v, log_factor = z_0, eps_seq[-1], log_factor_0
+    for k in range(eps_seq.shape[0]):
+        eps_k, beta = eps_seq[k], beta_seq[k]
+        eta = torch.clamp(eta0 + eta_coeff * beta, 0.0, eta_max)
+        eta_w, beta_w = widen(eta), widen(beta)
+        # leapfrog under the annealed density (1 - beta) base + beta target
+        z_half = z + v * eta_w * inv_mass
+        pull = (1.0 - beta_w) * base_grad(z_half) + beta_w * target_grad(z_half)
+        v_hat = v + eta_w * pull
+        z_next = z_half + v_hat * eta_w * inv_mass
+        # partial momentum refresh, with the kinetic-energy correction
+        g = widen(gamma)
+        v_next = g * v_hat + torch.sqrt(1.0 - g**2) * eps_k
+        log_factor = log_factor + momentum_lp(v) - momentum_lp(v_hat)
+        z, v = z_next, v_next
+    return z, log_factor
+
+
+def _normalized_schedule(raw_increments):
+    steps = torch.cumsum(raw_increments, dim=-1)
+    return steps / steps[..., -1:]
+
+
+class AutoDAIS(AutoContinuous):
+    """Differentiable annealed importance sampling (Geffner & Domke; Zhang
+    et al.): ``K`` uncorrected HMC steps from a learned Normal base
+    (``base_dist`` ``"diagonal"`` or ``"cholesky"``) towards the posterior.
+    ``z_0`` keeps its full density, the momentum draws are masked out of it,
+    and the steps' log-weight enters through ``factor``, as in the JAX
+    package."""
+
+    def __init__(self, model, *, K=4, base_dist="diagonal", eta_init=0.01, eta_max=0.1,
+                 gamma_init=0.9, prefix="auto", init_loc_fn=init_to_uniform, init_scale=0.1):
+        _check_dais_hyperparams(K, eta_init, eta_max, gamma_init, init_scale)
+        if base_dist not in ["diagonal", "cholesky"]:
+            raise ValueError('base_dist must be one of "diagonal" or "cholesky".')
+        self.eta_init = eta_init
+        self.eta_max = eta_max
+        self.gamma_init = gamma_init
+        self.K = K
+        self.base_dist = base_dist
+        self._init_scale = init_scale
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn)
+
+    def _setup_prototype(self, *args, **kwargs):
+        super()._setup_prototype(*args, **kwargs)
+        for site in self.prototype_trace.values():
+            if (site["type"] == "plate" and isinstance(site["args"][1], int)
+                    and site["args"][0] > site["args"][1]):
+                raise NotImplementedError("AutoDAIS cannot be used with data subsampling.")
+
+    def _get_posterior(self):
+        raise NotImplementedError
+
+    def _dais_log_density(self, x):
+        with handlers.block():
+            return -self._potential_fn(self._unpack_latent(x))
+
+    def _scalar(self, value):
+        return self._init_latent.new_tensor(value)
+
+    def _dais_schedule_params(self):
+        eta0 = param(self._pname("eta0"), self._scalar(self.eta_init),
+                     constraint=constraints.interval(0, self.eta_max))
+        eta_coeff = param(self._pname("eta_coeff"), self._scalar(0.0))
+        gamma = param(self._pname("gamma"), self._scalar(self.gamma_init),
+                      constraint=constraints.interval(0, 1))
+        betas = _normalized_schedule(
+            param(self._pname("beta_increments"), self._init_latent.new_ones(self.K),
+                  constraint=constraints.positive)
+        )
+        return eta0, eta_coeff, gamma, betas
+
+    def _base_family(self):
+        anchor = param(self._pname("z_0_loc"), self._init_latent)
+        if self.base_dist == "diagonal":
+            spread = param(self._pname("z_0_scale"),
+                           torch.full_like(self._init_latent, self._init_scale),
+                           constraint=constraints.positive)
+            return dist.Normal(anchor, spread).to_event()
+        eye = torch.eye(self.latent_dim, dtype=anchor.dtype, device=anchor.device)
+        root = param(self._pname("z_0_scale_tril"), eye * self._init_scale,
+                     constraint=constraints.scaled_unit_lower_cholesky)
+        return dist.MultivariateNormal(anchor, scale_tril=root)
+
+    def _sample_latent(self, *args, **kwargs):
+        # one latent per call: sample_posterior maps this over its draws
+        eta0, eta_coeff, gamma, betas = self._dais_schedule_params()
+        mass = param(self._pname("mass_matrix"), self._init_latent.new_ones(self.latent_dim),
+                     constraint=constraints.positive)
+        base = self._base_family()
+        z_0 = sample(self._pname("z_0"), base, infer={"is_auxiliary": True})
+        momentum = dist.Normal(0.0, mass).to_event()
+        eps = sample(
+            self._pname("momentum"), momentum.expand((self.K,)).to_event().mask(False),
+            infer={"is_auxiliary": True},
+        )
+        z, log_factor = _dais_anneal(
+            z_0, eps, betas, eta0=eta0, eta_coeff=eta_coeff, eta_max=self.eta_max,
+            gamma=gamma, inv_mass=0.5 / mass, momentum_lp=momentum.log_prob,
+            base_grad=torch.func.grad(base.log_prob),
+            target_grad=torch.func.grad(self._dais_log_density),
+            widen=lambda s: s, log_factor_0=0.0,
+        )
+        factor(self._pname("factor"), log_factor)
+        return z
+
+    def sample_posterior(self, rng_key, params, *args, sample_shape=(), **kwargs):
+        """One annealed draw per element of ``sample_shape``, mapped with
+        ``torch.func.vmap`` (``randomness="different"``) over the draws."""
+
+        def one_draw(_):
+            return handlers.substitute(handlers.seed(self._sample_latent, rng_key),
+                                       data=params)()
+
+        sample_shape = tuple(sample_shape)
+        if not sample_shape:
+            packed = one_draw(None)
+        else:
+            n = math.prod(sample_shape)
+            index = torch.arange(n, device=self._init_latent.device)
+            packed = torch.func.vmap(one_draw, randomness="different")(index)
+            packed = packed.reshape(sample_shape + (self.latent_dim,))
+        return self._unpack_and_constrain(packed, params)
+
+
+class AutoSurrogateLikelihoodDAIS(AutoDAIS):
+    """DAIS guided by the potential of a cheap ``surrogate_model`` (Jankowiak
+    & Phan); unlike ``AutoDAIS`` it composes with data subsampling.  The
+    surrogate's ``param`` sites are registered with the guide's, but its
+    potential runs under ``block()``, which hides them from SVI's
+    substitution: they keep their initial values and get a zero gradient, as
+    in the JAX package (ROADMAP.md, Queue 3)."""
+
+    def __init__(self, model, surrogate_model, *, K=4, eta_init=0.01, eta_max=0.1,
+                 gamma_init=0.9, prefix="auto", base_dist="diagonal",
+                 init_loc_fn=init_to_uniform, init_scale=0.1):
+        super().__init__(model, K=K, eta_init=eta_init, eta_max=eta_max,
+                         gamma_init=gamma_init, prefix=prefix, init_loc_fn=init_loc_fn,
+                         init_scale=init_scale, base_dist=base_dist)
+        self.surrogate_model = surrogate_model
+
+    def _setup_prototype(self, *args, **kwargs):
+        AutoContinuous._setup_prototype(self, *args, **kwargs)
+        rng_key = prng_key()
+        if rng_key is None:
+            rng_key = torch.Generator(device=self._init_latent.device).manual_seed(0)
+        with handlers.block():
+            _, self._surrogate_potential_fn, _, self._surrogate_prototype_trace = (
+                infer_util.initialize_model(
+                    rng_key, self.surrogate_model, init_strategy=self.init_loc_fn,
+                    dynamic_args=False, model_args=(), model_kwargs={}, validate_grad=False,
+                )
+            )
+
+    def _dais_log_density(self, x):
+        with handlers.block():
+            return -self._surrogate_potential_fn(self._unpack_latent(x))
+
+    def _sample_latent(self, *args, **kwargs):
+        # the surrogate's params, registered with the guide's
+        for name, site in self._surrogate_prototype_trace.items():
+            if site["type"] == "param":
+                param(name, site["value"], **site["kwargs"])
+        return super()._sample_latent(*args, **kwargs)
+
+
+class AutoSemiDAIS:
+    """Not ported yet (ROADMAP.md, Queue 1 item 7)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "AutoSemiDAIS is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        )
+
+
+class AutoBatchedMixin:
+    """The batch and event split of guides batched over the leading
+    ``batch_ndim`` dims of every latent site."""
+
+    def __init__(self, *args, **kwargs):
+        self._batch_shape = None
+        self._event_shape = None
+        self.batch_ndim = kwargs.pop("batch_ndim")
+        super().__init__(*args, **kwargs)
+
+    def _setup_prototype(self, *args, **kwargs):
+        super()._setup_prototype(*args, **kwargs)
+        batch_shape = None
+        for site in self.prototype_trace.values():
+            if site["type"] == "sample" and not site["is_observed"]:
+                shape = tuple(site["value"].shape)
+                if site["value"].dim() < self.batch_ndim + site["fn"].event_dim:
+                    raise ValueError(
+                        f"Expected {self.batch_ndim} batch dimensions, but site "
+                        f"`{site['name']}` only has shape {shape}."
+                    )
+                shape = shape[: self.batch_ndim]
+                if batch_shape is None:
+                    batch_shape = shape
+                elif shape != batch_shape:
+                    raise ValueError("Encountered inconsistent batch shapes.")
+        self._batch_shape = batch_shape
+        batch_size = math.prod(self._batch_shape)
+        if self.latent_dim % batch_size:
+            raise RuntimeError(
+                f"Incompatible batch shape {batch_shape} (size {batch_size}) and latent "
+                f"dims {self.latent_dim}."
+            )
+        self._event_shape = (self.latent_dim // batch_size,)
+
+    def _get_batched_posterior(self):
+        raise NotImplementedError
+
+    def _get_posterior(self):
+        return dist.TransformedDistribution(
+            self._get_batched_posterior(),
+            ReshapeTransform((self.latent_dim,), self._batch_shape + self._event_shape),
+        )
+
+    def median(self, params):
+        flat = params[self._pname("loc")].reshape((self.latent_dim,))
+        return self._unpack_and_constrain(flat, params)
+
+
+class AutoBatchedMultivariateNormal(AutoBatchedMixin, AutoContinuous):
+    """One full-covariance Normal per element of the leading batch dims."""
+
+    scale_tril_constraint = constraints.scaled_unit_lower_cholesky
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=init_to_uniform, init_scale=0.1,
+                 batch_ndim=1):
+        if init_scale <= 0:
+            raise ValueError(f"Expected init_scale > 0. but got {init_scale}")
+        self._init_scale = init_scale
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn, batch_ndim=batch_ndim)
+
+    def _get_batched_posterior(self):
+        grouped = self._init_latent.reshape(self._batch_shape + self._event_shape)
+        loc = param(self._pname("loc"), grouped)
+        eye = torch.eye(grouped.shape[-1], dtype=grouped.dtype, device=grouped.device)
+        scale_tril = param(
+            self._pname("scale_tril"),
+            torch.broadcast_to(eye * self._init_scale, self._batch_shape + eye.shape).clone(),
+            constraint=self.scale_tril_constraint,
+        )
+        return dist.MultivariateNormal(loc, scale_tril=scale_tril)
+
+
+class AutoBatchedLowRankMultivariateNormal(AutoBatchedMixin, AutoContinuous):
+    """One low-rank plus diagonal Normal per element of the leading batch
+    dims (rank ``round(sqrt(event size))`` by default)."""
+
+    scale_constraint = constraints.softplus_positive
+
+    def __init__(self, model, *, prefix="auto", init_loc_fn=init_to_uniform, init_scale=0.1,
+                 rank=None, batch_ndim=1):
+        if init_scale <= 0:
+            raise ValueError(f"Expected init_scale > 0. but got {init_scale}")
+        self._init_scale = init_scale
+        self.rank = rank
+        super().__init__(model, prefix=prefix, init_loc_fn=init_loc_fn, batch_ndim=batch_ndim)
+
+    def _get_batched_posterior(self):
+        rank = int(round(self._event_shape[0] ** 0.5)) if self.rank is None else self.rank
+        grouped = self._init_latent.reshape(self._batch_shape + self._event_shape)
+        loc = param(self._pname("loc"), grouped)
+        raw_factor = param(self._pname("cov_factor"),
+                           grouped.new_zeros(self._batch_shape + self._event_shape + (rank,)))
+        scale = param(self._pname("scale"), torch.full_like(grouped, self._init_scale),
+                      constraint=self.scale_constraint)
+        return dist.LowRankMultivariateNormal(loc, raw_factor * scale[..., None], scale.square())

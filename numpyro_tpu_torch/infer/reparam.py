@@ -1,14 +1,14 @@
 """Reparameterizers, applied through the ``handlers.reparam`` handler (port
-of ``Reparam``, ``LocScaleReparam``, ``TransformReparam`` and
-``ExplicitReparam`` from ``numpyro_tpu/infer/reparam.py``).
+of ``Reparam``, ``LocScaleReparam``, ``TransformReparam``,
+``ExplicitReparam`` and ``NeuTraReparam`` from
+``numpyro_tpu/infer/reparam.py``).
 
 Each reparameterizer is called as ``reparam(name, fn, obs) -> (new_fn,
 value)``: ``(None, value)`` replaces the site with a deterministic value
 computed from the auxiliary sample sites it introduced.  A site with an
 observation raises ``NotImplementedError``, where the JAX package fails an
-assertion (ROADMAP.md, Queue 3).  ``ProjectedNormalReparam``,
-``CircularReparam`` and ``NeuTraReparam`` are not ported yet and raise when
-made (ROADMAP.md).
+assertion (ROADMAP.md, Queue 3).  ``ProjectedNormalReparam`` and
+``CircularReparam`` are not ported yet and raise when made (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ from abc import ABC, abstractmethod
 import torch
 
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.distributions import constraints
-from numpyro_tpu_torch.primitives import param, sample
+from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.distributions import biject_to, constraints
+from numpyro_tpu_torch.distributions.util import sum_rightmost
+from numpyro_tpu_torch.primitives import factor, param, sample
 
 __all__ = [
     "CircularReparam",
@@ -160,5 +162,61 @@ class CircularReparam(_Unported):
     """Not ported yet (ROADMAP.md)."""
 
 
-class NeuTraReparam(_Unported):
-    """Not ported yet (ROADMAP.md)."""
+class NeuTraReparam(Reparam):
+    """Neural transport through a fitted ``AutoContinuous`` guide: one
+    shared latent, drawn in the guide's base space at the first
+    reparameterized site of a run, is pushed through the guide's transform
+    (once, with its log-Jacobian from the same pass), and every site of the
+    guide reads its slice, constrained onto its support.  A site that is
+    not among the pending slices starts a run and draws afresh, so a run cut
+    short (by an exception) leaves nothing stale behind for the next one."""
+
+    def __init__(self, guide, params):
+        self.guide = guide
+        self.params = params
+        try:
+            self.transform = self.guide.get_transform(params)
+        except (NotImplementedError, TypeError) as e:
+            raise ValueError("NeuTraReparam only supports AutoContinuous guides") from e
+        self._pending_sites = {}
+
+    def _reparam_config(self, site):
+        if (site["name"] in self.guide.prototype_trace and site["type"] == "sample"
+                and not site["is_observed"]):
+            return self
+
+    def reparam(self, fn=None):
+        """``fn`` under ``handlers.reparam`` with this reparameterizer at
+        each of the guide's latent sites."""
+        return handlers.reparam(fn, config=self._reparam_config)
+
+    def __call__(self, name, fn, obs):
+        if name not in self.guide.prototype_trace:
+            return fn, obs
+        _reject_obs(self, obs)
+        flow_logdet = 0.0
+        if name not in self._pending_sites:
+            # the first reparameterized site of a run: draw the shared latent
+            # and run the transport once; later sites take their slices
+            z = sample(f"{name}_shared_latent", self.guide.get_base_dist().mask(False),
+                       infer={"is_auxiliary": True})
+            x, intermediates = self.transform.call_with_intermediates(z)
+            flow_logdet = self.transform.log_abs_det_jacobian(z, x, intermediates)
+            self._pending_sites = self.guide._unpack_latent(x)
+        unconstrained = self._pending_sites.pop(name)
+        to_support = biject_to(fn.support)
+        value = to_support(unconstrained)
+        logdet = to_support.log_abs_det_jacobian(unconstrained, value)
+        logdet = sum_rightmost(logdet, logdet.dim() - value.dim() + len(fn.event_shape))
+        factor(f"{name}_log_prob", flow_logdet + fn.log_prob(value) + logdet)
+        return None, value
+
+    def transform_sample(self, latent):
+        """Push base-space draws (the ``*_shared_latent`` draws of MCMC)
+        through the learned transport; returns the constrained site
+        values."""
+        unpacked = self.guide._unpack_latent(self.transform(latent))
+        return {
+            name: biject_to(self.guide.prototype_trace[name]["fn"].support)(value)
+            for name, value in unpacked.items()
+        }

@@ -26,6 +26,7 @@ from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.infer.util import device_generator, pin_full_f32_matmul, transform_fn
+from numpyro_tpu_torch.util import tree_map
 
 __all__ = ["SVI", "SVIRunResult", "SVIState"]
 
@@ -111,7 +112,8 @@ class SVI:
                            init_guide_params)
 
         self.constrain_fn = partial(transform_fn, inv_transforms)
-        params = {k: torch.as_tensor(v).detach() for k, v in params.items()}
+        params = {k: tree_map(torch.Tensor.detach, v) if isinstance(v, (list, tuple, dict))
+                  else torch.as_tensor(v).detach() for k, v in params.items()}
         return SVIState(self.optim.init(params), mutable_state or None, rng_key)
 
     def get_params(self, svi_state):

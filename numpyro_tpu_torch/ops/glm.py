@@ -448,10 +448,22 @@ def glm_value_and_grad(w, data):
     raise NotImplementedError(f"no GLM kernel for device {w.device}")
 
 
+_NO_SECOND_DERIVATIVE = (
+    "bernoulli_logits_loglik has no forward-mode derivative and no second derivative "
+    "(nor has the JAX package's custom_vjp op), so forward mode and Hessians (jacfwd or "
+    "jacrev over the gradient, AutoLaplaceApproximation, AutoDAIS) cannot pass through it"
+)
+
+
 class _GLMLoglik(torch.autograd.Function):
     """(loglik, grad) with grad saved for backward; ``vmap`` batches chains
     into one evaluation.  ``value_and_grad`` computes both for ``(B, D)``
-    rows of ``w``."""
+    rows of ``w``.
+
+    The saved gradient is a differentiable output, so that a derivative of
+    the backward (reverse over reverse: ``jacrev(grad)``, ``create_graph``)
+    reaches this function's backward with a cotangent on it and raises,
+    where marking it non-differentiable would give a silent zero Hessian."""
 
     @staticmethod
     def forward(w, data, value_and_grad):
@@ -461,21 +473,19 @@ class _GLMLoglik(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(output[1])
 
     @staticmethod
-    def backward(ctx, ct, _ct_grad):
+    def backward(ctx, ct, ct_grad):
+        if ct_grad is not None:
+            raise NotImplementedError(_NO_SECOND_DERIVATIVE)
         (g,) = ctx.saved_tensors
         return ct[..., None] * g, None, None
 
     @staticmethod
     def jvp(ctx, w_tangent, _data_tangent, _vg_tangent):
-        raise NotImplementedError(
-            "bernoulli_logits_loglik has no forward-mode derivative (nor has the JAX "
-            "package's custom_vjp op), so forward mode and Hessians (jacfwd over the "
-            "gradient, AutoLaplaceApproximation) cannot pass through it"
-        )
+        raise NotImplementedError(_NO_SECOND_DERIVATIVE)
 
     @staticmethod
     def vmap(info, in_dims, w, data, value_and_grad):

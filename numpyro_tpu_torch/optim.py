@@ -8,7 +8,9 @@ arithmetic of the optax version it replaces (``optax.adam``,
 ``optax.clip``), and keeps the optax state layout: a state is
 ``(step, (params, opt_state))``, where ``opt_state`` is the tuple of the
 chained transformations' states, named as optax names them.  Params are a
-dict of tensors; every update is out of place and stays on their device.
+dict of tensors or of trees of them (a network's layers, with ``None``
+where a layer has no bias; ``SM3`` and ``Minimize`` take tensors only); every update is out
+of place and stays on their device.
 
 ``step_size`` is a number or a callable of the step count (an ``int32``
 tensor), as optax takes it.  ``optax_to_numpyro`` (a bridge to optax) is not
@@ -25,7 +27,7 @@ import torch
 
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout
 from numpyro_tpu_torch.optimize import minimize
-from numpyro_tpu_torch.util import tree_map
+from numpyro_tpu_torch.util import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "Adam",
@@ -50,7 +52,7 @@ TraceState = namedtuple("TraceState", ["trace"])
 
 
 def _count(params):
-    leaf = next(iter(params.values()))
+    leaf = tree_leaves(params)[0]
     return torch.zeros((), dtype=torch.int32, device=leaf.device)
 
 
@@ -224,24 +226,28 @@ class _NumPyroOptim:
     def update(self, g, state):
         step, (params, opt_state) = state
         updates, opt_state = self.transformation.update(g, opt_state, params)
-        params = {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+        params = tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
         return step + 1, (params, opt_state)
 
     def _eval(self, fn, params, forward_mode_differentiation):
+        # torch.func takes trees of tensors only: a param tree with None
+        # leaves (a network's missing bias) is differentiated through its
+        # list of tensor leaves
+        leaves = tree_leaves(params)
         if forward_mode_differentiation:
             out, aux = fn(params)
             # a 0-d tangent meeting a Python number comes out in float64
-            grads = {k: g.to(params[k].dtype)
-                     for k, g in torch.func.jacfwd(lambda p: fn(p)[0])(params).items()}
+            grads = [g.to(p.dtype) for p, g in zip(leaves, torch.func.jacfwd(
+                lambda ls: fn(tree_unflatten(params, ls))[0])(leaves))]
         else:
             # torch.func takes an aux of tensors only: a None travels boxed
-            def boxed(p):
-                out, aux = fn(p)
+            def boxed(ls):
+                out, aux = fn(tree_unflatten(params, ls))
                 return out, [] if aux is None else [aux]
 
-            grads, (out, aux) = torch.func.grad_and_value(boxed, has_aux=True)(params)
+            grads, (out, aux) = torch.func.grad_and_value(boxed, has_aux=True)(leaves)
             aux = aux[0] if aux else None
-        return out, aux, grads
+        return out, aux, tree_unflatten(params, grads)
 
     def eval_and_update(self, fn: Callable, state, forward_mode_differentiation=False):
         """One optimization step on ``fn(params) -> (loss, aux)``."""
@@ -255,7 +261,7 @@ class _NumPyroOptim:
         out, aux, grads = self._eval(fn, self.get_params(state), forward_mode_differentiation)
         new_state = self.update(grads, state)
         ok = torch.isfinite(out)
-        for leaf in new_state[1][0].values():
+        for leaf in tree_leaves(new_state[1][0]):
             ok = ok & torch.isfinite(leaf).all()
         state = tree_map(lambda new, old: torch.where(ok, new, old), new_state, state)
         return (torch.where(ok, out, torch.nan), aux), state

@@ -1,7 +1,8 @@
 """Model-DSL primitives and the effect-handler message stack (port of the
 parts of ``numpyro_tpu/primitives.py`` that the ported slices need:
 ``Messenger``, ``apply_stack``, ``sample``, ``param``, ``mutable``,
-``factor``, ``deterministic``, ``plate``, ``subsample`` and ``get_mask``).
+``factor``, ``deterministic``, ``plate``, ``subsample``, ``get_mask`` and
+``module``).
 
 The handler stack is plain Python that runs whenever the model runs.  Under
 ``torch.func`` transforms (the chain-batched potential) the model runs once
@@ -26,7 +27,7 @@ from numpyro_tpu_torch.util import identity
 
 __all__ = [
     "CondIndepStackFrame", "Messenger", "apply_stack", "deterministic", "factor",
-    "get_mask", "mutable", "param", "plate", "prng_key", "sample", "subsample",
+    "get_mask", "module", "mutable", "param", "plate", "prng_key", "sample", "subsample",
 ]
 
 CondIndepStackFrame = namedtuple("CondIndepStackFrame", ["name", "dim", "size", "subsample_size"])
@@ -335,3 +336,26 @@ def factor(name, log_factor):
         tuple(log_factor.shape) + (0,), dtype=log_factor.dtype, device=log_factor.device
     )
     sample(name, unit_dist, obs=unit_value, infer={"is_auxiliary": True})
+
+
+def module(name, nn, input_shape=None):
+    """Declare a network given as an ``(init_fn, apply_fn)`` pair (the
+    blocks of :mod:`numpyro_tpu_torch.nn`): its parameters are the ``param``
+    site ``name + "$params"``, made on first use by ``init_fn(generator,
+    input_shape)`` with the generator of the innermost ``seed`` handler;
+    returns ``apply_fn`` bound to them."""
+    module_key = name + "$params"
+    nn_init, nn_apply = nn
+    nn_params = param(module_key)
+    if nn_params is None:
+        if input_shape is None:
+            raise ValueError("Valid value for `input_shape` needed to initialize.")
+        generator = prng_key()
+        if generator is None:
+            raise ValueError(
+                "Cannot call `module` outside a `seed` handler without its "
+                "parameters: their initialization needs a generator."
+            )
+        _, nn_params = nn_init(generator, input_shape)
+        param(module_key, nn_params)
+    return functools.partial(nn_apply, nn_params)

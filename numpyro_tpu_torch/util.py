@@ -1,13 +1,39 @@
 """Small shared helpers (port of the parts of ``numpyro_tpu/util.py`` that
 the ported slices need: ``identity`` and ``soft_vmap``, and a tree map over
 the containers that kernel states are made of, in place of
-``jax.tree.map``)."""
+``jax.tree.map``; and ``HostArray``, a constant kept on the host and copied
+to each device once)."""
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["identity", "soft_vmap", "tree_leaves", "tree_map"]
+__all__ = ["HostArray", "identity", "soft_vmap", "tree_leaves", "tree_map", "tree_unflatten"]
+
+
+class HostArray:
+    """A numpy constant (a network's mask, a permutation) kept on the host
+    and copied to each device once: the tensor is cached per device and
+    dtype, so no call rebuilds or recopies it."""
+
+    def __init__(self, array):
+        self.array = np.asarray(array)
+        self._on = {}
+
+    @property
+    def shape(self):
+        return self.array.shape
+
+    def on(self, device, dtype=None):
+        """The array as a tensor on ``device``, in ``dtype`` (by default its
+        own)."""
+        key = (torch.device(device), dtype)
+        tensor = self._on.get(key)
+        if tensor is None:
+            tensor = torch.as_tensor(self.array, dtype=dtype, device=device)
+            self._on[key] = tensor
+        return tensor
 
 
 def identity(x, *args, **kwargs):
@@ -35,6 +61,15 @@ def tree_leaves(tree):
     leaves = []
     tree_map(leaves.append, tree)
     return leaves
+
+
+def tree_unflatten(tree, leaves):
+    """``tree`` with its tensor leaves replaced by ``leaves``, in the order
+    of :func:`tree_leaves` (the inverse of that function for ``tree``'s
+    structure; ``torch.func`` takes trees of tensors only, so a tree with
+    ``None`` leaves is differentiated through its list of tensor leaves)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def soft_vmap(fn, xs, batch_ndims=1, chunk_size=None):

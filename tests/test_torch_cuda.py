@@ -5,8 +5,10 @@ and stochastic volatility (``Predictive``, the new samplers on a CUDA
 generator and ``soft_vmap`` over a model replay), and the HMM slice
 (``Categorical`` and ``Dirichlet`` draws, the enumerated density of both
 forms of ``examples/hmm_enum.py`` against a numpy forward algorithm, the
-error past 25 dims), and one step of SMC, the Gibbs sweep, BarkerMH, SA,
-AIES and ESS against the CPU on the same draws.
+error past 25 dims), one step of SMC, the Gibbs sweep, BarkerMH, SA,
+AIES and ESS against the CPU on the same draws, and the flow guides:
+the GLM op's raise on a second derivative, and an IAF's NeuTra potential
+through ``glm_split`` against the CPU.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -868,3 +870,84 @@ def test_the_tracegraph_surrogate_gradient_on_the_card_matches_the_cpu(cuda):
         out[device.type] = torch.func.grad_and_value(loss)(params)
     assert out["cuda"][1].device.type == "cuda"
     _assert_trees_close(out["cpu"], out["cuda"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_reverse_over_reverse_through_glm_split_raises_on_the_card(cuda):
+    """The Hessian through the split kernel raises, where marking the saved
+    gradient non-differentiable gave zeros; the gradient stays one launch."""
+    X, y, W, _ = _problem(cuda, n=20000, d=12, c=8)
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    f = lambda w: glm.bernoulli_logits_loglik(w, data)  # noqa: E731
+    glm.reset_launch_counts()
+    g = torch.func.vmap(torch.func.grad(f))(W)
+    assert glm.launch_counts["glm_split"] == 1 and torch.isfinite(g).all()
+    with pytest.raises(NotImplementedError, match="no second derivative"):
+        torch.func.jacrev(torch.func.grad(f))(W[0])
+    with pytest.raises(NotImplementedError, match="no second derivative"):
+        torch.func.hessian(f)(W[0])
+
+
+@pytest.mark.requires_cuda
+def test_flow_guides_and_neutra_on_the_card_match_the_cpu(cuda):
+    """An IAF guide's params made on the CPU, moved to the card: the flow,
+    its log-Jacobian and the NeuTra potential's gradient through
+    ``glm_split`` (one launch for the chains) against the CPU's plain
+    version; then an ``AutoBNAFNormal`` and an ``AutoDAIS`` step and draw on
+    a CUDA generator."""
+    from numpyro_tpu_torch.infer.reparam import NeuTraReparam
+    from numpyro_tpu_torch.util import tree_map
+
+    rng = np.random.default_rng(11)
+    d = 6
+    X = np.concatenate([rng.standard_normal((30000, d - 1)), np.ones((30000, 1))], 1)
+    X = X.astype(np.float32)
+    y = (rng.random(30000) < 0.5).astype(np.float32)
+    z = rng.standard_normal((16, d)).astype(np.float32)
+    out = {}
+    cpu_params = None
+    for device in (torch.device("cpu"), cuda):
+        data = glm.prepare_glm_data(torch.from_numpy(X).to(device),
+                                    torch.from_numpy(y).to(device), dtype="split")
+
+        def model(data):
+            w = npt.sample("w", dist.Normal(torch.zeros(d, device=data.device), 1.0).to_event(1))
+            npt.factor("lik", glm.bernoulli_logits_loglik(w, data))
+
+        guide = autoguide.AutoIAFNormal(model, num_flows=2)
+        svi = SVI(model, guide, Adam(0.01), Trace_ELBO(), device=device)
+        state = svi.init(0, data)
+        params = svi.get_params(state)
+        if cpu_params is None:
+            cpu_params = params
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        neutra = NeuTraReparam(guide, params)
+        reparamed = neutra.reparam(model)
+        pe = lambda v: infer_potential(reparamed, data, v)  # noqa: E731
+        glm.reset_launch_counts()
+        g, v = torch.func.vmap(torch.func.grad_and_value(pe))(torch.from_numpy(z).to(device))
+        if device.type == "cuda":
+            assert glm.launch_counts["glm_split"] == 1
+        out[device.type] = (v, g, neutra.transform_sample(torch.from_numpy(z).to(device))["w"])
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", 30000)
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], rtol=ll_rtol, atol=0)
+    torch.testing.assert_close(out["cuda"][1].cpu(), out["cpu"][1], rtol=g_rtol, atol=g_atol)
+    torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-5, atol=1e-6)
+
+    def small(yy):
+        x = npt.sample("x", dist.Normal(torch.zeros(2, device=cuda), 1.0).to_event(1))
+        npt.sample("y", dist.Normal(x.sum(), 0.5), obs=yy)
+
+    yy = torch.tensor(2.0, device=cuda)
+    for guide in (autoguide.AutoBNAFNormal(small), autoguide.AutoDAIS(small, K=2)):
+        res = SVI(small, guide, Adam(0.01), Trace_ELBO(num_particles=4)).run(0, 5, yy)
+        draws = guide.sample_posterior(torch.Generator(device=cuda).manual_seed(1), res.params,
+                                       sample_shape=(10,))
+        assert res.losses.device.type == "cuda" and torch.isfinite(res.losses).all()
+        assert draws["x"].device.type == "cuda" and draws["x"].shape == (10, 2)
+
+
+def infer_potential(model, data, z):
+    from numpyro_tpu_torch.infer.util import potential_energy
+
+    return potential_energy(model, (data,), {}, {"w_shared_latent": z})
