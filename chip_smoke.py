@@ -155,6 +155,25 @@ Phases (each prints on its own lines; any failure exits non-zero):
                ``AutoSurrogateLikelihoodDAIS`` and the two batched guides on
                the models of ``tests/infer/test_autoguide_extra.py``, within
                0.3 (``dev/flows_reference.py``).  (c)-(e) launch no kernel.
+15. semi    -- SKIM, AutoSemiDAIS and the new families: (a)
+               ``examples/sparse_regression.py``'s SKIM model at the example's
+               widths (N = 100, P = 20, S = 3, seed 0) under NUTS with 64
+               vectorized chains, ``SKIM_RUN``: an ``(N, N)`` kernel a chain
+               each evaluation, factored in float32 (a matrix that is not
+               positive definite gives NaN, a divergent transition; warmup's
+               count is printed); the active dimensions by the example's
+               3-std rule must be exactly {0, 1, 2} and the singleton means
+               within ``SKIM_GATE`` of the generating ones
+               (``dev/skim_reference.py``); (b) ``AutoSemiDAIS`` with a global
+               ``AutoNormal`` on the model of
+               ``tests/infer/test_autoguide_extra.py::test_auto_semi_dais``,
+               ``SEMI_RUN``: the test's criterion and the mean of theta within
+               ``SEMI_GATE`` of the JAX package's runs
+               (``dev/semi_dais_reference.py``); (c) the new distributions'
+               ``log_prob``, ``cdf`` and ``icdf`` on CUDA tensors against CPU
+               tensors, Gamma and Beta draws from a CUDA generator against
+               their moments, and ``betaincinv``/``gammaincinv`` timed.  No
+               GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -176,6 +195,7 @@ import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
 from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.distributions.util import betaincinv, gammaincinv
 from numpyro_tpu_torch.contrib.control_flow import scan
 from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, markov
 from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
@@ -903,6 +923,353 @@ def model_horseshoe(X, y):
         beta = npt.sample("beta", dist.Normal(0.0, tau * lam))
     with npt.plate("N", X.shape[0]):
         npt.sample("y", dist.Normal(X @ beta, sigma), obs=y)
+
+
+# phase 15a, the SKIM sparse regression of examples/sparse_regression.py at the
+# example's widths: data (N, P, S) from get_data with seed 0 and the
+# hyperparameters of its main (:118-125)
+SKIM_DATA = (100, 20, 3)
+SKIM_HYPERS = {"expected_sparsity": 2.0, "alpha1": 3.0, "beta1": 1.0, "alpha2": 3.0,
+               "beta2": 1.0, "alpha3": 1.0, "c": 1.0}
+# chains, warmup, samples, tree depths in warmup and sampling, cut from the
+# example's 1 x (500 + 500) at depth 7 to fit phase 15's budget: trees fill
+# their cap (7.2 evaluations a transition), and 64 chains give 640 draws.
+# 40 + 10 took 7.6 s of the script's 13.4 s phase 15 on the card, so 30 + 10,
+# at which CPU rehearsals with seeds 1-4 found {0, 1, 2} (gaps 0.008-0.036)
+SKIM_RUN = (64, 30, 10, (3, 3))
+# the singleton means of the active dimensions within max(2e, e + 0.05) of the
+# generating ones, the rule of HS_GATE, for e = 0.0194, the largest gap over
+# keys 0-2 of the JAX package's own run at SKIM_RUN (0.0109, 0.0194, 0.0079),
+# each finding exactly {0, 1, 2} (`JAX_PLATFORMS=cpu python3 -m
+# dev.skim_reference 64 30 10 3`; at 40 + 10, 0.0078)
+SKIM_GATE = 0.0694
+
+# phase 15b, AutoSemiDAIS on the model of
+# tests/infer/test_autoguide_extra.py::test_auto_semi_dais: its data (the
+# test's 16 values of 1.5 + 0.5 * normal(PRNGKey(0)), as the JAX package
+# makes them), N, subsample size, K, Adam step size, steps (cut from the
+# test's 700 to fit the budget: 100 took 4.4 s in the script on the card, so
+# 70) and draws of sample_posterior.  The global AutoNormal starts at theta =
+# 0 (init_to_value, so that runs differ only in their noise).  The gate is
+# the test's criterion (finite losses, the last 50 below the first 3) and the
+# mean of theta within max(2e, e + 0.05) of the JAX package's own run at this
+# configuration, key 0 (0.3348), e = 0.0073 the largest gap of keys 1-4 to it
+# (`JAX_PLATFORMS=cpu python3 -m dev.semi_dais_reference 70`; at 100 steps
+# 0.4638, e = 0.0070)
+SEMI_DATA = [2.3113210201263428, 2.512632369995117, 1.2832027673721313, 1.4606913328170776,
+             1.5880454778671265, 1.0139553546905518, 1.2523505687713623, 1.7471892833709717,
+             1.8321746587753296, 1.0249183177947998, 2.5897650718688965, 0.5224246978759766,
+             1.6792854070663452, 1.5788975954055786, 2.138542413711548, 2.255232334136963]
+SEMI_RUN = (16, 8, 3, 5e-3, 70, 1000)
+SEMI_GATE = {"theta": 0.3348, "gate": 0.0573}
+# phase 15c, the new families on the card: each class's parameters (three
+# values each, around the cases of tests/test_distributions.py), their
+# log_prob, cdf and icdf on CUDA tensors against the same calls on CPU
+# tensors, to rtol 1e-4 and atol 1e-6 (the card's lgamma, digamma, erfc and
+# pow round differently in the last bits, and a bisected icdf can move its
+# last halving); Gamma and Beta draws from a CUDA generator (20,000 each),
+# their means and variances within 4 standard errors; draws of each inside
+# its support (TruncatedNormal's window stays out of the far right tail, where
+# the two-sided truncation, the JAX package's as well, quantizes its float32
+# draws and can land below low: ROADMAP.md, Queue 3)
+FAMILIES = {
+    "Gamma": dict(concentration=(2.0, 0.5, 5.0), rate=(3.0, 1.0, 0.5)),
+    "Chi2": dict(df=(4.0, 1.5, 9.0)),
+    "InverseGamma": dict(concentration=(3.0, 4.5, 6.0), rate=(2.0, 1.0, 0.5)),
+    "Beta": dict(concentration1=(1.5, 0.7, 5.0), concentration0=(2.5, 3.0, 0.9)),
+    "BetaProportion": dict(mean=(0.4, 0.2, 0.7), concentration=(5.0, 10.0, 2.0)),
+    "LogNormal": dict(loc=(0.5, -0.2, 1.0), scale=(0.8, 0.3, 1.5)),
+    "LogUniform": dict(low=(1.0, 0.5, 2.0), high=(5.0, 3.0, 9.0)),
+    "Laplace": dict(loc=(0.5, -1.0, 2.0), scale=(2.0, 0.5, 1.0)),
+    "Gumbel": dict(loc=(0.5, -1.0, 2.0), scale=(2.0, 0.5, 1.0)),
+    "Logistic": dict(loc=(0.5, -1.0, 2.0), scale=(1.1, 0.5, 2.0)),
+    "SoftLaplace": dict(loc=(0.0, -1.0, 2.0), scale=(1.0, 0.5, 2.0)),
+    "AsymmetricLaplace": dict(loc=(0.5, -1.0, 0.0), scale=(1.2, 0.5, 2.0),
+                              asymmetry=(0.7, 1.5, 1.0)),
+    "AsymmetricLaplaceQuantile": dict(loc=(0.0, 1.0, -1.0), scale=(1.0, 0.5, 2.0),
+                                      quantile=(0.3, 0.5, 0.8)),
+    "Pareto": dict(scale=(1.5, 0.5, 2.0), alpha=(3.0, 5.0, 2.5)),
+    "Weibull": dict(scale=(1.5, 0.5, 2.0), concentration=(2.0, 0.8, 4.0)),
+    "Kumaraswamy": dict(concentration1=(2.0, 0.5, 4.0), concentration0=(3.0, 1.5, 0.7)),
+    "Gompertz": dict(concentration=(1.5, 0.3, 4.0), rate=(0.8, 2.0, 0.5)),
+    "Levy": dict(loc=(0.0, 1.0, 0.5), scale=(1.0, 0.5, 2.0)),
+    "RelaxedBernoulliLogits": dict(temperature=(0.7, 0.3, 1.5), logits=(0.4, -1.0, 2.0)),
+    "TruncatedNormal": dict(loc=(0.5, 0.0, -1.0), scale=(1.0, 1.0, 2.0), low=(-1.0, 0.5, -2.0),
+                            high=(2.0, 3.0, 0.0)),
+    "TruncatedCauchy": dict(loc=(0.0, 1.0, -1.0), scale=(1.0, 0.5, 2.0), low=(-2.0, 0.0, -4.0)),
+    "LowerTruncatedPowerLaw": dict(alpha=(-2.5, -1.5, -4.0), low=(0.5, 1.0, 2.0)),
+    "DoublyTruncatedPowerLaw": dict(alpha=(-2.0, -1.0, 0.5), low=(0.5, 1.0, 0.1),
+                                    high=(3.0, 10.0, 2.0)),
+}
+FAMILY_RTOL, FAMILY_ATOL = 1e-4, 1e-6
+
+
+def skim_data(n=100, p=20, s=3, sigma_obs=0.05, seed=0):
+    """``examples/sparse_regression.py::get_data``, in numpy."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, p)
+    W = 0.5 + 2.5 * rng.rand(s)
+    Y = X[:, :s] @ W + W[0] * X[:, 0] * X[:, 1] + sigma_obs * rng.randn(n)
+    Y -= Y.mean()
+    return X.astype(np.float32), (Y / Y.std()).astype(np.float32), W / Y.std()
+
+
+def quad_kernel(X, Z, eta1, eta2, c, jitter=1e-4):
+    """``examples/sparse_regression.py::quad_kernel``, batched over the
+    leading dims of X, Z and the scalars (the draws of phase 15a's
+    post-processing)."""
+    xz = X @ Z.transpose(-2, -1)
+    k = 0.5 * eta2[..., None, None] ** 2 * (1.0 + xz) ** 2
+    k = k - 0.5 * eta2[..., None, None] ** 2 * (X**2) @ (Z**2).transpose(-2, -1)
+    k = k + (eta1[..., None, None] ** 2 - eta2[..., None, None] ** 2) * xz
+    k = k + c**2 - 0.5 * eta2[..., None, None] ** 2
+    if X is Z:
+        k = k + jitter * torch.eye(X.shape[-2], dtype=X.dtype, device=X.device)
+    return k
+
+
+def skim_model(X, Y, hypers):
+    """``examples/sparse_regression.py::model``: the SKIM kernel of the
+    hyperparameters, an ``(N, N)`` covariance a chain, factored by
+    ``MultivariateNormal`` (NaN where it is not positive definite)."""
+    S, P, N = hypers["expected_sparsity"], X.shape[1], X.shape[0]
+    sigma = npt.sample("sigma", dist.HalfNormal(hypers["alpha3"]))
+    phi = sigma * (S / np.sqrt(N)) / (P - S)
+    eta1 = npt.sample("eta1", dist.HalfCauchy(phi))
+    msq = npt.sample("msq", dist.InverseGamma(hypers["alpha1"], hypers["beta1"]))
+    xisq = npt.sample("xisq", dist.InverseGamma(hypers["alpha2"], hypers["beta2"]))
+    lam = npt.sample("lambda", dist.HalfCauchy(1.0).expand([P]).to_event(1))
+    eta2 = eta1**2 * torch.sqrt(xisq) / msq
+    kappa = torch.sqrt(msq) * lam / torch.sqrt(msq + (eta1 * lam) ** 2)
+    kX = kappa * X
+    k = quad_kernel(kX, kX, eta1, eta2, hypers["c"]) + sigma**2 * torch.eye(N, device=X.device)
+    npt.sample("Y", dist.MultivariateNormal(torch.zeros(N, device=X.device), covariance_matrix=k),
+               obs=Y)
+
+
+def skim_singleton_stats(X, Y, c, draws):
+    """``examples/sparse_regression.py::singleton_stats`` for a batch of
+    draws at once (no vmap): the posterior mean and variance of every
+    singleton effect theta_i, by one GP conditional at the probes +-e_i,
+    with ``torch.linalg.cholesky`` and ``cholesky_solve``."""
+    P, N = X.shape[1], X.shape[0]
+    eta1, msq, xisq = draws["eta1"], draws["msq"], draws["xisq"]
+    lam, sigma = draws["lambda"], draws["sigma"]
+    eta2 = eta1**2 * torch.sqrt(xisq) / msq
+    kappa = torch.sqrt(msq)[:, None] * lam / torch.sqrt(msq[:, None] + (eta1[:, None] * lam) ** 2)
+    eye = torch.eye(P, dtype=X.dtype, device=X.device)
+    probes = torch.cat([eye, -eye])
+    kX = kappa[:, None, :] * X
+    kprobe = kappa[:, None, :] * probes
+    k_xx = quad_kernel(kX, kX, eta1, eta2, c) + (sigma**2)[:, None, None] * torch.eye(
+        N, dtype=X.dtype, device=X.device)
+    chol = torch.linalg.cholesky(k_xx)
+    k_px = quad_kernel(kprobe, kX, eta1, eta2, c)
+    mean_at_probes = (k_px @ torch.cholesky_solve(
+        torch.broadcast_to(Y[:, None], (len(eta1), N, 1)), chol))[..., 0]
+    mu = 0.5 * (mean_at_probes[:, :P] - mean_at_probes[:, P:])
+    k_pp = quad_kernel(kprobe, kprobe, eta1, eta2, c)
+    cov = k_pp - k_px @ torch.cholesky_solve(k_px.transpose(-2, -1), chol)
+    diag = torch.diagonal(cov, dim1=-2, dim2=-1)
+    var = 0.25 * (diag[:, :P] + diag[:, P:] - 2.0 * torch.diagonal(cov[:, :P, P:], dim1=-2,
+                                                                    dim2=-1))
+    return mu, var
+
+
+def skim_posterior(X, Y, samples):
+    """The example's summary of the draws: the singleton means and their
+    stds as a mixture over the draws, in chunks of 512 draws; returns
+    (mean, std, active dims by the 3-std rule)."""
+    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])).double() for k, v in samples.items()}
+    n = flat["sigma"].shape[0]
+    mus, variances = [], []
+    Xd, Yd = X.double(), Y.double()
+    for lo in range(0, n, 512):
+        chunk = {k: v[lo:lo + 512] for k, v in flat.items()}
+        mu, var = skim_singleton_stats(Xd, Yd, SKIM_HYPERS["c"], chunk)
+        mus.append(mu)
+        variances.append(var)
+    mus, variances = torch.cat(mus), torch.cat(variances)
+    mean = mus.mean(0)
+    std = torch.sqrt((variances + mus**2).mean(0) - mean**2)
+    active = torch.nonzero(mean.abs() > 3 * std).flatten().tolist()
+    return mean.cpu().numpy(), std.cpu().numpy(), active
+
+
+def phase_skim(device):
+    """15a: NUTS with vectorized chains on SKIM; returns its wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    n, p, s = SKIM_DATA
+    X_np, Y_np, expected = skim_data(n, p, s)
+    X, Y = torch.from_numpy(X_np).to(device), torch.from_numpy(Y_np).to(device)
+    chains, warmup, samples, depth = SKIM_RUN
+    mcmc = MCMC(NUTS(skim_model, max_tree_depth=depth), num_warmup=warmup,
+                num_samples=samples, num_chains=chains, device=device)
+    mcmc.run(15, X, Y, SKIM_HYPERS)
+    stats = mcmc.last_run_stats
+    divergent = stats["num_divergent_warmup"]
+    z = mcmc.get_samples(group_by_chain=True)
+    if not all(torch.isfinite(v).all() for v in z.values()):
+        raise SystemExit("15a: draws that are not finite")
+    mean, std, active = skim_posterior(X, Y, z)
+    gap = float(np.abs(mean[:s] - expected).max())
+    evals_w = stats["potential_evals_warmup"]
+    evals_s = stats["potential_evals_sample"]
+    wall = time.perf_counter() - t0
+    ms = (stats["warmup_s"] + stats["sample_s"]) / (evals_w + evals_s) * 1e3
+    log(f"[skim] 15a SKIM (N {n}, P {p}, S {s}), {chains} chains, {warmup} + {samples}, "
+        f"max_tree_depth {depth}: init {stats['init_s']:.2f} s; warmup {stats['warmup_s']:.2f} s "
+        f"with {evals_w} evaluations ({evals_w / warmup:.1f} a transition) and {divergent} "
+        f"divergent transitions of {chains * warmup}; sampling {stats['sample_s']:.2f} s with "
+        f"{evals_s} evaluations "
+        f"({evals_s / samples:.1f} a transition); {ms:.2f} ms per evaluation; active "
+        f"dimensions {active}; singleton means {np.round(mean[:s], 4).tolist()} +- "
+        f"{np.round(std[:s], 4).tolist()} against {np.round(expected, 4).tolist()}, gap "
+        f"{gap:.4f} (gate {SKIM_GATE}); {wall:.2f} s")
+    if active != list(range(s)):
+        raise SystemExit(f"15a: identified active dimensions {active}, not {list(range(s))}")
+    if not gap < SKIM_GATE:
+        raise SystemExit(f"15a: the singleton means are off by {gap:.4f} (>= {SKIM_GATE})")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("15a: the leg launched a GLM kernel")
+    return wall
+
+
+def semi_models(device):
+    """The models of tests/infer/test_autoguide_extra.py::test_auto_semi_dais
+    on ``device``: (model, local model, global model)."""
+    n, sub = SEMI_RUN[:2]
+    data = torch.tensor(SEMI_DATA, device=device)
+
+    def global_model():
+        return npt.sample("theta", dist.Normal(0.0, 3.0))
+
+    def local_model(theta):
+        with npt.plate("data", n, subsample_size=sub):
+            tau = npt.sample("tau", dist.Gamma(5.0, 5.0))
+            batch = npt.subsample(data, event_dim=0)
+            npt.sample("obs", dist.Normal(theta, 1 / torch.sqrt(tau)), obs=batch)
+
+    def model():
+        return local_model(global_model())
+
+    return model, local_model, global_model
+
+
+def phase_semi_dais(device):
+    """15b: AutoSemiDAIS with a global AutoNormal; returns its wall seconds."""
+    t0 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    n, sub, K, lr, steps, draws = SEMI_RUN
+    model, local_model, global_model = semi_models(device)
+    start = init_to_value(values={"theta": torch.tensor(0.0, device=device)})
+    guide = autoguide.AutoSemiDAIS(model, local_model,
+                                   autoguide.AutoNormal(global_model, init_loc_fn=start), K=K)
+    ts = time.perf_counter()
+    res = SVI(model, guide, Adam(lr), Trace_ELBO(), device=device).run(151, steps)
+    losses = res.losses.cpu().numpy()
+    fit_s = time.perf_counter() - ts
+    theta = guide.sample_posterior(torch.Generator(device=device).manual_seed(152), res.params,
+                                   sample_shape=(draws,))["theta"]
+    mean = theta.double().mean().item()
+    with handlers.substitute(data={"data": torch.arange(sub, device=device)}):
+        one = guide.sample_posterior(torch.Generator(device=device).manual_seed(153), res.params)
+    gap = abs(mean - SEMI_GATE["theta"])
+    criterion = bool(np.isfinite(losses[-50:]).all() and losses[-50:].mean() < losses[:3].mean())
+    wall = time.perf_counter() - t0
+    log(f"[semi] 15b AutoSemiDAIS (N {n}, subsample {sub}, K {K}), Adam({lr}), {steps} steps in "
+        f"{fit_s:.2f} s ({fit_s / steps * 1e3:.2f} ms a step); loss {losses[:3].mean():.3f} -> "
+        f"{losses[-50:].mean():.3f} (the test's criterion: {criterion}); mean of theta over "
+        f"{draws} draws {mean:.4f} against the JAX package's {SEMI_GATE['theta']}, gap "
+        f"{gap:.4f} (gate {SEMI_GATE['gate']}); {wall:.2f} s")
+    if not criterion:
+        raise SystemExit("15b: the losses are not finite or did not fall (the JAX test's "
+                         "criterion)")
+    if not (gap < SEMI_GATE["gate"] and tuple(one["tau"].shape) == (sub,)
+            and torch.isfinite(one["theta"])):
+        raise SystemExit(f"15b: theta's mean is off the JAX package's by {gap:.4f}, or the "
+                         f"posterior draw has tau of shape {tuple(one['tau'].shape)}")
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("15b: the leg launched a GLM kernel")
+    return wall
+
+
+def _family(name, params, device):
+    values = {k: torch.tensor(v, device=device) for k, v in params.items()}
+    if name.startswith("Truncated"):
+        bounds = {k: values.pop(k) for k in ("low", "high") if k in values}
+        return getattr(dist, name)(**values, **bounds)
+    return getattr(dist, name)(**values)
+
+
+def phase_families(device):
+    """15c: the new families' log_prob, cdf and icdf on CUDA tensors against
+    CPU tensors, Gamma and Beta draws from a CUDA generator against their
+    moments, and the bisected inverses timed; returns the wall seconds."""
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    q = torch.linspace(0.05, 0.95, 12).reshape(4, 3)
+    worst, checked = 0.0, 0
+    for name, params in FAMILIES.items():
+        d_cpu, d_dev = _family(name, params, cpu), _family(name, params, device)
+        x = d_cpu.sample(torch.Generator().manual_seed(154), (4,))
+        for method, arg in (("log_prob", x), ("cdf", x), ("icdf", q)):
+            try:
+                want = getattr(d_cpu, method)(arg)
+            except NotImplementedError:
+                try:
+                    getattr(d_dev, method)(arg.to(device))
+                except NotImplementedError:
+                    continue
+                raise SystemExit(f"15c: {name}.{method} raises on the CPU only")
+            got = getattr(d_dev, method)(arg.to(device))
+            if got.device.type != device.type:
+                raise SystemExit(f"15c: {name}.{method} came back on {got.device}")
+            err = ((got.cpu() - want).abs() / (FAMILY_ATOL + FAMILY_RTOL * want.abs())).max()
+            worst, checked = max(worst, err.item()), checked + 1
+            if not err <= 1.0:
+                raise SystemExit(f"15c: {name}.{method} on the card is off the CPU's: "
+                                 f"{got.cpu().tolist()} against {want.tolist()}")
+        draw = d_dev.sample(torch.Generator(device=device).manual_seed(155), (8,))
+        if draw.device.type != device.type or not bool(d_dev.support(draw).all()):
+            raise SystemExit(f"15c: {name}'s draws are off its support or its device")
+    moments = {}
+    for name in ("Gamma", "Beta"):
+        d = _family(name, FAMILIES[name], device)
+        n = 20_000
+        x = d.sample(torch.Generator(device=device).manual_seed(156), (n,)).double()
+        mean, var = d.mean.double(), d.variance.double()
+        se_mean = torch.sqrt(var / n)
+        se_var = torch.sqrt(((x - x.mean(0)) ** 4).mean(0) / n)
+        z = max(((x.mean(0) - mean).abs() / se_mean).max().item(),
+                ((x.var(0) - var).abs() / se_var).max().item())
+        moments[name] = z
+        if not z < 4.0:
+            raise SystemExit(f"15c: {name}'s draws on the card are {z:.2f} standard errors off "
+                             "their moments")
+    a = torch.rand(4096, device=device) * 20 + 0.3
+    b = torch.rand(4096, device=device) * 20 + 0.3
+    y = torch.rand(4096, device=device)
+    inv_beta_ms = cuda_ms(lambda: betaincinv(a, b, y), reps=1)
+    inv_gamma_ms = cuda_ms(lambda: gammaincinv(a, y), reps=1)
+    wall = time.perf_counter() - t0
+    log(f"[families] 15c {len(FAMILIES)} classes, {checked} calls on the card within rtol "
+        f"{FAMILY_RTOL}, atol {FAMILY_ATOL} of the CPU's (worst {worst:.3f} of the bound); Gamma "
+        f"and Beta draws on a CUDA generator within {max(moments.values()):.2f} standard errors "
+        f"of their moments (gate 4); betaincinv {inv_beta_ms:.2f} ms and gammaincinv "
+        f"{inv_gamma_ms:.2f} ms on 4,096 elements (60 and 120 bisection steps, not gated); "
+        f"{wall:.2f} s")
+    return wall
+
+
+def phase_fifteen(device):
+    """Phase 15: SKIM, AutoSemiDAIS and the new families; returns the walls
+    of its legs (15c only on the card)."""
+    walls = {"15a": phase_skim(device), "15b": phase_semi_dais(device)}
+    if device.type == "cuda":
+        walls["15c"] = phase_families(device)
+    return walls
 
 
 def phase_horseshoe(X, y, beta_true, leg):
@@ -2096,6 +2463,13 @@ def main():
         f"14b {wall_b:.1f} s, 14c-e {wall_ce:.1f} s), about "
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 30 s); glm_split launches 14a {iaf_launches}, 14b {neutra_launches}")
+
+    t15 = time.perf_counter()
+    walls = phase_fifteen(device)
+    wall = time.perf_counter() - t15
+    log(f"[semi] phase 15: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"), about {wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes "
+        f"24.0 ms per evaluation (budget 12 s)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

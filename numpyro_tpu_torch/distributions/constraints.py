@@ -2,7 +2,8 @@
 that the ported slices need: ``real``, ``real_vector``, ``boolean``,
 ``independent``, ``interval``, ``integer_interval``,
 ``greater_than``/``greater_than_eq`` and their instances
-``positive``/``nonnegative``, ``softplus_positive``, ``lower_cholesky``,
+``positive``/``nonnegative``, ``less_than``/``less_than_eq``,
+``open_interval``, ``softplus_positive``, ``lower_cholesky``,
 ``scaled_unit_lower_cholesky``, ``simplex`` and ``unit_interval``).
 Others are not
 ported yet; see ROADMAP.md."""
@@ -13,7 +14,8 @@ import torch
 
 __all__ = [
     "Constraint", "boolean", "greater_than", "greater_than_eq", "independent",
-    "integer_interval", "interval", "lower_cholesky", "nonnegative", "positive", "real",
+    "integer_interval", "interval", "less_than", "less_than_eq", "lower_cholesky", "nonnegative",
+    "open_interval", "positive", "real",
     "real_vector", "scaled_unit_lower_cholesky", "simplex", "softplus_positive",
     "unit_interval",
 ]
@@ -129,6 +131,38 @@ class _GreaterThanEq(_GreaterThan):
         return f"greater_than_eq({self.lower_bound})"
 
 
+class _LessThan(Constraint):
+    def __init__(self, upper_bound):
+        self.upper_bound = upper_bound
+
+    def __call__(self, x):
+        return x < self.upper_bound
+
+    def feasible_like(self, prototype):
+        value = torch.as_tensor(self.upper_bound - 1.0, dtype=prototype.dtype,
+                                device=prototype.device)
+        return torch.broadcast_to(value, prototype.shape)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and bool(
+            torch.equal(torch.as_tensor(self.upper_bound), torch.as_tensor(other.upper_bound))
+        )
+
+    def __hash__(self):
+        return hash(type(self))
+
+    def __repr__(self):
+        return f"less_than({self.upper_bound})"
+
+
+class _LessThanEq(_LessThan):
+    def __call__(self, x):
+        return x <= self.upper_bound
+
+    def __repr__(self):
+        return f"less_than_eq({self.upper_bound})"
+
+
 class _SoftplusPositive(_GreaterThan):
     """The positive half-line, reached through softplus rather than exp."""
 
@@ -180,6 +214,14 @@ class _Interval(Constraint):
         return f"interval({self.lower_bound}, {self.upper_bound})"
 
 
+class _OpenInterval(_Interval):
+    def __call__(self, x):
+        return (x > self.lower_bound) & (x < self.upper_bound)
+
+    def __repr__(self):
+        return f"open_interval({self.lower_bound}, {self.upper_bound})"
+
+
 class _IntegerInterval(Constraint):
     is_discrete = True
 
@@ -224,8 +266,11 @@ greater_than_eq = _GreaterThanEq
 independent = _IndependentConstraint
 integer_interval = _IntegerInterval
 interval = _Interval
+less_than = _LessThan
+less_than_eq = _LessThanEq
 lower_cholesky = _LowerCholesky()
 nonnegative = _GreaterThanEq(0.0)
+open_interval = _OpenInterval
 positive = _GreaterThan(0.0)
 real = _Real()
 real_vector = _IndependentConstraint(real, 1)

@@ -13,17 +13,13 @@ import torch
 
 from . import constraints
 from .distribution import Distribution
-from .util import broadcast_shape, lazy_property
+from .transforms import _softplus
+from .util import broadcast_shape, clamp_probs, lazy_property
 
 __all__ = [
     "Bernoulli", "BernoulliLogits", "BernoulliProbs", "Categorical", "CategoricalLogits",
     "CategoricalProbs",
 ]
-
-
-def _clamp_probs(probs):
-    eps = torch.finfo(probs.dtype)
-    return probs.clamp(eps.tiny, 1.0 - eps.eps)
 
 
 def _as_float_tensor(x):
@@ -51,6 +47,14 @@ class _BernoulliBase(Distribution):
         )
         return (u < probs).to(torch.int64)
 
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.probs, self.batch_shape)
+
+    @property
+    def variance(self):
+        return torch.broadcast_to(self.probs * (1.0 - self.probs), self.batch_shape)
+
     def enumerate_support(self, expand=True):
         param = self.__dict__.get("probs", self.__dict__.get("logits"))
         return _enum_range(2, self.batch_shape, expand, param.device)
@@ -66,8 +70,12 @@ class BernoulliProbs(_BernoulliBase):
 
     @lazy_property
     def logits(self):
-        safe = _clamp_probs(self.probs)
+        safe = clamp_probs(self.probs)
         return torch.log(safe) - torch.log1p(-safe)
+
+    def entropy(self):
+        p = clamp_probs(self.probs)
+        return -p * torch.log(p) - (1.0 - p) * torch.log1p(-p)
 
 
 class BernoulliLogits(_BernoulliBase):
@@ -86,6 +94,10 @@ class BernoulliLogits(_BernoulliBase):
     @lazy_property
     def probs(self):
         return torch.sigmoid(self.logits)
+
+    def entropy(self):
+        p = torch.sigmoid(self.logits)
+        return p * _softplus(-self.logits) + (1.0 - p) * _softplus(self.logits)
 
 
 def Bernoulli(probs=None, logits=None, *, validate_args=None):
@@ -126,6 +138,20 @@ class _CategoricalBase(Distribution):
         param = self._param()
         return _enum_range(param.shape[-1], self.batch_shape, expand, param.device)
 
+    @property
+    def mean(self):
+        return torch.full(self.batch_shape, torch.nan, dtype=self._param().dtype,
+                          device=self._param().device)
+
+    @property
+    def variance(self):
+        return torch.full(self.batch_shape, torch.nan, dtype=self._param().dtype,
+                          device=self._param().device)
+
+    def entropy(self):
+        table = self._log_pmf
+        return -(torch.exp(table) * table).sum(-1)
+
 
 class CategoricalProbs(_CategoricalBase):
     def __init__(self, probs, *, validate_args=None):
@@ -144,6 +170,10 @@ class CategoricalProbs(_CategoricalBase):
     @property
     def logits(self):
         return self._log_pmf
+
+    def entropy(self):
+        p = clamp_probs(self.probs)
+        return -(p * torch.log(p)).sum(-1)
 
 
 class CategoricalLogits(_CategoricalBase):

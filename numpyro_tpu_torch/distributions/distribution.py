@@ -119,6 +119,23 @@ class Distribution:
     def log_prob(self, value):
         raise NotImplementedError(f"{type(self).__name__}.log_prob")
 
+    @property
+    def mean(self):
+        raise NotImplementedError(f"{type(self).__name__}.mean")
+
+    @property
+    def variance(self):
+        raise NotImplementedError(f"{type(self).__name__}.variance")
+
+    def cdf(self, value):
+        raise NotImplementedError(f"{type(self).__name__}.cdf")
+
+    def icdf(self, q):
+        raise NotImplementedError(f"{type(self).__name__}.icdf")
+
+    def entropy(self):
+        raise NotImplementedError(f"{type(self).__name__}.entropy")
+
     def enumerate_support(self, expand=True):
         raise NotImplementedError(f"{type(self).__name__}.enumerate_support")
 
@@ -157,6 +174,14 @@ class _Decorated(Distribution):
     @property
     def has_enumerate_support(self):
         return self.base_dist.has_enumerate_support
+
+    @property
+    def mean(self):
+        return self.base_dist.mean
+
+    @property
+    def variance(self):
+        return self.base_dist.variance
 
     def sample(self, key, sample_shape=()):
         return self.base_dist.sample(key, sample_shape)
@@ -207,6 +232,24 @@ class ExpandedDistribution(_Decorated):
         out = broadcast_shape(self.batch_shape, tuple(value.shape[:lead]))
         return self.base_dist.log_prob(value).expand(out)
 
+    def cdf(self, value):
+        # elementwise under broadcasting, so the base's answers
+        return self.base_dist.cdf(value)
+
+    def icdf(self, q):
+        return self.base_dist.icdf(q)
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.base_dist.mean, self.shape())
+
+    @property
+    def variance(self):
+        return torch.broadcast_to(self.base_dist.variance, self.shape())
+
+    def entropy(self):
+        return torch.broadcast_to(self.base_dist.entropy(), self.batch_shape)
+
     def enumerate_support(self, expand=True):
         samples = self.base_dist.enumerate_support(expand=False)
         enum_shape = tuple(samples.shape[:1])
@@ -239,6 +282,9 @@ class Independent(_Decorated):
 
     def log_prob(self, value):
         return sum_rightmost(self.base_dist.log_prob(value), self.reinterpreted_batch_ndims)
+
+    def entropy(self):
+        return sum_rightmost(self.base_dist.entropy(), self.reinterpreted_batch_ndims)
 
     def expand(self, batch_shape):
         inner = tuple(batch_shape) + self.event_shape[: self.reinterpreted_batch_ndims]
@@ -361,6 +407,17 @@ class TransformedDistribution(Distribution):
         return total + sum_rightmost(
             self.base_dist.log_prob(y), event_dim - self.base_dist.event_dim
         )
+
+    @property
+    def mean(self):
+        raise NotImplementedError(
+            f"{type(self).__name__}.mean: the mean of a generic pushforward is unavailable")
+
+    @property
+    def variance(self):
+        raise NotImplementedError(
+            f"{type(self).__name__}.variance: the variance of a generic pushforward is "
+            "unavailable")
 
 
 class Delta(Distribution):

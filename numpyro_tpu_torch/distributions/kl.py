@@ -1,7 +1,9 @@
 """Analytic KL divergences (port of the parts of
 ``numpyro_tpu/distributions/kl.py`` that ``TraceMeanField_ELBO`` reaches on
 the ported models: the expanded, independent, masked and delta combinators,
-Normal/Normal and MultivariateNormal/MultivariateNormal).  As in the JAX
+Normal/Normal, MultivariateNormal/MultivariateNormal, Beta/Beta,
+Gamma/Gamma, Dirichlet/Dirichlet, Categorical/Categorical by probs and by
+logits, Weibull/Gamma and Kumaraswamy/Beta).  As in the JAX
 package, Delta against an expanded distribution counts the Delta's
 ``log_density``, and Delta against any other distribution does not.
 
@@ -14,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from .continuous import MultivariateNormal, Normal
+from .continuous import Beta, Dirichlet, Gamma, Kumaraswamy, MultivariateNormal, Normal, Weibull
+from .discrete import CategoricalLogits, CategoricalProbs
 from .distribution import (
     Delta,
     Distribution,
@@ -22,7 +25,7 @@ from .distribution import (
     Independent,
     MaskedDistribution,
 )
-from .util import broadcast_shape, sum_rightmost
+from .util import betaln, broadcast_shape, sum_rightmost
 
 __all__ = ["kl_divergence", "register_kl"]
 
@@ -137,3 +140,73 @@ def _kl_mvn_mvn(p, q):
     )
     mahalanobis = (lq_inv_diff[..., 0] ** 2).sum(-1)
     return 0.5 * (tr + mahalanobis - d) + q_half_logdet - p_half_logdet
+
+
+@register_kl(Beta, Beta)
+def _kl_beta_beta(p, q):
+    a1, b1 = p.concentration1, p.concentration0
+    a2, b2 = q.concentration1, q.concentration0
+    t1 = betaln(a2, b2) - betaln(a1, b1)
+    t2 = (a1 - a2) * torch.digamma(a1) + (b1 - b2) * torch.digamma(b1)
+    t3 = (a2 - a1 + b2 - b1) * torch.digamma(a1 + b1)
+    return t1 + t2 + t3
+
+
+@register_kl(Gamma, Gamma)
+def _kl_gamma_gamma(p, q):
+    a1, b1 = p.concentration, p.rate
+    a2, b2 = q.concentration, q.rate
+    t1 = a2 * torch.log(b1 / b2) + torch.lgamma(a2) - torch.lgamma(a1)
+    t2 = (a1 - a2) * torch.digamma(a1)
+    t3 = a1 * (b2 / b1 - 1)
+    return t1 + t2 + t3
+
+
+@register_kl(Dirichlet, Dirichlet)
+def _kl_dirichlet_dirichlet(p, q):
+    a, b = p.concentration, q.concentration
+    a0 = a.sum(-1)
+    return (torch.lgamma(a0) - torch.lgamma(a).sum(-1) - torch.lgamma(b.sum(-1))
+            + torch.lgamma(b).sum(-1)
+            + ((a - b) * (torch.digamma(a) - torch.digamma(a0)[..., None])).sum(-1))
+
+
+@register_kl(CategoricalProbs, CategoricalProbs)
+def _kl_cat_cat(p, q):
+    return (p.probs * (torch.log(p.probs) - torch.log(q.probs))).sum(-1)
+
+
+@register_kl(CategoricalLogits, CategoricalLogits)
+def _kl_catlogits_catlogits(p, q):
+    p_logp = p.logits - torch.logsumexp(p.logits, -1, keepdim=True)
+    q_logp = q.logits - torch.logsumexp(q.logits, -1, keepdim=True)
+    return (torch.exp(p_logp) * (p_logp - q_logp)).sum(-1)
+
+
+@register_kl(Weibull, Gamma)
+def _kl_weibull_gamma(p, q):
+    a, b = p.concentration, p.scale
+    euler = 0.5772156649015329
+    t1 = -q.concentration * torch.log(q.rate) + torch.lgamma(q.concentration)
+    # E_p[log p] = log(a / b) - gamma (1 - 1 / a) - 1, the negative Weibull entropy
+    t2 = torch.log(a / b) - euler * (1 - 1 / a) - 1
+    t3 = q.rate * b * torch.exp(torch.lgamma(1 + 1 / a))
+    t4 = -(q.concentration - 1) * (torch.log(b) - euler / a)
+    return t1 + t2 + t3 + t4
+
+
+@register_kl(Kumaraswamy, Beta)
+def _kl_kumaraswamy_beta(p, q):
+    """The truncated Taylor series of arXiv:1605.06197, Eq. (12), of
+    ``p.KL_KUMARASWAMY_BETA_TAYLOR_ORDER`` terms."""
+    taylor_order = getattr(p, "KL_KUMARASWAMY_BETA_TAYLOR_ORDER", 10)
+    a, b = p.concentration1, p.concentration0
+    alpha, beta = q.concentration1, q.concentration0
+    b_reciprocal = 1.0 / b
+    a_b = a * b
+    t1 = (alpha / a - 1) * (0.5772156649015329 + torch.digamma(b) + b_reciprocal)
+    t2 = torch.log(a_b) + betaln(alpha, beta) + (b_reciprocal - 1)
+    m = torch.arange(1, taylor_order + 1, dtype=a.dtype, device=a.device)
+    t3 = (beta - 1) * b * (torch.exp(betaln(m / a[..., None], b[..., None]))
+                           / (m + a_b[..., None])).sum(-1)
+    return t1 + t2 + t3

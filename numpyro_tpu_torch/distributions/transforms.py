@@ -1,12 +1,13 @@
 """Bijective transforms and the ``biject_to`` registry (port of the parts
 of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
-identity, independent, compose, affine, exp, sigmoid, softplus and
-stick-breaking transforms, the lower-Cholesky transforms, ``UnpackTransform``
-and ``LowerCholeskyAffine``, ``PermuteTransform`` and ``ReshapeTransform``;
-``biject_to`` for ``real``, ``independent``, ``positive``/``nonnegative``,
-``greater_than``/``greater_than_eq``, ``softplus_positive``,
-``lower_cholesky``, ``scaled_unit_lower_cholesky``, ``simplex``,
-``unit_interval`` and ``interval``).
+identity, independent, compose, affine, exp, power, abs, sigmoid, softplus
+and stick-breaking transforms, the lower-Cholesky transforms,
+``UnpackTransform`` and ``LowerCholeskyAffine``, ``PermuteTransform`` and
+``ReshapeTransform``; ``biject_to`` for ``real``, ``independent``,
+``positive``/``nonnegative``, ``greater_than``/``greater_than_eq``,
+``less_than``/``less_than_eq``, ``softplus_positive``, ``lower_cholesky``,
+``scaled_unit_lower_cholesky``, ``simplex``, ``unit_interval`` and
+``interval``/``open_interval``).
 Other constraints
 raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
 
@@ -27,6 +28,7 @@ from . import constraints
 from .util import broadcast_shape, sum_rightmost
 
 __all__ = [
+    "AbsTransform",
     "AffineTransform",
     "ComposeTransform",
     "ExpTransform",
@@ -35,6 +37,7 @@ __all__ = [
     "LowerCholeskyAffine",
     "LowerCholeskyTransform",
     "PermuteTransform",
+    "PowerTransform",
     "ReshapeTransform",
     "ScaledUnitLowerCholeskyTransform",
     "SigmoidTransform",
@@ -262,6 +265,17 @@ class IndependentTransform(Transform):
         return hash((type(self), self.base_transform, self.reinterpreted_batch_ndims))
 
 
+class AbsTransform(Transform):
+    domain = constraints.real
+    codomain = constraints.positive
+
+    def __call__(self, x):
+        return torch.abs(x)
+
+    def _inverse(self, y):
+        return y
+
+
 def _same(a, b):
     return a is b or bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
 
@@ -285,6 +299,8 @@ class AffineTransform(Transform):
         # the bounded cases assume scale > 0, as the JAX package does
         if isinstance(dom, constraints.greater_than):
             return constraints.greater_than(self(dom.lower_bound))
+        if isinstance(dom, constraints.less_than):
+            return constraints.less_than(self(dom.upper_bound))
         if isinstance(dom, constraints.interval):
             return constraints.interval(self(dom.lower_bound), self(dom.upper_bound))
         raise NotImplementedError
@@ -346,6 +362,35 @@ class ExpTransform(Transform):
 
     def log_abs_det_jacobian(self, x, y, intermediates=None):
         return x
+
+
+class PowerTransform(Transform):
+    """y = x ** exponent on the positive half-line."""
+
+    domain = constraints.positive
+    codomain = constraints.positive
+
+    def __init__(self, exponent):
+        self.exponent = exponent
+
+    def __call__(self, x):
+        return torch.pow(x, self.exponent)
+
+    def _inverse(self, y):
+        return torch.pow(y, 1.0 / self.exponent)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return torch.log(torch.abs(self.exponent * y / x))
+
+    def forward_shape(self, shape):
+        return broadcast_shape(tuple(shape), tuple(torch.as_tensor(self.exponent).shape))
+
+    inverse_shape = forward_shape
+
+    def __eq__(self, other):
+        return type(self) is type(other) and _same(self.exponent, other.exponent)
+
+    __hash__ = Transform.__hash__
 
 
 def _softplus(x):
@@ -765,18 +810,23 @@ biject_to.register(
 for _c in (constraints.greater_than, constraints.greater_than_eq):
     biject_to.register(_c, lambda c: _onto_halfline(c.lower_bound, 1.0))
 del _c
+for _c in (constraints.less_than, constraints.less_than_eq):
+    biject_to.register(_c, lambda c: _onto_halfline(c.upper_bound, -1.0))
+del _c
 # ``softplus_positive`` subclasses ``_GreaterThan`` but is a type of its own,
 # so its row stands beside the half-line rows, as in the JAX package
 biject_to.register(constraints.softplus_positive, lambda c: SoftplusTransform())
 biject_to.register(constraints.unit_interval, lambda c: SigmoidTransform())
-biject_to.register(
-    constraints.interval,
-    lambda c: ComposeTransform([
-        SigmoidTransform(),
-        AffineTransform(c.lower_bound, c.upper_bound - c.lower_bound,
-                        domain=constraints.unit_interval),
-    ]),
-)
+for _c in (constraints.interval, constraints.open_interval):
+    biject_to.register(
+        _c,
+        lambda c: ComposeTransform([
+            SigmoidTransform(),
+            AffineTransform(c.lower_bound, c.upper_bound - c.lower_bound,
+                            domain=constraints.unit_interval),
+        ]),
+    )
+del _c
 biject_to.register(constraints.simplex, lambda c: StickBreakingTransform())
 biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
 biject_to.register(

@@ -2,11 +2,10 @@
 ``AutoNormal``, ``AutoDelta``, ``AutoContinuous``, ``AutoDiagonalNormal``,
 ``AutoMultivariateNormal``, ``AutoLowRankMultivariateNormal``,
 ``AutoLaplaceApproximation``, the flow guides ``AutoIAFNormal`` and
-``AutoBNAFNormal``, the DAIS guides ``AutoDAIS`` and
-``AutoSurrogateLikelihoodDAIS``, and the batched guides
+``AutoBNAFNormal``, the DAIS guides ``AutoDAIS``,
+``AutoSurrogateLikelihoodDAIS`` and ``AutoSemiDAIS``, and the batched guides
 ``AutoBatchedMultivariateNormal`` and ``AutoBatchedLowRankMultivariateNormal``
-from ``numpyro_tpu/infer/autoguide.py``; ``AutoSemiDAIS`` is listed in
-ROADMAP.md and raises when made).
+from ``numpyro_tpu/infer/autoguide.py``).
 
 A guide traces its model once (the prototype), recreates the model's plates
 with their subsample sizes, and declares its parameters with ``param``.  The
@@ -30,6 +29,7 @@ reverse).  The GLM op has no second derivative and raises there.
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from abc import ABC, abstractmethod
@@ -924,13 +924,307 @@ class AutoSurrogateLikelihoodDAIS(AutoDAIS):
         return super()._sample_latent(*args, **kwargs)
 
 
-class AutoSemiDAIS:
-    """Not ported yet (ROADMAP.md, Queue 1 item 7)."""
+def _flatten_local_dict(values):
+    """The arrays of a dict, in sorted-name order, flattened into one vector,
+    and their shapes."""
+    names = sorted(values)
+    flat = torch.cat([values[n].reshape(-1) for n in names])
+    return flat, {n: tuple(values[n].shape) for n in names}
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AutoSemiDAIS is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-        )
+
+def _unflatten_local_dict(flat, shapes):
+    out, pos = {}, 0
+    for n in sorted(shapes):
+        size = math.prod(shapes[n])
+        out[n] = flat[..., pos:pos + size].reshape(tuple(flat.shape[:-1]) + shapes[n])
+        pos += size
+    return out
+
+
+def _subsample_model(model, *args, **kwargs):
+    """Run ``model`` with the subsample indices of its plates pinned by the
+    ``_subsample_idx`` keyword (a dict plate name -> indices)."""
+    data = kwargs.pop("_subsample_idx", {})
+    with handlers.substitute(data=data):
+        return model(*args, **kwargs)
+
+
+class AutoSemiDAIS(AutoGuide):
+    """Semi-parametric DAIS (Jankowiak and Phan): a parametric guide over the
+    global latents and differentiable annealed importance sampling over the
+    local latents of one subsample plate, the subsampling sibling of
+    :class:`AutoDAIS`.
+
+    The local latents of the drawn rows are packed into one ``(S, D)``
+    matrix: each site's plate axis moved to the front and its per-datum
+    values flattened in sorted-name order (the JAX package's ``vmap`` over a
+    dict of axes).  The ``K`` annealing steps take ``torch.func.grad`` of the
+    local model's log density inside SVI's gradient, as ``AutoDAIS`` does.
+    Without ``use_global_dais_params`` the schedule parameters are ``param``
+    sites of length N declared in the plate, which reads the drawn rows, so
+    their gradient lands in those rows and is 0 in the others.
+
+    :param callable model: the whole model (globals and locals).
+    :param callable local_model: its local part, called with what
+        ``global_guide.model`` returns (or with the model's arguments when
+        there is no ``global_guide``).
+    :param global_guide: the guide of the global latents, or None.
+    :param local_guide: an optional guide whose draws of the locals are the
+        annealing's start.
+    """
+
+    def __init__(self, model, local_model, global_guide=None, local_guide=None, *,
+                 prefix="auto", K=4, eta_init=0.01, eta_max=0.1, gamma_init=0.9,
+                 init_scale=0.1, subsample_plate=None, use_global_dais_params=False):
+        super().__init__(model, prefix=prefix, init_loc_fn=init_to_uniform)
+        _check_dais_hyperparams(K, eta_init, eta_max, gamma_init, init_scale)
+        self.local_model = local_model
+        self.global_guide = global_guide
+        self.local_guide = local_guide
+        self.K = K
+        self.eta_init = eta_init
+        self.eta_max = eta_max
+        self.gamma_init = gamma_init
+        self._init_scale = init_scale
+        self.subsample_plate = subsample_plate
+        self.use_global_dais_params = use_global_dais_params
+
+    def _find_subsample_plate(self):
+        def is_subsampled(site):
+            return (site["type"] == "plate" and isinstance(site["args"][1], int)
+                    and site["args"][0] > site["args"][1])
+
+        candidates = {n: s for n, s in self.prototype_trace.items() if is_subsampled(s)}
+        if self.subsample_plate is not None:
+            candidates[self.subsample_plate] = self.prototype_trace[self.subsample_plate]
+        elif not candidates:
+            candidates = {n: s for n, s in self.prototype_trace.items() if s["type"] == "plate"}
+        if len(candidates) != 1:
+            raise ValueError(
+                "AutoSemiDAIS expects exactly one data (subsample) plate, "
+                f"found {len(candidates)}"
+            )
+        name = next(iter(candidates))
+        full, sub = candidates[name]["args"]
+        return name, full, full if sub is None else sub
+
+    def _setup_prototype(self, *args, **kwargs):
+        super()._setup_prototype(*args, **kwargs)
+        plate_name, N, subsample_size = self._find_subsample_plate()
+
+        # the local latents (inside the plate), and the axis of each that the
+        # plate occupies
+        self._local_axes = {}
+        plate_dim = None
+        for name, site in self.prototype_trace.items():
+            if site["type"] != "sample" or site["is_observed"]:
+                continue
+            for frame in site["cond_indep_stack"]:
+                if frame.name == plate_name:
+                    if plate_dim is None:
+                        plate_dim = frame.dim
+                    self._local_axes[name] = plate_dim - site["fn"].event_dim
+                    break
+        if not self._local_axes:
+            raise RuntimeError(
+                f"No local latent variables found in plate `{plate_name}`; "
+                "AutoSemiDAIS requires local variables."
+            )
+        local_init = {n: v for n, v in self._init_locs.items() if n in self._local_axes}
+        per_datum = {n: v.movedim(self._local_axes[n], 0)[0] for n, v in local_init.items()}
+        _, self._local_shapes = _flatten_local_dict(per_datum)
+        self._like = next(iter(local_init.values()))
+        self._local_latent_dim = sum(math.prod(s) for s in self._local_shapes.values())
+        self._local_plate = (plate_name, N, subsample_size)
+
+        # prototype traces of the local model (and guide), for their params
+        if self.global_guide is not None:
+            with handlers.block():
+                local_args = (self.global_guide.model(*args, **kwargs),)
+                local_kwargs = {}
+        else:
+            local_args = args
+            local_kwargs = kwargs.copy()
+        if self.local_guide is not None:
+            with handlers.block(), handlers.trace() as tr:
+                self.local_guide(*local_args, **local_kwargs)
+            self._proto_local_guide_trace = tr
+        with handlers.block(), handlers.trace() as tr:
+            self.local_model(*local_args, **local_kwargs)
+        self._proto_local_model_trace = tr
+
+    def _pack_local(self, values):
+        """``{site: value}`` -> ``(S, D)``: each site's plate axis first."""
+        rows = [values[n].movedim(self._local_axes[n], 0) for n in sorted(values)]
+        return torch.cat([r.reshape(r.shape[0], -1) for r in rows], -1)
+
+    def _unpack_local(self, flat):
+        """``(S, D)`` -> ``{site: value}`` with each plate axis in place."""
+        rows = _unflatten_local_dict(flat, self._local_shapes)
+        return {n: v.movedim(0, self._local_axes[n]) for n, v in rows.items()}
+
+    def _get_posterior(self):
+        raise NotImplementedError
+
+    def __call__(self, *args, **kwargs):
+        if self.prototype_trace is None:
+            self._setup_prototype(*args, **kwargs)
+        global_latents, local_flat = self._sample_latent(*args, **kwargs)
+
+        out = dict(global_latents)
+        _, N, subsample_size = self._local_plate
+        for name, unconstrained in self._unpack_local(local_flat).items():
+            site = self.prototype_trace[name]
+            push = _support_bijector(site)
+            value = push(unconstrained)
+            event_ndim = site["fn"].event_dim
+            if get_mask() is False:
+                correction = 0.0
+            else:
+                correction = -push.log_abs_det_jacobian(unconstrained, value)
+                correction = (N / subsample_size) * sum_rightmost(
+                    correction, correction.dim() - value.dim() + event_ndim)
+            out[name] = sample(name, dist.Delta(value, log_density=correction,
+                                                event_dim=event_ndim))
+        return out
+
+    @staticmethod
+    def _register_trace_params(proto_trace):
+        return {name: param(name, site["value"], **site["kwargs"])
+                for name, site in proto_trace.items() if site["type"] == "param"}
+
+    def _dais_fleet_params(self, idx, N, D, K):
+        """The schedule parameters of the drawn rows: per datum (length-N
+        ``param`` sites read at the rows), or shared and broadcast."""
+        like = self._like
+        if self.use_global_dais_params:
+            rows = tuple(idx.shape)
+            eta0 = param(self._pname("eta0"), like.new_tensor(self.eta_init),
+                         constraint=constraints.interval(0, self.eta_max))
+            eta_coeff = param(self._pname("eta_coeff"), like.new_tensor(0.0))
+            gamma = param(self._pname("gamma"), like.new_tensor(self.gamma_init),
+                          constraint=constraints.interval(0, 1))
+            betas = param(self._pname("beta_increments"), like.new_ones(K),
+                          constraint=constraints.positive)
+            mass = param(self._pname("mass_matrix"), like.new_ones(D),
+                         constraint=constraints.positive)
+            eta0, eta_coeff, gamma = (torch.broadcast_to(v, rows) for v in (eta0, eta_coeff,
+                                                                            gamma))
+            betas = torch.broadcast_to(betas, rows + (K,))
+            mass = torch.broadcast_to(mass, rows + (D,))
+        else:
+            eta0 = param(self._pname("eta0"), like.new_full((N,), self.eta_init),
+                         constraint=constraints.interval(0, self.eta_max), event_dim=0)
+            eta_coeff = param(self._pname("eta_coeff"), like.new_zeros(N), event_dim=0)
+            gamma = param(self._pname("gamma"), like.new_full((N,), self.gamma_init),
+                          constraint=constraints.interval(0, 1), event_dim=0)
+            betas = param(self._pname("beta_increments"), like.new_ones((N, K)),
+                          constraint=constraints.positive, event_dim=1)
+            mass = param(self._pname("mass_matrix"), like.new_ones((N, D)),
+                         constraint=constraints.positive, event_dim=1)
+        return eta0, eta_coeff, gamma, _normalized_schedule(betas), mass
+
+    def _sample_latent(self, *args, **kwargs):
+        kwargs.pop("sample_shape", ())
+        if self.global_guide is not None:
+            global_latents = self.global_guide(*args, **kwargs)
+            with handlers.block(), handlers.substitute(data=global_latents):
+                global_outputs = self.global_guide.model(*args, **kwargs)
+            local_args = (global_outputs,)
+            local_kwargs = {}
+        else:
+            global_latents = {}
+            local_args = args
+            local_kwargs = kwargs.copy()
+
+        local_guide_params = (self._register_trace_params(self._proto_local_guide_trace)
+                              if self.local_guide is not None else {})
+        local_model_params = self._register_trace_params(self._proto_local_model_trace)
+
+        def local_log_density(x):
+            latent = self._unpack_local(x)
+            with handlers.block():
+                return -infer_util.potential_energy(
+                    functools.partial(_subsample_model, self.local_model), local_args,
+                    local_kwargs, {**latent, **local_model_params})
+
+        plate_name, N, subsample_size = self._local_plate
+        D, K = self._local_latent_dim, self.K
+
+        with plate(plate_name, N, subsample_size=subsample_size) as idx:
+            eta0, eta_coeff, gamma, betas, mass = self._dais_fleet_params(idx, N, D, K)
+            local_kwargs["_subsample_idx"] = {plate_name: idx}
+
+            if self.local_guide is not None:
+                subsample_guide = functools.partial(_subsample_model, self.local_guide)
+                with handlers.block(), handlers.trace() as tr, handlers.substitute(
+                        data=local_guide_params):
+                    subsample_guide(*local_args, **local_kwargs)
+                drawn = {name: _support_bijector(site).inv(site["value"])
+                         for name, site in tr.items()
+                         if site["type"] == "sample" and not site.get("is_observed", False)}
+                z_0 = self._pack_local(drawn)
+
+                def base_log_prob(z):
+                    latent = self._unpack_local(z)
+                    with handlers.block():
+                        return -infer_util.potential_energy(
+                            subsample_guide, local_args, local_kwargs,
+                            {**local_guide_params, **latent}) / (N / subsample_size)
+
+                # emitted under the plate, which broadcasts it over the rows:
+                # divided by their count, so that the total is exact
+                factor(self._pname("z_0_factor"), base_log_prob(z_0) / subsample_size)
+            else:
+                z_0_loc = param(self._pname("z_0_loc"), self._like.new_zeros((N, D)),
+                                event_dim=1)
+                z_0_scale = param(self._pname("z_0_scale"),
+                                  self._like.new_full((N, D), self._init_scale),
+                                  constraint=constraints.positive, event_dim=1)
+                base_z_dist = dist.Normal(z_0_loc, z_0_scale).to_event(1)
+                z_0 = sample(self._pname("z_0"), base_z_dist, infer={"is_auxiliary": True})
+
+                def base_log_prob(x):
+                    return base_z_dist.log_prob(x).sum()
+
+            momentum = dist.Normal(0.0, mass).to_event(1)
+            eps = sample(
+                self._pname("momentum"),
+                dist.Normal(0.0, mass[..., None]).expand((subsample_size, D, K))
+                .to_event(2).mask(False),
+                infer={"is_auxiliary": True},
+            )
+            z, log_factor = _dais_anneal(
+                z_0, eps.movedim(-1, 0), betas.movedim(-1, 0), eta0=eta0, eta_coeff=eta_coeff,
+                eta_max=self.eta_max, gamma=gamma, inv_mass=0.5 / mass,
+                momentum_lp=momentum.log_prob, base_grad=torch.func.grad(base_log_prob),
+                target_grad=lambda zh: (subsample_size / N)
+                * torch.func.grad(local_log_density)(zh),
+                widen=lambda v: v[:, None], log_factor_0=z_0.new_zeros(subsample_size),
+            )
+            factor(self._pname("local_dais_factor"), log_factor)
+            return global_latents, z
+
+    def sample_posterior(self, rng_key, params, *args, sample_shape=(), **kwargs):
+        """Draws of the global latents and the annealed locals, one annealing
+        run each, mapped with ``torch.func.vmap`` (``randomness="different"``)
+        over the elements of ``sample_shape``."""
+
+        def one_draw(_):
+            global_latents, local_flat = handlers.substitute(
+                handlers.seed(self._sample_latent, rng_key), data=params)(*args, **kwargs)
+            out = dict(global_latents)
+            for name, unconstrained in self._unpack_local(local_flat).items():
+                out[name] = _support_bijector(self.prototype_trace[name])(unconstrained)
+            return out
+
+        sample_shape = tuple(sample_shape)
+        if not sample_shape:
+            return one_draw(None)
+        n = math.prod(sample_shape)
+        index = torch.arange(n, device=self._like.device)
+        draws = torch.func.vmap(one_draw, randomness="different")(index)
+        return {k: v.reshape(sample_shape + tuple(v.shape[1:])) for k, v in draws.items()}
 
 
 class AutoBatchedMixin:

@@ -436,9 +436,9 @@ class HMC(MCMCKernel):
         ``torch.Generator`` on the device the chains run on.
 
         Returns ``(fields, last_state)``; every collected field has shape
-        ``(num_chains, num_collected, ...)``.  Wall times and the number of
-        batched potential evaluations of each phase land in
-        ``self.last_fused_stats``.
+        ``(num_chains, num_collected, ...)``.  Wall times, the number of
+        batched potential evaluations of each phase and the count of divergent
+        warmup transitions of all chains land in ``self.last_fused_stats``.
         """
         model_kwargs = {} if model_kwargs is None else model_kwargs
         infer_util.pin_full_f32_matmul()
@@ -512,6 +512,7 @@ class HMC(MCMCKernel):
             "potential_evals_init": evals_init,
             "potential_evals_warmup": evals_warm,
             "potential_evals_sample": infer_util.potential_evals - evals0 - evals_init - evals_warm,
+            "num_divergent_warmup": int(warm["num_divergent"]),
         }
 
         n_collect = out["samples_z"].shape[1]

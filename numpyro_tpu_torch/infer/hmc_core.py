@@ -42,6 +42,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from numpyro_tpu_torch.distributions.util import cholesky as _cholesky
 from numpyro_tpu_torch.infer.util import batched_value_and_grad
 
 __all__ = [
@@ -272,16 +273,6 @@ def kinetic(blocks, inv_mass, r):
 def draw_momentum(blocks, sqrt_mass, eps):
     """r = chol(M) eps for standard normals eps (C, D)."""
     return apply_inv_mass(blocks, sqrt_mass, eps)
-
-
-def _cholesky(x):
-    """Lower Cholesky factor, batched.  Where a matrix is not positive
-    definite its factor is NaN on and below the diagonal, as JAX's
-    ``cholesky`` returns it; ``cholesky_ex`` reports that per matrix without a
-    host sync (``cholesky`` would raise, after a sync on the GPU)."""
-    factor, info = torch.linalg.cholesky_ex(x)
-    return torch.where((info == 0)[..., None, None], factor,
-                       torch.full_like(factor, math.nan).tril())
 
 
 def _precision_factors(cov):
@@ -1086,12 +1077,16 @@ class FusedRun:
     def warmup(self, draws, z, pe, grad, step_size, inverse_mass_matrix=None):
         adapt = self.wa_init(draws, z, pe, grad, step_size, inverse_mass_matrix)
         mean_acc = torch.zeros_like(pe)
+        # divergent warmup transitions of all chains, counted on the device
+        num_divergent = torch.zeros((), dtype=torch.int64, device=z.device)
         for i in range(self.num_warmup):
             out = self.transition(draws, z, pe, grad, adapt, self.warmup_max_depth)
             z, pe, grad = out.z, out.pe, out.grad
             adapt = self.wa_update(i, adapt, out.accept_prob, z, pe, grad, draws)
             mean_acc = mean_acc + (out.accept_prob - mean_acc) / (i + 1)
-        return {"z": z, "pe": pe, "grad": grad, "adapt": adapt, "mean_accept_prob": mean_acc}
+            num_divergent = num_divergent + out.diverging.sum()
+        return {"z": z, "pe": pe, "grad": grad, "adapt": adapt, "mean_accept_prob": mean_acc,
+                "num_divergent": num_divergent}
 
     def _buffers(self, z, slots):
         c, d = z.shape

@@ -22,7 +22,7 @@ from collections import namedtuple
 import torch
 
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.distributions.util import broadcast_shape
+from numpyro_tpu_torch.distributions.util import ForwardModeDrawError, broadcast_shape
 from numpyro_tpu_torch.util import identity
 
 __all__ = [
@@ -38,9 +38,12 @@ _PYRO_STACK = []
 def default_process_message(msg):
     if msg["value"] is None:
         if msg["type"] == "sample":
-            msg["value"], msg["intermediates"] = msg["fn"](
-                *msg["args"], sample_intermediates=True, **msg["kwargs"]
-            )
+            try:
+                msg["value"], msg["intermediates"] = msg["fn"](
+                    *msg["args"], sample_intermediates=True, **msg["kwargs"]
+                )
+            except ForwardModeDrawError as e:
+                raise ForwardModeDrawError(f"sample site {msg['name']!r}: {e}") from None
         else:
             msg["value"] = msg["fn"](*msg["args"], **msg["kwargs"])
 
@@ -208,7 +211,8 @@ class plate(Messenger):
     """Conditional-independence context: takes a negative batch dim,
     broadcasts sample sites into it, scales their log-prob by
     ``size / subsample_size`` under subsampling, and subselects ``subsample``
-    values along its dim."""
+    values and ``param`` values declared with an ``event_dim`` along its dim
+    (a param's gradient scatters back into the rows drawn)."""
 
     def __init__(self, name, size, subsample_size=None, dim=None):
         self.name = name
@@ -294,7 +298,7 @@ class plate(Messenger):
             raise NotImplementedError(
                 "Cannot use control flow primitive under a `plate` primitive."
             )
-        if kind not in ("sample", "plate", "deterministic"):
+        if kind not in ("param", "sample", "plate", "deterministic"):
             # "subsample" messages are subselected in postprocess_message
             return
         msg["cond_indep_stack"].append(self._frame())
@@ -307,7 +311,7 @@ class plate(Messenger):
             msg["scale"] = correction if msg["scale"] is None else msg["scale"] * correction
 
     def postprocess_message(self, msg):
-        if msg["type"] != "subsample":
+        if msg["type"] not in ("subsample", "param"):
             return
         if msg.get("_pregathered"):
             # a handler above already put the subselected panel in place
@@ -320,10 +324,14 @@ class plate(Messenger):
         if len(shape) < -axis or shape[axis] == 1:
             return
         if shape[axis] != self.size:
+            statement = (
+                f"numpyro_tpu_torch.param({msg['name']}, ..., event_dim={event_dim})"
+                if msg["type"] == "param"
+                else f"numpyro_tpu_torch.subsample(..., event_dim={event_dim})"
+            )
             raise ValueError(
                 f"Inside plate({self.name}, {self.size}, "
-                f"subsample_size={self.subsample_size}) invalid shape of "
-                f"numpyro_tpu_torch.subsample(..., event_dim={event_dim}): {shape}"
+                f"subsample_size={self.subsample_size}) invalid shape of {statement}: {shape}"
             )
         if self.subsample_size < self.size:
             msg["value"] = torch.index_select(msg["value"], axis, self._indices)

@@ -951,3 +951,74 @@ def infer_potential(model, data, z):
     from numpyro_tpu_torch.infer.util import potential_energy
 
     return potential_energy(model, (data,), {}, {"w_shared_latent": z})
+
+
+# ---------------------------------------------------------------------------
+# the continuous families, the truncated family and AutoSemiDAIS (phase 15c)
+
+
+def _phase15():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.requires_cuda
+def test_new_families_on_the_card_match_the_cpu(cuda):
+    """Every new class's ``log_prob``, ``cdf`` and ``icdf`` on CUDA tensors
+    against the same calls on CPU tensors, to ``chip_smoke.FAMILY_RTOL`` and
+    ``FAMILY_ATOL`` (the card's special functions round differently in the
+    last bits), and its draws on a CUDA generator inside its support."""
+    cs = _phase15()
+    q = torch.linspace(0.05, 0.95, 12).reshape(4, 3)
+    for name, params in cs.FAMILIES.items():
+        d_cpu, d_dev = cs._family(name, params, torch.device("cpu")), cs._family(name, params, cuda)
+        x = d_cpu.sample(torch.Generator().manual_seed(0), (4,))
+        for method, arg in (("log_prob", x), ("cdf", x), ("icdf", q)):
+            try:
+                want = getattr(d_cpu, method)(arg)
+            except NotImplementedError:
+                with pytest.raises(NotImplementedError):
+                    getattr(d_dev, method)(arg.to(cuda))
+                continue
+            got = getattr(d_dev, method)(arg.to(cuda))
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=cs.FAMILY_RTOL, atol=cs.FAMILY_ATOL,
+                                       msg=f"{name}.{method}")
+        draw = d_dev.sample(torch.Generator(device=cuda).manual_seed(1), (8,))
+        assert draw.device.type == "cuda" and bool(d_dev.support(draw).all()), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["Gamma", "Beta"])
+def test_gamma_and_beta_draws_on_a_cuda_generator_match_their_moments(cuda, name):
+    cs = _phase15()
+    d = cs._family(name, cs.FAMILIES[name], cuda)
+    n = 20_000
+    x = d.sample(torch.Generator(device=cuda).manual_seed(2), (n,)).double()
+    mean, var = d.mean.double(), d.variance.double()
+    assert ((x.mean(0) - mean).abs() < 4 * torch.sqrt(var / n)).all()
+    se_var = torch.sqrt(((x - x.mean(0)) ** 4).mean(0) / n)
+    assert ((x.var(0) - var).abs() < 4 * se_var).all()
+
+
+@pytest.mark.requires_cuda
+def test_mvn_not_positive_definite_gives_nan_on_the_card(cuda):
+    cov = torch.tensor([[[2.0, 0.5], [0.5, 1.0]], [[1.0, 2.0], [2.0, 1.0]]], device=cuda)
+    lp = dist.MultivariateNormal(torch.zeros(2, device=cuda), covariance_matrix=cov).log_prob(
+        torch.zeros(2, device=cuda))
+    assert torch.isfinite(lp[0]) and torch.isnan(lp[1])
+
+
+@pytest.mark.requires_cuda
+def test_semi_dais_steps_on_the_card(cuda):
+    cs = _phase15()
+    model, local_model, global_model = cs.semi_models(cuda)
+    guide = autoguide.AutoSemiDAIS(model, local_model, autoguide.AutoNormal(global_model), K=3)
+    res = SVI(model, guide, Adam(5e-3), Trace_ELBO()).run(0, 20)
+    assert res.losses.device.type == "cuda" and torch.isfinite(res.losses).all()
+    assert res.params["auto_eta0"].shape == (16,) and res.params["auto_eta0"].device.type == "cuda"

@@ -227,8 +227,17 @@ def test_dais_refuses_subsampling_and_semi_dais_is_a_placeholder():
     with pytest.raises(NotImplementedError, match="subsampling"):
         SVI(model, autoguide.AutoDAIS(model), optim.Adam(0.01), Trace_ELBO(),
             device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        autoguide.AutoSemiDAIS(model, model, None)
+    # AutoSemiDAIS, a placeholder that raised until it was ported, now takes
+    # the subsampled model: its per-datum params have the plate's full size
+    # and a step gives a finite loss (tests/test_torch_semi_dais.py holds it
+    # to the JAX package)
+    svi = SVI(model, autoguide.AutoSemiDAIS(model, model, None, K=2), optim.Adam(0.01),
+              Trace_ELBO(), device="cpu")
+    state = svi.init(0)
+    params = svi.get_params(state)
+    assert params["auto_eta0"].shape == (10,) and params["auto_z_0_loc"].shape == (10, 1)
+    state, loss = svi.update(state)
+    assert torch.isfinite(loss)
 
 
 def _demo_data(n=100):
