@@ -174,6 +174,26 @@ Phases (each prints on its own lines; any failure exits non-zero):
                tensors, Gamma and Beta draws from a CUDA generator against
                their moments, and ``betaincinv``/``gammaincinv`` timed.  No
                GLM launch.
+16. discrete -- the discrete, conjugate and directional families: (a)
+               ``examples/ucbadmit.py``'s binomial GLMM on its 12-row table
+               under NUTS with 64 vectorized chains (``UCB_RUN``), then
+               ``Predictive`` on the draws (``torch.binomial`` under
+               ``soft_vmap``); the posterior mean of ``bm`` and the example's
+               mean |predicted - observed admit rate| within ``UCB_GATE`` of
+               the JAX package's run; (b) ``examples/ssbvm_mixture.py``'s von
+               Mises mixture on its 200 angles with the label enumerated
+               (``SSBVM_RUN``, 256 chains), the sorted ``loc_phi`` means within
+               ``SSBVM_GATE`` (``dev/discrete_reference.py``), and its
+               enumerated potential and gradient at 8 points against the
+               CPU's; (c) the new
+               classes' ``log_prob``, ``cdf`` and ``icdf`` on CUDA tensors
+               against CPU tensors, draws from a CUDA generator through the
+               port's ``gof`` (the binomial on both sides of its switch,
+               Poisson, Multinomial, VonMises, SineBivariateVonMises, Gamma),
+               a Gamma draw's reparameterised gradient at shapes 0.3 to 1e5
+               against the CPU's, and
+               the Bessel quadrature timed against the ``i0e``/``i1e``
+               recurrence.  No GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -1270,6 +1290,404 @@ def phase_fifteen(device):
     if device.type == "cuda":
         walls["15c"] = phase_families(device)
     return walls
+
+
+# phase 16a, examples/ucbadmit.py at its full size: the 12-row table (dept,
+# male, applications, admits) of examples/ucbadmit.py:16-20; chains, warmup,
+# samples and (warmup, sampling) tree depths, cut from the example's 1 x
+# (500 + 500) to fit phase 16's budget (40 + 20 took 3.7 s on an H100 80GB
+# at 700 W, 8.5 ms an evaluation, `python3 -m dev.phase16 --sizing 64 40 20`,
+# so 30 + 15).  The posterior mean of bm and the
+# example's mean |predicted - observed admit rate| (Predictive on the draws)
+# each within UCB_GATE of the JAX package's own run at this configuration,
+# key 0, the gate max(2e, e + 0.05) for e = 0.0097, the largest gap of keys
+# 1-4 to it (`JAX_PLATFORMS=cpu python3 -m dev.discrete_reference ucb`; at
+# 40 + 20 the port read bm -0.0980, rate gap 0.0270 on that H100)
+UCB_DATA = ((0, 1, 825, 512), (0, 0, 108, 89), (1, 1, 560, 353), (1, 0, 25, 17),
+            (2, 1, 325, 120), (2, 0, 593, 202), (3, 1, 417, 138), (3, 0, 375, 131),
+            (4, 1, 191, 53), (4, 0, 393, 94), (5, 1, 373, 22), (5, 0, 341, 24))
+UCB_RUN = (64, 30, 15, (3, 3))
+UCB_REF = {"bm": -0.0909, "rate_gap": 0.0273}
+UCB_GATE = 0.0597
+# phase 16b, examples/ssbvm_mixture.py at its full size: 200 angles from
+# numpy's vonmises (seed 0), K = 2, the label c enumerated; the mean over
+# draws of each draw's sorted loc_phi (sorting takes care of label
+# switching) within SSBVM_GATE of the JAX package's run at this
+# configuration, key 0, by the rule of UCB_GATE, e = 0.2374 (`dev.
+# discrete_reference ssbvm`).  At 20 + 10 the chains are still leaving their
+# starts (the data's modes are near -2 and 1), so runs spread: 256 chains
+# keep the port's seeds within 0.11 of each other on a CPU, where 64 left
+# 0.5 (JAX's keys spread as widely at either count).  The example runs 400 +
+# 400 on one chain; 40 + 20 at 64 chains took 444 evaluations at 18.3 ms on
+# an H100 80GB at 700 W (`dev.phase16 --sizing 64 40 20`), over phase 16's
+# budget
+SSBVM_N = 200
+SSBVM_RUN = (256, 20, 10, (3, 3))
+SSBVM_REF = (-1.3507, 1.1955)
+SSBVM_GATE = 0.4747
+# and, since that gate is wide, the enumerated potential and its gradient
+# at SSBVM_POINTS unconstrained points (numpy, seed 168) on the card against
+# the CPU's, at rtol SSBVM_RTOL (the gradient with an atol of SSBVM_RTOL
+# times each site's largest component)
+SSBVM_POINTS, SSBVM_RTOL = 8, 1e-4
+# phase 16c, the new families on the card: each class's parameters (three
+# values each, around the cases of tests/test_distributions.py and
+# tests/test_distributions_sweep.py), their log_prob, cdf and icdf on CUDA
+# tensors against CPU tensors to FAMILY_RTOL and FAMILY_ATOL (15c's
+# tolerance); draws from a CUDA generator (GOF_DRAWS each) against their pmf
+# or density by the port's gof at p > GOF_FAILURE_RATE
+NEW_FAMILIES = {
+    "BinomialProbs": dict(probs=(0.4, 0.2, 0.7), total_count=(10.0, 10.0, 10.0)),
+    "BinomialLogits": dict(logits=(0.4, -1.0, 2.0), total_count=(7.0, 7.0, 7.0)),
+    "DiscreteUniform": dict(low=(0.0, 1.0, -2.0), high=(5.0, 5.0, 5.0)),
+    "MultinomialProbs": dict(probs=((0.2, 0.3, 0.5),), total_count=(6.0,)),
+    "MultinomialLogits": dict(logits=((0.2, -0.1, 0.4),), total_count=(6.0,)),
+    "Poisson": dict(rate=(3.5, 0.5, 20.0)),
+    "GeometricProbs": dict(probs=(0.3, 0.7, 0.05)),
+    "GeometricLogits": dict(logits=(-1.1, 0.5, 2.0)),
+    "OrderedLogistic": dict(predictor=(0.5, -1.0, 2.0), cutpoints=((-1.0, 1.0),)),
+    "NegativeBinomial2": dict(mean=(3.0, 0.5, 10.0), concentration=(2.0, 5.0, 0.7)),
+    "ZeroInflatedPoisson": dict(gate=(0.3, 0.1, 0.6), rate=(2.0, 5.0, 0.5)),
+    "ZeroInflatedProbs": dict(gate=(0.3, 0.1, 0.6), base_rate=(2.0, 5.0, 0.5)),
+    "ZeroInflatedLogits": dict(gate_logits=(-0.8, 1.0, 0.0), base_rate=(2.0, 5.0, 0.5)),
+    "BetaBinomial": dict(concentration1=(2.0, 0.5, 4.0), concentration0=(3.0, 1.5, 0.8),
+                         total_count=(10.0, 10.0, 10.0)),
+    "GammaPoisson": dict(concentration=(2.0, 0.5, 6.0), rate=(0.5, 1.0, 2.0)),
+    "NegativeBinomialProbs": dict(total_count=(4.0, 1.5, 9.0), probs=(0.4, 0.2, 0.7)),
+    "NegativeBinomialLogits": dict(total_count=(4.0, 1.5, 9.0), logits=(-0.4, 0.5, 1.0)),
+    "DirichletMultinomial": dict(concentration=((1.0, 2.0, 3.0),), total_count=(8.0,)),
+    "VonMises": dict(loc=(0.5, -2.0, 3.0), concentration=(2.0, 0.3, 40.0)),
+    "ProjectedNormal": dict(concentration=((1.0, 0.5, -0.3), (0.0, 2.0, 1.0), (0.2, 0.1, 0.4))),
+    "SineSkewed": dict(base_loc=((0.0, 1.0),), base_concentration=((2.0, 1.0),),
+                       skewness=((0.3, -0.2), (0.1, 0.4), (-0.5, 0.2))),
+    "SineBivariateVonMises": dict(phi_loc=(0.0, 1.0, -2.0), psi_loc=(0.5, 0.0, 1.0),
+                                  phi_concentration=(2.0, 5.0, 0.5),
+                                  psi_concentration=(3.0, 2.0, 1.0),
+                                  correlation=(0.5, -1.0, 0.2)),
+}
+GOF_DRAWS, GOF_FAILURE_RATE = 20_000, 5e-3
+# the samplers whose draws on the card go through the port's gof (name ->
+# the class and its parameters): the binomial on both sides of its n p = 10
+# switch, Poisson, a Multinomial's compositions, VonMises, the bivariate von
+# Mises and Gamma
+GOF_CASES = {
+    "binomial n p = 2.4": ("BinomialProbs", dict(probs=0.2, total_count=12.0)),
+    "binomial n p = 30": ("BinomialProbs", dict(probs=0.3, total_count=100.0)),
+    "Poisson": ("Poisson", dict(rate=3.5)),
+    "Multinomial": ("MultinomialProbs", dict(probs=(0.2, 0.3, 0.5), total_count=6.0)),
+    "VonMises": ("VonMises", dict(loc=0.5, concentration=2.0)),
+    "SineBivariateVonMises": ("SineBivariateVonMises",
+                              dict(phi_loc=0.0, psi_loc=0.5, phi_concentration=2.0,
+                                   psi_concentration=3.0, correlation=0.5)),
+    "Gamma": ("Gamma", dict(concentration=2.0, rate=3.0)),
+}
+
+
+def ucb_model(dept, male, applications, admit=None):
+    """``examples/ucbadmit.py``'s binomial GLMM with department intercepts."""
+    sigma = npt.sample("sigma", dist.HalfNormal(1.0))
+    with npt.plate("dept", 6):
+        a_dept = npt.sample("a_dept", dist.Normal(0.0, sigma))
+    a = npt.sample("a", dist.Normal(0.0, 2.0))
+    bm = npt.sample("bm", dist.Normal(0.0, 1.0))
+    logits = a + a_dept[dept] + bm * male
+    with npt.plate("obs", dept.shape[0]):
+        npt.sample("admit", dist.Binomial(applications, logits=logits), obs=admit)
+
+
+def _mcmc_leg(tag, model, run, seed, *args):
+    """NUTS with vectorized chains; returns the draws, the run's stats and
+    the ms per evaluation."""
+    chains, warmup, samples, depths = run
+    mcmc = MCMC(NUTS(model, max_tree_depth=depths), num_warmup=warmup, num_samples=samples,
+                num_chains=chains, device=args[0].device)
+    mcmc.run(seed, *args)
+    stats = mcmc.last_run_stats
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    ms = (stats["warmup_s"] + stats["sample_s"]) / evals * 1e3
+    draws = mcmc.get_samples()
+    if not all(torch.isfinite(v).all() for v in draws.values()):
+        raise SystemExit(f"{tag}: draws that are not finite")
+    return draws, stats, evals, ms
+
+
+def phase_ucbadmit(device):
+    """16a: NUTS on ucbadmit, then Predictive on the draws; returns its wall
+    seconds and the seconds of Predictive."""
+    t0 = time.perf_counter()
+    table = np.array(UCB_DATA)
+    dept = torch.tensor(table[:, 0], device=device)
+    male, apps, admit = (torch.tensor(table[:, i], dtype=torch.float32, device=device)
+                         for i in (1, 2, 3))
+    draws, stats, evals, ms = _mcmc_leg("16a", ucb_model, UCB_RUN, 161, dept, male, apps, admit)
+    tp = time.perf_counter()
+    pred = Predictive(ucb_model, draws, device=device)(162, dept, male, apps)["admit"]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    predictive_s = time.perf_counter() - tp
+    if not (pred.device.type == device.type and pred.dtype == torch.int64
+            and bool(((pred >= 0) & (pred <= apps.long())).all())):
+        raise SystemExit("16a: Predictive's counts are off their support or their device")
+    rate_gap = ((pred.double().mean(0) - admit.double()) / apps.double()).abs().mean().item()
+    bm = draws["bm"].double().mean().item()
+    gaps = {"bm": abs(bm - UCB_REF["bm"]), "rate_gap": abs(rate_gap - UCB_REF["rate_gap"])}
+    wall = time.perf_counter() - t0
+    chains, warmup, samples, depths = UCB_RUN
+    log(f"[discrete] 16a ucbadmit, {chains} chains, {warmup} + {samples}, depths {depths}: "
+        f"{evals} evaluations in {stats['warmup_s'] + stats['sample_s']:.2f} s, {ms:.2f} ms per "
+        f"evaluation; Predictive of {pred.shape[0]} draws x {pred.shape[1]} rows in "
+        f"{predictive_s:.3f} s; bm {bm:.4f} (JAX {UCB_REF['bm']}), mean |predicted - observed "
+        f"admit rate| {rate_gap:.4f} (JAX {UCB_REF['rate_gap']}), gaps "
+        f"{gaps['bm']:.4f} and {gaps['rate_gap']:.4f} (gate {UCB_GATE}); {wall:.2f} s")
+    if not max(gaps.values()) < UCB_GATE:
+        raise SystemExit(f"16a: off the JAX package's run by {gaps} (gate {UCB_GATE})")
+    return wall, ms, predictive_s
+
+
+def ssbvm_angles(n=SSBVM_N):
+    """``examples/ssbvm_mixture.py``'s data: numpy's von Mises, seed 0."""
+    rng = np.random.RandomState(0)
+    half = n // 2
+    a = np.stack([rng.vonmises(-2.0, 8, half), rng.vonmises(2.0, 8, half)], 1)
+    b = np.stack([rng.vonmises(1.0, 8, half), rng.vonmises(-1.0, 8, half)], 1)
+    return np.concatenate([a, b]).astype(np.float32)
+
+
+def ssbvm_model(angles, K=2):
+    """``examples/ssbvm_mixture.py``'s von Mises mixture, ``c`` enumerated."""
+    with npt.plate("mix", K):
+        loc_phi = npt.sample("loc_phi", dist.VonMises(0.0, 0.5))
+        loc_psi = npt.sample("loc_psi", dist.VonMises(0.0, 0.5))
+        conc_phi = npt.sample("conc_phi", dist.Gamma(2.0, 0.5))
+        conc_psi = npt.sample("conc_psi", dist.Gamma(2.0, 0.5))
+    weights = npt.sample("weights", dist.Dirichlet(torch.ones(K, device=angles.device)))
+    with npt.plate("obs", angles.shape[0]):
+        c = npt.sample("c", dist.Categorical(weights), infer={"enumerate": "parallel"})
+        npt.sample("phi", dist.VonMises(loc_phi[c], conc_phi[c]), obs=angles[:, 0])
+        npt.sample("psi", dist.VonMises(loc_psi[c], conc_psi[c]), obs=angles[:, 1])
+
+
+def phase_ssbvm(device):
+    """16b: NUTS on the enumerated von Mises mixture; returns its wall
+    seconds."""
+    t0 = time.perf_counter()
+    angles = torch.from_numpy(ssbvm_angles()).to(device)
+    draws, stats, evals, ms = _mcmc_leg("16b", ssbvm_model, SSBVM_RUN, 163, angles)
+    locs = draws["loc_phi"].sort(-1).values.double().mean(0).cpu().numpy()
+    gap = float(np.abs(locs - np.array(SSBVM_REF)).max())
+    wall = time.perf_counter() - t0
+    chains, warmup, samples, depths = SSBVM_RUN
+    log(f"[discrete] 16b ssbvm_mixture ({SSBVM_N} angles, K 2, c enumerated), {chains} chains, "
+        f"{warmup} + {samples}, depths {depths}: {evals} evaluations in "
+        f"{stats['warmup_s'] + stats['sample_s']:.2f} s, {ms:.2f} ms per evaluation; sorted "
+        f"loc_phi means {np.round(locs, 4).tolist()} (JAX {list(SSBVM_REF)}), gap {gap:.4f} "
+        f"(gate {SSBVM_GATE}); {wall:.2f} s")
+    if not gap < SSBVM_GATE:
+        raise SystemExit(f"16b: the sorted loc_phi means are off the JAX package's by {gap:.4f} "
+                         f"(gate {SSBVM_GATE})")
+    ssbvm_potential_check(angles)
+    return wall, ms
+
+
+def ssbvm_potential_check(angles):
+    """16b's tight check: the enumerated model's potential and gradient at
+    fixed unconstrained points on ``angles``' device against the CPU's."""
+    out, rng = {}, np.random.default_rng(168)
+    for device in (angles.device, torch.device("cpu")):
+        info = infer_util.initialize_model(torch.Generator(device=device).manual_seed(168),
+                                           ssbvm_model, num_chains=SSBVM_POINTS,
+                                           model_args=(angles.to(device),))
+        if not out:
+            z = {k: rng.normal(0.0, 1.0, tuple(v.shape)).astype(np.float32)
+                 for k, v in info.param_info.z.items()}
+        pe, grad = infer_util.batched_value_and_grad(info.potential_fn)(
+            {k: torch.from_numpy(v).to(device) for k, v in z.items()})
+        out[device.type] = (pe.double().cpu(), {k: g.double().cpu() for k, g in grad.items()})
+    (pe_d, g_d), (pe_c, g_c) = out[angles.device.type], out["cpu"]
+    pe_err = ((pe_d - pe_c).abs() / pe_c.abs()).max().item()
+    g_err = max((((g_d[k] - g_c[k]).abs() - SSBVM_RTOL * g_c[k].abs())
+                 / (SSBVM_RTOL * g_c[k].abs().max())).max().item() for k in g_c)
+    log(f"[discrete] 16b enumerated potential at {SSBVM_POINTS} points on {angles.device.type} "
+        f"against the CPU: max rel err {pe_err:.2e}, gradient {max(g_err, 0.0):.3f} of its atol "
+        f"(rtol {SSBVM_RTOL})")
+    if not (pe_err <= SSBVM_RTOL and g_err <= 1.0 and set(g_d) == set(g_c)):
+        raise SystemExit("16b: the enumerated potential or its gradient on the card is off the "
+                         "CPU's")
+
+
+def new_family(name, params, device):
+    """A class of 16c from its parameters, on ``device`` (``base_*``
+    parameters make the base of a zero-inflated or sine-skewed class)."""
+    values = {k: torch.tensor(v, device=device) for k, v in params.items()}
+    if name.startswith("ZeroInflated") and "base_rate" in values:
+        return getattr(dist, name)(dist.Poisson(values.pop("base_rate")), *values.values())
+    if name == "SineSkewed":
+        base = dist.VonMises(values["base_loc"], values["base_concentration"]).to_event(1)
+        return dist.SineSkewed(base, values["skewness"])
+    return getattr(dist, name)(**values)
+
+
+def _gof_of(name, d, x):
+    """The p-value of draws ``x`` of ``d`` (a scalar batch) against its pmf
+    or density by the port's gof."""
+    from numpyro_tpu_torch.distributions import gof
+
+    x = x.cpu()
+    if name.startswith("Multinomial"):
+        from itertools import combinations_with_replacement
+        comps = sorted({tuple(np.bincount(list(c), minlength=3))
+                        for c in combinations_with_replacement(range(3), 6)})
+        pmf = d.log_prob(torch.tensor(comps, dtype=torch.float32, device=d.probs.device)).exp()
+        index = {c: i for i, c in enumerate(comps)}
+        counts = np.zeros(len(comps), np.int64)
+        for row in x.numpy():
+            counts[index[tuple(int(v) for v in row)]] += 1
+        pmf = pmf.double().cpu().numpy()
+        return gof.multinomial_goodness_of_fit(pmf / pmf.sum(), counts)
+    if not x.is_floating_point():
+        hi = int(x.max()) + 1
+        pmf = d.log_prob(torch.arange(hi, dtype=torch.float32, device=d.mean.device)).exp()
+        pmf = pmf.double().cpu().numpy()
+        pmf = np.append(pmf, max(1.0 - pmf.sum(), 0.0))
+        return gof.lumped_goodness_of_fit(pmf, np.bincount(x.numpy(), minlength=hi + 1))
+    if name == "SineBivariateVonMises":
+        exact = dist.SineBivariateVonMises(*(torch.tensor(float(v), dtype=torch.float64) for v in (
+            d.phi_loc, d.psi_loc, d.phi_concentration, d.psi_concentration)),
+            correlation=torch.tensor(float(d.correlation), dtype=torch.float64))
+        return gof.torus_goodness_of_fit(exact, x)
+    probs = d.log_prob(x.to(d.mean.device)).exp().double().cpu()
+    return gof.auto_goodness_of_fit(x.double(), probs)
+
+
+def _raises(fn):
+    try:
+        fn()
+    except NotImplementedError:
+        return True
+    return False
+
+
+def _bessel_recurrence(max_order, kappa):
+    """``log I_m(kappa)`` for m = 0 .. max_order by the upward recurrence
+    ``I_{m+1} = I_{m-1} - (2m / kappa) I_m`` from ``i0e`` and ``i1e`` (in the
+    exponentially scaled values; unstable once m passes kappa)."""
+    prev, cur = torch.special.i0e(kappa), torch.special.i1e(kappa)
+    out = [prev, cur]
+    for m in range(1, max_order):
+        prev, cur = cur, prev - (2.0 * m / kappa) * cur
+        out.append(cur)
+    return torch.log(torch.stack(out, -1).clamp(min=torch.finfo(kappa.dtype).tiny)) + \
+        kappa.unsqueeze(-1)
+
+
+def phase_new_families(device):
+    """16c: the new families on CUDA tensors against CPU tensors, draws from a
+    CUDA generator through the port's gof, one Gamma reparameterised
+    gradient on the card against the CPU's, and the Bessel quadrature timed
+    against the i0e/i1e recurrence; returns the wall seconds."""
+    from numpyro_tpu_torch.distributions.directional import log_bessel_i_orders
+    from numpyro_tpu_torch.distributions.util import _gamma_draw_derivative
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    q = torch.linspace(0.05, 0.95, 12).reshape(4, 3)
+    worst, checked = 0.0, 0
+    for name, params in NEW_FAMILIES.items():
+        d_cpu, d_dev = new_family(name, params, cpu), new_family(name, params, device)
+        x = d_cpu.sample(torch.Generator().manual_seed(164), (4,))
+        for method, arg in (("log_prob", x), ("cdf", x), ("icdf", q)):
+            try:
+                want = getattr(d_cpu, method)(arg)
+            except NotImplementedError:
+                try:
+                    getattr(d_dev, method)(arg.to(device))
+                except NotImplementedError:
+                    continue
+                raise SystemExit(f"16c: {name}.{method} raises on the CPU only")
+            got = getattr(d_dev, method)(arg.to(device))
+            if got.device.type != device.type:
+                raise SystemExit(f"16c: {name}.{method} came back on {got.device}")
+            err = ((got.cpu() - want).abs() / (FAMILY_ATOL + FAMILY_RTOL * want.abs())).max()
+            worst, checked = max(worst, err.item()), checked + 1
+            if not err <= 1.0:
+                raise SystemExit(f"16c: {name}.{method} on the card is off the CPU's: "
+                                 f"{got.cpu().tolist()} against {want.tolist()}")
+        draw = d_dev.sample(torch.Generator(device=device).manual_seed(165), (8,))
+        if draw.device.type != device.type or not bool(d_dev.support(draw).all()):
+            raise SystemExit(f"16c: {name}'s draws are off its support or its device")
+    # ImproperUniform: a log density of 0 on the card, and no sampler there either
+    flat = dist.ImproperUniform(dist.constraints.positive, (3,), ())
+    if not (bool((flat.log_prob(torch.rand(4, 3, device=device)) == 0).all())
+            and _raises(lambda: flat.sample(torch.Generator(device=device)))):
+        raise SystemExit("16c: ImproperUniform's log_prob is not 0 or it draws on the card")
+    pvalues = {}
+    for label, (name, params) in GOF_CASES.items():
+        d = new_family(name, params, device)
+        x = d.sample(torch.Generator(device=device).manual_seed(166), (GOF_DRAWS,))
+        if x.device.type != device.type or torch.isnan(x.double()).any():
+            raise SystemExit(f"16c: {label}'s draws are not finite or off the device")
+        pvalues[label] = _gof_of(name, d, x)
+    low = min(pvalues, key=pvalues.get)
+    # one reparameterised gradient of a Gamma draw on the card: the exact
+    # derivative of the same draw on the CPU, through the series, the
+    # continued fraction and (from a = 50) Temme's expansion
+    alpha = torch.tensor([0.3, 2.0, 40.0, 5e3, 1e5], device=device, requires_grad=True)
+    g = dist.Gamma(alpha, 1.0).sample(torch.Generator(device=device).manual_seed(167), (64,))
+    g.sum().backward()
+    want = _gamma_draw_derivative(alpha.detach().cpu().expand(64, 5),
+                                  g.detach().cpu()).sum(0).float()
+    grad_err = ((alpha.grad.cpu() - want).abs() / want.abs()).max().item()
+    def timed(fn):
+        # CUDA events on the card; the host's clock in a CPU rehearsal
+        if device.type == "cuda":
+            return cuda_ms(fn, reps=3)
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the cost of the exact derivative on 4,096 draws, beside PyTorch's
+    # rational approximation (not gated)
+    shape4k = torch.rand(4096, device=device) * 50 + 0.1
+    draws4k = torch._standard_gamma(shape4k)
+    exact_ms = timed(lambda: _gamma_draw_derivative(shape4k, draws4k))
+    rational_ms = timed(lambda: torch._standard_gamma_grad(shape4k, draws4k))
+    # the Bessel quadrature against the recurrence, not gated
+    kappa = torch.rand(4096, device=device) * 20 + 0.5
+    quad_ms = timed(lambda: log_bessel_i_orders(49, kappa))
+    rec_ms = timed(lambda: _bessel_recurrence(49, kappa))
+    low_orders = (log_bessel_i_orders(49, kappa)[:, :4] - _bessel_recurrence(49, kappa)[:, :4])
+    wall = time.perf_counter() - t0
+    log(f"[discrete] 16c {len(NEW_FAMILIES)} classes, {checked} calls on the card within rtol "
+        f"{FAMILY_RTOL}, atol {FAMILY_ATOL} of the CPU's (worst {worst:.3f} of the bound); "
+        f"{GOF_DRAWS} draws each on a CUDA generator through gof: "
+        + ", ".join(f"{k} p {v:.3f}" for k, v in pvalues.items())
+        + f" (gate {GOF_FAILURE_RATE}); a Gamma draw's gradient on the card within "
+        f"{grad_err:.2e} of the CPU's exact derivative; that derivative {exact_ms:.3f} ms on "
+        f"4,096 draws (PyTorch's rational approximation {rational_ms:.3f} ms); Bessel values of orders 0-49 at 4,096 "
+        f"concentrations: quadrature {quad_ms:.3f} ms, i0e/i1e recurrence {rec_ms:.3f} ms "
+        f"(orders 0-3 apart by {low_orders.abs().max().item():.2e}, not gated); {wall:.2f} s")
+    if not pvalues[low] > GOF_FAILURE_RATE:
+        raise SystemExit(f"16c: {low}'s draws on the card fail the gof test (p "
+                         f"{pvalues[low]:.2e})")
+    if not grad_err < 1e-5:
+        raise SystemExit(f"16c: the Gamma draw's gradient on the card is {grad_err:.2e} off the "
+                         "CPU's")
+    return wall
+
+
+def phase_sixteen(device):
+    """Phase 16: ucbadmit, the von Mises mixture and the new families;
+    returns the walls of its legs, 16a's ms per evaluation and its
+    Predictive's seconds (16c only on the card)."""
+    launches0 = dict(glm.launch_counts)
+    wall_a, ms_a, predictive_s = phase_ucbadmit(device)
+    wall_b, ms_b = phase_ssbvm(device)
+    walls = {"16a": wall_a, "16b": wall_b}
+    if device.type == "cuda":
+        walls["16c"] = phase_new_families(device)
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("16: the phase launched a GLM kernel")
+    return walls, {"16a": ms_a, "16b": ms_b}, predictive_s
 
 
 def phase_horseshoe(X, y, beta_true, leg):
@@ -2470,6 +2888,15 @@ def main():
     log(f"[semi] phase 15: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"), about {wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes "
         f"24.0 ms per evaluation (budget 12 s)")
+
+    t16 = time.perf_counter()
+    walls, ms, predictive_s = phase_sixteen(device)
+    wall = time.perf_counter() - t16
+    log(f"[discrete] phase 16: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s"
+                                                           for k, v in walls.items())
+        + f"; 16a {ms['16a']:.2f} and 16b {ms['16b']:.2f} ms per evaluation, Predictive "
+        f"{predictive_s:.3f} s), about {wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where "
+        f"the ECS leg takes 24.0 ms per evaluation (budget 10 s)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

@@ -1,23 +1,27 @@
 """Constraints (port of the parts of ``numpyro_tpu/distributions/constraints.py``
 that the ported slices need: ``real``, ``real_vector``, ``boolean``,
-``independent``, ``interval``, ``integer_interval``,
-``greater_than``/``greater_than_eq`` and their instances
-``positive``/``nonnegative``, ``less_than``/``less_than_eq``,
+``independent``, ``dependent``, ``interval``, ``integer_interval``,
+``integer_greater_than`` and its instances ``nonnegative_integer``/
+``positive_integer``, ``greater_than``/``greater_than_eq`` and their
+instances ``positive``/``nonnegative``, ``less_than``/``less_than_eq``,
 ``open_interval``, ``softplus_positive``, ``lower_cholesky``,
-``scaled_unit_lower_cholesky``, ``simplex`` and ``unit_interval``).
-Others are not
-ported yet; see ROADMAP.md."""
+``scaled_unit_lower_cholesky``, ``simplex``, ``unit_interval``,
+``multinomial``, ``ordered_vector``, ``circular``, ``sphere`` and
+``l1_ball``).  Others are not ported yet; see ROADMAP.md."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 __all__ = [
-    "Constraint", "boolean", "greater_than", "greater_than_eq", "independent",
-    "integer_interval", "interval", "less_than", "less_than_eq", "lower_cholesky", "nonnegative",
-    "open_interval", "positive", "real",
-    "real_vector", "scaled_unit_lower_cholesky", "simplex", "softplus_positive",
-    "unit_interval",
+    "Constraint", "boolean", "circular", "dependent", "greater_than", "greater_than_eq",
+    "independent", "integer_greater_than", "integer_interval", "interval", "l1_ball",
+    "less_than", "less_than_eq", "lower_cholesky", "multinomial", "nonnegative",
+    "nonnegative_integer", "open_interval", "ordered_vector", "positive", "positive_integer",
+    "real", "real_vector", "scaled_unit_lower_cholesky", "simplex", "softplus_positive",
+    "sphere", "unit_interval",
 ]
 
 
@@ -94,6 +98,44 @@ class _Boolean(Constraint):
 
     def __call__(self, x):
         return (x == 0) | (x == 1)
+
+    def feasible_like(self, prototype):
+        return torch.zeros_like(prototype)
+
+
+class _Dependent(Constraint):
+    """A placeholder for a constraint that depends on other parameters (a
+    ``DiscreteUniform``'s bounds); it cannot be checked."""
+
+    def __init__(self, *, is_discrete=False, event_dim=0):
+        self._is_discrete = is_discrete
+        self._event_dim = event_dim
+
+    @property
+    def is_discrete(self):
+        return self._is_discrete
+
+    @property
+    def event_dim(self):
+        return self._event_dim
+
+    def __call__(self, x=None, *, is_discrete=None, event_dim=None):
+        if x is None:
+            return _Dependent(
+                is_discrete=self._is_discrete if is_discrete is None else is_discrete,
+                event_dim=self._event_dim if event_dim is None else event_dim,
+            )
+        raise ValueError("Cannot determine validity of dependent constraint")
+
+    def feasible_like(self, prototype):
+        raise ValueError("Cannot get feasible value for dependent constraint")
+
+
+class _Circular(Constraint):
+    """Angles in ``[-pi, pi]``."""
+
+    def __call__(self, x):
+        return (x >= -math.pi) & (x <= math.pi)
 
     def feasible_like(self, prototype):
         return torch.zeros_like(prototype)
@@ -240,6 +282,83 @@ class _IntegerInterval(Constraint):
         return f"integer_interval({self.lower_bound}, {self.upper_bound})"
 
 
+class _IntegerGreaterThan(Constraint):
+    is_discrete = True
+
+    def __init__(self, lower_bound):
+        self.lower_bound = lower_bound
+
+    def __call__(self, x):
+        return (x >= self.lower_bound) & (x == torch.floor(x))
+
+    def feasible_like(self, prototype):
+        return torch.full_like(prototype, self.lower_bound)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.lower_bound == other.lower_bound
+
+    def __hash__(self):
+        return hash(type(self))
+
+    def __repr__(self):
+        return f"integer_greater_than({self.lower_bound})"
+
+
+class _Multinomial(Constraint):
+    """Count vectors that sum to ``upper_bound``."""
+
+    is_discrete = True
+    event_dim = 1
+
+    def __init__(self, upper_bound):
+        self.upper_bound = upper_bound
+
+    def __call__(self, x):
+        return (x >= 0).all(-1) & (x.sum(-1) == self.upper_bound)
+
+    def feasible_like(self, prototype):
+        head = torch.zeros_like(prototype[..., :-1])
+        tail = torch.broadcast_to(torch.as_tensor(self.upper_bound, dtype=prototype.dtype,
+                                                  device=prototype.device),
+                                  prototype[..., :1].shape)
+        return torch.cat([head, tail], -1)
+
+
+class _OrderedVector(Constraint):
+    event_dim = 1
+
+    def __call__(self, x):
+        return (x[..., 1:] > x[..., :-1]).all(-1)
+
+    def feasible_like(self, prototype):
+        steps = torch.arange(prototype.shape[-1], dtype=prototype.dtype, device=prototype.device)
+        return torch.broadcast_to(steps, prototype.shape)
+
+
+class _L1Ball(Constraint):
+    event_dim = 1
+
+    def __call__(self, x):
+        return x.abs().sum(-1) <= 1 + 1e-6
+
+    def feasible_like(self, prototype):
+        return torch.zeros_like(prototype)
+
+
+class _Sphere(Constraint):
+    """Unit vectors."""
+
+    event_dim = 1
+
+    def __call__(self, x):
+        return (torch.linalg.vector_norm(x, dim=-1) - 1.0).abs() < 1e-6
+
+    def feasible_like(self, prototype):
+        out = torch.zeros_like(prototype)
+        out[..., 0] = 1.0
+        return out
+
+
 class _Simplex(Constraint):
     """Nonnegative vectors that sum to one."""
 
@@ -261,20 +380,29 @@ class _UnitInterval(_Interval):
 
 
 boolean = _Boolean()
+circular = _Circular()
+dependent = _Dependent()
 greater_than = _GreaterThan
 greater_than_eq = _GreaterThanEq
 independent = _IndependentConstraint
+integer_greater_than = _IntegerGreaterThan
 integer_interval = _IntegerInterval
 interval = _Interval
+l1_ball = _L1Ball()
 less_than = _LessThan
 less_than_eq = _LessThanEq
 lower_cholesky = _LowerCholesky()
+multinomial = _Multinomial
 nonnegative = _GreaterThanEq(0.0)
+nonnegative_integer = _IntegerGreaterThan(0)
 open_interval = _OpenInterval
+ordered_vector = _OrderedVector()
 positive = _GreaterThan(0.0)
+positive_integer = _IntegerGreaterThan(1)
 real = _Real()
 real_vector = _IndependentConstraint(real, 1)
 scaled_unit_lower_cholesky = _ScaledUnitLowerCholesky()
 simplex = _Simplex()
 softplus_positive = _SoftplusPositive()
+sphere = _Sphere()
 unit_interval = _UnitInterval()

@@ -1,8 +1,8 @@
 """Distribution base class and structural combinators (port of the parts of
 ``numpyro_tpu/distributions/distribution.py`` that the ported slices need:
 ``Distribution``, ``ExpandedDistribution``, ``Independent`` / ``to_event``,
-``MaskedDistribution`` / ``mask``, ``TransformedDistribution``, ``Delta`` and
-``Unit``).
+``MaskedDistribution`` / ``mask``, ``TransformedDistribution``, ``Delta``,
+``Unit`` and ``ImproperUniform``).
 
 A draw is differentiable in the parameters wherever ``has_rsample`` holds:
 samplers push standard draws through the parameters with tensor ops, so
@@ -23,8 +23,8 @@ from .transforms import ComposeTransform, Transform
 from .util import broadcast_shape, promote_shapes, sum_rightmost
 
 __all__ = [
-    "Delta", "Distribution", "ExpandedDistribution", "Independent", "MaskedDistribution",
-    "TransformedDistribution", "Unit",
+    "Delta", "Distribution", "ExpandedDistribution", "ImproperUniform", "Independent",
+    "MaskedDistribution", "TransformedDistribution", "Unit",
 ]
 
 
@@ -46,6 +46,8 @@ class Distribution:
     """Base class with the batch/event shape algebra and combinators."""
 
     support = None
+    # the constraint of each parameter
+    arg_constraints = {}
     # whether draws are differentiable in the parameters
     has_rsample = False
     # whether ``enumerate_support`` lists the support (finite discrete ones)
@@ -138,6 +140,10 @@ class Distribution:
 
     def enumerate_support(self, expand=True):
         raise NotImplementedError(f"{type(self).__name__}.enumerate_support")
+
+    @classmethod
+    def infer_shapes(cls, *args, **kwargs):
+        raise NotImplementedError(f"{cls.__name__}.infer_shapes")
 
     def expand(self, batch_shape):
         requested = tuple(batch_shape)
@@ -481,3 +487,26 @@ class Unit(Distribution):
     def log_prob(self, value):
         out = broadcast_shape(self.batch_shape, tuple(value.shape[:-1]))
         return self.log_factor.expand(out)
+
+
+class ImproperUniform(Distribution):
+    """An improper flat prior over ``support``: ``log_prob`` is 0 everywhere,
+    and there is no sampler (an init strategy places such a site in
+    unconstrained space)."""
+
+    has_rsample = True
+
+    def __init__(self, support, batch_shape, event_shape, *, validate_args=None):
+        self.support = constraints.independent(support, len(event_shape) - support.event_dim)
+        super().__init__(batch_shape, event_shape, validate_args=validate_args)
+
+    def log_prob(self, value):
+        lead = value.dim() - self.event_dim
+        dtype = _float_dtype(value)
+        return torch.zeros(broadcast_shape(tuple(value.shape[:lead]), self.batch_shape),
+                           dtype=dtype, device=value.device)
+
+    def sample(self, key, sample_shape=()):
+        raise NotImplementedError(
+            "ImproperUniform has no sampler; use an init strategy or "
+            ".mask(False) over a proper prior instead")

@@ -6,8 +6,8 @@ and stick-breaking transforms, the lower-Cholesky transforms,
 ``ReshapeTransform``; ``biject_to`` for ``real``, ``independent``,
 ``positive``/``nonnegative``, ``greater_than``/``greater_than_eq``,
 ``less_than``/``less_than_eq``, ``softplus_positive``, ``lower_cholesky``,
-``scaled_unit_lower_cholesky``, ``simplex``, ``unit_interval`` and
-``interval``/``open_interval``).
+``scaled_unit_lower_cholesky``, ``simplex``, ``unit_interval``,
+``interval``/``open_interval`` and ``circular``).
 Other constraints
 raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
 
@@ -827,6 +827,15 @@ for _c in (constraints.interval, constraints.open_interval):
         ]),
     )
 del _c
+# the circle, as the JAX package maps it: onto (-pi, pi) through the unit
+# interval
+biject_to.register(
+    constraints.circular,
+    lambda c: ComposeTransform([
+        SigmoidTransform(),
+        AffineTransform(-math.pi, 2 * math.pi, domain=constraints.unit_interval),
+    ]),
+)
 biject_to.register(constraints.simplex, lambda c: StickBreakingTransform())
 biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
 biject_to.register(

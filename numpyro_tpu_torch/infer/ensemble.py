@@ -42,6 +42,7 @@ from collections import namedtuple
 
 import torch
 
+from numpyro_tpu_torch.distributions.util import cholesky, inv
 from numpyro_tpu_torch.infer import hmc_core as core
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.ensemble_util import batch_ravel_pytree
@@ -93,7 +94,7 @@ class gaussian_kde:
             )
         data_cov = torch.atleast_2d(torch.cov(dataset, correction=1, aweights=weights))
         self.covariance = data_cov * factor**2
-        self.inv_cov = torch.linalg.inv(data_cov) / factor**2
+        self.inv_cov = inv(data_cov) / factor**2
 
     def resample(self, draws, shape=()):
         """Draws of shape ``(d,) + shape`` from the estimate; ``draws`` is a
@@ -102,7 +103,7 @@ class gaussian_kde:
         draws = core.as_draws(draws)
         shape = tuple(shape)
         ind = draws.categorical(self.weights, shape)
-        factor = torch.linalg.cholesky(self.covariance)
+        factor = cholesky(self.covariance)
         eps = draws.normals(shape + (self.d,), self.dataset) @ factor.T
         return self.dataset[:, ind] + torch.movedim(eps, -1, 0)
 
@@ -116,7 +117,7 @@ class gaussian_kde:
                 raise ValueError(
                     f"points have dimension {points.shape[0]}, dataset has dimension {self.d}"
                 )
-        whitening = torch.linalg.cholesky(self.inv_cov)
+        whitening = cholesky(self.inv_cov)
         train = self.dataset.T @ whitening
         test = points.T @ whitening
         log_norm = whitening.diagonal().log().sum() - 0.5 * self.d * math.log(2 * math.pi)
@@ -393,7 +394,7 @@ class ESS(EnsembleSampler):
 
         def gaussian_move(draws, inactive, mu):
             cov = torch.atleast_2d(torch.cov(inactive.T))
-            scale_tril = torch.linalg.cholesky(cov)
+            scale_tril = cholesky(cov)
             eps = draws.normals(tuple(inactive.shape), inactive)
             return 2.0 * mu * (scale_tril @ eps[..., None])[..., 0]
 

@@ -34,6 +34,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from numpyro_tpu_torch.distributions.util import cholesky, inv
 from numpyro_tpu_torch.infer import hmc_core as core
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, stan_windows
 from numpyro_tpu_torch.util import identity, tree_leaves, tree_map
@@ -406,8 +407,8 @@ def consensus(subposteriors, num_draws=None, diagonal=False, rng_key=None):
         weights = 1.0 / flat.var(1, correction=1)
         merged = torch.einsum("knd,kd->nd", flat, weights / weights.sum(0))
     else:
-        precisions = torch.linalg.inv(_covariances(flat))
-        total = torch.linalg.inv(precisions.sum(0))
+        precisions = inv(_covariances(flat))
+        total = inv(precisions.sum(0))
         merged = torch.einsum("de,kef,knf->nd", total, precisions, flat)
     if num_draws is not None:
         pick = _default_draws(rng_key, flat).randints(0, merged.shape[0], (num_draws,), flat)
@@ -424,8 +425,8 @@ def parametric(subposteriors, diagonal=False):
         precisions = 1.0 / flat.var(1, correction=1)
         var = 1.0 / precisions.sum(0)
         return var * (precisions * means).sum(0), var
-    precisions = torch.linalg.inv(_covariances(flat))
-    cov = torch.linalg.inv(precisions.sum(0))
+    precisions = inv(_covariances(flat))
+    cov = inv(precisions.sum(0))
     return cov @ torch.einsum("kde,ke->d", precisions, means), cov
 
 
@@ -438,5 +439,5 @@ def parametric_draws(subposteriors, num_draws, diagonal=False, rng_key=None):
     if diagonal:
         draws = mean + torch.sqrt(scale) * noise
     else:
-        draws = mean + noise @ torch.linalg.cholesky(scale).T
+        draws = mean + noise @ cholesky(scale).T
     return unravel(draws)

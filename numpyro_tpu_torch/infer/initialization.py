@@ -93,17 +93,10 @@ def init_to_value(site=None, values={}):
     return None
 
 
-@_strategy
-def _prior_draw(site):
-    if site["value"] is not None:
-        return site["value"]
-    return site["fn"](
-        rng_key=site["kwargs"].get("rng_key"), sample_shape=site["kwargs"].get("sample_shape")
-    )
-
-
 def init_to_sample(site=None):
-    """Initialize to a single prior sample."""
+    """Initialize to a single prior sample: ``init_to_median`` of one draw,
+    as in the JAX package, so that a site without a sampler (an
+    ``ImproperUniform``) falls back to ``init_to_uniform``."""
     if site is None:
         return init_to_sample
-    return _prior_draw(site)
+    return init_to_median(site, num_samples=1)

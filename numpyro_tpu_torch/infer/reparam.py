@@ -1,18 +1,19 @@
 """Reparameterizers, applied through the ``handlers.reparam`` handler (port
 of ``Reparam``, ``LocScaleReparam``, ``TransformReparam``,
-``ExplicitReparam`` and ``NeuTraReparam`` from
-``numpyro_tpu/infer/reparam.py``).
+``ExplicitReparam``, ``ProjectedNormalReparam``, ``CircularReparam`` and
+``NeuTraReparam`` from ``numpyro_tpu/infer/reparam.py``).
 
 Each reparameterizer is called as ``reparam(name, fn, obs) -> (new_fn,
 value)``: ``(None, value)`` replaces the site with a deterministic value
 computed from the auxiliary sample sites it introduced.  A site with an
 observation raises ``NotImplementedError``, where the JAX package fails an
-assertion (ROADMAP.md, Queue 3).  ``ProjectedNormalReparam`` and
-``CircularReparam`` are not ported yet and raise when made (ROADMAP.md).
+assertion (ROADMAP.md, Queue 3); ``CircularReparam`` takes one, as the JAX
+package's does.
 """
 
 from __future__ import annotations
 
+import math
 from abc import ABC, abstractmethod
 
 import torch
@@ -20,7 +21,7 @@ import torch
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions import biject_to, constraints
-from numpyro_tpu_torch.distributions.util import sum_rightmost
+from numpyro_tpu_torch.distributions.util import safe_normalize, sum_rightmost
 from numpyro_tpu_torch.primitives import factor, param, sample
 
 __all__ = [
@@ -144,22 +145,34 @@ class ExplicitReparam(Reparam):
         return None, self.transform(x)
 
 
-class _Unported(Reparam):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-        )
+class ProjectedNormalReparam(Reparam):
+    """A ``ProjectedNormal`` site as the direction of an auxiliary normal
+    draw."""
 
     def __call__(self, name, fn, obs):
-        raise NotImplementedError
+        _reject_obs(self, obs)
+        base, rewrap = self._peel(fn)
+        assert isinstance(base, dist.ProjectedNormal)
+        gauss = dist.Normal(base.concentration, 1.0).to_event(1)
+        x = sample(f"{name}_normal", rewrap(gauss), infer={"is_auxiliary": True})
+        return None, safe_normalize(x)
 
 
-class ProjectedNormalReparam(_Unported):
-    """Not ported yet (ROADMAP.md)."""
+class CircularReparam(Reparam):
+    """A site on the circle (a ``VonMises``) as a flat site on the real line,
+    wrapped onto ``[-pi, pi)``, with the density entering as a factor at the
+    wrapped value."""
 
-
-class CircularReparam(_Unported):
-    """Not ported yet (ROADMAP.md)."""
+    def __call__(self, name, fn, obs):
+        assert _base_support(fn) is constraints.circular
+        line_value = sample(
+            f"{name}_unwrapped",
+            dist.ImproperUniform(constraints.real, fn.batch_shape, fn.event_shape),
+            obs=obs,
+        )
+        wrapped = torch.remainder(line_value + math.pi, 2 * math.pi) - math.pi
+        factor(f"{name}_factor", fn.log_prob(wrapped))
+        return None, wrapped
 
 
 class NeuTraReparam(Reparam):

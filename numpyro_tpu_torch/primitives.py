@@ -22,7 +22,7 @@ from collections import namedtuple
 import torch
 
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.distributions.util import ForwardModeDrawError, broadcast_shape
+from numpyro_tpu_torch.distributions.util import broadcast_shape
 from numpyro_tpu_torch.util import identity
 
 __all__ = [
@@ -38,12 +38,9 @@ _PYRO_STACK = []
 def default_process_message(msg):
     if msg["value"] is None:
         if msg["type"] == "sample":
-            try:
-                msg["value"], msg["intermediates"] = msg["fn"](
-                    *msg["args"], sample_intermediates=True, **msg["kwargs"]
-                )
-            except ForwardModeDrawError as e:
-                raise ForwardModeDrawError(f"sample site {msg['name']!r}: {e}") from None
+            msg["value"], msg["intermediates"] = msg["fn"](
+                *msg["args"], sample_intermediates=True, **msg["kwargs"]
+            )
         else:
             msg["value"] = msg["fn"](*msg["args"], **msg["kwargs"])
 

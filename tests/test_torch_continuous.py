@@ -4,7 +4,7 @@ numpy inputs: ``log_prob``, ``mean``, ``variance``, ``cdf``, ``icdf`` and
 not), ``icdf(cdf(x)) == x``, ``biject_to(support)``, ``sample`` on JAX's own
 draws (handed over through the draw source ``tests/torch_draws.py``), the
 moments of the port's own draws, and the reparameterised gradients of Gamma,
-Beta, InverseGamma and LogNormal draws.  Also the repairs of this slice: a
+Beta, InverseGamma, LogNormal and Dirichlet draws.  Also the repairs of this slice: a
 covariance or precision that is not positive definite gives NaN, and the base
 ``Distribution`` raises ``NotImplementedError`` naming the class.
 
@@ -258,19 +258,29 @@ def test_own_draws_match_the_moments(name):
     assert ((var - d_t.variance.double()).abs() < 4 * se_var).all(), name
 
 
-@pytest.mark.parametrize("name", ["Gamma", "Beta", "InverseGamma", "LogNormal"])
+def _dirichlet_draws(key, shape, d):
+    conc = jnp.broadcast_to(d.concentration, shape + d.event_shape)
+    return [("gammas", random.gamma(key, conc))]
+
+
+@pytest.mark.parametrize("name", ["Gamma", "Beta", "InverseGamma", "LogNormal", "Dirichlet"])
 def test_reparameterised_gradients_match_jax(name):
     """The gradient of a positively weighted sum of a draw in every
-    parameter, on the same draw.  Tolerance rtol 5e-4: PyTorch's implicit
-    gamma derivative (``_standard_gamma_grad``, which ``torch._standard_gamma``
-    differentiates with) is a rational approximation up to 4e-4 relative off
-    the exact one, where the JAX package's ``random_gamma_grad`` is within
-    2e-6 (ROADMAP.md, Queue 3); LogNormal has no gamma draw and is held to
-    1e-5."""
-    d_j, _, params = _make(name)
+    parameter, on the same draw.  Tolerance rtol 1e-5 (atol 1e-5): the
+    gamma draw's derivative is exact to float64 rounding
+    (``util._gamma_draw_derivative``), as the JAX package's
+    ``random_gamma_grad`` is to float32 rounding; the ratio of Beta's and
+    Dirichlet's normalisation adds float32 rounding of its own."""
+    if name == "Dirichlet":
+        params = {"concentration": np.array([[1.5, 2.5, 0.7], [3.0, 0.4, 1.2]], np.float32)}
+        d_j = jdist.Dirichlet(jnp.asarray(params["concentration"]))
+        shape, draws = (6, 2), _dirichlet_draws
+    else:
+        d_j, _, params = _make(name)
+        shape, draws = (6, 3), CASES[name][1]
     key = random.PRNGKey(4)
-    shape = (6, 3)
-    weights = np.random.default_rng(2).uniform(0.5, 1.5, shape).astype(np.float32)
+    weights = np.random.default_rng(2).uniform(0.5, 1.5, shape + d_j.event_shape).astype(
+        np.float32)
 
     def loss_j(p):
         return (getattr(jdist, name)(**p).sample(key, (6,)) * weights).sum()
@@ -278,11 +288,10 @@ def test_reparameterised_gradients_match_jax(name):
     grads_j = jax.grad(loss_j)({k: jnp.asarray(v) for k, v in params.items()})
     leaves = {k: _t(v).requires_grad_() for k, v in params.items()}
     d_t = getattr(dist, name)(**leaves)
-    source = FedDraws(CASES[name][1](key, shape, d_j))
+    source = FedDraws(draws(key, shape, d_j))
     (d_t.sample(source, (6,)) * _t(weights)).sum().backward()
-    rtol = RTOL if name == "LogNormal" else 5e-4
     for k in params:
-        _close(leaves[k].grad, grads_j[k], rtol=rtol, atol=1e-5, what=k)
+        _close(leaves[k].grad, grads_j[k], rtol=RTOL, atol=1e-5, what=k)
 
 
 def test_gamma_draws_differ_across_particles():
@@ -302,14 +311,29 @@ def test_gamma_draws_differ_across_particles():
 
 
 def test_gamma_draw_under_forward_mode_names_the_site():
+    """A gamma draw under forward mode, which raised naming its site before
+    the draw had a forward-mode derivative, now runs: the seeded model's
+    tangent is the draw's derivative in the concentration, as reverse mode
+    gives it, and on JAX's own draw it is the tangent ``jax.jvp`` gives."""
     from numpyro_tpu_torch import handlers, sample
 
     def model(a):
         return sample("tau", dist.Gamma(a, 1.0))
 
     seeded = handlers.seed(model, rng_seed=0)
-    with pytest.raises(NotImplementedError, match="'tau'.*forward-mode"):
-        torch.func.jvp(seeded, (torch.tensor(2.0),), (torch.tensor(1.0),))
+    a = torch.tensor(2.0)
+    value, tangent = torch.func.jvp(seeded, (a,), (torch.tensor(1.0),))
+    grad = torch.func.grad(handlers.seed(model, rng_seed=0))(a)
+    assert value == handlers.seed(model, rng_seed=0)(a)
+    _close(tangent, grad.numpy())
+    key = random.PRNGKey(3)
+    conc = np.array([0.3, 2.0, 40.0], np.float32)
+    _, t_j = jax.jvp(lambda c: jdist.Gamma(c, 1.0).sample(key), (jnp.asarray(conc),),
+                     (jnp.ones(3),))
+    fed = FedDraws([("gammas", random.gamma(key, jnp.asarray(conc)))])
+    _, t_t = torch.func.jvp(lambda c: dist.Gamma(c, 1.0).sample(fed), (_t(conc),),
+                            (torch.ones(3),))
+    _close(t_t, t_j)
 
 
 # ---------------------------------------------------------------------------

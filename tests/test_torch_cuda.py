@@ -8,7 +8,9 @@ forms of ``examples/hmm_enum.py`` against a numpy forward algorithm, the
 error past 25 dims), one step of SMC, the Gibbs sweep, BarkerMH, SA,
 AIES and ESS against the CPU on the same draws, and the flow guides:
 the GLM op's raise on a second derivative, and an IAF's NeuTra potential
-through ``glm_split`` against the CPU.
+through ``glm_split`` against the CPU; the discrete, conjugate and
+directional families on the card against the CPU, their draws through the
+port's ``gof``, and a Gamma draw's exact derivative in both modes.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -1022,3 +1024,80 @@ def test_semi_dais_steps_on_the_card(cuda):
     res = SVI(model, guide, Adam(5e-3), Trace_ELBO()).run(0, 20)
     assert res.losses.device.type == "cuda" and torch.isfinite(res.losses).all()
     assert res.params["auto_eta0"].shape == (16,) and res.params["auto_eta0"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the discrete, conjugate and directional families (phase 16c)
+
+
+@pytest.mark.requires_cuda
+def test_discrete_and_directional_families_on_the_card_match_the_cpu(cuda):
+    """Every class of ``chip_smoke.NEW_FAMILIES``: ``log_prob``, ``cdf`` and
+    ``icdf`` on CUDA tensors against the same calls on CPU tensors, to
+    ``FAMILY_RTOL`` and ``FAMILY_ATOL``, and its draws on a CUDA generator
+    inside its support."""
+    cs = _phase15()
+    q = torch.linspace(0.05, 0.95, 12).reshape(4, 3)
+    for name, params in cs.NEW_FAMILIES.items():
+        d_cpu = cs.new_family(name, params, torch.device("cpu"))
+        d_dev = cs.new_family(name, params, cuda)
+        x = d_cpu.sample(torch.Generator().manual_seed(0), (4,))
+        for method, arg in (("log_prob", x), ("cdf", x), ("icdf", q)):
+            try:
+                want = getattr(d_cpu, method)(arg)
+            except NotImplementedError:
+                with pytest.raises(NotImplementedError):
+                    getattr(d_dev, method)(arg.to(cuda))
+                continue
+            got = getattr(d_dev, method)(arg.to(cuda))
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=cs.FAMILY_RTOL, atol=cs.FAMILY_ATOL,
+                                       msg=f"{name}.{method}")
+        draw = d_dev.sample(torch.Generator(device=cuda).manual_seed(1), (8,))
+        assert draw.device.type == "cuda" and bool(d_dev.support(draw).all()), name
+    flat = dist.ImproperUniform(dist.constraints.positive, (3,), ())
+    assert bool((flat.log_prob(torch.rand(4, 3, device=cuda)) == 0).all())
+    with pytest.raises(NotImplementedError):
+        flat.sample(torch.Generator(device=cuda))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("label", ["binomial n p = 2.4", "binomial n p = 30", "Poisson",
+                                   "Multinomial", "VonMises", "SineBivariateVonMises", "Gamma"])
+def test_draws_on_a_cuda_generator_pass_the_gof_test(cuda, label):
+    cs = _phase15()
+    name, params = cs.GOF_CASES[label]
+    d = cs.new_family(name, params, cuda)
+    x = d.sample(torch.Generator(device=cuda).manual_seed(3), (cs.GOF_DRAWS,))
+    assert x.device.type == "cuda" and not torch.isnan(x.double()).any()
+    assert cs._gof_of(name, d, x) > cs.GOF_FAILURE_RATE
+
+
+@pytest.mark.requires_cuda
+def test_gamma_draw_gradient_and_forward_mode_on_the_card(cuda):
+    """The reparameterised derivative of a Gamma draw on the card, in reverse
+    and forward mode, against the CPU's exact derivative of the same draw, at
+    shapes through the series, the continued fraction and Temme's expansion."""
+    from numpyro_tpu_torch.distributions.util import _gamma_draw_derivative
+
+    alpha = torch.tensor([0.3, 2.0, 40.0, 5e3, 1e5], device=cuda, requires_grad=True)
+    g = dist.Gamma(alpha, 1.0).sample(torch.Generator(device=cuda).manual_seed(4), (64,))
+    g.sum().backward()
+    want = _gamma_draw_derivative(alpha.detach().cpu().expand(64, 5), g.detach().cpu())
+    torch.testing.assert_close(alpha.grad.cpu(), want.sum(0).float(), rtol=1e-5, atol=0)
+    _, tangent = torch.func.jvp(
+        lambda a: dist.Gamma(a, 1.0).sample(torch.Generator(device=cuda).manual_seed(4), (64,)),
+        (alpha.detach(),), (torch.ones(5, device=cuda),))
+    torch.testing.assert_close(tangent.cpu(), want.float(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_binomial_and_von_mises_draws_under_soft_vmap_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    counts = torch.tensor([825.0, 108.0, 25.0], device=cuda)
+    x = soft_vmap(lambda p: dist.Binomial(counts, probs=p).sample(gen),
+                  torch.rand(64, 3, device=cuda))
+    assert x.device.type == "cuda" and x.shape == (64, 3) and bool((x <= counts).all())
+    y = soft_vmap(lambda k: dist.VonMises(0.0, k).sample(gen),
+                  torch.full((64,), 5.0, device=cuda))
+    assert not torch.isnan(y).any() and len(torch.unique(y)) == 64

@@ -217,9 +217,16 @@ def test_reparam_consumes_the_site_into_a_deterministic_record():
 
 
 def test_unported_reparameterizers_and_observed_sites_raise():
-    for cls in (reparam.ProjectedNormalReparam, reparam.CircularReparam):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls()
+    # ProjectedNormalReparam and CircularReparam are ported
+    # (tests/test_torch_circular_reparam.py holds their potentials against
+    # JAX's): each is made as the JAX package's is and rewrites its site
+    for cls, fn, site in ((reparam.ProjectedNormalReparam,
+                           dist.ProjectedNormal(torch.tensor([2.0, 0.0, 0.0])), "d_normal"),
+                          (reparam.CircularReparam, dist.VonMises(0.5, 3.0), "d_unwrapped")):
+        model = handlers.reparam(lambda: npt.sample("d", fn), config={"d": cls()})
+        tr = handlers.trace(handlers.seed(handlers.substitute(
+            model, data={site: torch.ones(fn.event_shape)}), 0)).get_trace()
+        assert tr["d"]["type"] == "deterministic" and site in tr
     # NeuTraReparam is ported (tests/test_torch_flow_guides.py); like the JAX
     # package's, it refuses a guide that has no transport
     for module in (reparam, jreparam):

@@ -95,15 +95,16 @@ def test_gammainc_matches_scipy_and_jax(dtype):
 
 
 def test_gammainc_derivatives_match_jax():
-    """In x to 1e-5; in a to 5e-4, the accuracy of the rational
-    approximation ``torch._standard_gamma_grad`` (JAX's is exact to 2e-6)."""
+    """In x to 1e-5; in a to 2e-5: the port's derivative in a is exact to
+    float64 rounding (within 5e-8 of a float64 difference quotient here),
+    and JAX's float32 one drifts by 1e-5 at a = 50."""
     a = np.array([0.3, 1.0, 2.0, 5.0, 50.0], np.float32)
     x = np.array([0.01, 0.4, 2.5, 5.0, 60.0], np.float32)
     at, xt = torch.from_numpy(a).requires_grad_(), torch.from_numpy(x).requires_grad_()
     gammainc(at, xt).sum().backward()
     ga, gx = jax.vmap(jax.grad(jgammainc, argnums=(0, 1)))(jnp.asarray(a), jnp.asarray(x))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-5)
-    np.testing.assert_allclose(at.grad.numpy(), np.asarray(ga), rtol=5e-4)
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(ga), rtol=2e-5)
 
 
 def test_inverses_match_jax_and_refuse_a_derivative():
