@@ -194,6 +194,24 @@ Phases (each prints on its own lines; any failure exits non-zero):
                against the CPU's, and
                the Bessel quadrature timed against the ``i0e``/``i1e``
                recurrence.  No GLM launch.
+17. structured -- the structured and matrix families: (a) the LKJ covariance
+               model of the Stan User's Guide (``LKJCholesky(5, 2)``, 500 rows
+               of a 5-d ``MultivariateNormal``) under NUTS (``LKJ_RUN``), which
+               maps ``L`` through ``biject_to(corr_cholesky)`` at every
+               evaluation; the largest error of the 10 posterior mean
+               correlations within ``LKJ_GATE`` of the JAX package's
+               (``dev/structured_reference.py``); (b) an ordered Gaussian
+               mixture (``OrderedTransform`` locations, ``MixtureSameFamily``
+               likelihood, 300 points); each model's potential and gradient
+               at 256 points on the card against the CPU's, with the host
+               syncs of that evaluation counted, and the mixture's locations
+               increasing at every point; (c) every new
+               class's ``log_prob`` and every new transform's forward map,
+               inverse and log-determinant on CUDA tensors against CPU
+               tensors, draws of seven samplers on a CUDA generator through
+               the port's ``gof``, a ``Wishart`` reparameterised gradient
+               against the CPU's on the same draws, and ``CAR.log_prob`` at
+               100 sites timed with its host syncs.  No GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -1492,27 +1510,11 @@ def phase_ssbvm(device):
 def ssbvm_potential_check(angles):
     """16b's tight check: the enumerated model's potential and gradient at
     fixed unconstrained points on ``angles``' device against the CPU's."""
-    out, rng = {}, np.random.default_rng(168)
-    for device in (angles.device, torch.device("cpu")):
-        info = infer_util.initialize_model(torch.Generator(device=device).manual_seed(168),
-                                           ssbvm_model, num_chains=SSBVM_POINTS,
-                                           model_args=(angles.to(device),))
-        if not out:
-            z = {k: rng.normal(0.0, 1.0, tuple(v.shape)).astype(np.float32)
-                 for k, v in info.param_info.z.items()}
-        pe, grad = infer_util.batched_value_and_grad(info.potential_fn)(
-            {k: torch.from_numpy(v).to(device) for k, v in z.items()})
-        out[device.type] = (pe.double().cpu(), {k: g.double().cpu() for k, g in grad.items()})
-    (pe_d, g_d), (pe_c, g_c) = out[angles.device.type], out["cpu"]
-    pe_err = ((pe_d - pe_c).abs() / pe_c.abs()).max().item()
-    g_err = max((((g_d[k] - g_c[k]).abs() - SSBVM_RTOL * g_c[k].abs())
-                 / (SSBVM_RTOL * g_c[k].abs().max())).max().item() for k in g_c)
+    pe_err, g_err, _, _ = potential_check("16b", ssbvm_model, angles, SSBVM_POINTS, SSBVM_RTOL,
+                                          168)
     log(f"[discrete] 16b enumerated potential at {SSBVM_POINTS} points on {angles.device.type} "
-        f"against the CPU: max rel err {pe_err:.2e}, gradient {max(g_err, 0.0):.3f} of its atol "
+        f"against the CPU: max rel err {pe_err:.2e}, gradient {g_err:.3f} of its atol "
         f"(rtol {SSBVM_RTOL})")
-    if not (pe_err <= SSBVM_RTOL and g_err <= 1.0 and set(g_d) == set(g_c)):
-        raise SystemExit("16b: the enumerated potential or its gradient on the card is off the "
-                         "CPU's")
 
 
 def new_family(name, params, device):
@@ -1689,6 +1691,569 @@ def phase_sixteen(device):
         raise SystemExit("16: the phase launched a GLM kernel")
     return walls, {"16a": ms_a, "16b": ms_b}, predictive_s
 
+
+# phase 17, the structured and matrix families.  Its budget is 5 s on a host
+# where phase 6's main leg takes 24.0 ms per evaluation.  (a) the LKJ prior
+# of the Stan User's Guide ("Multivariate priors for hierarchical models"),
+# as NumPyro's LKJCholesky docstring writes it: L ~ LKJCholesky(5, 2), 5
+# scales ~ HalfNormal(2.5), 5 means ~ Normal(0, 5), LKJ_ROWS rows of
+# MultivariateNormal(mu, scale_tril=sigma L); the data from numpy (seed 0)
+# with LKJ_CORR, whose entries reach +-0.6, LKJ_SD and LKJ_MU.  Chains,
+# warmup, samples and depths, cut to the budget in a CPU rehearsal
+# (`python3 -m dev.phase17 cpu`) and on the card: at 32 chains and 20 + 10
+# phase 17 took 6.8 s warm on an H100 80GB at 700 W (`dev.phase17 --sizing`),
+# over its 5 s, at 15 + 5 for 17a and 10 + 5 for 17b about 4.5.  e, the
+# largest of the 10 |posterior mean - generating correlation|, within
+# LKJ_GATE of the JAX package's own e at this configuration, key 0, LKJ_REF:
+# the gate max(2 e_J, e_J + 0.05); keys 1-4 read within 0.1044 of it
+# (`JAX_PLATFORMS=cpu python3 -m dev.structured_reference lkj`)
+LKJ_DIM, LKJ_ROWS, LKJ_ETA = 5, 500, 2.0
+LKJ_CORR = ((1.0, 0.6, 0.3, 0.0, -0.2),
+            (0.6, 1.0, 0.4, 0.1, -0.3),
+            (0.3, 0.4, 1.0, -0.4, 0.0),
+            (0.0, 0.1, -0.4, 1.0, 0.5),
+            (-0.2, -0.3, 0.0, 0.5, 1.0))
+LKJ_SD = (1.0, 2.0, 0.5, 1.5, 1.0)
+LKJ_MU = (0.0, 1.0, -1.0, 0.5, 2.0)
+LKJ_RUN = (32, 15, 5, (3, 3))
+LKJ_REF = 0.2765
+LKJ_GATE = 0.553
+# (b) an ordered Gaussian mixture: mu ~ Normal(0, 5) through OrderedTransform,
+# w ~ Dirichlet(1, 1, 1), s ~ HalfNormal(1), MIX_N points of
+# MixtureSameFamily(Categorical(w), Normal(mu, s)) drawn from numpy (seed 0)
+# with MIX_LOCS, MIX_WEIGHTS and MIX_SCALE.  No NUTS run: at 32 chains and
+# 10 + 5 (1.4-2.1 s of the script on an H100 80GB at 700 W) neither
+# package's chains left their starts (location error 1.44 in the port, 1.49
+# in the JAX package, `dev.structured_reference mix`), and phase 17 ran
+# over its 5 s with it, so 17b is the check below alone
+MIX_N, MIX_LOCS, MIX_WEIGHTS, MIX_SCALE = 300, (-2.0, 0.0, 3.0), (0.3, 0.4, 0.3), 0.7
+# and, since 17a's gate is wide at its length, each model's potential and
+# its gradient at STRUCTURED_POINTS unconstrained points (numpy normals
+# of scale 0.5, seed 174) on the card against the CPU's, at rtol
+# STRUCTURED_RTOL (the gradient with an atol of STRUCTURED_RTOL times each
+# site's largest component), as 16b's check.  At scale 1 some points give a
+# badly conditioned LKJ factor, whose float32 solves on the card and the CPU
+# read 6.6e-5 apart (`python3 -m dev.phase17` on an H100 80GB)
+STRUCTURED_POINTS, STRUCTURED_RTOL = 256, 1e-4
+# (c) the new classes and transforms on CUDA tensors against CPU tensors, at
+# 15c's FAMILY_RTOL and FAMILY_ATOL; draws on a CUDA generator of
+# STRUCTURED_GOF through the port's gof, on scalar statistics of known law
+# (scipy), at GOF_FAILURE_RATE; CAR.log_prob at CAR_N sites timed
+CAR_N = 100
+
+
+def lkj_data(n=LKJ_ROWS):
+    rng = np.random.default_rng(0)
+    cov = np.outer(LKJ_SD, LKJ_SD) * np.array(LKJ_CORR)
+    return rng.multivariate_normal(LKJ_MU, cov, size=n).astype(np.float32)
+
+
+def lkj_model(y, observed=True):
+    """The LKJ covariance model of phase 17a (``observed=False`` draws the
+    rows, of ``y``'s shape)."""
+    d = y.shape[-1]
+    L = npt.sample("L", dist.LKJCholesky(d, torch.tensor(LKJ_ETA, device=y.device)))
+    sigma = npt.sample("sigma", dist.HalfNormal(torch.full((d,), 2.5, device=y.device))
+                       .to_event(1))
+    mu = npt.sample("mu", dist.Normal(torch.zeros(d, device=y.device), 5.0).to_event(1))
+    with npt.plate("obs", y.shape[0]):
+        npt.sample("y", dist.MultivariateNormal(mu, scale_tril=sigma[..., None] * L),
+                   obs=y if observed else None)
+
+
+def mix_data(n=MIX_N):
+    rng = np.random.default_rng(0)
+    comp = rng.choice(3, size=n, p=MIX_WEIGHTS)
+    return (np.array(MIX_LOCS)[comp] + MIX_SCALE * rng.normal(size=n)).astype(np.float32)
+
+
+def mix_model(y, observed=True):
+    """The ordered Gaussian mixture of phase 17b (``observed=False`` draws
+    the points, of ``y``'s shape)."""
+    from numpyro_tpu_torch.distributions.transforms import OrderedTransform
+
+    zeros = torch.zeros(3, device=y.device)
+    mu = npt.sample("mu", dist.TransformedDistribution(dist.Normal(zeros, 5.0),
+                                                       OrderedTransform()))
+    w = npt.sample("w", dist.Dirichlet(torch.ones(3, device=y.device)))
+    s = npt.sample("s", dist.HalfNormal(torch.tensor(1.0, device=y.device)))
+    with npt.plate("obs", y.shape[0]):
+        npt.sample("y", dist.MixtureSameFamily(dist.Categorical(w), dist.Normal(mu, s)),
+                   obs=y if observed else None)
+
+
+def lkj_error(L):
+    """The largest |posterior mean - generating correlation| below the
+    diagonal, for draws ``L`` of the Cholesky factor."""
+    corr = (L.double() @ L.double().transpose(-2, -1)).mean(0).cpu().numpy()
+    rows, cols = np.tril_indices(L.shape[-1], -1)
+    return float(np.abs(corr - np.array(LKJ_CORR))[rows, cols].max())
+
+
+def count_syncs(fn):
+    """``fn()``'s result and the host syncs it made on the card
+    (``torch.cuda.set_sync_debug_mode("warn")``), as a dict from the
+    ``file:line`` in the port that made each (the innermost frame of its
+    stack in ``numpyro_tpu_torch``) to their count; empty on the CPU."""
+    if not torch.cuda.is_available():
+        return fn(), {}
+    import traceback
+
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1] if "numpyro_tpu_torch" in f.filename]
+        where = frames[-1] if frames else traceback.extract_stack()[-2]
+        site = f"{'/'.join(where.filename.split('/')[-2:])}:{where.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def potential_check(tag, model, y, points, rtol, seed, scale=1.0):
+    """The potential of ``model`` on ``y`` and its gradient at ``points``
+    unconstrained points (numpy normals of ``scale``, ``seed``) on ``y``'s
+    device against the CPU's, the gradient with an atol of ``rtol`` times
+    each site's largest component.  Returns the worst relative error of the
+    potential, the gradient's in units of its atol, the host syncs of the
+    evaluation on ``y``'s device (the second of two; ``count_syncs``) and
+    the points mapped onto the sites' supports there."""
+    out, rng = {}, np.random.default_rng(seed)
+    for device in (y.device, torch.device("cpu")):
+        info = infer_util.initialize_model(torch.Generator(device=device).manual_seed(seed),
+                                           model, num_chains=points,
+                                           model_args=(y.to(device),))
+        if not out:
+            z = {k: rng.normal(0.0, scale, tuple(v.shape)).astype(np.float32)
+                 for k, v in info.param_info.z.items()}
+        step = infer_util.batched_value_and_grad(info.potential_fn)
+        z_here = {k: torch.from_numpy(v).to(device) for k, v in z.items()}
+        if not out:
+            step(z_here)
+            (pe, grad), sites = count_syncs(lambda: step(z_here))
+            constrained = info.postprocess_fn(z_here)
+        else:
+            pe, grad = step(z_here)
+        out["cpu" if out else "here"] = (pe.double().cpu(),
+                                         {k: g.double().cpu() for k, g in grad.items()})
+    (pe_d, g_d), (pe_c, g_c) = out["here"], out["cpu"]
+    pe_err = ((pe_d - pe_c).abs() / pe_c.abs()).max().item()
+    g_err = max((((g_d[k] - g_c[k]).abs() - rtol * g_c[k].abs())
+                 / (rtol * g_c[k].abs().max())).max().item() for k in g_c)
+    if not (pe_err <= rtol and g_err <= 1.0 and set(g_d) == set(g_c)):
+        raise SystemExit(f"{tag}: the potential or its gradient on the card is off the CPU's "
+                         f"({pe_err:.2e}, {g_err:.3f} of the gradient's atol)")
+    return pe_err, max(g_err, 0.0), sites, constrained
+
+
+def _gate(tag, e, ref, gate, what):
+    if not abs(e - ref) <= gate:
+        raise SystemExit(f"{tag}: {what} {e:.4f} is off the JAX package's {ref} by more than "
+                         f"{gate}")
+
+
+def phase_lkj(device):
+    """17a: NUTS on the LKJ covariance model; returns its wall seconds, ms
+    per evaluation and host syncs per evaluation."""
+    t0 = time.perf_counter()
+    y = torch.from_numpy(lkj_data()).to(device)
+    draws, stats, evals, ms = _mcmc_leg("17a", lkj_model, LKJ_RUN, 172, y)
+    e = lkj_error(draws["L"])
+    pe_err, g_err, sites, _ = potential_check("17a", lkj_model, y, STRUCTURED_POINTS,
+                                              STRUCTURED_RTOL, 174, scale=0.5)
+    syncs = sum(sites.values())
+    wall = time.perf_counter() - t0
+    chains, warmup, samples, depths = LKJ_RUN
+    log(f"[structured] 17a LKJ covariance model ({LKJ_ROWS} rows, D {LKJ_DIM}), {chains} "
+        f"chains, {warmup} + {samples}, depths {depths}: {evals} evaluations in "
+        f"{stats['warmup_s'] + stats['sample_s']:.2f} s, {ms:.2f} ms per evaluation, {syncs} host "
+        f"syncs per evaluation {sites}; e {e:.4f} (JAX {LKJ_REF}, gate {LKJ_GATE}); the potential "
+        f"at {STRUCTURED_POINTS} points within {pe_err:.2e} of the CPU's, its gradient {g_err:.3f} "
+        f"of its atol (rtol {STRUCTURED_RTOL}); {wall:.2f} s")
+    _gate("17a", e, LKJ_REF, LKJ_GATE, "the largest correlation error")
+    return wall, ms, syncs
+
+
+def phase_ordered_mixture(device):
+    """17b: the ordered mixture's potential and gradient at
+    ``STRUCTURED_POINTS`` points on the card against the CPU's, and those
+    points' locations increasing; returns its wall seconds and host syncs
+    per evaluation."""
+    t0 = time.perf_counter()
+    y = torch.from_numpy(mix_data()).to(device)
+    pe_err, g_err, sites, constrained = potential_check(
+        "17b", mix_model, y, STRUCTURED_POINTS, STRUCTURED_RTOL, 174, scale=0.5)
+    mu = constrained["mu"]
+    if not (mu.device.type == device.type and bool((mu[..., 1:] > mu[..., :-1]).all())):
+        raise SystemExit("17b: the ordered locations of a point are not increasing")
+    syncs = sum(sites.values())
+    wall = time.perf_counter() - t0
+    log(f"[structured] 17b ordered mixture ({MIX_N} points, K 3): the potential at "
+        f"{STRUCTURED_POINTS} points within {pe_err:.2e} of the CPU's, its gradient {g_err:.3f} "
+        f"of its atol (rtol {STRUCTURED_RTOL}), their locations increasing; {syncs} host syncs "
+        f"per evaluation {sites}; {wall:.2f} s")
+    return wall, syncs
+
+
+_RING4 = ((0.0, 1.0, 0.0, 1.0), (1.0, 0.0, 1.0, 0.0), (0.0, 1.0, 0.0, 1.0), (1.0, 0.0, 1.0, 0.0))
+_COV2 = ((2.0, 0.5), (0.5, 1.0))
+_CORR2 = ((1.0, 0.4), (0.4, 1.0))
+
+
+def _ou_sde(x, t):
+    return -x, 0.5
+
+
+def structured_family(name, device):
+    """A class of 17c on ``device``, at the parameters of the CPU tests
+    (``tests/test_torch_structured*.py``, ``tests/test_torch_mixtures.py``)."""
+    def t(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    cov3 = t(((4.0, 1.0, 0.5), (1.0, 3.0, -0.5), (0.5, -0.5, 2.0)))
+    tril3 = t(np.linalg.cholesky(np.array(cov3.tolist())))
+    if name == "MultivariateStudentT":
+        return dist.MultivariateStudentT(t((4.0, 5.5, 9.0)), t(((0.0, 1.0, -1.0),) * 3), tril3)
+    if name == "LKJCholesky":
+        return dist.LKJCholesky(4, t((1.5, 3.0)))
+    if name == "LKJ":
+        return dist.LKJ(3, t(2.0))
+    if name in ("Wishart", "WishartCholesky"):
+        return getattr(dist, name)(t((7.0, 5.5)), scale_matrix=cov3)
+    if name == "ZeroSumNormal":
+        return dist.ZeroSumNormal(t(1.3), (3, 4))
+    if name == "MatrixNormal":
+        return dist.MatrixNormal(t(((0.5, -1.0), (0.0, 1.0), (2.0, 0.3))), tril3,
+                                 t(((1.0, 0.0), (0.3, 0.8))))
+    if name == "CAR":
+        return dist.CAR(t((0.0, 0.5, -0.5, 1.0)), t((0.5, 0.8, -0.3)), t((2.0, 1.5, 0.7)),
+                        t(_RING4))
+    if name == "EulerMaruyama":
+        return dist.EulerMaruyama(torch.linspace(0.0, 1.0, 6, device=device), _ou_sde,
+                                  dist.Normal(t((0.0, 1.0)), 1.0))
+    if name == "GaussianStateSpace":
+        return dist.GaussianStateSpace(4, t(((0.9, 0.1), (0.0, 0.8))),
+                                       covariance_matrix=t((_COV2, (((1.0, 0.0), (0.0, 0.5))))))
+    if name == "CirculantNormal":
+        return dist.CirculantNormal(t((0.0, 0.5, 0.0, -0.5, 1.0)),
+                                    covariance_row=t((3.0, 1.0, 0.5, 0.5, 1.0)))
+    if name == "FoldedDistribution":
+        return dist.FoldedDistribution(dist.Normal(t((0.5, -1.0, 2.0)), t((1.0, 0.5, 2.0))))
+    if name == "MixtureSameFamily":
+        return dist.MixtureSameFamily(dist.Categorical(logits=t((-0.4, 0.4))),
+                                      dist.Normal(t((-1.0, 1.0)), t((0.5, 1.5))))
+    if name == "MixtureGeneral":
+        return dist.MixtureGeneral(dist.Categorical(logits=t((0.3, -0.2))),
+                                   [dist.Normal(t(-1.0), t(0.7)), dist.StudentT(t(4.0), t(1.0),
+                                                                                t(1.0))])
+    if name == "GaussianCopula":
+        return dist.GaussianCopula(dist.Normal(t((0.5, -1.0)), t((1.0, 2.0))),
+                                   correlation_matrix=t(_CORR2))
+    if name == "GaussianCopulaBeta":
+        return dist.GaussianCopulaBeta(t((2.0, 3.0)), t((3.0, 2.0)),
+                                       correlation_matrix=t(((1.0, 0.7), (0.7, 1.0))))
+    raise KeyError(name)
+
+
+STRUCTURED = ("MultivariateStudentT", "LKJCholesky", "LKJ", "Wishart", "WishartCholesky",
+              "ZeroSumNormal", "MatrixNormal", "CAR", "EulerMaruyama", "GaussianStateSpace",
+              "CirculantNormal", "FoldedDistribution", "MixtureSameFamily", "MixtureGeneral",
+              "GaussianCopula", "GaussianCopulaBeta")
+
+
+def structured_transforms(device):
+    """Each new transform of 17c on ``device`` with an input of its domain
+    (numpy, seed 174)."""
+    from numpyro_tpu_torch.distributions import transforms as T
+
+    rng = np.random.default_rng(174)
+
+    def t(v):
+        return torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+
+    a = rng.normal(size=(3, 3))
+    spd = a @ a.T + 3 * np.eye(3)
+    corr = spd / np.sqrt(np.outer(np.diag(spd), np.diag(spd)))
+    simplex = np.exp(rng.normal(size=(2, 4)))
+    return {
+        "OrderedTransform": (T.OrderedTransform(), t(rng.normal(size=(2, 5)))),
+        "SimplexToOrderedTransform": (T.SimplexToOrderedTransform(t(0.3)),
+                                      t(simplex / simplex.sum(-1, keepdims=True))),
+        "CorrCholeskyTransform": (T.CorrCholeskyTransform(), t(rng.normal(size=(2, 6)))),
+        "CholeskyTransform": (T.CholeskyTransform(), t(spd)),
+        "CorrMatrixCholeskyTransform": (T.CorrMatrixCholeskyTransform(), t(corr)),
+        "SoftplusLowerCholeskyTransform": (T.SoftplusLowerCholeskyTransform(),
+                                           t(rng.normal(size=(2, 6)))),
+        "L1BallTransform": (T.L1BallTransform(), t(rng.normal(size=(2, 4)))),
+        "ZeroSumTransform": (T.ZeroSumTransform(2), t(rng.normal(size=(2, 3, 4)))),
+        "ComplexTransform": (T.ComplexTransform(), t(rng.normal(size=(3, 2)))),
+        "RealFastFourierTransform": (T.RealFastFourierTransform((8,)),
+                                     t(rng.normal(size=(2, 8)))),
+        "PackRealFastFourierCoefficientsTransform": (
+            T.PackRealFastFourierCoefficientsTransform((7,)), t(rng.normal(size=(2, 7)))),
+        "RecursiveLinearTransform": (T.RecursiveLinearTransform(t(((0.5, 0.2), (-0.3, 0.8)))),
+                                     t(rng.normal(size=(2, 13, 2)))),
+    }
+
+
+# the samplers whose draws on the card go through the port's gof (17c): the
+# classes and parameters of tests/test_gof_extended.py (MatrixNormal's row
+# factor as its lower triangle), CirculantNormal and MixtureSameFamily
+STRUCTURED_GOF = ("MultivariateStudentT", "ZeroSumNormal", "LKJCholesky", "Wishart",
+                  "MatrixNormal", "CirculantNormal", "MixtureSameFamily")
+
+
+def gof_family(name, device):
+    def t(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    if name == "MultivariateStudentT":
+        return dist.MultivariateStudentT(t(8.0), t((0.0, 0.0)),
+                                         t(np.linalg.cholesky(np.array(_COV2))))
+    if name == "ZeroSumNormal":
+        return dist.ZeroSumNormal(t(1.0), (4,))
+    if name == "LKJCholesky":
+        return dist.LKJCholesky(3, t(1.5))
+    if name == "Wishart":
+        return dist.Wishart(t(5.0), scale_matrix=torch.eye(2, device=device))
+    if name == "MatrixNormal":
+        return dist.MatrixNormal(torch.zeros(2, 2, device=device), t(((1.1, 0.0), (0.1, 1.1))),
+                                 torch.eye(2, device=device))
+    if name == "CirculantNormal":
+        return dist.CirculantNormal(torch.zeros(5, device=device),
+                                    covariance_row=t((3.0, 1.0, 0.5, 0.5, 1.0)))
+    return structured_family("MixtureSameFamily", device)
+
+
+def gof_statistics(name, d, x):
+    """Scalar statistics of draws ``x`` of ``gof_family(name)`` with their
+    exact densities (scipy, float64): a marginal and a joint one each."""
+    import scipy.stats as st
+
+    x = x.double().cpu()
+    if name == "MultivariateStudentT":
+        tril = d.scale_tril.double().cpu()
+        white = torch.linalg.solve_triangular(tril, x[..., None], upper=False)[..., 0]
+        q = white.square().sum(-1) / 2.0
+        return {"x_1": (x[:, 0], st.t(8.0, 0.0, float(tril[0, 0])).pdf(x[:, 0].numpy())),
+                "q / 2": (q, st.f(2, 8.0).pdf(q.numpy()))}
+    if name == "ZeroSumNormal":
+        sq = x.square().sum(-1)
+        return {"x_1": (x[:, 0], st.norm(0.0, math.sqrt(0.75)).pdf(x[:, 0].numpy())),
+                "|x|^2": (sq, st.chi2(3).pdf(sq.numpy()))}
+    if name == "LKJCholesky":
+        corr = x @ x.transpose(-2, -1)
+        return {f"r_{i}{j}": (corr[:, i, j], 0.5 * st.beta(2.0, 2.0).pdf(
+            0.5 * (corr[:, i, j].numpy() + 1))) for i, j in ((1, 0), (2, 1))}
+    if name == "Wishart":
+        trace = x.diagonal(dim1=-2, dim2=-1).sum(-1)
+        return {"W_11": (x[:, 0, 0], st.chi2(5).pdf(x[:, 0, 0].numpy())),
+                "trace": (trace, st.chi2(10).pdf(trace.numpy()))}
+    if name == "MatrixNormal":
+        row = d.scale_tril_row.double().cpu()
+        sq = torch.linalg.solve_triangular(row, x, upper=False).square().sum((-2, -1))
+        sd = float(torch.sqrt((row[1] ** 2).sum()))
+        return {"X_21": (x[:, 1, 0], st.norm(0.0, sd).pdf(x[:, 1, 0].numpy())),
+                "|R^-1 X|^2": (sq, st.chi2(4).pdf(sq.numpy()))}
+    if name == "CirculantNormal":
+        inv = torch.linalg.inv(d.covariance_matrix.double().cpu())
+        q = ((x @ inv) * x).sum(-1)
+        return {"x_1": (x[:, 0], st.norm(0.0, math.sqrt(3.0)).pdf(x[:, 0].numpy())),
+                "x^T C^-1 x": (q, st.chi2(5).pdf(q.numpy()))}
+    return {"x": (x, d.log_prob(x.float().to(d.mixing_distribution.logits.device)).exp()
+                  .double().cpu().numpy())}
+
+
+class RecordedDraws:
+    """A draw source that takes its draws from a generator and keeps them,
+    so that another device can replay them (``ReplayedDraws``)."""
+
+    def __init__(self, gen):
+        self.gen, self.items = gen, []
+
+    def normals(self, shape, like):
+        out = torch.randn(shape, generator=self.gen, device=self.gen.device, dtype=like.dtype)
+        self.items.append(out)
+        return out
+
+    def gammas(self, alpha):
+        out = torch._standard_gamma(alpha.detach(), generator=self.gen)
+        self.items.append(out)
+        return out
+
+
+class ReplayedDraws:
+    def __init__(self, items, device):
+        self.items = [v.to(device) for v in items]
+
+    def normals(self, shape, like):
+        return self.items.pop(0)
+
+    def gammas(self, alpha):
+        return self.items.pop(0)
+
+
+def _close_on(got, want):
+    """The error of a result on the card against the CPU's, in units of
+    ``FAMILY_ATOL + FAMILY_RTOL |want|``."""
+    got, want = torch.view_as_real(got) if got.is_complex() else got, \
+        torch.view_as_real(want) if want.is_complex() else want
+    return ((got.cpu() - want).abs() / (FAMILY_ATOL + FAMILY_RTOL * want.abs())).max().item()
+
+
+def wishart_gradient(device, gen, draws=64):
+    """A reparameterised gradient of ``draws`` Wishart draws in the
+    concentration and the scale factor on ``device``, drawing from ``gen``
+    (a generator or a draw source)."""
+    conc = torch.tensor([7.0, 5.5], device=device, requires_grad=True)
+    tril = torch.tensor(((2.0, 0.0, 0.0), (0.5, 1.5, 0.0), (0.3, -0.4, 1.2)), device=device,
+                        requires_grad=True)
+    w = dist.Wishart(conc, scale_tril=tril).sample(gen, (draws,))
+    (w * torch.linspace(0.5, 1.5, 9, device=device).reshape(3, 3)).sum().backward()
+    return conc.grad, tril.grad
+
+
+def phase_structured_families(device):
+    """17c: the new classes and transforms on CUDA tensors against CPU
+    tensors, draws on a CUDA generator through the port's gof, a Wishart
+    reparameterised gradient on the card against the CPU's on the same
+    draws, and CAR.log_prob and that gradient timed; returns the wall
+    seconds."""
+    from numpyro_tpu_torch.distributions.gof import auto_goodness_of_fit
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    worst, checked = 0.0, 0
+    for name in STRUCTURED:
+        d_cpu, d_dev = structured_family(name, cpu), structured_family(name, device)
+        x = d_cpu.sample(torch.Generator().manual_seed(175), (4,))
+        got = d_dev.log_prob(x.to(device))
+        if got.device.type != device.type:
+            raise SystemExit(f"17c: {name}.log_prob came back on {got.device}")
+        err = _close_on(got, d_cpu.log_prob(x))
+        worst, checked = max(worst, err), checked + 1
+        if not err <= 1.0:
+            raise SystemExit(f"17c: {name}.log_prob on the card is off the CPU's ({err:.2f} of "
+                             "the bound)")
+        draw = d_dev.sample(torch.Generator(device=device).manual_seed(176), (8,))
+        if draw.device.type != device.type or not bool(torch.isfinite(d_dev.log_prob(draw)).all()):
+            raise SystemExit(f"17c: {name}'s draws are off its device or its support")
+    kl_q = {dev: structured_family("CirculantNormal", dev) for dev in (cpu, device)}
+    kl = {dev: dist.kl_divergence(dist.Normal(torch.zeros(5, device=dev), 1.5).to_event(1), q)
+          for dev, q in kl_q.items()}
+    err = _close_on(kl[device], kl[cpu])
+    worst, checked = max(worst, err), checked + 1
+    if not err <= 1.0:
+        raise SystemExit("17c: the KL of a Normal against a CirculantNormal on the card is off "
+                         "the CPU's")
+    on_dev = structured_transforms(device)
+    for name, (tr_cpu, x_cpu) in structured_transforms(cpu).items():
+        tr_dev, x_dev = on_dev[name]
+        y_cpu, y_dev = tr_cpu(x_cpu), tr_dev(x_dev)
+        for what, got, want in (("forward", y_dev, y_cpu),
+                                ("inverse", tr_dev.inv(y_dev), tr_cpu.inv(y_cpu)),
+                                ("log-det", tr_dev.log_abs_det_jacobian(x_dev, y_dev),
+                                 tr_cpu.log_abs_det_jacobian(x_cpu, y_cpu))):
+            if got.device.type != device.type:
+                raise SystemExit(f"17c: {name} {what} came back on {got.device}")
+            err = _close_on(got, want)
+            worst, checked = max(worst, err), checked + 1
+            if not err <= 1.0:
+                raise SystemExit(f"17c: {name} {what} on the card is off the CPU's ({err:.2f} of "
+                                 "the bound)")
+    pvalues = {}
+    for name in STRUCTURED_GOF:
+        d = gof_family(name, device)
+        x = d.sample(torch.Generator(device=device).manual_seed(177), (GOF_DRAWS // 4,))
+        if x.device.type != device.type or not bool(torch.isfinite(x).all()):
+            raise SystemExit(f"17c: {name}'s draws are not finite or off the device")
+        for label, (stat, density) in gof_statistics(name, d, x).items():
+            pvalues[f"{name} {label}"] = auto_goodness_of_fit(stat, density)
+    low = min(pvalues, key=pvalues.get)
+    # a reparameterised Wishart gradient on the card against the CPU's on the
+    # same draws (chi-square draws through util.standard_gamma's exact
+    # derivative, normals below the diagonal)
+    recorded = RecordedDraws(torch.Generator(device=device).manual_seed(178))
+    g_dev = wishart_gradient(device, recorded)
+    g_cpu = wishart_gradient(cpu, ReplayedDraws(recorded.items, cpu))
+    grad_err = max(_close_on(a, b) for a, b in zip(g_dev, g_cpu))
+
+    def timed(fn):
+        if device.type == "cuda":
+            return cuda_ms(fn, reps=3)
+        start = time.perf_counter()
+        fn()
+        return (time.perf_counter() - start) * 1e3
+
+    # not gated: the Wishart gradient's cost on 4,096 draws beside its
+    # forward (the gamma draw's exact derivative), and CAR.log_prob at
+    # CAR_N sites with its host syncs
+    gen = torch.Generator(device=device).manual_seed(179)
+    conc = torch.tensor([7.0, 5.5], device=device)
+    tril = structured_family("Wishart", device).scale_tril
+    forward_ms = timed(lambda: dist.Wishart(conc, scale_tril=tril).sample(gen, (2048,)))
+    grad_ms = timed(lambda: wishart_gradient(device, gen, 2048))
+    ring = torch.zeros(CAR_N, CAR_N, device=device)
+    idx = torch.arange(CAR_N, device=device)
+    ring[idx, (idx + 1) % CAR_N] = 1.0
+    ring[(idx + 1) % CAR_N, idx] = 1.0
+    value = torch.randn(CAR_N, device=device)
+
+    def car_log_prob():
+        # a new instance: its first log_prob computes the spectrum
+        return dist.CAR(torch.zeros(CAR_N, device=device), torch.tensor(0.5, device=device),
+                        torch.tensor(2.0, device=device), ring).log_prob(value)
+
+    car = dist.CAR(torch.zeros(CAR_N, device=device), torch.tensor(0.5, device=device),
+                   torch.tensor(2.0, device=device), ring)
+    car.log_prob(value)
+    car_syncs = sum(count_syncs(car_log_prob)[1].values())
+    again_syncs = sum(count_syncs(lambda: car.log_prob(value))[1].values())
+    car_ms, again_ms = timed(car_log_prob), timed(lambda: car.log_prob(value))
+    wall = time.perf_counter() - t0
+    log(f"[structured] 17c {len(STRUCTURED)} classes, {len(on_dev)} "
+        f"transforms and the KL row, {checked} results on the card within rtol {FAMILY_RTOL}, "
+        f"atol {FAMILY_ATOL} of the CPU's (worst {worst:.3f} of the bound); {GOF_DRAWS // 4} draws "
+        f"each on a CUDA generator through gof: " + ", ".join(
+            f"{k} p {v:.3f}" for k, v in pvalues.items())
+        + f" (gate {GOF_FAILURE_RATE}); a Wishart reparameterised gradient on the card within "
+        f"{grad_err:.3f} of the bound of the CPU's on the same draws; 4,096 Wishart draws (2 x "
+        f"2,048) {forward_ms:.3f} ms, with their gradient {grad_ms:.3f} ms; CAR.log_prob at "
+        f"{CAR_N} sites on a new instance {car_ms:.3f} ms, {car_syncs} host syncs, again on "
+        f"the same {again_ms:.3f} ms, {again_syncs} host syncs (not gated); {wall:.2f} s")
+    if not pvalues[low] > GOF_FAILURE_RATE:
+        raise SystemExit(f"17c: {low} of the draws on the card fails the gof test (p "
+                         f"{pvalues[low]:.2e})")
+    if not grad_err <= 1.0:
+        raise SystemExit("17c: the Wishart gradient on the card is off the CPU's")
+    return wall, {"forward_ms": forward_ms, "grad_ms": grad_ms, "car_ms": car_ms,
+                  "car_syncs": car_syncs, "car_again_ms": again_ms, "car_again_syncs": again_syncs}
+
+
+def phase_seventeen(device):
+    """Phase 17: the LKJ covariance model, the ordered mixture's potential
+    and the new families and transforms; returns the walls of its legs,
+    17a's ms per evaluation, the host syncs per evaluation of 17a and 17b,
+    and 17c's timings (17c only on the card)."""
+    launches0 = dict(glm.launch_counts)
+    wall_a, ms_a, syncs_a = phase_lkj(device)
+    wall_b, syncs_b = phase_ordered_mixture(device)
+    walls, extra = {"17a": wall_a, "17b": wall_b}, {}
+    if device.type == "cuda":
+        walls["17c"], extra = phase_structured_families(device)
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("17: the phase launched a GLM kernel")
+    return walls, ms_a, {"17a": syncs_a, "17b": syncs_b}, extra
 
 def phase_horseshoe(X, y, beta_true, leg):
     """7b-7d: one MCMC(NUTS) run of the horseshoe; returns the MCMC object."""
@@ -2897,6 +3462,16 @@ def main():
         + f"; 16a {ms['16a']:.2f} and 16b {ms['16b']:.2f} ms per evaluation, Predictive "
         f"{predictive_s:.3f} s), about {wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where "
         f"the ECS leg takes 24.0 ms per evaluation (budget 10 s)")
+
+    t17 = time.perf_counter()
+    walls, ms, syncs, _ = phase_seventeen(device)
+    wall = time.perf_counter() - t17
+    log(f"[structured] phase 17: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s"
+                                                             for k, v in walls.items())
+        + f"; 17a {ms:.2f} ms and {syncs['17a']} host syncs, 17b {syncs['17b']} host syncs per "
+        f"evaluation), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 5 s)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

@@ -5,9 +5,12 @@ that the ported slices need: ``real``, ``real_vector``, ``boolean``,
 ``positive_integer``, ``greater_than``/``greater_than_eq`` and their
 instances ``positive``/``nonnegative``, ``less_than``/``less_than_eq``,
 ``open_interval``, ``softplus_positive``, ``lower_cholesky``,
-``scaled_unit_lower_cholesky``, ``simplex``, ``unit_interval``,
-``multinomial``, ``ordered_vector``, ``circular``, ``sphere`` and
-``l1_ball``).  Others are not ported yet; see ROADMAP.md."""
+``scaled_unit_lower_cholesky``, ``softplus_lower_cholesky``,
+``corr_cholesky``, ``corr_matrix``, ``positive_semidefinite``,
+``positive_definite``, ``simplex``, ``unit_interval``, ``multinomial``,
+``ordered_vector``, ``positive_ordered_vector``, ``circular``, ``sphere``,
+``l1_ball``, ``zero_sum``, ``complex``, ``positive_definite_circulant_vector``
+and ``real_matrix``): all of the JAX package's constraints."""
 
 from __future__ import annotations
 
@@ -16,13 +19,29 @@ import math
 import torch
 
 __all__ = [
-    "Constraint", "boolean", "circular", "dependent", "greater_than", "greater_than_eq",
-    "independent", "integer_greater_than", "integer_interval", "interval", "l1_ball",
-    "less_than", "less_than_eq", "lower_cholesky", "multinomial", "nonnegative",
-    "nonnegative_integer", "open_interval", "ordered_vector", "positive", "positive_integer",
-    "real", "real_vector", "scaled_unit_lower_cholesky", "simplex", "softplus_positive",
-    "sphere", "unit_interval",
+    "Constraint", "boolean", "circular", "complex", "corr_cholesky", "corr_matrix", "dependent",
+    "greater_than", "greater_than_eq", "independent", "integer_greater_than",
+    "integer_interval", "interval", "l1_ball", "less_than", "less_than_eq", "lower_cholesky",
+    "multinomial", "nonnegative", "nonnegative_integer", "open_interval", "ordered_vector",
+    "positive", "positive_definite", "positive_definite_circulant_vector", "positive_integer",
+    "positive_ordered_vector", "positive_semidefinite", "real", "real_matrix", "real_vector",
+    "scaled_unit_lower_cholesky", "simplex", "softplus_lower_cholesky", "softplus_positive",
+    "sphere", "unit_interval", "zero_sum",
 ]
+
+
+def _eye_like(prototype):
+    eye = torch.eye(prototype.shape[-1], dtype=prototype.dtype, device=prototype.device)
+    return torch.broadcast_to(eye, prototype.shape)
+
+
+def _is_tril_with_positive_diag(x):
+    tril = (torch.tril(x) == x).flatten(-2).all(-1)
+    return tril & (torch.diagonal(x, dim1=-2, dim2=-1) > 0).all(-1)
+
+
+def _is_symmetric(x):
+    return torch.isclose(x, x.transpose(-2, -1)).flatten(-2).all(-1)
 
 
 class Constraint:
@@ -227,16 +246,61 @@ class _LowerCholesky(Constraint):
     event_dim = 2
 
     def __call__(self, x):
-        tril = (torch.tril(x) == x).flatten(-2).all(-1)
-        return tril & (torch.diagonal(x, dim1=-2, dim2=-1) > 0).all(-1)
+        return _is_tril_with_positive_diag(x)
 
     def feasible_like(self, prototype):
-        eye = torch.eye(prototype.shape[-1], dtype=prototype.dtype, device=prototype.device)
-        return torch.broadcast_to(eye, prototype.shape)
+        return _eye_like(prototype)
 
 
 class _ScaledUnitLowerCholesky(_LowerCholesky):
     pass
+
+
+class _SoftplusLowerCholesky(_LowerCholesky):
+    pass
+
+
+class _CorrCholesky(Constraint):
+    """Lower Cholesky factors of correlation matrices: rows of unit norm."""
+
+    event_dim = 2
+
+    def __call__(self, x):
+        norms = torch.linalg.vector_norm(x, dim=-1)
+        unit_rows = ((norms - 1.0).abs() <= 1e-6).all(-1)
+        return _is_tril_with_positive_diag(x) & unit_rows
+
+    def feasible_like(self, prototype):
+        return _eye_like(prototype)
+
+
+class _CorrMatrix(Constraint):
+    """Symmetric positive definite matrices with a unit diagonal."""
+
+    event_dim = 2
+
+    def __call__(self, x):
+        unit_diag = ((torch.diagonal(x, dim1=-2, dim2=-1) - 1.0).abs() < 1e-6).all(-1)
+        spd = torch.linalg.eigvalsh(x)[..., 0] > 0
+        return _is_symmetric(x) & spd & unit_diag
+
+    def feasible_like(self, prototype):
+        return _eye_like(prototype)
+
+
+class _PositiveSemiDefinite(Constraint):
+    event_dim = 2
+
+    def __call__(self, x):
+        return _is_symmetric(x) & (torch.linalg.eigvalsh(x)[..., 0] >= 0)
+
+    def feasible_like(self, prototype):
+        return _eye_like(prototype)
+
+
+class _PositiveDefinite(_PositiveSemiDefinite):
+    def __call__(self, x):
+        return _is_symmetric(x) & (torch.linalg.eigvalsh(x)[..., 0] > 0)
 
 
 class _Interval(Constraint):
@@ -335,6 +399,83 @@ class _OrderedVector(Constraint):
         return torch.broadcast_to(steps, prototype.shape)
 
 
+class _PositiveOrderedVector(Constraint):
+    event_dim = 1
+
+    def __call__(self, x):
+        return _OrderedVector.__call__(self, x) & (x > 0).all(-1)
+
+    def feasible_like(self, prototype):
+        steps = torch.arange(1, prototype.shape[-1] + 1, dtype=prototype.dtype,
+                             device=prototype.device)
+        return torch.broadcast_to(steps, prototype.shape)
+
+
+class _ZeroSum(Constraint):
+    """Arrays whose sums along each of the ``event_dim`` rightmost axes
+    vanish (to 1e-6)."""
+
+    def __init__(self, event_dim=1):
+        self._event_dim = event_dim
+
+    @property
+    def event_dim(self):
+        return self._event_dim
+
+    def __call__(self, x):
+        ok = None
+        for axis in range(-self._event_dim, 0):
+            small = x.sum(axis).abs() < 1e-6
+            if self._event_dim > 1:
+                small = small.flatten(-(self._event_dim - 1)).all(-1)
+            ok = small if ok is None else ok & small
+        return ok
+
+    def feasible_like(self, prototype):
+        return torch.zeros_like(prototype)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self._event_dim == other._event_dim
+
+    def __hash__(self):
+        return hash((type(self), self._event_dim))
+
+    def __repr__(self):
+        return f"zero_sum({self._event_dim})"
+
+
+class _Complex(Constraint):
+    """Complex values (the codomain of the Fourier transforms): every value
+    of a complex tensor, and the non-NaN values of a real one."""
+
+    def __call__(self, x):
+        return (x == x) | x.is_complex()
+
+    def feasible_like(self, prototype):
+        return torch.zeros_like(prototype)
+
+    def __repr__(self):
+        return "complex"
+
+
+class _PositiveDefiniteCirculantVector(Constraint):
+    """The first row of a positive definite circulant matrix: its real FFT
+    (the matrix's eigenvalues) is positive."""
+
+    event_dim = 1
+
+    def __call__(self, x):
+        return (torch.fft.rfft(x).real > 0).all(-1)
+
+    def feasible_like(self, prototype):
+        out = torch.zeros_like(prototype)
+        out[..., 0] = 1.0
+        return out
+
+    def __repr__(self):
+        return "positive_definite_circulant_vector"
+
+
 class _L1Ball(Constraint):
     event_dim = 1
 
@@ -381,6 +522,9 @@ class _UnitInterval(_Interval):
 
 boolean = _Boolean()
 circular = _Circular()
+complex = _Complex()
+corr_cholesky = _CorrCholesky()
+corr_matrix = _CorrMatrix()
 dependent = _Dependent()
 greater_than = _GreaterThan
 greater_than_eq = _GreaterThanEq
@@ -398,11 +542,18 @@ nonnegative_integer = _IntegerGreaterThan(0)
 open_interval = _OpenInterval
 ordered_vector = _OrderedVector()
 positive = _GreaterThan(0.0)
+positive_definite = _PositiveDefinite()
+positive_definite_circulant_vector = _PositiveDefiniteCirculantVector()
 positive_integer = _IntegerGreaterThan(1)
+positive_ordered_vector = _PositiveOrderedVector()
+positive_semidefinite = _PositiveSemiDefinite()
 real = _Real()
+real_matrix = _IndependentConstraint(real, 2)
 real_vector = _IndependentConstraint(real, 1)
 scaled_unit_lower_cholesky = _ScaledUnitLowerCholesky()
 simplex = _Simplex()
+softplus_lower_cholesky = _SoftplusLowerCholesky()
 softplus_positive = _SoftplusPositive()
 sphere = _Sphere()
 unit_interval = _UnitInterval()
+zero_sum = _ZeroSum

@@ -6,8 +6,11 @@ the location-scale families ``Normal``, ``Cauchy``, ``Laplace``, ``Gumbel``,
 ``LogUniform``, ``AsymmetricLaplace``, ``AsymmetricLaplaceQuantile``,
 ``Pareto``, ``Weibull``, ``Kumaraswamy``, ``Gompertz``, ``Levy`` and
 ``RelaxedBernoulliLogits``/``RelaxedBernoulli``; ``MultivariateNormal``,
-``LowRankMultivariateNormal`` and ``GaussianRandomWalk``.  The rest are
-listed in ROADMAP.md).
+``LowRankMultivariateNormal`` and ``GaussianRandomWalk``; and the structured
+and matrix families ``MultivariateStudentT``, ``LKJCholesky``, ``LKJ``,
+``Wishart``, ``WishartCholesky``, ``ZeroSumNormal``, ``MatrixNormal``,
+``CAR``, ``EulerMaruyama``, ``GaussianStateSpace`` and ``CirculantNormal``:
+every class of the JAX module).
 
 As in the JAX package, the location-scale families derive from ``_LocScale``,
 which owns the affine bookkeeping, and each family supplies its standardized
@@ -19,10 +22,14 @@ A sampler takes a ``torch.Generator`` or a draw source (``util.standard_draw``,
 ``util.standard_gamma``): a draw is made on the device of its generator, where
 0-dim parameters (a Python number becomes one on the CPU) broadcast as they
 are.  Gamma, Chi2, InverseGamma, Beta and Dirichlet draw with
-``torch._standard_gamma``, reparameterised in the concentration; it has no
-forward-mode derivative, and a draw under forward mode raises naming the
-site.  A covariance or precision matrix that is not positive definite gives a
-NaN factor and a NaN ``log_prob``, as in the JAX package, and never raises.
+``torch._standard_gamma``, and LKJCholesky, Wishart, WishartCholesky and
+MultivariateStudentT draw their Beta and chi-square variates from it too, all
+reparameterised in the concentration in reverse and forward mode
+(``util.standard_gamma``).  A covariance, precision or scale matrix that is
+not positive definite gives a NaN factor and a NaN ``log_prob``, as in the
+JAX package, and never raises.  Where the JAX package steps through time
+with ``lax.scan`` (the draws of ``EulerMaruyama`` and ``GaussianStateSpace``)
+the port loops in Python; no ``log_prob`` loops.
 """
 
 from __future__ import annotations
@@ -33,7 +40,19 @@ import torch
 
 from . import constraints
 from .distribution import Distribution, TransformedDistribution, _as_tensors
-from .transforms import AffineTransform, ExpTransform, PowerTransform, SigmoidTransform, _softplus
+from .transforms import (
+    AffineTransform,
+    CholeskyTransform,
+    CorrMatrixCholeskyTransform,
+    ExpTransform,
+    PowerTransform,
+    SigmoidTransform,
+    ZeroSumTransform,
+    _embed_diag,
+    _softplus,
+    matrix_to_tril_vec,
+    vec_to_tril_matrix,
+)
 from .util import (
     betainc,
     betaincinv,
@@ -50,12 +69,14 @@ from .util import (
 )
 
 __all__ = [
-    "AsymmetricLaplace", "AsymmetricLaplaceQuantile", "Beta", "BetaProportion", "Cauchy", "Chi2",
-    "Dirichlet", "Exponential", "Gamma", "GaussianRandomWalk", "Gompertz", "Gumbel",
-    "HalfCauchy", "HalfNormal", "InverseGamma", "Kumaraswamy", "Laplace", "Levy", "LogNormal",
-    "LogUniform", "Logistic", "LowRankMultivariateNormal", "MultivariateNormal", "Normal",
-    "Pareto", "RelaxedBernoulli", "RelaxedBernoulliLogits", "SoftLaplace", "StudentT",
-    "Uniform", "Weibull",
+    "AsymmetricLaplace", "AsymmetricLaplaceQuantile", "Beta", "BetaProportion", "CAR", "Cauchy",
+    "Chi2", "CirculantNormal", "Dirichlet", "EulerMaruyama", "Exponential", "Gamma",
+    "GaussianRandomWalk", "GaussianStateSpace", "Gompertz", "Gumbel", "HalfCauchy",
+    "HalfNormal", "InverseGamma", "Kumaraswamy", "LKJ", "LKJCholesky", "Laplace", "Levy",
+    "LogNormal", "LogUniform", "Logistic", "LowRankMultivariateNormal", "MatrixNormal",
+    "MultivariateNormal", "MultivariateStudentT", "Normal", "Pareto", "RelaxedBernoulli",
+    "RelaxedBernoulliLogits", "SoftLaplace", "StudentT", "Uniform", "Weibull", "Wishart",
+    "WishartCholesky", "ZeroSumNormal",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2 * math.pi)
@@ -983,6 +1004,48 @@ def _tril_logdet(scale_tril):
     return torch.log(torch.diagonal(scale_tril, dim1=-2, dim2=-1)).sum(-1)
 
 
+def _mat_vec(m, v):
+    return (m @ v[..., None])[..., 0]
+
+
+def _batch_mahalanobis(bL, bx):
+    """``x^T (L L^T)^{-1} x`` over the broadcast batch of ``bL`` ``(..., n,
+    n)`` and ``bx`` ``(..., n)``, by one triangular solve."""
+    n = bx.shape[-1]
+    shape = broadcast_shape(tuple(bx.shape[:-1]), tuple(bL.shape[:-2]))
+    solved = torch.linalg.solve_triangular(
+        torch.broadcast_to(bL, shape + (n, n)), torch.broadcast_to(bx, shape + (n,))[..., None],
+        upper=False,
+    )
+    return solved.square().sum((-1, -2))
+
+
+def _multigammaln(a, d):
+    """``log Gamma_d(a)``, as the JAX package sums it (PyTorch's
+    ``mvlgamma`` checks its domain on the host)."""
+    offsets = 0.5 * torch.arange(d, dtype=a.dtype, device=a.device)
+    return torch.lgamma(a[..., None] - offsets).sum(-1) + 0.25 * d * (d - 1) * math.log(math.pi)
+
+
+def _cholesky_of_inverse(matrix):
+    """``chol(P^-1)`` from the Cholesky factor of ``P`` with both axes
+    reversed, as the JAX package's ``cholesky_of_inverse``; NaN where ``P``
+    is not positive definite."""
+    flipped = cholesky(matrix.flip(-2, -1))
+    upper = flipped.flip(-2, -1).transpose(-2, -1)
+    eye = torch.eye(matrix.shape[-1], dtype=matrix.dtype, device=matrix.device)
+    return torch.linalg.solve_triangular(upper, torch.broadcast_to(eye, upper.shape),
+                                         upper=False)
+
+
+def _as_loc_vector(loc, like):
+    """``loc`` as a tensor of at least one dim, in ``like``'s dtype and on
+    its device where it is a number."""
+    if not isinstance(loc, torch.Tensor):
+        loc = torch.as_tensor(loc, dtype=like.dtype, device=like.device)
+    return loc.reshape(1) if loc.dim() == 0 else loc
+
+
 class MultivariateNormal(Distribution):
     """Normal over vectors, held by the Cholesky factor of its covariance
     (``scale_tril``; a covariance or precision matrix is factored once, to a
@@ -1000,10 +1063,7 @@ class MultivariateNormal(Distribution):
             raise ValueError(
                 "One of covariance_matrix, precision_matrix, scale_tril must be specified."
             )
-        if not isinstance(loc, torch.Tensor):
-            loc = torch.as_tensor(loc, dtype=matrix.dtype, device=matrix.device)
-        if loc.dim() == 0:
-            loc = loc.reshape(1)
+        loc = _as_loc_vector(loc, matrix)
         # align loc (..., D) against (..., D, D) matrices through a dummy axis
         col, matrix = promote_shapes(loc[..., None], matrix)
         if covariance_matrix is not None:
@@ -1011,13 +1071,7 @@ class MultivariateNormal(Distribution):
             self.scale_tril = cholesky(matrix)
         elif precision_matrix is not None:
             self.precision_matrix = matrix
-            # chol(P^-1) from the Cholesky factor of P with both axes reversed
-            flipped = cholesky(matrix.flip(-2, -1))
-            upper = flipped.flip(-2, -1).transpose(-2, -1)
-            eye = torch.eye(matrix.shape[-1], dtype=matrix.dtype, device=matrix.device)
-            self.scale_tril = torch.linalg.solve_triangular(
-                upper, torch.broadcast_to(eye, upper.shape), upper=False
-            )
+            self.scale_tril = _cholesky_of_inverse(matrix)
         else:
             self.scale_tril = matrix
         self.loc = col[..., 0]
@@ -1026,18 +1080,11 @@ class MultivariateNormal(Distribution):
 
     def sample(self, key, sample_shape=()):
         white = standard_draw(key, "normal", self.shape(sample_shape), self.loc)
-        return self.loc + (self.scale_tril @ white[..., None])[..., 0]
+        return self.loc + _mat_vec(self.scale_tril, white)
 
     def log_prob(self, value):
-        diff = value - self.loc
-        shape = broadcast_shape(tuple(diff.shape[:-1]), tuple(self.scale_tril.shape[:-2]))
-        n = diff.shape[-1]
-        solved = torch.linalg.solve_triangular(
-            torch.broadcast_to(self.scale_tril, shape + (n, n)),
-            torch.broadcast_to(diff, shape + (n,))[..., None],
-            upper=False,
-        )
-        quad = (solved**2).sum((-1, -2))
+        quad = _batch_mahalanobis(self.scale_tril, value - self.loc)
+        n = self.scale_tril.shape[-1]
         return -0.5 * (quad + n * math.log(2.0 * math.pi)) - _tril_logdet(self.scale_tril)
 
     @lazy_property
@@ -1200,3 +1247,646 @@ class GaussianRandomWalk(Distribution):
                               dtype=self.scale.dtype)
         return torch.broadcast_to((self.scale**2)[..., None] * growth,
                                   self.batch_shape + self.event_shape)
+
+
+# ---------------------------------------------------------------------------
+# Structured and matrix families
+
+
+class MultivariateStudentT(Distribution):
+    """Student's t over vectors: ``loc + L z sqrt(df / c)`` for a standard
+    normal vector ``z`` and a chi-square ``c`` of ``df`` degrees (drawn in
+    that order, ``c`` as twice a standard gamma draw of ``df / 2``)."""
+
+    arg_constraints = {"df": constraints.positive, "loc": constraints.real_vector,
+                       "scale_tril": constraints.lower_cholesky}
+    support = constraints.real_vector
+    has_rsample = True
+    reparametrized_params = ["df", "loc", "scale_tril"]
+
+    def __init__(self, df, loc=0.0, scale_tril=None, *, validate_args=None):
+        self._init_broadcast(
+            validate_args, event_shape=tuple(scale_tril.shape[-1:]),
+            event_dims={"loc": 1, "scale_tril": 2}, df=df,
+            loc=_as_loc_vector(loc, scale_tril), scale_tril=scale_tril,
+        )
+
+    def sample(self, key, sample_shape=()):
+        batched = tuple(sample_shape) + self.batch_shape
+        white = standard_draw(key, "normal", batched + self.event_shape, self.loc)
+        mix = 2.0 * standard_gamma(key, torch.broadcast_to(0.5 * self.df, batched))
+        heavy = white * torch.sqrt(self.df / mix)[..., None]
+        return self.loc + _mat_vec(self.scale_tril, heavy)
+
+    def log_prob(self, value):
+        dim = self.scale_tril.shape[-1]
+        quad = _batch_mahalanobis(self.scale_tril, value - self.loc)
+        half_sum = 0.5 * (self.df + dim)
+        return (torch.lgamma(half_sum) - torch.lgamma(0.5 * self.df)
+                - 0.5 * dim * torch.log(self.df * math.pi) - _tril_logdet(self.scale_tril)
+                - half_sum * torch.log1p(quad / self.df))
+
+    @property
+    def mean(self):
+        df_col = self.df[..., None]
+        return torch.broadcast_to(torch.where(df_col > 1.0, self.loc, torch.nan), self.shape())
+
+    @property
+    def variance(self):
+        df_col = self.df[..., None]
+        cov_diag = self.scale_tril.square().sum(-1)
+        heavy = torch.where(df_col > 2.0, cov_diag * df_col / (df_col - 2.0), torch.inf)
+        return torch.broadcast_to(torch.where(df_col > 1.0, heavy, torch.nan),
+                                  self.batch_shape + self.event_shape)
+
+
+class LKJCholesky(Distribution):
+    """The LKJ prior over Cholesky factors of correlation matrices.
+
+    ``sample`` is the onion method (Lewandowski, Kurowicka and Joe 2009), as
+    the JAX package draws: each row's squared off-diagonal norm is a Beta
+    draw (two standard gamma draws, ``_beta_concentration1`` then
+    ``_beta_concentration0``), its direction a normalised normal vector.  Its
+    shape is ``sample_shape + batch_shape + (D, D)``; the JAX package's has
+    ``batch_shape`` twice where the concentration is batched (ROADMAP.md,
+    Queue 3).  ``sample_method="cvine"`` keeps the JAX package's Beta
+    parameters and ``log_prob``, but its ``sample`` raises: the JAX class
+    draws cvine by the onion path with parameters of the wrong shape, and
+    fails there."""
+
+    arg_constraints = {"concentration": constraints.positive}
+    support = constraints.corr_cholesky
+    has_rsample = True
+    reparametrized_params = ["concentration"]
+
+    def __init__(self, dimension=2, concentration=1.0, sample_method="onion", *,
+                 validate_args=None):
+        if dimension < 2:
+            raise ValueError("Dimension must be greater than or equal to 2.")
+        if not isinstance(concentration, torch.Tensor):
+            concentration = torch.as_tensor(concentration, dtype=torch.get_default_dtype())
+        self.dimension = dimension
+        self.concentration = concentration
+        rows = dimension - 1
+        marginal = concentration + 0.5 * (dimension - 2)
+        ladder = 0.5 * torch.arange(rows, dtype=concentration.dtype,
+                                    device=concentration.device)
+        if sample_method == "onion":
+            self._beta_concentration0 = marginal[..., None] - ladder
+            self._beta_concentration1 = ladder + 0.5
+        elif sample_method == "cvine":
+            ladder_tril = matrix_to_tril_vec(ladder.expand(rows, rows), diagonal=0)
+            both = marginal[..., None] - ladder_tril
+            self._beta_concentration0 = both
+            self._beta_concentration1 = both
+        else:
+            raise ValueError("`method` should be one of 'cvine' or 'onion'.")
+        self.sample_method = sample_method
+        super().__init__(tuple(concentration.shape), (dimension, dimension),
+                         validate_args=validate_args)
+
+    def sample(self, key, sample_shape=()):
+        if self.sample_method != "onion":
+            raise NotImplementedError(
+                "LKJCholesky(sample_method='cvine').sample: the JAX package draws cvine "
+                "through its onion sampler with Beta parameters of the wrong shape and fails "
+                "(see ROADMAP.md); use sample_method='onion'")
+        size = tuple(sample_shape) + self.batch_shape
+        d = self.dimension
+        c0 = torch.broadcast_to(self._beta_concentration0, size + (d - 1,))
+        c1 = torch.broadcast_to(self._beta_concentration1, size + (d - 1,))
+        g1 = standard_gamma(key, c1)
+        g0 = standard_gamma(key, c0)
+        radius_sq = g1 / (g1 + g0)
+        raw = standard_draw(key, "normal", size + (d * (d - 1) // 2,), c0)
+        tril = vec_to_tril_matrix(raw, diagonal=0)
+        directions = torch.nan_to_num(tril / torch.linalg.vector_norm(tril, dim=-1, keepdim=True))
+        body = torch.sqrt(radius_sq)[..., None] * directions
+        # below the diagonal of the D x D factor, then the diagonal that
+        # gives each row a unit norm
+        body = torch.nn.functional.pad(body, (0, 1, 1, 0))
+        diag = torch.sqrt((1.0 - body.square().sum(-1)).clamp(min=0.0))
+        return body + diag[..., None] * torch.eye(d, dtype=body.dtype, device=body.device)
+
+    def log_prob(self, value):
+        diag = torch.diagonal(value, dim1=-2, dim2=-1)[..., 1:]
+        # sum over rows i >= 2 of (D - i + 2 (eta - 1)) log L_ii
+        row = torch.arange(2, self.dimension + 1, dtype=diag.dtype, device=diag.device)
+        eta = self.concentration[..., None]
+        exponent = self.dimension - row + 2.0 * (eta - 1.0)
+        unnorm = (exponent * torch.log(diag)).sum(-1)
+        rows = self.dimension - 1
+        alpha = self.concentration + 0.5 * rows
+        log_norm = (0.5 * rows * math.log(math.pi) + _multigammaln(alpha - 0.5, rows)
+                    - rows * torch.lgamma(alpha))
+        return unnorm - log_norm
+
+    @property
+    def mean(self):
+        eye = torch.eye(self.dimension, dtype=self.concentration.dtype,
+                        device=self.concentration.device)
+        return torch.broadcast_to(eye, self.batch_shape + (self.dimension, self.dimension))
+
+
+class LKJ(TransformedDistribution):
+    """The LKJ prior over correlation matrices: ``L L^T`` for ``L`` drawn
+    from :class:`LKJCholesky`."""
+
+    arg_constraints = {"concentration": constraints.positive}
+    reparametrized_params = ["concentration"]
+    support = constraints.corr_matrix
+
+    def __init__(self, dimension=2, concentration=1.0, sample_method="onion", *,
+                 validate_args=None):
+        base = LKJCholesky(dimension, concentration, sample_method)
+        self.dimension = dimension
+        self.concentration = base.concentration
+        self.sample_method = sample_method
+        super().__init__(base, CorrMatrixCholeskyTransform().inv, validate_args=validate_args)
+
+    @property
+    def mean(self):
+        return self.base_dist.mean
+
+
+class WishartCholesky(Distribution):
+    """The Cholesky factor of a Wishart matrix, drawn by the Bartlett
+    decomposition: ``L_S A`` with normal draws below the diagonal of ``A``
+    and the square roots of chi-square draws of ``concentration - i``
+    degrees on it (the normals first, then the chi-squares as twice standard
+    gamma draws).  A scale or rate matrix that is not positive definite
+    gives a NaN factor (``util.cholesky``), as in the JAX package."""
+
+    arg_constraints = {"concentration": constraints.dependent(is_discrete=False),
+                       "scale_matrix": constraints.positive_definite,
+                       "rate_matrix": constraints.positive_definite,
+                       "scale_tril": constraints.lower_cholesky}
+    support = constraints.lower_cholesky
+    reparametrized_params = ["scale_matrix", "rate_matrix", "scale_tril"]
+
+    def __init__(self, concentration, scale_matrix=None, rate_matrix=None, scale_tril=None, *,
+                 validate_args=None):
+        if scale_matrix is not None:
+            root = cholesky(scale_matrix)
+        elif rate_matrix is not None:
+            root = _cholesky_of_inverse(rate_matrix)
+        elif scale_tril is not None:
+            root = scale_tril
+        else:
+            raise ValueError("One of scale_matrix, rate_matrix, scale_tril must be specified.")
+        self._init_broadcast(validate_args, event_shape=tuple(root.shape[-2:]),
+                             event_dims={"scale_tril": 2}, concentration=concentration,
+                             scale_tril=root)
+
+    def sample(self, key, sample_shape=()):
+        d = self.event_shape[-1]
+        batched = tuple(sample_shape) + self.batch_shape
+        normals = standard_draw(key, "normal", batched + (d * (d - 1) // 2,), self.scale_tril)
+        below = vec_to_tril_matrix(normals, diagonal=-1)
+        dof = self.concentration[..., None] - torch.arange(
+            d, dtype=self.scale_tril.dtype, device=self.scale_tril.device)
+        diag_sq = 2.0 * standard_gamma(key, torch.broadcast_to(0.5 * dof, batched + (d,)))
+        bartlett = below + _embed_diag(torch.sqrt(diag_sq))
+        return self.scale_tril @ bartlett
+
+    def log_prob(self, value):
+        d = self.event_shape[-1]
+        df = self.concentration
+        value_logdiag = torch.log(torch.diagonal(value, dim1=-2, dim2=-1))
+        w_logdet = 2.0 * value_logdiag.sum(-1)
+        # trace(S^-1 W) = || L_S^-1 L ||_F^2
+        shape = broadcast_shape(tuple(value.shape[:-2]), tuple(self.scale_tril.shape[:-2]))
+        whitened = torch.linalg.solve_triangular(
+            torch.broadcast_to(self.scale_tril, shape + (d, d)),
+            torch.broadcast_to(value, shape + (d, d)), upper=False)
+        trace_term = whitened.square().sum((-2, -1))
+        wishart_ld = (0.5 * (df - d - 1.0) * w_logdet - 0.5 * trace_term
+                      - 0.5 * df * d * math.log(2.0) - df * _tril_logdet(self.scale_tril)
+                      - _multigammaln(0.5 * df, d))
+        row = torch.arange(1, d + 1, dtype=value_logdiag.dtype, device=value_logdiag.device)
+        jacobian = d * math.log(2.0) + ((d - row + 1.0) * value_logdiag).sum(-1)
+        return wishart_ld + jacobian
+
+
+class Wishart(TransformedDistribution):
+    """The Wishart distribution over positive definite matrices: ``L L^T``
+    for ``L`` drawn from :class:`WishartCholesky`."""
+
+    arg_constraints = WishartCholesky.arg_constraints
+    support = constraints.positive_definite
+    reparametrized_params = ["scale_matrix", "rate_matrix", "scale_tril"]
+
+    def __init__(self, concentration, scale_matrix=None, rate_matrix=None, scale_tril=None, *,
+                 validate_args=None):
+        super().__init__(
+            WishartCholesky(concentration, scale_matrix, rate_matrix, scale_tril),
+            CholeskyTransform().inv, validate_args=validate_args,
+        )
+
+    @property
+    def concentration(self):
+        return self.base_dist.concentration
+
+    @property
+    def scale_tril(self):
+        return self.base_dist.scale_tril
+
+    @property
+    def mean(self):
+        root = self.scale_tril
+        return self.concentration[..., None, None] * (root @ root.transpose(-2, -1))
+
+
+class ZeroSumNormal(TransformedDistribution):
+    """A normal whose ``len(event_shape)`` event axes each sum to zero: iid
+    normals of one size less along each axis through
+    :class:`~.transforms.ZeroSumTransform`."""
+
+    arg_constraints = {"scale": constraints.positive}
+    reparametrized_params = ["scale"]
+
+    def __init__(self, scale, event_shape, *, validate_args=None):
+        ndim = len(event_shape)
+        reduced = tuple(size - 1 for size in event_shape)
+        self.scale = _as_tensors({"scale": scale})["scale"]
+        super().__init__(Normal(torch.zeros_like(self.scale), self.scale).expand(reduced)
+                         .to_event(ndim), ZeroSumTransform(ndim), validate_args=validate_args)
+
+    @property
+    def support(self):
+        return constraints.zero_sum(len(self.event_shape))
+
+    @property
+    def mean(self):
+        return self.scale.new_zeros(self.batch_shape + self.event_shape)
+
+    @property
+    def variance(self):
+        shrink = 1.0
+        for size in self.event_shape:
+            shrink = shrink * (1.0 - 1.0 / size)
+        return torch.broadcast_to(self.scale.square() * shrink,
+                                  self.batch_shape + self.event_shape)
+
+
+class MatrixNormal(Distribution):
+    """The matrix normal: ``vec(X) ~ MVN(vec(loc), kron(V, U))`` with ``U = R
+    R^T`` for ``R = scale_tril_row`` and ``V = C C^T`` for ``C =
+    scale_tril_column``; a draw is ``loc + R Z C^T``."""
+
+    arg_constraints = {"loc": constraints.real_vector,
+                       "scale_tril_row": constraints.lower_cholesky,
+                       "scale_tril_column": constraints.lower_cholesky}
+    support = constraints.real_matrix
+    has_rsample = True
+    reparametrized_params = ["loc", "scale_tril_row", "scale_tril_column"]
+
+    def __init__(self, loc, scale_tril_row, scale_tril_column, validate_args=None):
+        self._init_broadcast(
+            validate_args, event_shape=tuple(loc.shape[-2:]),
+            event_dims={"loc": 2, "scale_tril_row": 2, "scale_tril_column": 2},
+            loc=loc, scale_tril_row=scale_tril_row, scale_tril_column=scale_tril_column,
+        )
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.loc, self.shape())
+
+    def sample(self, key, sample_shape=()):
+        white = standard_draw(key, "normal", self.shape(sample_shape), self.loc)
+        return self.loc + self.scale_tril_row @ white @ self.scale_tril_column.transpose(-2, -1)
+
+    def log_prob(self, values):
+        n, p = self.event_shape
+        log_norm = (p * _tril_logdet(self.scale_tril_row) + n * _tril_logdet(self.scale_tril_column)
+                    + 0.5 * n * p * math.log(2.0 * math.pi))
+
+        def whiten(tril, rhs):
+            batch = broadcast_shape(tuple(tril.shape[:-2]), tuple(rhs.shape[:-2]))
+            return torch.linalg.solve_triangular(
+                torch.broadcast_to(tril, batch + tuple(tril.shape[-2:])),
+                torch.broadcast_to(rhs, batch + tuple(rhs.shape[-2:])), upper=False)
+
+        row_white = whiten(self.scale_tril_row, values - self.loc)
+        both_white = whiten(self.scale_tril_column, row_white.transpose(-2, -1))
+        return -0.5 * both_white.square().sum((-2, -1)) - log_norm
+
+
+class CAR(Distribution):
+    """The conditional autoregressive distribution, a multivariate normal
+    with precision ``tau (D - rho A)`` for an adjacency matrix ``A`` of
+    degrees ``D`` (dense; ``is_sparse=True`` raises as in the JAX package).
+    ``log_prob`` takes the log-determinant from the eigenvalues of ``D^-1/2
+    A D^-1/2``.  The JAX package computes them on every ``log_prob`` call;
+    ``torch.linalg.eigvalsh`` reads its error codes on the host, one sync on
+    the card (``chip_smoke.py`` 17c), so here they are computed once per
+    instance, from ``adj_matrix`` alone, which takes no derivative in a
+    model (it is data).  A draw goes through :class:`MultivariateNormal` by
+    the precision matrix."""
+
+    arg_constraints = {"loc": constraints.real_vector,
+                       "correlation": constraints.open_interval(-1, 1),
+                       "conditional_precision": constraints.positive,
+                       "adj_matrix": constraints.dependent(is_discrete=False, event_dim=2)}
+    support = constraints.real_vector
+    has_rsample = True
+    reparametrized_params = ["loc", "correlation", "conditional_precision", "adj_matrix"]
+
+    def __init__(self, loc, correlation, conditional_precision, adj_matrix, *, is_sparse=False,
+                 validate_args=None):
+        if is_sparse:
+            raise NotImplementedError(
+                "CAR takes the dense adjacency path: pass a dense (batched) adjacency matrix "
+                "and is_sparse=False")
+        self.is_sparse = False
+        self._init_broadcast(
+            validate_args, event_shape=tuple(adj_matrix.shape[-1:]),
+            event_dims={"loc": 1, "adj_matrix": 2}, loc=_as_loc_vector(loc, adj_matrix),
+            correlation=correlation, conditional_precision=conditional_precision,
+            adj_matrix=adj_matrix,
+        )
+
+    def sample(self, key, sample_shape=()):
+        return MultivariateNormal(self.mean, precision_matrix=self.precision_matrix).sample(
+            key, sample_shape)
+
+    @lazy_property
+    def _spectrum(self):
+        # the symmetric normalisation D^-1/2 A D^-1/2
+        d_rsqrt = torch.pow(self.adj_matrix.sum(-1), -0.5)
+        return torch.linalg.eigvalsh(
+            self.adj_matrix * (d_rsqrt[..., None, :] * d_rsqrt[..., None]))
+
+    def log_prob(self, value):
+        centered = value - self.loc
+        adj = self.adj_matrix
+        degree = adj.sum(-1)
+        spectrum = self._spectrum
+        n = degree.shape[-1]
+        rho = self.correlation[..., None]
+        log_det = (n * torch.log(self.conditional_precision)
+                   + torch.log1p(-rho * spectrum).sum(-1) + torch.log(degree).sum(-1))
+        neighbor_sum = _mat_vec(adj, centered)
+        quad = self.conditional_precision * (
+            centered * (degree * centered - rho * neighbor_sum)).sum(-1)
+        return 0.5 * (log_det - quad - n * math.log(2.0 * math.pi))
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.loc, self.shape())
+
+    @lazy_property
+    def precision_matrix(self):
+        degree = self.adj_matrix.sum(-1)
+        tau = self.conditional_precision[..., None, None]
+        rho = self.correlation[..., None, None]
+        eye = torch.eye(self.adj_matrix.shape[-1], dtype=degree.dtype, device=degree.device)
+        return tau * (degree[..., None] * eye - rho * self.adj_matrix)
+
+    @staticmethod
+    def infer_shapes(loc, correlation, conditional_precision, adj_matrix):
+        return (broadcast_shape(tuple(loc[:-1]), tuple(correlation), tuple(conditional_precision),
+                                tuple(adj_matrix[:-2])), tuple(adj_matrix[-1:]))
+
+
+def _vmapped(fn, n_dims):
+    """``fn`` mapped over ``n_dims`` leading axes of its arguments; a number
+    it returns becomes a tensor, which the map broadcasts."""
+    def tensors(*args):
+        return tuple(v if isinstance(v, torch.Tensor)
+                     else torch.as_tensor(v, dtype=args[0].dtype, device=args[0].device)
+                     for v in fn(*args))
+
+    for _ in range(n_dims):
+        tensors = torch.func.vmap(tensors)
+    return tensors
+
+
+class EulerMaruyama(Distribution):
+    """The Euler-Maruyama discretisation of an SDE on the time grid ``t``:
+    the whole path is one event.  ``sde_fn(state, time)`` gives the drift
+    and the diffusion of one state (it is mapped over the batch and the time
+    axis with ``torch.func.vmap``, as the JAX package maps it).
+    ``log_prob`` sums the transitions' normal densities with no loop;
+    ``sample`` steps through time in a Python loop (the JAX package's
+    ``lax.scan``), after drawing the path's normals and then the start from
+    ``init_dist``."""
+
+    arg_constraints = {"t": constraints.ordered_vector}
+
+    def __init__(self, t, sde_fn, init_dist, *, validate_args=None):
+        if not isinstance(init_dist, Distribution):
+            raise TypeError("init_dist must be a Distribution instance")
+        self.t = t
+        self.sde_fn = sde_fn
+        self.init_dist = init_dist
+        batch = broadcast_shape(tuple(t.shape[:-1]), tuple(init_dist.batch_shape))
+        event = tuple(t.shape[-1:]) + tuple(init_dist.event_shape)
+        super().__init__(batch, event, validate_args=validate_args)
+
+    @property
+    def support(self):
+        return constraints.independent(constraints.real, self.event_dim)
+
+    def sample(self, key, sample_shape=()):
+        batch = tuple(sample_shape) + self.batch_shape
+        n_steps = self.event_shape[0]
+        state_shape = self.event_shape[1:]
+        noise = standard_draw(key, "normal", batch + (n_steps - 1,) + state_shape, self.t)
+        state = self.init_dist.expand(batch).sample(key)
+        grid = torch.broadcast_to(self.t, batch + (n_steps,))
+        dts = torch.diff(grid, dim=-1)
+        step = _vmapped(self.sde_fn, len(batch))
+        path = [state]
+        pad = (1,) * len(state_shape)
+        for i in range(n_steps - 1):
+            drift, diffusion = step(state, grid[..., i])
+            dt = dts[..., i].reshape(dts.shape[:-1] + pad)
+            state = state + dt * drift + torch.sqrt(dt) * diffusion * noise.select(len(batch), i)
+            path.append(state)
+        return torch.stack(path, len(batch))
+
+    def log_prob(self, value):
+        batch = broadcast_shape(tuple(value.shape[: value.dim() - self.event_dim]),
+                                self.batch_shape)
+        value = torch.broadcast_to(value, batch + self.event_shape)
+        n_steps = self.event_shape[0]
+        grid = torch.broadcast_to(self.t, batch + (n_steps,))
+        time_axis = len(batch)
+        prev = value.narrow(time_axis, 0, n_steps - 1)
+        curr = value.narrow(time_axis, 1, n_steps - 1)
+        drift, diffusion = _vmapped(self.sde_fn, len(batch) + 1)(prev, grid[..., :-1])
+
+        # a drift or diffusion of lower rank than the state (a scalar SDE)
+        # is padded on the right to align
+        def align(a):
+            missing = curr.dim() - a.dim()
+            keep = len(batch) + 1
+            return a.reshape(tuple(a.shape[:keep]) + (1,) * missing + tuple(a.shape[keep:]))
+
+        drift, diffusion = align(drift), align(diffusion)
+        dt = torch.diff(self.t, dim=-1)
+        dt = dt.reshape(tuple(dt.shape) + (1,) * (self.event_dim - 1))
+        step_mean = prev + dt * drift
+        step_sd = torch.sqrt(dt) * diffusion
+        trans_ld = Normal(step_mean, step_sd).to_event(self.event_dim).log_prob(curr)
+        return trans_ld + self.init_dist.log_prob(value.select(time_axis, 0))
+
+
+class GaussianStateSpace(Distribution):
+    """The linear Gaussian state space ``z_t = A z_{t-1} + eps_t``, ``eps_t ~
+    MVN(0, L L^T)``, as one event ``(num_steps, D)``.  ``log_prob`` is the
+    innovations' normal density (the map from innovations to states has a
+    unit Jacobian) with no loop; ``sample`` and ``variance`` step through
+    time in a Python loop, as the JAX package's ``lax.scan`` does.  A
+    covariance or precision matrix that is not positive definite gives a NaN
+    factor."""
+
+    arg_constraints = {"covariance_matrix": constraints.positive_definite,
+                       "precision_matrix": constraints.positive_definite,
+                       "scale_tril": constraints.lower_cholesky,
+                       "transition_matrix": constraints.real_matrix}
+    support = constraints.real_matrix
+
+    def __init__(self, num_steps, transition_matrix, covariance_matrix=None,
+                 precision_matrix=None, scale_tril=None, *, validate_args=None):
+        assert isinstance(num_steps, int) and num_steps > 0
+        assert transition_matrix.dim() == 2
+        self.num_steps = num_steps
+        self.transition_matrix = transition_matrix
+        noise = MultivariateNormal(covariance_matrix=covariance_matrix,
+                                   precision_matrix=precision_matrix, scale_tril=scale_tril)
+        self.scale_tril = noise.scale_tril
+        super().__init__(noise.batch_shape, (num_steps, transition_matrix.shape[-1]),
+                         validate_args=validate_args)
+
+    def _innovations(self, value):
+        pushed = value[..., :-1, :] @ self.transition_matrix.transpose(-2, -1)
+        return torch.cat([value[..., :1, :], value[..., 1:, :] - pushed], -2)
+
+    def sample(self, key, sample_shape=()):
+        white = standard_draw(key, "normal", self.shape(sample_shape), self.scale_tril)
+        eps = white @ self.scale_tril.transpose(-2, -1)
+        state, path = eps[..., 0, :], [eps[..., 0, :]]
+        for t in range(1, self.num_steps):
+            state = _mat_vec(self.transition_matrix, state) + eps[..., t, :]
+            path.append(state)
+        return torch.stack(path, -2)
+
+    def log_prob(self, value):
+        # the noise factor gets a time axis, so that a batch of noise
+        # covariances lines up with the batch of the values (the JAX
+        # package's lines it up with the time axis and fails)
+        noise = MultivariateNormal(self.scale_tril.new_zeros(self.event_shape[-1]),
+                                   scale_tril=self.scale_tril[..., None, :, :])
+        return noise.log_prob(self._innovations(value)).sum(-1)
+
+    @property
+    def mean(self):
+        return self.scale_tril.new_zeros(self.batch_shape + self.event_shape)
+
+    @lazy_property
+    def covariance_matrix(self):
+        return self.scale_tril @ self.scale_tril.transpose(-2, -1)
+
+    @property
+    def variance(self):
+        roots, root = [], self.scale_tril
+        for _ in range(self.num_steps):
+            roots.append(root)
+            root = self.transition_matrix @ root
+        roots = torch.stack(roots)
+        marginal = torch.diagonal(roots @ roots.transpose(-2, -1), dim1=-1, dim2=-2)
+        return marginal.cumsum(0).swapaxes(0, -2)
+
+
+class CirculantNormal(Distribution):
+    """A multivariate normal with a positive definite circulant covariance,
+    diagonalised by the real FFT (``torch.fft.rfft``/``irfft`` with ``n``
+    passed explicitly): ``log_prob``, ``sample`` and ``entropy`` take
+    ``O(n log n)``."""
+
+    arg_constraints = {"loc": constraints.real_vector,
+                       "covariance_row": constraints.positive_definite_circulant_vector,
+                       "covariance_rfft": constraints.independent(constraints.positive, 1)}
+    support = constraints.real_vector
+
+    def __init__(self, loc, covariance_row=None, covariance_rfft=None, *, validate_args=None):
+        assert loc.dim() > 0
+        n = loc.shape[-1]
+        if (covariance_row is None) == (covariance_rfft is None):
+            raise ValueError("Exactly one of covariance_row, covariance_rfft must be specified.")
+        if covariance_rfft is None:
+            assert covariance_row.shape[-1] == n
+            loc, covariance_row = promote_shapes(loc, covariance_row)
+            covariance_rfft = torch.fft.rfft(covariance_row).real
+            self.covariance_row = covariance_row
+        else:
+            batch = broadcast_shape(tuple(loc.shape[:-1]), tuple(covariance_rfft.shape[:-1]))
+            loc = torch.broadcast_to(loc, batch + (n,))
+            covariance_rfft = torch.broadcast_to(covariance_rfft, batch + (n // 2 + 1,))
+        self.loc = loc
+        self.covariance_rfft = covariance_rfft
+        batch = broadcast_shape(tuple(loc.shape[:-1]), tuple(covariance_rfft.shape[:-1]))
+        super().__init__(batch, (n,), validate_args=validate_args)
+
+    def _spectrum(self):
+        """The covariance's eigenvalues, the weights of the rFFT bins (2 for
+        a bin that stands for a conjugate pair, 1 for the DC bin and, where n
+        is even, the Nyquist bin) and n."""
+        (n,) = self.event_shape
+        lam = self.covariance_rfft.clamp(min=0.0)
+        m = lam.shape[-1]
+        weights = torch.full((m,), 2.0, dtype=lam.dtype, device=lam.device)
+        weights[0] = 1.0
+        if n % 2 == 0:
+            weights[-1] = 1.0
+        return lam, weights, n
+
+    def sample(self, key, sample_shape=()):
+        lam, _, n = self._spectrum()
+        white = standard_draw(key, "normal", tuple(sample_shape) + self.batch_shape + (n,),
+                              self.loc)
+        # C^{1/2} = F* diag(sqrt(lam)) F / sqrt(n)
+        return self.loc + torch.fft.irfft(torch.fft.rfft(white) * torch.sqrt(lam), n=n)
+
+    def _half_log_det(self, lam, weights):
+        return 0.5 * (weights * torch.log(lam)).sum(-1)
+
+    def log_prob(self, value):
+        lam, weights, n = self._spectrum()
+        lam = lam.clamp(min=torch.finfo(lam.dtype).tiny)
+        power = torch.fft.rfft(value - self.loc).abs().square()
+        quad = (weights * power / lam).sum(-1) / n
+        return -0.5 * (n * math.log(2.0 * math.pi) + quad) - self._half_log_det(lam, weights)
+
+    @lazy_property
+    def covariance_row(self):
+        return torch.fft.irfft(self.covariance_rfft, n=self.event_shape[-1])
+
+    @lazy_property
+    def covariance_matrix(self):
+        (n,) = self.event_shape
+        steps = torch.arange(n, device=self.loc.device)
+        lag = (steps[:, None] - steps[None, :]) % n
+        return self.covariance_row[..., lag]
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(self.loc, self.shape())
+
+    @lazy_property
+    def variance(self):
+        return torch.broadcast_to(self.covariance_row[..., :1], self.shape())
+
+    @staticmethod
+    def infer_shapes(loc=(), covariance_row=None, covariance_rfft=None):
+        if (covariance_row is None) == (covariance_rfft is None):
+            raise ValueError("Exactly one of covariance_row, covariance_rfft must be specified.")
+        cov = covariance_rfft if covariance_rfft is not None else covariance_row
+        return broadcast_shape(tuple(loc[:-1]), tuple(cov[:-1])), tuple(loc[-1:])
+
+    def entropy(self):
+        lam, weights, n = self._spectrum()
+        lam = lam.clamp(min=torch.finfo(lam.dtype).tiny)
+        return 0.5 * n * (1.0 + math.log(2.0 * math.pi)) + self._half_log_det(lam, weights)

@@ -210,10 +210,11 @@ class _CategoricalBase(Distribution):
         return constraints.integer_interval(0, self._param().shape[-1] - 1)
 
     def sample(self, key, sample_shape=()):
+        # the Gumbel-max trick, on a standard draw of kind "gumbel" (a draw
+        # source hands in JAX's for CategoricalLogits)
         table = self._log_pmf
         shape = tuple(sample_shape) + self.batch_shape + tuple(table.shape[-1:])
-        u = torch.rand(shape, generator=key, device=key.device, dtype=table.dtype)
-        return torch.argmax(table - torch.log(-torch.log(u)), dim=-1)
+        return torch.argmax(table + standard_draw(key, "gumbel", shape, table), dim=-1)
 
     def log_prob(self, value):
         table = self._log_pmf

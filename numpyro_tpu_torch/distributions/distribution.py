@@ -1,8 +1,8 @@
 """Distribution base class and structural combinators (port of the parts of
 ``numpyro_tpu/distributions/distribution.py`` that the ported slices need:
 ``Distribution``, ``ExpandedDistribution``, ``Independent`` / ``to_event``,
-``MaskedDistribution`` / ``mask``, ``TransformedDistribution``, ``Delta``,
-``Unit`` and ``ImproperUniform``).
+``MaskedDistribution`` / ``mask``, ``TransformedDistribution``,
+``FoldedDistribution``, ``Delta``, ``Unit`` and ``ImproperUniform``).
 
 A draw is differentiable in the parameters wherever ``has_rsample`` holds:
 samplers push standard draws through the parameters with tensor ops, so
@@ -19,12 +19,12 @@ from __future__ import annotations
 import torch
 
 from . import constraints
-from .transforms import ComposeTransform, Transform
+from .transforms import AbsTransform, ComposeTransform, Transform
 from .util import broadcast_shape, promote_shapes, sum_rightmost
 
 __all__ = [
-    "Delta", "Distribution", "ExpandedDistribution", "ImproperUniform", "Independent",
-    "MaskedDistribution", "TransformedDistribution", "Unit",
+    "Delta", "Distribution", "ExpandedDistribution", "FoldedDistribution", "ImproperUniform",
+    "Independent", "MaskedDistribution", "TransformedDistribution", "Unit",
 ]
 
 
@@ -424,6 +424,23 @@ class TransformedDistribution(Distribution):
         raise NotImplementedError(
             f"{type(self).__name__}.variance: the variance of a generic pushforward is "
             "unavailable")
+
+
+class FoldedDistribution(TransformedDistribution):
+    """``|X|`` for a univariate ``X``: ``p(v) = p_X(v) + p_X(-v)``."""
+
+    support = constraints.positive
+
+    def __init__(self, base_dist, *, validate_args=None):
+        if base_dist.event_shape:
+            raise ValueError("Only univariate distributions can be folded.")
+        super().__init__(base_dist, AbsTransform(), validate_args=validate_args)
+
+    def log_prob(self, value):
+        # the two signs on a new leading axis, summed out in log space
+        signs = torch.tensor([1.0, -1.0], dtype=_float_dtype(value), device=value.device)
+        signs = signs.reshape((2,) + (1,) * max(len(self.batch_shape), value.dim()))
+        return torch.logsumexp(self.base_dist.log_prob(signs * value), 0)
 
 
 class Delta(Distribution):

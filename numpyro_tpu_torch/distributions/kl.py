@@ -3,7 +3,8 @@
 the ported models: the expanded, independent, masked and delta combinators,
 Normal/Normal, MultivariateNormal/MultivariateNormal, Beta/Beta,
 Gamma/Gamma, Dirichlet/Dirichlet, Categorical/Categorical by probs and by
-logits, Weibull/Gamma and Kumaraswamy/Beta).  As in the JAX
+logits, Weibull/Gamma, Kumaraswamy/Beta and an independent Normal against a
+CirculantNormal).  As in the JAX
 package, Delta against an expanded distribution counts the Delta's
 ``log_density``, and Delta against any other distribution does not.
 
@@ -16,7 +17,16 @@ from __future__ import annotations
 
 import torch
 
-from .continuous import Beta, Dirichlet, Gamma, Kumaraswamy, MultivariateNormal, Normal, Weibull
+from .continuous import (
+    Beta,
+    CirculantNormal,
+    Dirichlet,
+    Gamma,
+    Kumaraswamy,
+    MultivariateNormal,
+    Normal,
+    Weibull,
+)
 from .discrete import CategoricalLogits, CategoricalProbs
 from .distribution import (
     Delta,
@@ -210,3 +220,18 @@ def _kl_kumaraswamy_beta(p, q):
     t3 = (beta - 1) * b * (torch.exp(betaln(m / a[..., None], b[..., None]))
                            / (m + a_b[..., None])).sum(-1)
     return t1 + t2 + t3
+
+
+@register_kl(Independent, CirculantNormal)
+def _kl_independent_normal_circulant(p, q):
+    """KL(N(mu, diag) || CirculantNormal) in O(n log n) by the real FFT."""
+    if not isinstance(p.base_dist, Normal) or p.reinterpreted_batch_ndims != 1:
+        raise NotImplementedError(
+            "KL(Independent || CirculantNormal) takes an Independent Normal of one event dim")
+    residual = q.mean - p.mean
+    n = residual.shape[-1]
+    log_cov_rfft = torch.log(q.covariance_rfft)
+    quad = (residual * torch.fft.irfft(torch.fft.rfft(residual) / q.covariance_rfft, n)).sum(-1)
+    return (quad + torch.fft.irfft(1 / q.covariance_rfft, n)[..., 0] * p.variance.sum(-1)
+            + log_cov_rfft.sum(-1) + log_cov_rfft[..., 1: (n + 1) // 2].sum(-1)
+            - torch.log(p.variance).sum(-1) - n) / 2

@@ -1,19 +1,23 @@
-"""Bijective transforms and the ``biject_to`` registry (port of the parts
-of ``numpyro_tpu/distributions/transforms.py`` that the ported slices need:
-identity, independent, compose, affine, exp, power, abs, sigmoid, softplus
-and stick-breaking transforms, the lower-Cholesky transforms,
-``UnpackTransform`` and ``LowerCholeskyAffine``, ``PermuteTransform`` and
-``ReshapeTransform``; ``biject_to`` for ``real``, ``independent``,
-``positive``/``nonnegative``, ``greater_than``/``greater_than_eq``,
-``less_than``/``less_than_eq``, ``softplus_positive``, ``lower_cholesky``,
-``scaled_unit_lower_cholesky``, ``simplex``, ``unit_interval``,
-``interval``/``open_interval`` and ``circular``).
-Other constraints
-raise ``NotImplementedError``; their transforms are listed in ROADMAP.md.
+"""Bijective transforms and the ``biject_to`` registry (port of
+``numpyro_tpu/distributions/transforms.py``: every transform of the JAX
+package, and ``biject_to`` with the JAX package's table row for row; a
+constraint without a row raises as there, ``Cannot transform <type>
+constraint``).
 
 Matrices are built with out-of-place ops only (``index_copy``, not an
 indexed assignment into a new tensor): under ``torch.func.grad`` an in-place
-write of a tracked value into an untracked tensor is an error."""
+write of a tracked value into an untracked tensor is an error.
+
+The JAX package's ``lax.scan`` recurrences take these forms here: the
+forward map of :class:`RecursiveLinearTransform` (``y_t = A y_{t-1} +
+x_t``) is a log-depth doubling of the affine maps (:func:`linear_recursion`,
+``ceil(log2 T)`` rounds of a shift, a product and a sum), and its inverse
+needs no recursion at all.  A stick-breaking budget that the JAX package
+takes with ``cumprod`` (:class:`CorrCholeskyTransform`) is a product over
+the few columns of the matrix, one multiplication a column
+(:func:`_exclusive_cumprod`): ``torch.cumprod``'s backward reads whether a
+factor is 0 on the host, which syncs the card on every gradient.
+"""
 
 from __future__ import annotations
 
@@ -25,27 +29,40 @@ import torch
 from numpyro_tpu_torch.util import HostArray
 
 from . import constraints
-from .util import broadcast_shape, sum_rightmost
+from .util import broadcast_shape, cholesky, sum_rightmost
 
 __all__ = [
     "AbsTransform",
     "AffineTransform",
+    "CholeskyTransform",
+    "ComplexTransform",
     "ComposeTransform",
+    "CorrCholeskyTransform",
+    "CorrMatrixCholeskyTransform",
     "ExpTransform",
     "IdentityTransform",
     "IndependentTransform",
+    "L1BallTransform",
     "LowerCholeskyAffine",
     "LowerCholeskyTransform",
+    "OrderedTransform",
+    "PackRealFastFourierCoefficientsTransform",
     "PermuteTransform",
     "PowerTransform",
+    "RealFastFourierTransform",
+    "RecursiveLinearTransform",
     "ReshapeTransform",
     "ScaledUnitLowerCholeskyTransform",
     "SigmoidTransform",
+    "SimplexToOrderedTransform",
+    "SoftplusLowerCholeskyTransform",
     "SoftplusTransform",
     "StickBreakingTransform",
     "Transform",
     "UnpackTransform",
+    "ZeroSumTransform",
     "biject_to",
+    "linear_recursion",
     "matrix_to_tril_vec",
     "vec_to_tril_matrix",
 ]
@@ -485,27 +502,86 @@ class StickBreakingTransform(Transform):
         return tuple(shape[:-1]) + (shape[-1] - 1,)
 
 
+class OrderedTransform(Transform):
+    """R^K -> ordered vectors: ``y_1 = x_1``, ``y_k = y_{k-1} + exp(x_k)``."""
+
+    domain = constraints.real_vector
+    codomain = constraints.ordered_vector
+
+    def __call__(self, x):
+        return torch.cumsum(torch.cat([x[..., :1], torch.exp(x[..., 1:])], -1), -1)
+
+    def _inverse(self, y):
+        return torch.cat([y[..., :1], torch.log(torch.diff(y, dim=-1))], -1)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return x[..., 1:].sum(-1)
+
+
+def _as_float(v, like):
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=like.dtype,
+                                                                 device=like.device)
+
+
+class SimplexToOrderedTransform(Transform):
+    """The K-simplex -> K - 1 ordered cutpoints: the logit of the cumulative
+    sums, shifted by ``anchor_point``."""
+
+    domain = constraints.simplex
+    codomain = constraints.ordered_vector
+
+    def __init__(self, anchor_point=0.0):
+        self.anchor_point = anchor_point
+
+    def __call__(self, x):
+        cdf = torch.cumsum(x[..., :-1], -1)
+        return torch.log(cdf / (1.0 - cdf)) + _as_float(self.anchor_point, x)[..., None]
+
+    def _inverse(self, y):
+        cdf = torch.sigmoid(y - _as_float(self.anchor_point, y)[..., None])
+        return (torch.cat([cdf, torch.ones_like(cdf[..., :1])], -1)
+                - torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        # d logit(s)/ds = 1 / (s (1 - s)) at s = cumsum(x[:-1])
+        cdf = torch.cumsum(x[..., :-1], -1)
+        return -(torch.log(cdf) + torch.log1p(-cdf)).sum(-1)
+
+    def forward_shape(self, shape):
+        return tuple(shape[:-1]) + (shape[-1] - 1,)
+
+    def inverse_shape(self, shape):
+        return tuple(shape[:-1]) + (shape[-1] + 1,)
+
+    def __eq__(self, other):
+        return type(self) is type(other) and _same(self.anchor_point, other.anchor_point)
+
+    __hash__ = Transform.__hash__
+
+
 def _tril_size_to_dim(n, diagonal=0):
     """Invert N = D(D+1)/2 (a diagonal offset folded in)."""
     return round(math.sqrt(0.25 + 2 * n) - 0.5) - diagonal
 
 
-def _matrix_forward_shape(shape):
+def _matrix_forward_shape(shape, offset=0):
+    """``(..., N) -> (..., D, D)`` for ``N = D (D + 1) / 2``, then ``D``
+    shifted by ``offset``."""
     if not shape:
         raise ValueError("Too few dimensions on input")
     n = shape[-1]
     d = _tril_size_to_dim(n)
     if d * (d + 1) // 2 != n:
         raise ValueError("Input is not a flattened lower-diagonal number")
-    return tuple(shape[:-1]) + (d, d)
+    return tuple(shape[:-1]) + (d - offset, d - offset)
 
 
-def _matrix_inverse_shape(shape):
+def _matrix_inverse_shape(shape, offset=0):
     if len(shape) < 2:
         raise ValueError("Too few dimensions on input")
     if shape[-2] != shape[-1]:
         raise ValueError("Input is not square")
-    d = shape[-1]
+    d = shape[-1] + offset
     return tuple(shape[:-2]) + (d * (d + 1) // 2,)
 
 
@@ -529,6 +605,92 @@ def _embed_diag(vals):
     return vals[..., None] * torch.eye(vals.shape[-1], dtype=vals.dtype, device=vals.device)
 
 
+def _exclusive_cumprod(x):
+    """``prod_{j<k} x_j`` along the last axis (1 at k = 0), one
+    multiplication a column: exact where a factor is 0, and without
+    ``torch.cumprod``'s host read in the backward."""
+    cols = [torch.ones_like(x[..., 0])]
+    for k in range(x.shape[-1] - 1):
+        cols.append(cols[-1] * x[..., k])
+    return torch.stack(cols, -1)
+
+
+class CorrCholeskyTransform(Transform):
+    """R^{D(D-1)/2} -> Cholesky factors of correlation matrices, by signed
+    stick breaking: the ``tanh`` of the vector fills the strictly lower
+    triangle row by row, each entry takes its share of what the row's
+    earlier entries left of a unit norm, and the diagonal completes the
+    row.  The clips are the JAX package's: 0 under the square roots, and
+    ``tiny`` in the inverse and the log-determinant."""
+
+    domain = constraints.real_vector
+    codomain = constraints.corr_cholesky
+
+    def __call__(self, x):
+        t = vec_to_tril_matrix(torch.tanh(x), diagonal=-1)
+        # r_ij = t_ij sqrt(prod_{k<j} (1 - t_ik^2))
+        budget_before = _exclusive_cumprod(1.0 - t.square())
+        r = t * torch.sqrt(budget_before.clamp(min=0.0))
+        diag = torch.sqrt((1.0 - r.square().sum(-1)).clamp(min=0.0))
+        return r + _embed_diag(diag)
+
+    def _room(self, y):
+        used = torch.cumsum(y.square(), -1) - y.square()
+        return (1.0 - used).clamp(min=torch.finfo(y.dtype).tiny)
+
+    def _inverse(self, y):
+        # z_ij = y_ij / sqrt(1 - sum_{k<j} y_ik^2)
+        return torch.atanh(matrix_to_tril_vec(y / torch.sqrt(self._room(y)), diagonal=-1))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        # log(1 - tanh^2 x) = 2 (log 2 - x - softplus(-2x))
+        tanh_part = -2.0 * (x + _softplus(-2.0 * x) - math.log(2.0)).sum(-1)
+        # half the log of each strictly-lower entry's remaining budget
+        d = y.shape[-1]
+        below = torch.ones(d, d, dtype=torch.bool, device=y.device).tril(-1)
+        log_room = torch.where(below, torch.log(self._room(y)), 0.0)
+        return 0.5 * log_room.sum((-2, -1)) + tanh_part
+
+    def forward_shape(self, shape):
+        return _matrix_forward_shape(shape, offset=-1)
+
+    def inverse_shape(self, shape):
+        return _matrix_inverse_shape(shape, offset=-1)
+
+
+class CholeskyTransform(Transform):
+    """Positive definite matrices -> their lower Cholesky factors
+    (``util.cholesky``: a NaN factor where a matrix is not positive
+    definite, as JAX's, and no raise)."""
+
+    domain = constraints.positive_definite
+    codomain = constraints.lower_cholesky
+
+    def __call__(self, x):
+        return cholesky(x)
+
+    def _inverse(self, y):
+        return y @ y.transpose(-2, -1)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        # the log-determinant of dL/dX for X = L L^T
+        d = x.shape[-1]
+        diag = torch.diagonal(y, dim1=-2, dim2=-1)
+        weights = -torch.arange(d, 0, -1, dtype=x.dtype, device=x.device)
+        return (weights * torch.log(diag)).sum(-1) - d * math.log(2.0)
+
+
+class CorrMatrixCholeskyTransform(CholeskyTransform):
+    domain = constraints.corr_matrix
+    codomain = constraints.corr_cholesky
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        d = x.shape[-1]
+        diag = torch.diagonal(y, dim1=-2, dim2=-1)
+        weights = -torch.arange(d - 1, -1, -1, dtype=x.dtype, device=x.device)
+        return (weights * torch.log(diag)).sum(-1)
+
+
 class LowerCholeskyTransform(Transform):
     """R^{D(D+1)/2} -> lower-Cholesky matrices: the strictly lower part as
     it is, then the diagonal through exp."""
@@ -536,17 +698,24 @@ class LowerCholeskyTransform(Transform):
     domain = constraints.real_vector
     codomain = constraints.lower_cholesky
 
+    def _diag_transform(self, x):
+        return torch.exp(x)
+
+    def _diag_inverse(self, y):
+        return torch.log(y)
+
     def _split(self, x):
         d = _tril_size_to_dim(x.shape[-1])
         return x[..., :-d], x[..., -d:], d
 
     def __call__(self, x):
         below, raw_diag, _ = self._split(x)
-        return vec_to_tril_matrix(below, diagonal=-1) + _embed_diag(torch.exp(raw_diag))
+        return (vec_to_tril_matrix(below, diagonal=-1)
+                + _embed_diag(self._diag_transform(raw_diag)))
 
     def _inverse(self, y):
         below = matrix_to_tril_vec(y, diagonal=-1)
-        raw_diag = torch.log(torch.diagonal(y, dim1=-2, dim2=-1))
+        raw_diag = self._diag_inverse(torch.diagonal(y, dim1=-2, dim2=-1))
         return torch.cat([below, raw_diag], dim=-1)
 
     def log_abs_det_jacobian(self, x, y, intermediates=None):
@@ -557,6 +726,21 @@ class LowerCholeskyTransform(Transform):
 
     def inverse_shape(self, shape):
         return _matrix_inverse_shape(shape)
+
+
+class SoftplusLowerCholeskyTransform(LowerCholeskyTransform):
+    """As :class:`LowerCholeskyTransform`, with softplus on the diagonal."""
+
+    codomain = constraints.softplus_lower_cholesky
+
+    def _diag_transform(self, x):
+        return _softplus(x)
+
+    def _diag_inverse(self, y):
+        return y + torch.log(-torch.expm1(-y))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return -_softplus(-self._split(x)[1]).sum(-1)
 
 
 class ScaledUnitLowerCholeskyTransform(LowerCholeskyTransform):
@@ -763,6 +947,296 @@ class ReshapeTransform(Transform):
     __hash__ = Transform.__hash__
 
 
+class L1BallTransform(Transform):
+    """R^K -> the open unit L1 ball, by stick breaking on the absolute
+    values: stick ``s_k = 2 sigmoid(|x_k|) - 1`` of what the earlier sticks
+    left, ``cumprod(1 - s) / clip(1 - s, tiny)`` as in the JAX package, the
+    sign carried by ``x``."""
+
+    domain = constraints.real_vector
+    codomain = constraints.l1_ball
+
+    def _sticks(self, x):
+        sticks = 2.0 * torch.sigmoid(x.abs()) - 1.0
+        left = 1.0 - sticks
+        budget = torch.cumprod(left, -1) / left.clamp(min=torch.finfo(x.dtype).tiny)
+        return sticks, budget
+
+    def __call__(self, x):
+        sticks, budget = self._sticks(x)
+        return torch.sign(x) * sticks * budget
+
+    def _inverse(self, y):
+        info = torch.finfo(y.dtype)
+        mag = y.abs()
+        budget = 1.0 - torch.cumsum(mag, -1) + mag
+        sticks = mag / budget.clamp(min=info.tiny)
+        half = (0.5 * (sticks + 1.0)).clamp(min=info.tiny, max=1.0 - info.eps)
+        return torch.sign(y) * torch.log(half / (1.0 - half))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        # y_k depends on x_j for j <= k only, so the Jacobian is triangular
+        # and its log-determinant sums the log of the diagonal,
+        # s'(|x_k|) budget_k with s'(u) = 2 sigmoid(u) (1 - sigmoid(u)); the
+        # JAX package takes slogdet of the whole Jacobian (jacfwd)
+        _, budget = self._sticks(x)
+        u = x.abs()
+        return (math.log(2.0) - _softplus(u) - _softplus(-u) + torch.log(budget)).sum(-1)
+
+
+class ZeroSumTransform(Transform):
+    """R^{n-1} along each of the ``transform_ndims`` rightmost axes -> arrays
+    that sum to zero along each, by the orthonormal (Householder) map of
+    ``ZeroSumNormal``; volume preserving."""
+
+    def __init__(self, transform_ndims=1):
+        self.transform_ndims = transform_ndims
+
+    @property
+    def domain(self):
+        return constraints.independent(constraints.real, self.transform_ndims)
+
+    @property
+    def codomain(self):
+        return constraints.zero_sum(self.transform_ndims)
+
+    @staticmethod
+    def _append_slot(x, axis):
+        n = x.shape[axis] + 1
+        total = x.sum(axis, keepdim=True)
+        shift = total / (math.sqrt(n) + n)
+        slot = shift - total / math.sqrt(n)
+        return torch.cat([x, slot], axis) - shift
+
+    @staticmethod
+    def _drop_slot(y, axis):
+        n = y.shape[axis]
+        slot = y.narrow(axis, n - 1, 1)
+        shift = -slot * math.sqrt(n) / (math.sqrt(n) + n)
+        return y.narrow(axis, 0, n - 1) + shift
+
+    def __call__(self, x):
+        for axis in range(-self.transform_ndims, 0):
+            x = self._append_slot(x, axis)
+        return x
+
+    def _inverse(self, y):
+        for axis in range(-self.transform_ndims, 0):
+            y = self._drop_slot(y, axis)
+        return y
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return x.new_zeros(tuple(x.shape[: x.dim() - self.transform_ndims]))
+
+    def forward_shape(self, shape):
+        k = self.transform_ndims
+        return tuple(shape[:-k]) + tuple(s + 1 for s in shape[-k:])
+
+    def inverse_shape(self, shape):
+        k = self.transform_ndims
+        return tuple(shape[:-k]) + tuple(s - 1 for s in shape[-k:])
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.transform_ndims == other.transform_ndims
+
+    __hash__ = Transform.__hash__
+
+
+def _real_dtype(t):
+    return t.real.dtype if t.is_complex() else t.dtype
+
+
+class ComplexTransform(Transform):
+    """A trailing pair of reals <-> one complex number."""
+
+    domain = constraints.real_vector
+    codomain = constraints.complex
+
+    def __call__(self, x):
+        assert x.shape[-1] == 2, "Input must have a trailing dimension of size 2."
+        return torch.complex(x[..., 0], x[..., 1])
+
+    def _inverse(self, y):
+        return torch.stack([y.real, y.imag], -1)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return torch.zeros(tuple(y.shape), dtype=_real_dtype(y), device=y.device)
+
+    def forward_shape(self, shape):
+        assert shape[-1] == 2, "Input must have a trailing dimension of size 2."
+        return tuple(shape[:-1])
+
+    def inverse_shape(self, shape):
+        return tuple(shape) + (2,)
+
+
+class RealFastFourierTransform(Transform):
+    """The real FFT over the ``transform_ndims`` rightmost axes, of length
+    ``transform_shape`` (by default the input's), as ``torch.fft.rfftn``
+    with ``s`` passed explicitly, and ``irfftn`` back."""
+
+    def __init__(self, transform_shape=None, transform_ndims=1):
+        if isinstance(transform_shape, int):
+            transform_shape = (transform_shape,)
+        if transform_shape is not None and len(transform_shape) != transform_ndims:
+            raise ValueError(
+                f"Length of transform shape ({transform_shape}) does not match "
+                f"number of dimensions to transform ({transform_ndims})."
+            )
+        self.transform_shape = None if transform_shape is None else tuple(transform_shape)
+        self.transform_ndims = transform_ndims
+
+    def _axes(self):
+        return tuple(range(-self.transform_ndims, 0))
+
+    def _with_event(self, shape):
+        shape = tuple(shape)
+        if self.transform_shape is None:
+            return shape
+        return shape[: len(shape) - len(self.transform_shape)] + self.transform_shape
+
+    def __call__(self, x):
+        return torch.fft.rfftn(x, s=self.transform_shape, dim=self._axes())
+
+    def _inverse(self, y):
+        return torch.fft.irfftn(y, s=self.transform_shape, dim=self._axes())
+
+    def forward_shape(self, shape):
+        shape = self._with_event(shape)
+        return shape[:-1] + (shape[-1] // 2 + 1,)
+
+    def inverse_shape(self, shape):
+        if self.transform_shape:
+            return self._with_event(shape)
+        return tuple(shape[:-1]) + (2 * (shape[-1] - 1),)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        k = self.transform_ndims
+        batch = broadcast_shape(tuple(x.shape[: x.dim() - k]), tuple(y.shape[: y.dim() - k]))
+        event = tuple(x.shape[x.dim() - k:])
+        size = math.prod(event)
+        n_self_conjugate = math.prod(2 - s % 2 for s in event)
+        const = 0.5 * (size * math.log(size) - math.log(2.0) * (size - n_self_conjugate))
+        return torch.full(batch, const, dtype=_real_dtype(x), device=x.device)
+
+    @property
+    def domain(self):
+        return constraints.independent(constraints.real, self.transform_ndims)
+
+    @property
+    def codomain(self):
+        return constraints.independent(constraints.complex, self.transform_ndims)
+
+    def __eq__(self, other):
+        return (isinstance(other, RealFastFourierTransform)
+                and self.transform_ndims == other.transform_ndims
+                and self.transform_shape == other.transform_shape)
+
+    __hash__ = Transform.__hash__
+
+
+class PackRealFastFourierCoefficientsTransform(Transform):
+    """A real vector of length n <-> the n // 2 + 1 complex coefficients of
+    a real FFT: the first n // 2 + 1 entries are the real parts, the rest
+    the imaginary parts of the coefficients after the first (the last one's
+    is 0 where n is even)."""
+
+    domain = constraints.real_vector
+    codomain = constraints.independent(constraints.complex, 1)
+
+    def __init__(self, transform_shape=None):
+        if transform_shape is not None and len(transform_shape) != 1:
+            raise AssertionError("Packing Fourier coefficients is only implemented for vectors.")
+        self.shape = None if transform_shape is None else tuple(transform_shape)
+
+    @staticmethod
+    def _split_counts(n):
+        n_real = n // 2 + 1
+        return n_real, n - n_real
+
+    def forward_shape(self, shape):
+        return tuple(shape[:-1]) + (shape[-1] // 2 + 1,)
+
+    def inverse_shape(self, shape):
+        if self.shape is None:
+            raise AssertionError("Shape must be specified in `__init__` for inverse transform.")
+        (n,) = self.shape
+        if shape[-1] != n // 2 + 1:
+            raise AssertionError("packed length mismatch")
+        return tuple(shape[:-1]) + (n,)
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        batch = broadcast_shape(tuple(x.shape[:-1]), tuple(y.shape[:-1]))
+        return torch.zeros(batch, dtype=_real_dtype(x), device=x.device)
+
+    def __call__(self, x):
+        assert self.shape is None or self.shape == tuple(x.shape[-1:])
+        n_real, n_imag = self._split_counts(x.shape[-1])
+        head = torch.zeros_like(x[..., :1])
+        tail = x.new_zeros(tuple(x.shape[:-1]) + (n_real - 1 - n_imag,))
+        imag = torch.cat([head, x[..., n_real:], tail], -1)
+        return torch.complex(x[..., :n_real], imag)
+
+    def _inverse(self, y):
+        (n,) = self.shape
+        _, n_imag = self._split_counts(n)
+        return torch.cat([y.real, y.imag[..., 1: n_imag + 1]], -1)
+
+    def __eq__(self, other):
+        return (isinstance(other, PackRealFastFourierCoefficientsTransform)
+                and self.shape == other.shape)
+
+    __hash__ = Transform.__hash__
+
+
+def linear_recursion(shocks, transition):
+    """``y_t = A y_{t-1} + x_t`` from ``y_{-1} = 0`` along the second-to-last
+    axis of ``shocks`` ``(..., T, D)``, ``A = transition`` ``(..., D, D)``:
+    a log-depth doubling of the affine maps (Hillis and Steele), ``ceil(log2
+    T)`` rounds of ``y_t += A^(2^r) y_{t - 2^r}``, each a shift, a product,
+    a sum and a squaring of the power; no loop over time.  Each output sums
+    the same terms as the sequential recursion, in another order."""
+    y, power, step, steps = shocks, transition.transpose(-2, -1), 1, shocks.shape[-2]
+    while step < steps:
+        lagged = torch.nn.functional.pad(y[..., :-step, :], (0, 0, step, 0))
+        y = y + lagged @ power
+        power = power @ power
+        step *= 2
+    return y
+
+
+class RecursiveLinearTransform(Transform):
+    """``y_t = A y_{t-1} + x_t`` over the second-to-last axis (volume
+    preserving; ``A = transition_matrix``, ``(..., D, D)``).  The JAX package
+    scans over time.  Here the forward map is :func:`linear_recursion`: at
+    T = 100 that is 7 rounds of 5 tensor ops (a slice, a pad, a product, a
+    sum and the squaring of the power) after one transpose, 36 ops an
+    evaluation, against about 200 for a loop over time (a product and a sum
+    a step); the inverse ``x_t = y_t - A y_{t-1}`` is 5 ops."""
+
+    domain = constraints.real_matrix
+    codomain = constraints.real_matrix
+
+    def __init__(self, transition_matrix):
+        self.transition_matrix = transition_matrix
+
+    def __call__(self, x):
+        return linear_recursion(x, self.transition_matrix)
+
+    def _inverse(self, y):
+        pushed = y[..., :-1, :] @ self.transition_matrix.transpose(-2, -1)
+        return y - torch.nn.functional.pad(pushed, (0, 0, 1, 0))
+
+    def log_abs_det_jacobian(self, x, y, intermediates=None):
+        return x.new_zeros(tuple(x.shape[:-2]))
+
+    def __eq__(self, other):
+        return isinstance(other, RecursiveLinearTransform) and _same(
+            self.transition_matrix, other.transition_matrix)
+
+    __hash__ = Transform.__hash__
+
+
 class ConstraintRegistry:
     """constraint type -> factory of the transform onto that constraint."""
 
@@ -781,8 +1255,7 @@ class ConstraintRegistry:
             factory = self._registry[type(constraint)]
         except KeyError as e:
             raise NotImplementedError(
-                f"Cannot transform {type(constraint).__name__} constraint: not "
-                "ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+                f"Cannot transform {type(constraint).__name__} constraint"
             ) from e
         return factory(constraint)
 
@@ -837,7 +1310,24 @@ biject_to.register(
     ]),
 )
 biject_to.register(constraints.simplex, lambda c: StickBreakingTransform())
+biject_to.register(constraints.ordered_vector, lambda c: OrderedTransform())
+biject_to.register(constraints.positive_ordered_vector,
+                   lambda c: ComposeTransform([OrderedTransform(), ExpTransform()]))
+biject_to.register(constraints.corr_cholesky, lambda c: CorrCholeskyTransform())
+biject_to.register(
+    constraints.corr_matrix,
+    lambda c: ComposeTransform([CorrCholeskyTransform(), CorrMatrixCholeskyTransform().inv]),
+)
 biject_to.register(constraints.lower_cholesky, lambda c: LowerCholeskyTransform())
 biject_to.register(
     constraints.scaled_unit_lower_cholesky, lambda c: ScaledUnitLowerCholeskyTransform()
 )
+biject_to.register(constraints.softplus_lower_cholesky,
+                   lambda c: SoftplusLowerCholeskyTransform())
+for _c in (constraints.positive_definite, constraints.positive_semidefinite):
+    biject_to.register(
+        _c, lambda c: ComposeTransform([LowerCholeskyTransform(), CholeskyTransform().inv])
+    )
+del _c
+biject_to.register(constraints.l1_ball, lambda c: L1BallTransform())
+biject_to.register(constraints.zero_sum, lambda c: ZeroSumTransform(c.event_dim))

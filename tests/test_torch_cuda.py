@@ -10,7 +10,10 @@ AIES and ESS against the CPU on the same draws, and the flow guides:
 the GLM op's raise on a second derivative, and an IAF's NeuTra potential
 through ``glm_split`` against the CPU; the discrete, conjugate and
 directional families on the card against the CPU, their draws through the
-port's ``gof``, and a Gamma draw's exact derivative in both modes.
+port's ``gof``, and a Gamma draw's exact derivative in both modes; and the
+structured and matrix families and transforms on the card against the CPU,
+their draws through ``gof``, a Wishart gradient on the same draws, and
+phase 17's two potentials.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -1101,3 +1104,99 @@ def test_binomial_and_von_mises_draws_under_soft_vmap_on_the_card(cuda):
     y = soft_vmap(lambda k: dist.VonMises(0.0, k).sample(gen),
                   torch.full((64,), 5.0, device=cuda))
     assert not torch.isnan(y).any() and len(torch.unique(y)) == 64
+
+
+# ---------------------------------------------------------------------------
+# the structured and matrix families (phase 17c)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["MultivariateStudentT", "LKJCholesky", "LKJ", "Wishart",
+                                  "WishartCholesky", "ZeroSumNormal", "MatrixNormal", "CAR",
+                                  "EulerMaruyama", "GaussianStateSpace", "CirculantNormal",
+                                  "FoldedDistribution", "MixtureSameFamily", "MixtureGeneral",
+                                  "GaussianCopula", "GaussianCopulaBeta"])
+def test_structured_families_on_the_card_match_the_cpu(cuda, name):
+    """Each class of ``chip_smoke.STRUCTURED``: ``log_prob`` on CUDA tensors
+    against CPU tensors, to ``FAMILY_RTOL`` and ``FAMILY_ATOL``, and finite
+    densities of its draws on a CUDA generator."""
+    cs = _phase15()
+    d_cpu, d_dev = cs.structured_family(name, torch.device("cpu")), cs.structured_family(name,
+                                                                                          cuda)
+    x = d_cpu.sample(torch.Generator().manual_seed(0), (4,))
+    got = d_dev.log_prob(x.to(cuda))
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), d_cpu.log_prob(x), rtol=cs.FAMILY_RTOL,
+                               atol=cs.FAMILY_ATOL)
+    draw = d_dev.sample(torch.Generator(device=cuda).manual_seed(1), (8,))
+    assert draw.device.type == "cuda" and bool(torch.isfinite(d_dev.log_prob(draw)).all())
+
+
+@pytest.mark.requires_cuda
+def test_structured_transforms_on_the_card_match_the_cpu(cuda):
+    cs = _phase15()
+    on_cpu, on_dev = cs.structured_transforms(torch.device("cpu")), cs.structured_transforms(cuda)
+    for name, (t_cpu, x_cpu) in on_cpu.items():
+        t_dev, x_dev = on_dev[name]
+        y_cpu, y_dev = t_cpu(x_cpu), t_dev(x_dev)
+        for got, want in ((y_dev, y_cpu), (t_dev.inv(y_dev), t_cpu.inv(y_cpu)),
+                          (t_dev.log_abs_det_jacobian(x_dev, y_dev),
+                           t_cpu.log_abs_det_jacobian(x_cpu, y_cpu))):
+            assert got.device.type == "cuda", name
+            assert cs._close_on(got, want) <= 1.0, name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["MultivariateStudentT", "ZeroSumNormal", "LKJCholesky",
+                                  "Wishart", "MatrixNormal", "CirculantNormal",
+                                  "MixtureSameFamily"])
+def test_structured_draws_on_a_cuda_generator_pass_the_gof_test(cuda, name):
+    from numpyro_tpu_torch.distributions.gof import auto_goodness_of_fit
+
+    cs = _phase15()
+    d = cs.gof_family(name, cuda)
+    x = d.sample(torch.Generator(device=cuda).manual_seed(3), (cs.GOF_DRAWS // 4,))
+    assert x.device.type == "cuda" and bool(torch.isfinite(x).all())
+    for label, (stat, density) in cs.gof_statistics(name, d, x).items():
+        assert auto_goodness_of_fit(stat, density) > cs.GOF_FAILURE_RATE, label
+
+
+@pytest.mark.requires_cuda
+def test_wishart_gradient_on_the_card_matches_the_cpu_on_the_same_draws(cuda):
+    cs = _phase15()
+    recorded = cs.RecordedDraws(torch.Generator(device=cuda).manual_seed(4))
+    g_dev = cs.wishart_gradient(cuda, recorded)
+    g_cpu = cs.wishart_gradient(torch.device("cpu"), cs.ReplayedDraws(recorded.items, "cpu"))
+    for a, b in zip(g_dev, g_cpu):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=cs.FAMILY_RTOL, atol=cs.FAMILY_ATOL)
+
+
+@pytest.mark.requires_cuda
+def test_structured_models_potential_on_the_card_matches_the_cpu(cuda):
+    """Phase 17's two models: the potential and its gradient at 256 points
+    on the card against the CPU (``chip_smoke.potential_check`` raises
+    where they differ), and no host sync from the corr-Cholesky map or the
+    mixture's density."""
+    cs = _phase15()
+    for model, data in ((cs.lkj_model, cs.lkj_data()), (cs.mix_model, cs.mix_data())):
+        y = torch.from_numpy(data).to(cuda)
+        _, _, sites, constrained = cs.potential_check(
+            "card test", model, y, cs.STRUCTURED_POINTS, cs.STRUCTURED_RTOL, 174, scale=0.5)
+        assert not any("transforms.py" in s or "mixtures.py" in s for s in sites), sites
+    assert bool((constrained["mu"][:, 1:] > constrained["mu"][:, :-1]).all())
+
+
+@pytest.mark.requires_cuda
+def test_wishart_and_student_t_not_positive_definite_give_nan_on_the_card(cuda):
+    bad = torch.tensor([[1.0, 2.0], [2.0, 1.0]], device=cuda)
+    good = torch.tensor([[2.0, 0.5], [0.5, 1.0]], device=cuda)
+    w = dist.Wishart(torch.tensor(5.0, device=cuda), scale_matrix=torch.stack([good, bad]))
+    lp = w.log_prob(2.0 * good)
+    assert torch.isfinite(lp[0]) and torch.isnan(lp[1])
+    from numpyro_tpu_torch.distributions.util import cholesky
+
+    t = dist.MultivariateStudentT(torch.tensor(4.0, device=cuda), torch.zeros(2, device=cuda),
+                                  cholesky(torch.stack([good, bad])))
+    lp = t.log_prob(torch.ones(2, device=cuda))
+    assert torch.isfinite(lp[0]) and torch.isnan(lp[1])
