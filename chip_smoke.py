@@ -212,6 +212,21 @@ Phases (each prints on its own lines; any failure exits non-zero):
                the port's ``gof``, a ``Wishart`` reparameterised gradient
                against the CPU's on the same draws, and ``CAR.log_prob`` at
                100 sites timed with its host syncs.  No GLM launch.
+18. dsl     -- the model DSL's tail: (a) ``examples/annotation.py``'s
+               Dawid-Skene model at its widths (3 classes, 5 annotators, 60
+               items, the example's data), its class ``c`` enumerated through
+               ``Vindex(beta)[positions, c, :]``: the potential and gradient
+               at 256 points on the card against the CPU's, then NUTS
+               (``ANNOT_RUN``), the largest error of the posterior mean class
+               shares against the shares the data were drawn from within
+               ``ANNOT_GATE`` of the JAX package's (``dev/annotation_reference.py``);
+               (b) a model that uses ``obs_mask``, ``collapse`` with a latent
+               second parameter, ``cond`` on a latent predicate, ``scale``,
+               ``scope`` and ``plate_stack``: its potential and gradient at 256
+               points on the card against the CPU's and against its twin
+               written without those handlers, with the host syncs of an
+               evaluation counted with validation off (no more than the
+               twin's) and on.  No GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -234,7 +249,7 @@ import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions.util import betaincinv, gammaincinv
-from numpyro_tpu_torch.contrib.control_flow import scan
+from numpyro_tpu_torch.contrib.control_flow import cond, scan
 from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, markov
 from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
 from numpyro_tpu_torch.infer import (
@@ -248,6 +263,7 @@ from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
 from numpyro_tpu_torch.infer.mcmc import POSTPROCESS_CHUNK
 from numpyro_tpu_torch.ops import _cuda, glm
+from numpyro_tpu_torch.ops.indexing import Vindex
 from numpyro_tpu_torch.optim import Adam, Minimize
 from numpyro_tpu_torch.util import tree_leaves
 
@@ -1794,7 +1810,8 @@ def count_syncs(fn):
     """``fn()``'s result and the host syncs it made on the card
     (``torch.cuda.set_sync_debug_mode("warn")``), as a dict from the
     ``file:line`` in the port that made each (the innermost frame of its
-    stack in ``numpyro_tpu_torch``) to their count; empty on the CPU."""
+    stack in ``numpyro_tpu_torch``) to their count; empty on the CPU.  The
+    notice that the mode is a prototype, given once a process, is no sync."""
     if not torch.cuda.is_available():
         return fn(), {}
     import traceback
@@ -1802,7 +1819,7 @@ def count_syncs(fn):
     sites = {}
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
+        if "called a synchronizing CUDA operation" not in str(message):
             return
         frames = [f for f in traceback.extract_stack()[:-1] if "numpyro_tpu_torch" in f.filename]
         where = frames[-1] if frames else traceback.extract_stack()[-2]
@@ -1841,7 +1858,8 @@ def potential_check(tag, model, y, points, rtol, seed, scale=1.0):
         if not out:
             step(z_here)
             (pe, grad), sites = count_syncs(lambda: step(z_here))
-            constrained = info.postprocess_fn(z_here)
+            # one point at a time, as MCMC maps it over its draws
+            constrained = torch.func.vmap(info.postprocess_fn)(z_here)
         else:
             pe, grad = step(z_here)
         out["cpu" if out else "here"] = (pe.double().cpu(),
@@ -2254,6 +2272,210 @@ def phase_seventeen(device):
     if launches0 != dict(glm.launch_counts):
         raise SystemExit("17: the phase launched a GLM kernel")
     return walls, ms_a, {"17a": syncs_a, "17b": syncs_b}, extra
+
+# phase 18, the model DSL's tail.  (a) ``examples/annotation.py`` at
+# its widths: K classes, J annotators, N items, the data drawn as its main()
+# draws them (numpy's RandomState(0)); NUTS with vectorized chains, warmup,
+# samples and depths ANNOT_RUN, cut to phase 18's budget.  e, the largest
+# |posterior mean of pi - the share of each class among the items' true
+# classes|, within ANNOT_GATE of the JAX package's own e at this
+# configuration, key 0, ANNOT_REF: the gate max(2 e_J, e_J + 0.05)
+# (`JAX_PLATFORMS=cpu python3 -m dev.annotation_reference`; keys 1-4 read
+# within 0.0095 of it).  Sized on the card: 114 evaluations, 1.83-1.88 s, and
+# phase 18 2.1 s warm (`python3 -m dev.phase18 --sizing`, H100 80GB at
+# 700 W).  The potential and gradient at ANNOT_POINTS unconstrained points
+# (numpy normals of scale 0.5, seed 181) on the card against the CPU's at
+# rtol ANNOT_RTOL, as 16b's
+ANNOT_K, ANNOT_J, ANNOT_N = 3, 5, 60
+ANNOT_RUN = (32, 10, 5, (3, 3))
+ANNOT_REF = 0.0180
+ANNOT_GATE = 0.068
+ANNOT_POINTS, ANNOT_RTOL = 256, 1e-4
+# (b) the DSL model on a DSL_G x DSL_N grid of numpy normals (seed 0) with
+# DSL_MISSING of them missing; its potential and gradient at DSL_POINTS points
+# (numpy normals, seed 183) on the card against the CPU's and against its
+# twin at rtol DSL_RTOL.  Every constant is made on the data's device by
+# ``new_full`` (a fill, no copy from the host)
+DSL_G, DSL_N, DSL_MISSING = 3, 8, 6
+DSL_POINTS, DSL_RTOL = 256, 1e-4
+
+
+def annotation_data(n=ANNOT_N, k=ANNOT_K, j=ANNOT_J):
+    """``examples/annotation.py``'s data: the items' true classes and the
+    annotators' labels, ``(n,)`` and ``(n, j)``."""
+    rng = np.random.RandomState(0)
+    true_c = rng.randint(0, k, size=n)
+    conf = 0.75 * np.eye(k) + 0.25 / k
+    annotations = np.stack(
+        [[rng.choice(k, p=conf[true_c[i]]) for _ in range(j)] for i in range(n)])
+    return true_c, annotations
+
+
+def dawid_skene(positions, annotations, num_classes, num_annotators):
+    """``examples/annotation.py``'s model: per-annotator confusion matrices,
+    each item's true class ``c`` enumerated out."""
+    J = positions.shape[0]
+    N = annotations.shape[0]
+    device = annotations.device
+    pi = npt.sample("pi", dist.Dirichlet(torch.ones(num_classes, device=device)))
+    with npt.plate("annotator", num_annotators, dim=-2):
+        with npt.plate("class", num_classes):
+            beta = npt.sample("beta", dist.Dirichlet(
+                torch.eye(num_classes, device=device) * 4 + torch.ones(num_classes, device=device)))
+    with npt.plate("item", N, dim=-2):
+        c = npt.sample("c", dist.Categorical(pi), infer={"enumerate": "parallel"})
+        with npt.plate("position", J, dim=-1):
+            npt.sample("y", dist.Categorical(Vindex(beta)[positions, c, :]), obs=annotations)
+
+
+def annotation_model(annotations):
+    """``dawid_skene`` as the example calls it: one slot per annotator."""
+    positions = torch.arange(annotations.shape[1], device=annotations.device)
+    dawid_skene(positions, annotations, ANNOT_K, annotations.shape[1])
+
+
+def annotation_error(pi_draws, true_c):
+    shares = np.bincount(true_c, minlength=ANNOT_K) / true_c.shape[0]
+    return float(np.abs(pi_draws.double().mean(0).cpu().numpy() - shares).max())
+
+
+def phase_annotation(device):
+    """18a: the Dawid-Skene model's potential against the CPU's, then NUTS;
+    returns its wall seconds, ms per evaluation and host syncs per
+    evaluation."""
+    t0 = time.perf_counter()
+    true_c, annotations = annotation_data()
+    y = torch.from_numpy(annotations).to(device)
+    pe_err, g_err, sites, _ = potential_check("18a", annotation_model, y, ANNOT_POINTS,
+                                              ANNOT_RTOL, 181, scale=0.5)
+    draws, stats, evals, ms = _mcmc_leg("18a", annotation_model, ANNOT_RUN, 182, y)
+    e = annotation_error(draws["pi"], true_c)
+    syncs = sum(sites.values())
+    wall = time.perf_counter() - t0
+    chains, warmup, samples, depths = ANNOT_RUN
+    log(f"[dsl] 18a annotation.py ({ANNOT_N} items, {ANNOT_J} annotators, {ANNOT_K} classes, c "
+        f"enumerated through Vindex): the potential at {ANNOT_POINTS} points within "
+        f"{pe_err:.2e} of the CPU's, its gradient {g_err:.3f} of its atol (rtol {ANNOT_RTOL}), "
+        f"{syncs} host syncs per evaluation {sites}; NUTS {chains} chains, {warmup} + "
+        f"{samples}, depths {depths}: {evals} evaluations in "
+        f"{stats['warmup_s'] + stats['sample_s']:.2f} s, {ms:.2f} ms per evaluation; e {e:.4f} "
+        f"(JAX {ANNOT_REF}, gate {ANNOT_GATE}); {wall:.2f} s")
+    _gate("18a", e, ANNOT_REF, ANNOT_GATE, "the largest class-share error")
+    return wall, ms, syncs
+
+
+def dsl_data(g=DSL_G, n=DSL_N, missing=DSL_MISSING):
+    """18b's grid: numpy normals about a row mean, ``missing`` of them NaN."""
+    rng = np.random.default_rng(0)
+    y = (rng.normal(size=(g, 1)) + 0.5 * rng.normal(size=(g, n))).astype(np.float32)
+    y.reshape(-1)[rng.choice(g * n, missing, replace=False)] = np.nan
+    return y
+
+
+def dsl_model(y):
+    """18b: ``scope``, ``collapse`` of a Normal mean whose likelihood's scale
+    ``sigma`` is latent, ``cond`` on the latent ``u``, and a ``scale``-d grid
+    under ``plate_stack`` observed where ``y`` is not NaN (``obs_mask``).
+    ``cond`` stands outside ``scope``: a branch runs blocked from the
+    handlers around it, so its sites would be looked up by their unscoped
+    names (in the JAX package too)."""
+    c = functools.partial(y.new_full, ())
+    mask = ~torch.isnan(y)
+    obs = torch.where(mask, y, c(0.0))
+    with handlers.scope(prefix="dsl"):
+        mu = npt.sample("mu", dist.Normal(c(0.0), c(2.0)).expand([y.shape[0]]).to_event(1))
+        sigma = npt.sample("sigma", dist.HalfNormal(c(1.0)))
+        with handlers.collapse():
+            theta = npt.sample("theta", dist.Normal(c(0.5), c(2.0)))
+            npt.sample("anchor", dist.Normal(theta, sigma), obs=c(1.3))
+    u = npt.sample("u", dist.Normal(c(0.0), c(1.0)))
+    shift = cond(u > 0, lambda s: npt.sample("shift", dist.Normal(s, c(1.0))),
+                 lambda s: npt.sample("shift", dist.Normal(-s, c(2.0))), c(1.0))
+    with handlers.scope(prefix="dsl"), handlers.scale(scale=0.5), \
+            npt.plate_stack("grid", tuple(y.shape)):
+        npt.sample("y", dist.Normal(mu[:, None] + shift, sigma), obs=obs, obs_mask=mask)
+
+
+def dsl_twin(y):
+    """``dsl_model`` written without those handlers: the scoped names, the
+    compound marginal, the branches' parameters selected, the masked
+    latent and the half-weighted observed term by hand."""
+    c = functools.partial(y.new_full, ())
+    mask = ~torch.isnan(y)
+    obs = torch.where(mask, y, c(0.0))
+    mu = npt.sample("dsl/mu", dist.Normal(c(0.0), c(2.0)).expand([y.shape[0]]).to_event(1))
+    sigma = npt.sample("dsl/sigma", dist.HalfNormal(c(1.0)))
+    npt.sample("dsl/anchor", dist.Normal(c(0.5), torch.sqrt(c(2.0).square() + sigma.square())),
+               obs=c(1.3))
+    u = npt.sample("u", dist.Normal(c(0.0), c(1.0)))
+    up = u > 0
+    shift = npt.sample("shift", dist.Normal(torch.where(up, c(1.0), -c(1.0)),
+                                                torch.where(up, c(1.0), c(2.0))))
+    with npt.plate("dsl/grid_0", y.shape[0], dim=-2), npt.plate("dsl/grid_1", y.shape[1], dim=-1):
+        fn = dist.Normal(mu[:, None] + shift, sigma)
+        latent = npt.sample("dsl/y_unobserved", fn.mask(False))
+        npt.factor("dsl/y_observed", 0.5 * fn.log_prob(torch.where(mask, obs, latent)))
+
+
+def phase_dsl(device):
+    """18b: the DSL model's potential on the card against the CPU's and its
+    twin's, and the host syncs of an evaluation with validation off and on;
+    returns its wall seconds and those sync counts."""
+    t0 = time.perf_counter()
+    y = torch.from_numpy(dsl_data()).to(device)
+    pe_err, g_err, sites_off, _ = potential_check("18b", dsl_model, y, DSL_POINTS, DSL_RTOL, 183)
+    gen = torch.Generator(device=device)
+    steps = {}
+    for name, model in (("model", dsl_model), ("twin", dsl_twin)):
+        info = infer_util.initialize_model(gen.manual_seed(183), model, num_chains=DSL_POINTS,
+                                           model_args=(y,))
+        shapes = {k: tuple(v.shape) for k, v in info.param_info.z.items()}
+        steps[name] = (shapes, infer_util.batched_value_and_grad(info.potential_fn))
+    shapes = steps["model"][0]
+    if steps["twin"][0] != shapes:
+        raise SystemExit(f"18b: the twin's latents {steps['twin'][0]} are not the model's "
+                         f"{shapes}")
+    rng = np.random.default_rng(184)
+    z = {k: torch.from_numpy(rng.normal(size=shapes[k]).astype(np.float32)).to(device)
+         for k in sorted(shapes)}
+    out, syncs = {}, {}
+    for label, name, validate in (("off", "model", False), ("twin", "twin", False),
+                                  ("on", "model", True)):
+        with dist.validation_enabled(validate):
+            steps[name][1](z)
+            out[label], sites = count_syncs(lambda: steps[name][1](z))
+        syncs[label] = sum(sites.values())
+    pe, grad = out["off"]
+    twin_err = ((out["twin"][0] - pe).abs() / pe.abs()).max().item()
+    twin_g = max(((out["twin"][1][k] - grad[k]).abs().max() / grad[k].abs().max()).item()
+                 for k in grad)
+    same_on = bool((out["on"][0] == pe).all()) and all(
+        bool((out["on"][1][k] == grad[k]).all()) for k in grad)
+    wall = time.perf_counter() - t0
+    log(f"[dsl] 18b obs_mask, collapse, cond, scale, scope and plate_stack ({DSL_G} x {DSL_N} "
+        f"grid, {DSL_MISSING} missing): the potential at {DSL_POINTS} points within {pe_err:.2e} "
+        f"of the CPU's, its gradient {g_err:.3f} of its atol (rtol {DSL_RTOL}); the twin's "
+        f"within {twin_err:.2e}, its gradient {twin_g:.2e} of the largest entry; host syncs per "
+        f"evaluation: validation off {syncs['off']} (twin {syncs['twin']}), on {syncs['on']}, "
+        f"the same values on: {same_on}; {wall:.2f} s")
+    if not (twin_err <= DSL_RTOL and twin_g <= DSL_RTOL and same_on):
+        raise SystemExit("18b: the potential differs from its twin's, or with validation on")
+    if syncs["off"] > syncs["twin"]:
+        raise SystemExit(f"18b: the handlers add host syncs: {syncs['off']} against the twin's "
+                         f"{syncs['twin']}")
+    return wall, syncs
+
+
+def phase_eighteen(device):
+    """Phase 18: the Dawid-Skene model and the DSL model; returns the walls of
+    its legs, 18a's ms per evaluation and the host syncs per evaluation."""
+    launches0 = dict(glm.launch_counts)
+    wall_a, ms_a, syncs_a = phase_annotation(device)
+    wall_b, syncs_b = phase_dsl(device)
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("18: the phase launched a GLM kernel")
+    return {"18a": wall_a, "18b": wall_b}, ms_a, {"18a": syncs_a, **syncs_b}
+
 
 def phase_horseshoe(X, y, beta_true, leg):
     """7b-7d: one MCMC(NUTS) run of the horseshoe; returns the MCMC object."""
@@ -3472,6 +3694,15 @@ def main():
         f"evaluation), about "
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 5 s)")
+
+    t18 = time.perf_counter()
+    walls, ms, syncs = phase_eighteen(device)
+    wall = time.perf_counter() - t18
+    log(f"[dsl] phase 18: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; 18a {ms:.2f} ms and {syncs['18a']} host syncs per evaluation; 18b {syncs['off']} "
+        f"with validation off, twin {syncs['twin']}, on {syncs['on']}), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 3 s)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

@@ -8,10 +8,13 @@ on first use.  The package imports ``torch`` and never ``jax``.
 """
 
 from numpyro_tpu_torch import distributions, handlers
+from numpyro_tpu_torch.distributions import enable_validation, validation_enabled
 from numpyro_tpu_torch.primitives import (
-    deterministic, factor, get_mask, module, mutable, param, plate, prng_key, sample, subsample,
+    deterministic, factor, get_mask, module, mutable, param, plate, plate_stack, prng_key, sample,
+    subsample,
 )
 from numpyro_tpu_torch import diagnostics, infer, nn, ops, optim
+from numpyro_tpu_torch.diagnostics import print_summary
 
 __version__ = "0.1.0"
 
@@ -20,6 +23,7 @@ __all__ = [
     "deterministic",
     "diagnostics",
     "distributions",
+    "enable_validation",
     "factor",
     "get_mask",
     "handlers",
@@ -31,7 +35,10 @@ __all__ = [
     "optim",
     "param",
     "plate",
+    "plate_stack",
+    "print_summary",
     "prng_key",
     "sample",
     "subsample",
+    "validation_enabled",
 ]

@@ -24,7 +24,7 @@ from .discrete import (
 )
 from .distribution import Distribution, _as_tensors
 from .transforms import _softplus
-from .util import betainc, betaln, promote_shapes
+from .util import betainc, betaln, promote_shapes, validate_sample
 
 __all__ = [
     "BetaBinomial", "DirichletMultinomial", "GammaPoisson", "NegativeBinomial",
@@ -50,6 +50,7 @@ class BetaBinomial(Distribution):
         p = Beta(self.concentration1, self.concentration0).sample(key, sample_shape)
         return BinomialProbs(p, total_count=self.total_count).sample(key)
 
+    @validate_sample
     def log_prob(self, value):
         a, b, n = self.concentration1, self.concentration0, self.total_count
         posterior = betaln(value + a, n - value + b)
@@ -87,6 +88,7 @@ class DirichletMultinomial(Distribution):
         counts = torch.broadcast_to(self.total_count, tuple(sample_shape) + self.batch_shape)
         return MultinomialProbs(p, total_count=counts).sample(key)
 
+    @validate_sample
     def log_prob(self, value):
         alpha = self.concentration
         a_tot = alpha.sum(-1)
@@ -124,6 +126,7 @@ class GammaPoisson(Distribution):
     def sample(self, key, sample_shape=()):
         return _gamma_poisson_draw(key, self.concentration, self.rate, sample_shape)
 
+    @validate_sample
     def log_prob(self, value):
         a, beta = self.concentration, self.rate
         log_coeff = -torch.log(a + value) - betaln(a, value + 1.0)
@@ -165,6 +168,7 @@ class NegativeBinomialLogits(GammaPoisson):
         super().__init__(params["total_count"], torch.exp(-params["logits"]),
                          validate_args=validate_args)
 
+    @validate_sample
     def log_prob(self, value):
         n, logit = self.total_count * 1.0, self.logits
         log_coeff = -torch.log(n + value) - betaln(n, value + 1.0)

@@ -66,6 +66,7 @@ from .util import (
     promote_shapes,
     standard_draw,
     standard_gamma,
+    validate_sample,
 )
 
 __all__ = [
@@ -99,6 +100,7 @@ class _LocScale(Distribution):
     """x = loc + scale * z for a fixed standardized kernel z; a family names
     the kind of its standard draw (``_z_kind``) or overrides ``_z_sample``."""
 
+    arg_constraints = dict(loc=constraints.real, scale=constraints.positive)
     support = constraints.real
     has_rsample = True
     reparametrized_params = ["loc", "scale"]
@@ -119,6 +121,7 @@ class _LocScale(Distribution):
         z = self._z_sample(key, self.shape(sample_shape))
         return self.loc + self.scale * z
 
+    @validate_sample
     def log_prob(self, value):
         return self._z_log_density(self._standardize(value)) - torch.log(self.scale)
 
@@ -273,6 +276,8 @@ class StudentT(_LocScale):
     draw source).  ``cdf`` goes through ``betainc`` (so it has no derivative
     in ``df``, as in the JAX package); ``icdf`` raises, as there."""
 
+    arg_constraints = dict(df=constraints.positive, loc=constraints.real,
+                           scale=constraints.positive)
     reparametrized_params = ["df", "loc", "scale"]
 
     def __init__(self, df, loc=0.0, scale=1.0, *, validate_args=None):
@@ -321,6 +326,7 @@ class _FoldedAtZero(Distribution):
     """|X| for a zero-centred symmetric loc-scale X; subclasses set
     ``_full_cls``."""
 
+    arg_constraints = dict(scale=constraints.positive)
     support = constraints.positive
     has_rsample = True
     reparametrized_params = ["scale"]
@@ -333,6 +339,7 @@ class _FoldedAtZero(Distribution):
     def sample(self, key, sample_shape=()):
         return torch.abs(self._mirror.sample(key, sample_shape))
 
+    @validate_sample
     def log_prob(self, value):
         return _LOG_2 + self._mirror.log_prob(value)
 
@@ -371,6 +378,8 @@ class HalfNormal(_FoldedAtZero):
 
 
 class Uniform(Distribution):
+    arg_constraints = dict(low=constraints.dependent(is_discrete=False, event_dim=0),
+                           high=constraints.dependent(is_discrete=False, event_dim=0))
     has_rsample = True
     reparametrized_params = ["low", "high"]
 
@@ -389,6 +398,7 @@ class Uniform(Distribution):
         u = standard_draw(key, "uniform", tuple(sample_shape) + self.batch_shape, self.low)
         return self.low + u * self._width()
 
+    @validate_sample
     def log_prob(self, value):
         out = broadcast_shape(tuple(value.shape), self.batch_shape)
         return (-torch.log(self._width())).expand(out)
@@ -412,6 +422,7 @@ class Uniform(Distribution):
 
 
 class Exponential(Distribution):
+    arg_constraints = dict(rate=constraints.positive)
     support = constraints.positive
     has_rsample = True
     reparametrized_params = ["rate"]
@@ -422,6 +433,7 @@ class Exponential(Distribution):
     def sample(self, key, sample_shape=()):
         return standard_draw(key, "exponential", self.shape(sample_shape), self.rate) / self.rate
 
+    @validate_sample
     def log_prob(self, value):
         return torch.log(self.rate) - self.rate * value
 
@@ -448,6 +460,7 @@ class Gamma(Distribution):
     ``util.gammainc``, differentiable in both arguments; ``icdf`` bisects
     (``util.gammaincinv``) and has no derivative."""
 
+    arg_constraints = dict(concentration=constraints.positive, rate=constraints.positive)
     support = constraints.positive
     has_rsample = True
     reparametrized_params = ["concentration", "rate"]
@@ -459,6 +472,7 @@ class Gamma(Distribution):
         alpha = torch.broadcast_to(self.concentration, self.shape(sample_shape))
         return standard_gamma(key, alpha) / self.rate
 
+    @validate_sample
     def log_prob(self, value):
         a, beta = self.concentration, self.rate
         return torch.xlogy(a - 1.0, value) - beta * value + torch.xlogy(a, beta) - torch.lgamma(a)
@@ -484,6 +498,7 @@ class Gamma(Distribution):
 
 
 class Chi2(Gamma):
+    arg_constraints = dict(df=constraints.positive)
     reparametrized_params = ["df"]
 
     def __init__(self, df, *, validate_args=None):
@@ -494,6 +509,7 @@ class Chi2(Gamma):
 class InverseGamma(TransformedDistribution):
     """1 / Gamma(concentration, rate), through ``PowerTransform(-1)``."""
 
+    arg_constraints = dict(concentration=constraints.positive, rate=constraints.positive)
     support = constraints.positive
     reparametrized_params = ["concentration", "rate"]
 
@@ -528,6 +544,7 @@ class Beta(Distribution):
     ``[tiny, 1 - eps]``; ``cdf`` is ``util.betainc`` (no derivative in the
     concentrations, as in the JAX package) and ``icdf`` bisects."""
 
+    arg_constraints = dict(concentration1=constraints.positive, concentration0=constraints.positive)
     support = constraints.unit_interval
     has_rsample = True
     reparametrized_params = ["concentration1", "concentration0"]
@@ -542,6 +559,7 @@ class Beta(Distribution):
         g0 = standard_gamma(key, torch.broadcast_to(self.concentration0, shape))
         return clamp_probs(g1 / (g1 + g0))
 
+    @validate_sample
     def log_prob(self, value):
         a, b = self.concentration1, self.concentration0
         return torch.xlogy(a - 1.0, value) + torch.special.xlog1py(b - 1.0, -value) - betaln(a, b)
@@ -573,6 +591,8 @@ class Beta(Distribution):
 class BetaProportion(Beta):
     """Beta by its mean and precision (Ferrari and Cribari-Neto)."""
 
+    arg_constraints = dict(mean=constraints.open_interval(0.0, 1.0),
+                           concentration=constraints.positive)
     reparametrized_params = ["mean", "concentration"]
 
     def __init__(self, mean, concentration, *, validate_args=None):
@@ -588,6 +608,7 @@ class Dirichlet(Distribution):
     A draw normalizes standard gamma draws (``util.standard_gamma``) and is
     clipped into ``[tiny, 1 - eps]`` as the JAX package clips its draws."""
 
+    arg_constraints = dict(concentration=constraints.independent(constraints.positive, 1))
     support = constraints.simplex
     has_rsample = True
     reparametrized_params = ["concentration"]
@@ -607,6 +628,7 @@ class Dirichlet(Distribution):
                                                         self.shape(sample_shape)))
         return clamp_probs(gammas / gammas.sum(-1, keepdim=True))
 
+    @validate_sample
     def log_prob(self, value):
         alpha = self.concentration
         log_norm = torch.lgamma(alpha).sum(-1) - torch.lgamma(alpha.sum(-1))
@@ -631,6 +653,7 @@ class Dirichlet(Distribution):
 
 
 class LogNormal(TransformedDistribution):
+    arg_constraints = dict(loc=constraints.real, scale=constraints.positive)
     support = constraints.positive
     reparametrized_params = ["loc", "scale"]
 
@@ -656,6 +679,7 @@ class LogNormal(TransformedDistribution):
 
 
 class LogUniform(TransformedDistribution):
+    arg_constraints = dict(low=constraints.positive, high=constraints.positive)
     reparametrized_params = ["low", "high"]
 
     def __init__(self, low, high, *, validate_args=None):
@@ -690,6 +714,8 @@ class LogUniform(TransformedDistribution):
 
 
 class AsymmetricLaplace(Distribution):
+    arg_constraints = dict(loc=constraints.real, scale=constraints.positive,
+                           asymmetry=constraints.positive)
     support = constraints.real
     has_rsample = True
     reparametrized_params = ["loc", "scale", "asymmetry"]
@@ -706,6 +732,8 @@ class AsymmetricLaplace(Distribution):
         return self.scale / self.asymmetry
 
     def log_prob(self, value):
+        if self._validate_args:
+            self._validate_sample(value)
         gap = value - self.loc
         side_scale = torch.where(gap < 0.0, self.left_scale, self.right_scale)
         return -torch.abs(gap) / side_scale - torch.log(self.left_scale + self.right_scale)
@@ -746,6 +774,8 @@ class AsymmetricLaplace(Distribution):
 class AsymmetricLaplaceQuantile(Distribution):
     """AsymmetricLaplace by the quantile (Bayesian quantile regression)."""
 
+    arg_constraints = dict(loc=constraints.real, scale=constraints.positive,
+                           quantile=constraints.open_interval(0.0, 1.0))
     support = constraints.real
     has_rsample = True
     reparametrized_params = ["loc", "scale", "quantile"]
@@ -757,6 +787,8 @@ class AsymmetricLaplaceQuantile(Distribution):
                                       asymmetry=kappa)
 
     def log_prob(self, value):
+        if self._validate_args:
+            self._validate_sample(value)
         return self._ald.log_prob(value)
 
     def sample(self, key, sample_shape=()):
@@ -778,6 +810,7 @@ class AsymmetricLaplaceQuantile(Distribution):
 
 
 class Pareto(TransformedDistribution):
+    arg_constraints = dict(scale=constraints.positive, alpha=constraints.positive)
     reparametrized_params = ["scale", "alpha"]
 
     def __init__(self, scale, alpha, *, validate_args=None):
@@ -818,6 +851,7 @@ class Weibull(Distribution):
     package's order).  A draw is ``scale * E ** (1 / concentration)`` for a
     standard exponential E (``random.weibull_min``)."""
 
+    arg_constraints = dict(scale=constraints.positive, concentration=constraints.positive)
     support = constraints.positive
     has_rsample = True
     reparametrized_params = ["scale", "concentration"]
@@ -829,6 +863,7 @@ class Weibull(Distribution):
         e = standard_draw(key, "exponential", tuple(sample_shape) + self.batch_shape, self.scale)
         return torch.pow(e, 1.0 / self.concentration) * self.scale
 
+    @validate_sample
     def log_prob(self, value):
         k = self.concentration
         scaled = value / self.scale
@@ -855,6 +890,7 @@ class Weibull(Distribution):
 
 
 class Kumaraswamy(Distribution):
+    arg_constraints = dict(concentration1=constraints.positive, concentration0=constraints.positive)
     support = constraints.unit_interval
     has_rsample = True
     reparametrized_params = ["concentration1", "concentration0"]
@@ -872,6 +908,7 @@ class Kumaraswamy(Distribution):
         inner = torch.log1p(-torch.pow(u, 1.0 / self.concentration0))
         return clamp_probs(torch.exp(inner / self.concentration1))
 
+    @validate_sample
     def log_prob(self, value):
         a, b = self.concentration1, self.concentration0
         return (torch.log(a * b) + torch.xlogy(a - 1.0, value)
@@ -910,6 +947,7 @@ def _exp_e1(c):
 class Gompertz(Distribution):
     """Gompertz: CDF ``1 - exp(-concentration * expm1(rate * x))``."""
 
+    arg_constraints = dict(concentration=constraints.positive, rate=constraints.positive)
     support = constraints.positive
     has_rsample = True
     reparametrized_params = ["concentration", "rate"]
@@ -921,6 +959,7 @@ class Gompertz(Distribution):
         u = standard_draw(key, "uniform", tuple(sample_shape) + self.batch_shape, self.rate)
         return self.icdf(u)
 
+    @validate_sample
     def log_prob(self, value):
         grown = value * self.rate
         return torch.log(self.concentration * self.rate) + grown - self.concentration * torch.expm1(
@@ -941,6 +980,7 @@ class Levy(Distribution):
     """Levy (alpha-stable with alpha = 1/2, beta = 1), on ``(loc, inf)``; not
     reparameterised, as in the JAX package."""
 
+    arg_constraints = dict(loc=constraints.positive, scale=constraints.positive)
     def __init__(self, loc, scale, *, validate_args=None):
         self._init_broadcast(validate_args, loc=loc, scale=scale)
         self._support = constraints.greater_than(self.loc)
@@ -949,6 +989,7 @@ class Levy(Distribution):
     def support(self):
         return self._support
 
+    @validate_sample
     def log_prob(self, value):
         gap = value - self.loc
         return (0.5 * torch.log(self.scale / (2.0 * math.pi)) - 0.5 * self.scale / gap
@@ -980,6 +1021,7 @@ class RelaxedBernoulliLogits(TransformedDistribution):
     location ``logits / temperature`` and scale ``1 / temperature`` through a
     sigmoid."""
 
+    arg_constraints = dict(temperature=constraints.positive, logits=constraints.real)
     support = constraints.unit_interval
 
     def __init__(self, temperature, logits, *, validate_args=None):
@@ -1051,6 +1093,10 @@ class MultivariateNormal(Distribution):
     (``scale_tril``; a covariance or precision matrix is factored once, to a
     NaN factor where it is not positive definite)."""
 
+    arg_constraints = {"loc": constraints.real_vector,
+                       "covariance_matrix": constraints.positive_definite,
+                       "precision_matrix": constraints.positive_definite,
+                       "scale_tril": constraints.lower_cholesky}
     support = constraints.real_vector
     has_rsample = True
 
@@ -1082,6 +1128,7 @@ class MultivariateNormal(Distribution):
         white = standard_draw(key, "normal", self.shape(sample_shape), self.loc)
         return self.loc + _mat_vec(self.scale_tril, white)
 
+    @validate_sample
     def log_prob(self, value):
         quad = _batch_mahalanobis(self.scale_tril, value - self.loc)
         n = self.scale_tril.shape[-1]
@@ -1125,6 +1172,9 @@ class LowRankMultivariateNormal(Distribution):
     *batch_shape, K)`` first, then the diagonal's ``(*sample_shape,
     *batch_shape, D)``."""
 
+    arg_constraints = {"loc": constraints.real_vector,
+                       "cov_factor": constraints.independent(constraints.real, 2),
+                       "cov_diag": constraints.independent(constraints.positive, 1)}
     support = constraints.real_vector
     has_rsample = True
 
@@ -1193,6 +1243,7 @@ class LowRankMultivariateNormal(Distribution):
         # the matrix-determinant lemma: log|C| = log|cap| + log|D|
         return _tril_logdet(self._capacitance_tril) + 0.5 * torch.log(self.cov_diag).sum(-1)
 
+    @validate_sample
     def log_prob(self, value):
         gap = value - self.loc
         projected = (self._whitened_factor @ gap[..., None])[..., 0]
@@ -1215,6 +1266,7 @@ class GaussianRandomWalk(Distribution):
     event: ``log_prob`` sums the increments' normal densities and ``sample``
     is a cumulative sum of steps, so neither needs a ``scan``."""
 
+    arg_constraints = {"scale": constraints.positive}
     support = constraints.real_vector
     has_rsample = True
 
@@ -1230,6 +1282,7 @@ class GaussianRandomWalk(Distribution):
                             dtype=self.scale.dtype)
         return self.scale[..., None] * torch.cumsum(steps, -1)
 
+    @validate_sample
     def log_prob(self, value):
         # the increments, the first one from 0, are iid N(0, scale)
         increments = torch.diff(value, dim=-1, prepend=torch.zeros_like(value[..., :1]))
@@ -1278,6 +1331,7 @@ class MultivariateStudentT(Distribution):
         heavy = white * torch.sqrt(self.df / mix)[..., None]
         return self.loc + _mat_vec(self.scale_tril, heavy)
 
+    @validate_sample
     def log_prob(self, value):
         dim = self.scale_tril.shape[-1]
         quad = _batch_mahalanobis(self.scale_tril, value - self.loc)
@@ -1368,6 +1422,7 @@ class LKJCholesky(Distribution):
         diag = torch.sqrt((1.0 - body.square().sum(-1)).clamp(min=0.0))
         return body + diag[..., None] * torch.eye(d, dtype=body.dtype, device=body.device)
 
+    @validate_sample
     def log_prob(self, value):
         diag = torch.diagonal(value, dim1=-2, dim2=-1)[..., 1:]
         # sum over rows i >= 2 of (D - i + 2 (eta - 1)) log L_ii
@@ -1449,6 +1504,7 @@ class WishartCholesky(Distribution):
         bartlett = below + _embed_diag(torch.sqrt(diag_sq))
         return self.scale_tril @ bartlett
 
+    @validate_sample
     def log_prob(self, value):
         d = self.event_shape[-1]
         df = self.concentration
@@ -1556,6 +1612,7 @@ class MatrixNormal(Distribution):
         white = standard_draw(key, "normal", self.shape(sample_shape), self.loc)
         return self.loc + self.scale_tril_row @ white @ self.scale_tril_column.transpose(-2, -1)
 
+    @validate_sample
     def log_prob(self, values):
         n, p = self.event_shape
         log_norm = (p * _tril_logdet(self.scale_tril_row) + n * _tril_logdet(self.scale_tril_column)
@@ -1617,6 +1674,7 @@ class CAR(Distribution):
         return torch.linalg.eigvalsh(
             self.adj_matrix * (d_rsqrt[..., None, :] * d_rsqrt[..., None]))
 
+    @validate_sample
     def log_prob(self, value):
         centered = value - self.loc
         adj = self.adj_matrix
@@ -1706,6 +1764,7 @@ class EulerMaruyama(Distribution):
             path.append(state)
         return torch.stack(path, len(batch))
 
+    @validate_sample
     def log_prob(self, value):
         batch = broadcast_shape(tuple(value.shape[: value.dim() - self.event_dim]),
                                 self.batch_shape)
@@ -1773,6 +1832,7 @@ class GaussianStateSpace(Distribution):
             path.append(state)
         return torch.stack(path, -2)
 
+    @validate_sample
     def log_prob(self, value):
         # the noise factor gets a time axis, so that a batch of noise
         # covariances lines up with the batch of the values (the JAX
@@ -1853,6 +1913,7 @@ class CirculantNormal(Distribution):
     def _half_log_det(self, lam, weights):
         return 0.5 * (weights * torch.log(lam)).sum(-1)
 
+    @validate_sample
     def log_prob(self, value):
         lam, weights, n = self._spectrum()
         lam = lam.clamp(min=torch.finfo(lam.dtype).tiny)

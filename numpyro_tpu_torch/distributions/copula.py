@@ -19,7 +19,9 @@ import torch
 from . import constraints
 from .continuous import Beta, _ndtr
 from .distribution import Distribution
-from .util import broadcast_shape, cholesky, clamp_probs, lazy_property, standard_draw
+from .util import (
+    broadcast_shape, cholesky, clamp_probs, lazy_property, standard_draw, validate_sample,
+)
 
 __all__ = ["GaussianCopula", "GaussianCopulaBeta"]
 
@@ -58,6 +60,7 @@ class GaussianCopula(Distribution):
         correlated = (self.scale_tril @ eps[..., None])[..., 0]
         return self.marginal_dist.icdf(_ndtr(correlated))
 
+    @validate_sample
     def log_prob(self, value):
         q = self._to_quantiles(value)
         # N(q; 0, L L^T) / prod_i N(q_i; 0, 1): the normalisers cancel but

@@ -27,6 +27,7 @@ from .util import (
     broadcast_shape,
     safe_normalize,
     standard_draw,
+    validate_sample,
     von_mises_centered,
 )
 
@@ -56,6 +57,7 @@ class VonMises(Distribution):
         draws = von_mises_centered(key, self.concentration, self.shape(sample_shape))
         return _wrap_angle(draws + self.loc)
 
+    @validate_sample
     def log_prob(self, value):
         # log C = -log(2 pi I0(k)), through the scaled i0e so that a large
         # concentration stays finite
@@ -145,7 +147,10 @@ class ProjectedNormal(Distribution):
         eps = standard_draw(key, "normal", self.shape(sample_shape), self.concentration)
         return safe_normalize(self.concentration + eps)
 
+    @validate_sample
     def log_prob(self, value):
+        if self._validate_args and tuple(value.shape[-1:]) != self.event_shape:
+            raise ValueError(f"Expected event shape {self.event_shape}")
         dim = int(self.concentration.shape[-1])
         conc = self.concentration
         # the concentration's part along the ray through the value, and the
@@ -182,6 +187,8 @@ class SineSkewed(Distribution):
         return _wrap_angle(torch.where(keep.unsqueeze(-1), ys, -ys + 2 * bd.mean))
 
     def log_prob(self, value):
+        if self._validate_args:
+            self._validate_sample(value)
         skew = torch.log1p((self.skewness * torch.sin(
             torch.remainder(value - self.base_dist.mean, _TWO_PI))).sum(-1))
         return self.base_dist.log_prob(value) + skew
@@ -264,6 +271,7 @@ class SineBivariateVonMises(Distribution):
         series = torch.logsumexp(log_binom + m * log_ratio.unsqueeze(-1) + log_bessel_sum, -1)
         return 2.0 * math.log(_TWO_PI) + series
 
+    @validate_sample
     def log_prob(self, value):
         dphi = value[..., 0] - self.phi_loc
         dpsi = value[..., 1] - self.psi_loc

@@ -29,11 +29,13 @@ from .util import (
     broadcast_shape,
     clamp_probs,
     gammainc,
+    is_batched,
     lazy_property,
     multinomial,
     poisson,
     promote_shapes,
     standard_draw,
+    validate_sample,
 )
 
 __all__ = [
@@ -70,22 +72,11 @@ def _log_simplex(probs):
     return torch.log(probs).clamp(min=torch.finfo(probs.dtype).min)
 
 
-def _is_batched(x):
-    """Whether ``x`` carries a ``vmap`` batch at any of its functorch levels
-    (its value then cannot be read on the host)."""
-    functorch = torch._C._functorch
-    while functorch.is_functorch_wrapped_tensor(x):
-        if functorch.is_batchedtensor(x):
-            return True
-        x = functorch.get_unwrapped(x)
-    return False
-
-
 def _homogeneous_int(param, what):
     """The one integer value of a parameter, read on the host, or raise: a
     parameter batched under ``vmap`` (the JAX package's traced one) or with
     more than one value has no single support to enumerate."""
-    if _is_batched(param):
+    if is_batched(param):
         raise NotImplementedError(
             f"enumerate_support requires a static {what}, got a batched value")
     lo, hi = int(param.min()), int(param.max())
@@ -150,6 +141,7 @@ class BernoulliProbs(_BernoulliBase):
     def __init__(self, probs, *, validate_args=None):
         self._init_broadcast(validate_args, probs=probs)
 
+    @validate_sample
     def log_prob(self, value):
         heads = value * 1.0
         return torch.xlogy(heads, self.probs) + torch.special.xlog1py(1.0 - heads, -self.probs)
@@ -170,6 +162,7 @@ class BernoulliLogits(_BernoulliBase):
     def __init__(self, logits=None, *, validate_args=None):
         self._init_broadcast(validate_args, logits=logits)
 
+    @validate_sample
     def log_prob(self, value):
         # -y log sigmoid(x) - (1 - y) log sigmoid(-x), in the JAX class's order
         # of operations: logaddexp(0, -|x|) + max(x, 0) - x y.  logaddexp(0, -a)
@@ -216,11 +209,16 @@ class _CategoricalBase(Distribution):
         shape = tuple(sample_shape) + self.batch_shape + tuple(table.shape[-1:])
         return torch.argmax(table + standard_draw(key, "gumbel", shape, table), dim=-1)
 
+    @validate_sample
     def log_prob(self, value):
         table = self._log_pmf
         batch = broadcast_shape(tuple(value.shape), self.batch_shape)
         table = table.expand(batch + tuple(table.shape[-1:]))
         idx = value.expand(batch).long().unsqueeze(-1)
+        if self._validate_args:
+            # an index outside the categories is scored -inf by the check; it
+            # must not reach the gather, which raises for it
+            idx = idx.clamp(0, table.shape[-1] - 1)
         return torch.gather(table, -1, idx).squeeze(-1)
 
     def enumerate_support(self, expand=True):
@@ -243,6 +241,7 @@ class _CategoricalBase(Distribution):
 
 
 class CategoricalProbs(_CategoricalBase):
+    arg_constraints = dict(probs=constraints.simplex)
     def __init__(self, probs, *, validate_args=None):
         probs = _as_float_tensor(probs)
         if probs.dim() == 0:
@@ -266,6 +265,7 @@ class CategoricalProbs(_CategoricalBase):
 
 
 class CategoricalLogits(_CategoricalBase):
+    arg_constraints = dict(logits=constraints.real_vector)
     def __init__(self, logits, *, validate_args=None):
         logits = _as_float_tensor(logits)
         if logits.dim() == 0:
@@ -327,6 +327,7 @@ class BinomialProbs(_BinomialBase):
     def __init__(self, probs, total_count=1, *, validate_args=None):
         self._init_broadcast(validate_args, probs=probs, total_count=total_count)
 
+    @validate_sample
     def log_prob(self, value):
         heads = value * 1.0
         tails = self.total_count - heads
@@ -344,6 +345,7 @@ class BinomialLogits(_BinomialBase):
     def __init__(self, logits, total_count=1, *, validate_args=None):
         self._init_broadcast(validate_args, logits=logits, total_count=total_count)
 
+    @validate_sample
     def log_prob(self, value):
         # k log p + (n - k) log q = k logit - n softplus(logit)
         kernel = value * self.logits - self.total_count * _softplus(self.logits)
@@ -394,6 +396,7 @@ class DiscreteUniform(Distribution):
         span = self._span()
         return (self.low + torch.minimum(torch.floor(u * span), span - 1)).to(torch.int64)
 
+    @validate_sample
     def log_prob(self, value):
         out = broadcast_shape(tuple(value.shape), self.batch_shape)
         return torch.broadcast_to(-torch.log(self._span()), out)
@@ -431,6 +434,7 @@ class _MultinomialBase(Distribution):
                            tuple(sample_shape) + self.batch_shape,
                            total_count_max=self.total_count_max)
 
+    @validate_sample
     def log_prob(self, value):
         n = self.total_count * 1.0
         log_coeff = torch.lgamma(n + 1.0) - torch.lgamma(value + 1.0).sum(-1)
@@ -518,6 +522,7 @@ class Poisson(Distribution):
     def sample(self, key, sample_shape=()):
         return poisson(key, self.rate, tuple(sample_shape) + self.batch_shape).to(torch.int64)
 
+    @validate_sample
     def log_prob(self, value):
         counts = value * 1.0
         return torch.xlogy(counts, self.rate) - torch.lgamma(counts + 1.0) - self.rate
@@ -559,6 +564,7 @@ class GeometricProbs(_GeometricBase):
     def __init__(self, probs, *, validate_args=None):
         self._init_broadcast(validate_args, probs=probs)
 
+    @validate_sample
     def log_prob(self, value):
         # the p = 1, k = 0 corner, where xlog1py(0, -1) would be NaN
         safe_p = torch.where((self.probs == 1) & (value == 0), 0.0, self.probs)
@@ -575,6 +581,7 @@ class GeometricLogits(_GeometricBase):
     def __init__(self, logits, *, validate_args=None):
         self._init_broadcast(validate_args, logits=logits)
 
+    @validate_sample
     def log_prob(self, value):
         return self.logits - (value + 1.0) * _softplus(self.logits)
 
@@ -653,6 +660,7 @@ class NegativeBinomial2(Distribution):
         return _gamma_poisson_draw(key, self.concentration, self.concentration / self._mu,
                                    sample_shape)
 
+    @validate_sample
     def log_prob(self, value):
         a, mu = self.concentration, self._mu
         log_coeff = -torch.log(a + value) - betaln(a, value + 1.0)
@@ -677,6 +685,7 @@ class ZeroInflatedPoisson(Distribution):
         counts = poisson(key, self.rate, shape).to(torch.int64)
         return torch.where(zeroed, 0, counts)
 
+    @validate_sample
     def log_prob(self, value):
         pois = torch.xlogy(value * 1.0, self.rate) - torch.lgamma(value + 1.0) - self.rate
         nonzero = torch.log1p(-self.gate) + pois
@@ -714,6 +723,7 @@ class ZeroInflatedProbs(Distribution):
         draws = self.base_dist.sample(key, sample_shape)
         return torch.where(zeroed, 0, draws)
 
+    @validate_sample
     def log_prob(self, value):
         nonzero = torch.log1p(-self.gate) + self.base_dist.log_prob(value)
         at_zero = torch.log(self.gate + torch.exp(nonzero))
@@ -752,6 +762,7 @@ class ZeroInflatedLogits(ZeroInflatedProbs):
         (self.gate_logits,) = promote_shapes(gate_logits, shape=batch)
         super().__init__(base_dist, torch.sigmoid(gate_logits), validate_args=validate_args)
 
+    @validate_sample
     def log_prob(self, value):
         log_gate = -_softplus(-self.gate_logits)
         shifted = self.base_dist.log_prob(value) - self.gate_logits

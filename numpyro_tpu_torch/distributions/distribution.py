@@ -2,7 +2,9 @@
 ``numpyro_tpu/distributions/distribution.py`` that the ported slices need:
 ``Distribution``, ``ExpandedDistribution``, ``Independent`` / ``to_event``,
 ``MaskedDistribution`` / ``mask``, ``TransformedDistribution``,
-``FoldedDistribution``, ``Delta``, ``Unit`` and ``ImproperUniform``).
+``FoldedDistribution``, ``Delta``, ``Unit`` and ``ImproperUniform``, with
+``DistributionLike`` and the validation switches ``enable_validation`` and
+``validation_enabled``).
 
 A draw is differentiable in the parameters wherever ``has_rsample`` holds:
 samplers push standard draws through the parameters with tensor ops, so
@@ -12,20 +14,107 @@ Distributions hold tensors and never move them between devices: Python
 numbers given as parameters become tensors on the device (and in the dtype)
 of the tensor parameters, and samplers draw on the device of their
 parameters with the generator they are given.
+
+Validation (``validate_args=True``, or ``enable_validation()`` for every
+instance) checks the parameters against ``arg_constraints`` when an instance
+is made and gives ``-inf`` to a value outside the support in every
+``log_prob`` that carries ``@validate_sample``, through ``torch.where``.  The
+``ValueError`` on a bad parameter and the warning on an out-of-support value
+read the check on the host, so only where the JAX package reads it: outside
+a ``torch.func`` transform, and never for a tensor batched under ``vmap``.
+The JAX package's NUTS potential runs under ``jit``, which stages every
+operation (nothing is read, not even a constant's check); the port's runs
+under ``vmap(grad(...))``, where nothing is read either.  With validation
+off, the default, nothing is checked or read.
 """
 
 from __future__ import annotations
+
+import warnings
+from contextlib import contextmanager
+from typing import Protocol, runtime_checkable
 
 import torch
 
 from . import constraints
 from .transforms import AbsTransform, ComposeTransform, Transform
-from .util import broadcast_shape, promote_shapes, sum_rightmost
+from .util import (
+    broadcast_shape, in_transform, lazy_property, promote_shapes, sum_rightmost, validate_sample,
+)
 
 __all__ = [
-    "Delta", "Distribution", "ExpandedDistribution", "FoldedDistribution", "ImproperUniform",
-    "Independent", "MaskedDistribution", "TransformedDistribution", "Unit",
+    "Delta", "Distribution", "DistributionLike", "ExpandedDistribution", "FoldedDistribution",
+    "ImproperUniform", "Independent", "MaskedDistribution", "TransformedDistribution", "Unit",
+    "enable_validation", "validation_enabled",
 ]
+
+_VALIDATION_ENABLED = False
+
+
+def enable_validation(is_validate=True):
+    """Switch the validation of every distribution made from now on."""
+    global _VALIDATION_ENABLED
+    _VALIDATION_ENABLED = is_validate
+    Distribution.set_default_validate_args(is_validate)
+
+
+@contextmanager
+def validation_enabled(is_validate=True):
+    """``enable_validation(is_validate)`` inside the block, the earlier
+    setting after it."""
+    old = _VALIDATION_ENABLED
+    enable_validation(is_validate)
+    try:
+        yield
+    finally:
+        enable_validation(old)
+
+
+def _all_true(ok):
+    """Whether every entry of a constraint's answer holds, read on the host;
+    ``True`` inside a ``torch.func`` transform, where it is not read."""
+    if not isinstance(ok, torch.Tensor):
+        return bool(ok)
+    return in_transform() or bool(ok.all())
+
+
+@runtime_checkable
+class DistributionLike(Protocol):
+    """The structural type of what the inference code takes as a
+    distribution: a :class:`Distribution`, or any object with the same
+    surface (``isinstance(obj, DistributionLike)`` checks it)."""
+
+    @property
+    def batch_shape(self) -> tuple:
+        ...
+
+    @property
+    def event_shape(self) -> tuple:
+        ...
+
+    @property
+    def event_dim(self) -> int:
+        ...
+
+    def sample(self, key, sample_shape=()):
+        ...
+
+    def log_prob(self, value):
+        ...
+
+    @property
+    def mean(self):
+        ...
+
+    @property
+    def variance(self):
+        ...
+
+    def cdf(self, value):
+        ...
+
+    def icdf(self, q):
+        ...
 
 
 def _as_tensors(params):
@@ -52,14 +141,44 @@ class Distribution:
     has_rsample = False
     # whether ``enumerate_support`` lists the support (finite discrete ones)
     has_enumerate_support = False
+    # the default of every instance; ``enable_validation`` sets it
+    _validate_args = False
+
+    @staticmethod
+    def set_default_validate_args(value):
+        Distribution._validate_args = value
 
     def __init__(self, batch_shape=(), event_shape=(), *, validate_args=None):
         self._batch_shape = tuple(batch_shape)
         self._event_shape = tuple(event_shape)
-        if validate_args:
-            raise NotImplementedError(
-                "validate_args is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
+        if validate_args is not None:
+            self._validate_args = validate_args
+        if self._validate_args:
+            self._assert_param_constraints()
+
+    def _assert_param_constraints(self):
+        for name, constraint in self.arg_constraints.items():
+            if isinstance(constraint, constraints._Dependent):
+                continue
+            descriptor = getattr(type(self), name, None)
+            if isinstance(descriptor, lazy_property) and name not in self.__dict__:
+                continue  # a lazy parameter is not computed to be checked
+            # a parametrization the instance does not hold is not checked
+            # (the JAX package raises AttributeError there)
+            value = getattr(self, name, None)
+            if value is None:
+                continue
+            if not _all_true(constraint(value)):
+                raise ValueError(f"{type(self).__name__}: invalid {name} parameter")
+
+    def _validate_sample(self, value):
+        ok = self.support(value)
+        if not _all_true(ok):
+            warnings.warn(
+                f"Out-of-support values provided to log_prob of {type(self).__name__}",
+                stacklevel=2,
             )
+        return ok
 
     def _init_broadcast(self, validate_args=None, event_shape=(), event_dims=None, **params):
         """Promote the named parameters against each other, bind them as
@@ -392,6 +511,7 @@ class TransformedDistribution(Distribution):
             intermediates.append([x_in, t_inter])
         return x, intermediates
 
+    @validate_sample
     def log_prob(self, value, intermediates=None):
         """With the ``intermediates`` of :meth:`sample_with_intermediates` the
         transforms' inputs are read, not recomputed through the inverses."""
@@ -436,6 +556,7 @@ class FoldedDistribution(TransformedDistribution):
             raise ValueError("Only univariate distributions can be folded.")
         super().__init__(base_dist, AbsTransform(), validate_args=validate_args)
 
+    @validate_sample
     def log_prob(self, value):
         # the two signs on a new leading axis, summed out in log space
         signs = torch.tensor([1.0, -1.0], dtype=_float_dtype(value), device=value.device)
@@ -447,6 +568,8 @@ class Delta(Distribution):
     """A point mass at ``v`` (its rightmost ``event_dim`` dims make one
     value), carrying ``log_density`` as its log-probability there."""
 
+    arg_constraints = {"v": constraints.dependent(is_discrete=False),
+                       "log_density": constraints.real}
     has_rsample = True
 
     def __init__(self, v=0.0, log_density=0.0, event_dim=0, *, validate_args=None):
@@ -471,6 +594,7 @@ class Delta(Distribution):
     def sample(self, key, sample_shape=()):
         return torch.broadcast_to(self.v, self.shape(sample_shape))
 
+    @validate_sample
     def log_prob(self, value):
         hit = torch.where(value == self.v, 0.0, -torch.inf).to(_float_dtype(value))
         return sum_rightmost(hit, self.event_dim) + self.log_density
@@ -492,6 +616,7 @@ class Unit(Distribution):
     """Trivial nonnormalized distribution over the empty event: the carrier
     of a bare ``log_factor`` (used by the ``factor`` primitive)."""
 
+    arg_constraints = {"log_factor": constraints.real}
     support = constraints.real
 
     def __init__(self, log_factor, *, validate_args=None):
@@ -517,11 +642,19 @@ class ImproperUniform(Distribution):
         self.support = constraints.independent(support, len(event_shape) - support.event_dim)
         super().__init__(batch_shape, event_shape, validate_args=validate_args)
 
+    @validate_sample
     def log_prob(self, value):
         lead = value.dim() - self.event_dim
         dtype = _float_dtype(value)
         return torch.zeros(broadcast_shape(tuple(value.shape[:lead]), self.batch_shape),
                            dtype=dtype, device=value.device)
+
+    def _validate_sample(self, value):
+        ok = super()._validate_sample(value)
+        lead = value.dim() - self.event_dim
+        if lead < ok.dim():
+            ok = ok.all(tuple(range(lead - ok.dim(), 0)))
+        return ok
 
     def sample(self, key, sample_shape=()):
         raise NotImplementedError(

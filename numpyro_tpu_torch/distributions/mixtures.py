@@ -15,6 +15,7 @@ import torch
 
 from .discrete import CategoricalLogits, CategoricalProbs
 from .distribution import Distribution
+from .util import validate_sample
 
 __all__ = ["Mixture", "MixtureGeneral", "MixtureSameFamily"]
 
@@ -89,6 +90,7 @@ class _MixtureBase(Distribution):
     def sample(self, key, sample_shape=()):
         return self.sample_with_intermediates(key, sample_shape)[0]
 
+    @validate_sample
     def log_prob(self, value, intermediates=None):
         return torch.logsumexp(self.component_log_probs(value), -1)
 

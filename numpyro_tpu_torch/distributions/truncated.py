@@ -26,7 +26,9 @@ import torch
 from . import constraints
 from .continuous import Cauchy, Laplace, Logistic, Normal, StudentT
 from .distribution import Distribution, _as_tensors
-from .util import broadcast_shape, clamp_probs, lazy_property, standard_draw, standard_gamma
+from .util import (
+    broadcast_shape, clamp_probs, lazy_property, standard_draw, standard_gamma, validate_sample,
+)
 
 __all__ = [
     "DoublyTruncatedPowerLaw",
@@ -92,6 +94,7 @@ class _WindowTruncated(Distribution):
         loc = self.base_dist.loc
         return torch.where(sign > 0, draw, 2.0 * loc - draw)
 
+    @validate_sample
     def log_prob(self, value):
         sign, w_lo, w_hi = self._frame_window()
         return self.base_dist.log_prob(value) - torch.log(sign * (w_hi - w_lo))
@@ -129,6 +132,7 @@ class _WindowTruncated(Distribution):
 
 
 class LeftTruncatedDistribution(_WindowTruncated):
+    arg_constraints = {"low": constraints.real}
     reparametrized_params = ["low"]
 
     def __init__(self, base_dist, low=0.0, *, validate_args=None):
@@ -155,6 +159,7 @@ class LeftTruncatedDistribution(_WindowTruncated):
 
 
 class RightTruncatedDistribution(_WindowTruncated):
+    arg_constraints = {"high": constraints.real}
     reparametrized_params = ["high"]
 
     def __init__(self, base_dist, high=0.0, *, validate_args=None):
@@ -176,6 +181,8 @@ class RightTruncatedDistribution(_WindowTruncated):
 
 
 class TwoSidedTruncatedDistribution(_WindowTruncated):
+    arg_constraints = {"low": constraints.dependent(is_discrete=False, event_dim=0),
+                       "high": constraints.dependent(is_discrete=False, event_dim=0)}
     reparametrized_params = ["low", "high"]
 
     def __init__(self, base_dist, low=0.0, high=1.0, *, validate_args=None):
@@ -243,6 +250,7 @@ class TruncatedPolyaGamma(Distribution):
         gammas = standard_gamma(key, torch.ones(shape, dtype=like.dtype, device=like.device))
         return (gammas * weights).sum(-1).clamp(max=self.truncation_point)
 
+    @validate_sample
     def log_prob(self, value):
         # the alternating series: log f = log(sum_even - sum_odd) - log sqrt(2 pi)
         x = value[..., None]
@@ -257,6 +265,7 @@ class TruncatedPolyaGamma(Distribution):
 class LowerTruncatedPowerLaw(Distribution):
     """The power law x^alpha on [low, inf), alpha < -1."""
 
+    arg_constraints = {"alpha": constraints.less_than(-1.0), "low": constraints.greater_than(0.0)}
     has_rsample = True
     reparametrized_params = ["alpha", "low"]
 
@@ -272,6 +281,7 @@ class LowerTruncatedPowerLaw(Distribution):
         """-(1 + alpha) > 0, the decay exponent of the survival function."""
         return -(1.0 + self.alpha)
 
+    @validate_sample
     def log_prob(self, value):
         decay = self._tail_exponent()
         return self.alpha * torch.log(value) + torch.log(decay) + decay * torch.log(self.low)
@@ -309,6 +319,8 @@ class DoublyTruncatedPowerLaw(Distribution):
     branch ("double where") keeps both branches and their gradients free of
     NaN, as in the JAX package."""
 
+    arg_constraints = {"alpha": constraints.real, "low": constraints.greater_than_eq(0),
+                       "high": constraints.greater_than(0)}
     has_rsample = True
     reparametrized_params = ["alpha", "low", "high"]
 
@@ -325,6 +337,7 @@ class DoublyTruncatedPowerLaw(Distribution):
         regular = self.alpha != -1.0
         return regular, torch.where(regular, 1.0 + self.alpha, 1.0)
 
+    @validate_sample
     def log_prob(self, value):
         regular, expo = self._regular_exponent()
         norm_reg = (torch.pow(self.high, expo) - torch.pow(self.low, expo)) / expo

@@ -36,9 +36,10 @@ import torch
 
 __all__ = [
     "betainc", "betaincinv", "betaln", "binomial", "broadcast_shape", "categorical",
-    "cholesky", "cholesky_update", "clamp_probs", "gammainc", "gammaincinv", "inv", "lazy_property",
-    "logmatmulexp", "multinomial", "poisson", "promote_shapes", "safe_normalize",
-    "scale_and_mask", "standard_draw", "standard_gamma", "sum_rightmost", "von_mises_centered",
+    "cholesky", "cholesky_update", "clamp_probs", "gammainc", "gammaincinv", "in_transform",
+    "inv", "is_batched", "lazy_property", "logmatmulexp", "multinomial", "poisson",
+    "promote_shapes", "safe_normalize", "scale_and_mask", "standard_draw", "standard_gamma",
+    "sum_rightmost", "validate_sample", "von_mises_centered",
 ]
 
 
@@ -117,6 +118,40 @@ def logmatmulexp(x, y):
     col_max = y.amax(-2, keepdim=True).detach()
     centered = torch.matmul(torch.exp(x - row_max), torch.exp(y - col_max))
     return torch.log(centered) + row_max + col_max
+
+
+def is_batched(x):
+    """Whether ``x`` carries a ``vmap`` batch at any of its functorch levels
+    (its value then cannot be read on the host)."""
+    functorch = torch._C._functorch
+    while isinstance(x, torch.Tensor) and functorch.is_functorch_wrapped_tensor(x):
+        if functorch.is_batchedtensor(x):
+            return True
+        x = functorch.get_unwrapped(x)
+    return False
+
+
+def in_transform():
+    """Whether the code runs inside a ``torch.func`` transform (``vmap``,
+    ``grad``, ``jvp``): the port's counterpart of tracing under ``jax.jit``,
+    which stages every operation, so that nothing computed there is read on
+    the host.  The port's potentials and predictive draws run there."""
+    return torch._C._functorch.maybe_current_level() is not None
+
+
+def validate_sample(log_prob_fn):
+    """Decorate a ``log_prob``: with validation on, a value outside the
+    support gets ``-inf``, selected by ``torch.where`` (no host read)."""
+
+    @functools.wraps(log_prob_fn)
+    def wrapper(self, *args, **kwargs):
+        out = log_prob_fn(self, *args, **kwargs)
+        if self._validate_args:
+            value = kwargs.get("value", args[0] if args else None)
+            out = torch.where(self._validate_sample(value), out, -math.inf)
+        return out
+
+    return wrapper
 
 
 class lazy_property:

@@ -1,3 +1,4 @@
 from numpyro_tpu_torch.ops import glm
+from numpyro_tpu_torch.ops.indexing import Vindex, vindex
 
-__all__ = ["glm"]
+__all__ = ["Vindex", "glm", "vindex"]

@@ -1,8 +1,8 @@
-"""Model-DSL primitives and the effect-handler message stack (port of the
-parts of ``numpyro_tpu/primitives.py`` that the ported slices need:
-``Messenger``, ``apply_stack``, ``sample``, ``param``, ``mutable``,
-``factor``, ``deterministic``, ``plate``, ``subsample``, ``get_mask`` and
-``module``).
+"""Model-DSL primitives and the effect-handler message stack (port of
+``numpyro_tpu/primitives.py`` but for ``flax_module``, a bridge to flax:
+``Messenger``, ``apply_stack``, ``sample`` with ``obs_mask``, ``param``,
+``mutable``, ``factor``, ``deterministic``, ``plate``, ``plate_stack``,
+``subsample``, ``get_mask`` and ``module``).
 
 The handler stack is plain Python that runs whenever the model runs.  Under
 ``torch.func`` transforms (the chain-batched potential) the model runs once
@@ -18,6 +18,7 @@ from __future__ import annotations
 import functools
 import warnings
 from collections import namedtuple
+from contextlib import ExitStack, contextmanager
 
 import torch
 
@@ -27,7 +28,8 @@ from numpyro_tpu_torch.util import identity
 
 __all__ = [
     "CondIndepStackFrame", "Messenger", "apply_stack", "deterministic", "factor",
-    "get_mask", "module", "mutable", "param", "plate", "prng_key", "sample", "subsample",
+    "get_mask", "module", "mutable", "param", "plate", "plate_stack", "prng_key", "sample",
+    "subsample",
 ]
 
 CondIndepStackFrame = namedtuple("CondIndepStackFrame", ["name", "dim", "size", "subsample_size"])
@@ -109,14 +111,25 @@ def _dispatch(msg_type, name=None, fn=identity, value=None, kwargs=None, **extra
     return apply_stack(msg)
 
 
+def _masked_observe(name, fn, obs, obs_mask, **kwargs):
+    """A partly observed site as two: ``{name}_unobserved``, a latent of the
+    whole shape whose density is masked out, and ``{name}_observed``, scored
+    at the data where ``obs_mask`` holds and at the latent elsewhere; their
+    merged value is the deterministic ``{name}``."""
+    value = sample(f"{name}_unobserved", fn.mask(False), **kwargs)
+    if obs is not None:
+        keep = obs_mask.reshape(tuple(obs_mask.shape) + (1,) * fn.event_dim)
+        value = torch.where(keep, obs, value)
+    sample(f"{name}_observed", fn, **kwargs, obs=value, obs_mask=None)
+    return deterministic(name, value)
+
+
 def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_mask=None):
-    """Declare a random variable.  ``rng_key`` is a ``torch.Generator``."""
+    """Declare a random variable.  ``rng_key`` is a ``torch.Generator``; a
+    boolean ``obs_mask`` (broadcast over the batch of ``fn``) marks the
+    entries of ``obs`` that are observed, the rest being latent."""
     if not isinstance(fn, dist.Distribution):
         raise TypeError(f"sample() fn must be a Distribution, got {fn!r}")
-    if obs_mask is not None:
-        raise NotImplementedError(
-            "obs_mask is not ported to numpyro_tpu_torch yet (see ROADMAP.md)"
-        )
     if not _PYRO_STACK:
         if obs is not None:
             return obs
@@ -126,6 +139,10 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
                 "an explicit rng_key."
             )
         return fn(rng_key=rng_key, sample_shape=sample_shape)
+    if obs_mask is not None:
+        return _masked_observe(
+            name, fn, obs, obs_mask, rng_key=rng_key, sample_shape=sample_shape, infer=infer
+        )
     return _dispatch(
         "sample",
         name,
@@ -332,6 +349,19 @@ class plate(Messenger):
             )
         if self.subsample_size < self.size:
             msg["value"] = torch.index_select(msg["value"], axis, self._indices)
+
+
+@contextmanager
+def plate_stack(prefix, sizes, rightmost_dim=-1):
+    """Nested plates ``{prefix}_0`` .. ``{prefix}_{n-1}`` of ``sizes``, on
+    dims ``rightmost_dim - n + 1`` .. ``rightmost_dim``: the last size is
+    the innermost plate, on ``rightmost_dim``."""
+    assert rightmost_dim < 0
+    with ExitStack() as stack:
+        for i, size in enumerate(reversed(sizes)):
+            name = f"{prefix}_{len(sizes) - i - 1}"
+            stack.enter_context(plate(name, size, dim=rightmost_dim - i))
+        yield
 
 
 def factor(name, log_factor):

@@ -13,7 +13,9 @@ directional families on the card against the CPU, their draws through the
 port's ``gof``, and a Gamma draw's exact derivative in both modes; and the
 structured and matrix families and transforms on the card against the CPU,
 their draws through ``gof``, a Wishart gradient on the same draws, and
-phase 17's two potentials.
+phase 17's two potentials; ``Vindex``, a validated ``log_prob`` and
+``cond`` on the card against the CPU, and phase 18b's host syncs against
+its twin's.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -1200,3 +1202,78 @@ def test_wishart_and_student_t_not_positive_definite_give_nan_on_the_card(cuda):
                                   cholesky(torch.stack([good, bad])))
     lp = t.log_prob(torch.ones(2, device=cuda))
     assert torch.isfinite(lp[0]) and torch.isnan(lp[1])
+
+
+@pytest.mark.requires_cuda
+def test_vindex_on_the_card_matches_the_cpu(cuda):
+    """``examples/annotation.py``'s enumerated index, and a slice between two
+    batched keys, on CUDA tensors against CPU tensors (exactly)."""
+    from numpyro_tpu_torch.ops.indexing import Vindex, vindex
+
+    beta = torch.randn(5, 3, 3, generator=torch.Generator().manual_seed(0))
+    positions, c = torch.arange(5), torch.arange(3).reshape(3, 1, 1)
+    want = Vindex(beta)[positions, c, :]
+    got = Vindex(beta.to(cuda))[positions.to(cuda), c.to(cuda), :]
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    keys = (torch.tensor([0, 2, 4]), slice(None), torch.tensor([1, 0, 2]))
+    got = vindex(beta.to(cuda), tuple(k.to(cuda) if torch.is_tensor(k) else k for k in keys))
+    assert torch.equal(got.cpu(), vindex(beta, keys))
+
+
+@pytest.mark.requires_cuda
+def test_validated_log_prob_on_the_card_matches_the_cpu(cuda):
+    """With validation on, an out-of-support value's ``-inf`` and an
+    in-support value's density on the card are the CPU's, and under
+    ``vmap`` nothing is read on the host (no sync)."""
+    cs = _phase15()
+    values = torch.tensor([[0.2, 0.3, 0.5], [0.5, 0.6, -0.1]])
+    with dist.validation_enabled():
+        d_cpu = dist.Dirichlet(torch.tensor([1.0, 2.0, 3.0]))
+        d_dev = dist.Dirichlet(torch.tensor([1.0, 2.0, 3.0], device=cuda))
+        with pytest.warns(UserWarning, match="Out-of-support"):
+            want = d_cpu.log_prob(values)
+        on_card = values.to(cuda)
+        with pytest.warns(UserWarning, match="Out-of-support"):
+            got = d_dev.log_prob(on_card)
+        lp, sites = cs.count_syncs(lambda: torch.func.vmap(d_dev.log_prob)(on_card))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    assert want[1].item() == -float("inf") and torch.equal(lp.cpu(), got.cpu())
+    assert sites == {}, sites
+
+
+@pytest.mark.requires_cuda
+def test_cond_on_the_card_matches_the_cpu(cuda):
+    """A tensor predicate on the card selects the taken branch's value and
+    sites as on the CPU, with no host sync."""
+    from numpyro_tpu_torch.contrib.control_flow import cond
+
+    cs = _phase15()
+
+    def model(u):
+        return cond(u > 0, lambda s: npt.sample("x", dist.Normal(s, 1.0 * s)),
+                    lambda s: npt.sample("x", dist.Normal(-s, 2.0 * s)), u.new_full((), 1.5))
+
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        u = torch.tensor([-0.5, 0.5], device=device)
+        x = torch.tensor([0.3, -0.2], device=device)
+
+        def run():
+            return torch.func.vmap(lambda ui, xi: handlers.trace(handlers.substitute(
+                model, data={"x": xi})).get_trace(ui)["x"]["fn"].log_prob(xi))(u, x)
+
+        run()
+        out[device.type], sites = cs.count_syncs(run)
+        if device.type == "cuda":
+            assert sites == {}, sites
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=1e-6, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_dsl_model_on_the_card_makes_no_host_sync_more_than_its_twin(cuda):
+    """Phase 18b: the potential on the card against the CPU's and its twin's;
+    a NUTS evaluation makes no host sync more than the twin's, with
+    validation off and on."""
+    cs = _phase15()
+    walls, syncs = cs.phase_dsl(cuda)
+    assert syncs["off"] <= syncs["twin"] and syncs["on"] <= syncs["twin"], syncs
