@@ -227,6 +227,28 @@ Phases (each prints on its own lines; any failure exits non-zero):
                written without those handlers, with the host syncs of an
                evaluation counted with validation off (no more than the
                twin's) and on.  No GLM launch.
+19. tail    -- the inference tail: (a) ``initialize_model`` at 256 chains on
+               the covtype model in split mode at full size under
+               ``init_to_median``, ``init_to_mean``, ``init_to_feasible``,
+               ``init_to_sample`` and ``init_to_value``: the potential and
+               gradient at the found params against the plain version within
+               ``glm.kernel_tolerances``, zeros from ``init_to_feasible`` and
+               ``init_to_mean`` and the given values from ``init_to_value``,
+               exactly, and the spread over chains of ``init_to_median`` (and
+               ``init_to_sample``) within 4 Monte-Carlo errors of the exact
+               one; every model trace and batched evaluation launches
+               ``glm_split`` once.  Then NUTS from ``init_to_median``
+               (``INIT_RUN``), ``transfer_states_to_host`` (the draws on the
+               host equal the card's bit for bit) and
+               ``parallel.cross_chain_diagnostics`` on the card against
+               ``split_gelman_rubin`` and ``effective_sample_size`` on the
+               CPU.  (b) ``get_dependencies``, ``get_model_relations`` and
+               ``generate_graph_specification`` of the covtype model (each
+               call launches ``glm_split`` for its trace and under its
+               provenance pass, never the plain version) and of 18b's DSL
+               model against the JAX package's (``INSPECT_REF``,
+               ``dev/inspect_reference.py``), and ``compute_log_probs`` of
+               the DSL model on the card against the CPU's.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -255,16 +277,19 @@ from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
 from numpyro_tpu_torch.infer import (
     AIES, ESS, HMC, HMCECS, MCMC, NUTS, SA, SMC, SVI, BarkerMH, CheesHMC, DiscreteHMCGibbs,
     MixedHMC, Predictive, Trace_ELBO, TraceEnum_ELBO, TraceGraph_ELBO, TraceMeanField_ELBO,
-    init_to_value, log_likelihood,
+    get_dependencies, get_model_relations, init_to_feasible, init_to_mean, init_to_median,
+    init_to_sample, init_to_value, log_likelihood,
 )
 from numpyro_tpu_torch.infer import autoguide
 from numpyro_tpu_torch.infer.reparam import LocScaleReparam, NeuTraReparam
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc_core import FlatLayout, batched_potential
+from numpyro_tpu_torch.infer.inspect import generate_graph_specification
 from numpyro_tpu_torch.infer.mcmc import POSTPROCESS_CHUNK
 from numpyro_tpu_torch.ops import _cuda, glm
 from numpyro_tpu_torch.ops.indexing import Vindex
 from numpyro_tpu_torch.optim import Adam, Minimize
+from numpyro_tpu_torch.parallel import cross_chain_diagnostics, pooled_step_size
 from numpyro_tpu_torch.util import tree_leaves
 
 N, D, CHAINS = 581_012, 55, 256
@@ -2477,6 +2502,319 @@ def phase_eighteen(device):
     return {"18a": wall_a, "18b": wall_b}, ms_a, {"18a": syncs_a, **syncs_b}
 
 
+# phase 19, the inference tail. Its budget is 4 s on the reference host of
+# PERF.md section 2 (the ECS leg at 24.0 ms an evaluation). (a)
+# initialize_model at INIT_CHAINS chains on the covtype model in split mode at
+# full size under the five strategies of INIT_STRATEGIES (the values of
+# init_to_value: numpy normals of scale 0.5, seed 190): each potential and
+# gradient at the found params against the plain version within check_kernel's
+# tolerances; init_to_feasible and init_to_mean give zeros and init_to_value
+# its values, exactly; the per-coordinate spread over chains of init_to_median
+# within 4 Monte-Carlo errors of the spread of the median of MEDIAN_OF standard
+# normals (init_to_sample's: of one standard normal). A strategy that draws
+# traces the model once per chain, a kernel launch each
+# (infer.util._batched_candidates). Then NUTS from init_to_median, INIT_RUN
+# (chains, warmup, samples, depths; chains cut from 256 to 64 before its first
+# run on the card: 64 more traces, not 256), transfer_states_to_host and the
+# cross-chain diagnostics on the card against the CPU's at CROSS_RTOL. Expected
+# before its first run on an H100: 2-4 ms a model trace (a CPU rehearsal,
+# `python3 -m dev.phase19 cpu`: 1.4 ms of host time beside the plain
+# likelihood), so 0.5-1.0 s for each of the two drawing strategies, 0.1-0.3 s
+# for the rest of (a)'s inits and checks, 0.2 s for NUTS's init and 0.9-1.2 s
+# for its ~170 evaluations; (b) 0.2-0.5 s. Phase 19: 2.4-4.2 s, about 1.9-3.4 s
+# on the reference host. Measured on an H100 80GB at 700 W in the whole script:
+# 1.5 s (0.39 ms a trace). (b) get_dependencies, get_model_relations and
+# generate_graph_specification of the covtype model (one glm_split launch for
+# the trace and one under provenance, each) and of phase 18b's DSL model,
+# against INSPECT_REF, the JAX package's on the CPU (`JAX_PLATFORMS=cpu python3
+# -m dev.inspect_reference`); compute_log_probs of the DSL model at batch_ndims
+# 0 and 1 on the card against the CPU's at LOG_PROBS_RTOL.
+INIT_CHAINS = 256
+INIT_STRATEGIES = {"init_to_median": init_to_median, "init_to_mean": init_to_mean,
+                   "init_to_feasible": init_to_feasible, "init_to_sample": init_to_sample,
+                   "init_to_value": None}
+MEDIAN_OF = 15
+INIT_RUN = (64, 10, 10, (3, 3))
+CROSS_RTOL = 1e-5
+LOG_PROBS_RTOL = 1e-5
+INSPECT_REF = {'covtype': {'dependencies': {'prior_dependencies': {'w': {'w': set()},
+                                                                   'lik': {'lik': set(),
+                                                                           'w': set()}},
+                                            'posterior_dependencies': {'w': {'w': set(),
+                                                                             'lik': set()}}},
+                           'relations': {'sample_sample': {'w': [], 'lik': ['w']},
+                                         'sample_param': {'w': [], 'lik': []},
+                                         'sample_dist': {'w': 'Normal', 'lik': 'Unit'},
+                                         'param_constraint': {},
+                                         'plate_sample': {},
+                                         'observed': ['lik']},
+                           'graph': ({None: ['w', 'lik']},
+                                     {},
+                                     {'w': (False, 'Normal', ''), 'lik': (True, 'Unit', '')},
+                                     [('w', 'lik')])},
+               'dsl': {'dependencies': {'prior_dependencies': {'dsl/mu': {'dsl/mu': set()},
+                                                               'dsl/sigma': {'dsl/sigma': set()},
+                                                               'dsl/anchor': {'dsl/anchor': set(),
+                                                                              'dsl/sigma': set()},
+                                                               'u': {'u': set()},
+                                                               'shift': {'shift': set(),
+                                                                         'u': set()},
+                                                               'dsl/y_unobserved': {'dsl/y_unobserved': set()},
+                                                               'dsl/y_observed': {'dsl/y_observed': set(),
+                                                                                  'dsl/mu': set(),
+                                                                                  'dsl/sigma': set(),
+                                                                                  'shift': set(),
+                                                                                  'dsl/y_unobserved': set()}},
+                                        'posterior_dependencies': {'dsl/mu': {'dsl/mu': set(),
+                                                                              'dsl/y_observed': set(),
+                                                                              'dsl/sigma': set(),
+                                                                              'shift': set(),
+                                                                              'dsl/y_unobserved': set()},
+                                                                   'dsl/sigma': {'dsl/sigma': set(),
+                                                                                 'dsl/anchor': set(),
+                                                                                 'dsl/y_observed': set(),
+                                                                                 'shift': set(),
+                                                                                 'dsl/y_unobserved': set()},
+                                                                   'u': {'u': set(),
+                                                                         'shift': set()},
+                                                                   'shift': {'shift': set(),
+                                                                             'dsl/y_observed': set(),
+                                                                             'dsl/y_unobserved': set()},
+                                                                   'dsl/y_unobserved': {'dsl/y_unobserved': set(),
+                                                                                        'dsl/y_observed': set()}}},
+                       'relations': {'sample_sample': {'dsl/mu': [],
+                                                       'dsl/sigma': [],
+                                                       'dsl/anchor': ['dsl/sigma'],
+                                                       'u': [],
+                                                       'shift': ['u'],
+                                                       'dsl/y_unobserved': [],
+                                                       'dsl/y_observed': ['dsl/mu',
+                                                                          'dsl/sigma',
+                                                                          'shift'],
+                                                       'dsl/y': ['dsl/y_unobserved']},
+                                     'sample_param': {'dsl/mu': [],
+                                                      'dsl/sigma': [],
+                                                      'dsl/anchor': [],
+                                                      'u': [],
+                                                      'shift': [],
+                                                      'dsl/y_unobserved': [],
+                                                      'dsl/y_observed': [],
+                                                      'dsl/y': []},
+                                     'sample_dist': {'dsl/mu': 'Normal',
+                                                     'dsl/sigma': 'HalfNormal',
+                                                     'dsl/anchor': 'Normal',
+                                                     'u': 'Normal',
+                                                     'shift': 'Normal',
+                                                     'dsl/y_unobserved': 'Normal',
+                                                     'dsl/y_observed': 'Normal',
+                                                     'dsl/y': 'Deterministic'},
+                                     'param_constraint': {},
+                                     'plate_sample': {'dsl/grid_1': ['dsl/y_unobserved',
+                                                                     'dsl/y_observed',
+                                                                     'dsl/y'],
+                                                      'dsl/grid_0': ['dsl/y_unobserved',
+                                                                     'dsl/y_observed',
+                                                                     'dsl/y']},
+                                     'observed': ['dsl/anchor', 'dsl/y_observed']},
+                       'graph': ({'dsl/grid_1': ['dsl/y_unobserved', 'dsl/y_observed', 'dsl/y'],
+                                  'dsl/grid_0': ['dsl/y_unobserved', 'dsl/y_observed', 'dsl/y'],
+                                  None: ['dsl/mu', 'dsl/sigma', 'dsl/anchor', 'u', 'shift']},
+                                 {'dsl/grid_1': None, 'dsl/grid_0': 'dsl/grid_1'},
+                                 {'dsl/mu': (False, 'Normal', ''),
+                                  'dsl/sigma': (False, 'HalfNormal', ''),
+                                  'dsl/anchor': (True, 'Normal', ''),
+                                  'u': (False, 'Normal', ''),
+                                  'shift': (False, 'Normal', ''),
+                                  'dsl/y_unobserved': (False, 'Normal', ''),
+                                  'dsl/y_observed': (True, 'Normal', ''),
+                                  'dsl/y': (False, 'Deterministic', '')},
+                                 [('dsl/sigma', 'dsl/anchor'),
+                                  ('u', 'shift'),
+                                  ('dsl/mu', 'dsl/y_observed'),
+                                  ('dsl/sigma', 'dsl/y_observed'),
+                                  ('shift', 'dsl/y_observed'),
+                                  ('dsl/y_unobserved', 'dsl/y')])}}
+
+
+def median_of_normals_moments(n=MEDIAN_OF):
+    """The variance and fourth central moment of the median of ``n`` (odd)
+    standard normals, by quadrature of its order-statistic density."""
+    x = np.linspace(-8.0, 8.0, 32001)
+    cdf = 0.5 * (1.0 + np.vectorize(math.erf)(x / math.sqrt(2.0)))
+    k = (n - 1) // 2
+    coef = math.factorial(n) / (math.factorial(k) ** 2)
+    density = coef * (cdf * (1.0 - cdf)) ** k * np.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+    dx = x[1] - x[0]
+    return float((x**2 * density).sum() * dx), float((x**4 * density).sum() * dx)
+
+
+def spread_gap(draws, var, mu4):
+    """The largest gap over coordinates between the standard deviation over
+    chains of ``draws`` ``(C, D)`` and ``sqrt(var)``, in units of the
+    Monte-Carlo error of a sample variance (``mu4``, the fourth moment)."""
+    c = draws.shape[0]
+    sd = draws.double().std(0).cpu().numpy()
+    se = math.sqrt((mu4 - var**2 * (c - 3) / (c - 1)) / c) / (2 * math.sqrt(var))
+    return float(np.abs(sd - math.sqrt(var)).max() / se)
+
+
+def phase_init_strategies(X, y):
+    """19a: the init strategies at INIT_CHAINS chains on the covtype model,
+    then NUTS from init_to_median, the transfer of its states and the
+    cross-chain diagnostics; returns the seconds, the glm_split launches and
+    the seconds of one init_to_median try."""
+    t0 = time.perf_counter()
+    device = X.device
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    values = torch.from_numpy(
+        np.random.default_rng(190).normal(0.0, 0.5, D).astype(np.float32)).to(device)
+    strategies = dict(INIT_STRATEGIES, init_to_value=init_to_value(values={"w": values}))
+    plain_step = infer_util.batched_value_and_grad(functools.partial(
+        infer_util.potential_energy, model, (data,), {"loglik": glm.plain_bernoulli_logits_loglik}))
+    _, _, atol = glm.kernel_tolerances("split", N)
+    launches, try_s = 0, None
+    for name, strategy in strategies.items():
+        before = glm.launch_counts["glm_split"]
+        traces0, evals0 = infer_util.init_traces, infer_util.potential_evals
+        t1 = time.perf_counter()
+        info = infer_util.initialize_model(torch.Generator(device=device).manual_seed(191), model,
+                                           num_chains=INIT_CHAINS, init_strategy=strategy,
+                                           model_args=(data,))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        traces = infer_util.init_traces - traces0
+        evals = infer_util.potential_evals - evals0
+        n_launch = glm.launch_counts["glm_split"] - before
+        launches += n_launch
+        z = info.param_info.z["w"]
+        pe, grad = info.param_info.potential_energy, info.param_info.z_grad["w"]
+        pe_p, grad_p = plain_step({"w": z})
+        pe_err = ((pe - pe_p).abs() / pe_p.abs()).max().item()
+        g_need = ((grad - grad_p["w"]).abs() - G_RTOL * grad_p["w"].abs()).max().item()
+        if name in ("init_to_median", "init_to_sample"):
+            var, mu4 = median_of_normals_moments(MEDIAN_OF if name == "init_to_median" else 1)
+            gap = spread_gap(z, var, mu4)
+            held, reading = gap < 4, f"spread {gap:.2f} Monte-Carlo errors off the exact one"
+        else:
+            want = values if name == "init_to_value" else torch.zeros_like(values)
+            held = bool((z == want).all())
+            reading = f"exact values: {held}"
+        if name == "init_to_median":
+            try_s = secs
+        log(f"[tail] 19a {name}, {INIT_CHAINS} chains: {secs:.3f} s, {traces} model traces, "
+            f"{evals} batched evaluation(s), glm_split launches {n_launch}; the potential "
+            f"{pe_err:.2e} off the plain version's (rtol {LL_RTOL}), the gradient's least "
+            f"passing atol {g_need:.3e} (rtol {G_RTOL}, atol {atol:.3e}); {reading}")
+        if n_launch != traces + evals:
+            raise SystemExit(f"19a {name}: {n_launch} glm_split launches for {traces} traces and "
+                             f"{evals} evaluations")
+        if not (pe_err <= LL_RTOL and g_need <= atol and bool(torch.isfinite(pe).all())):
+            raise SystemExit(f"19a {name}: the potential at the found params disagrees with the "
+                             "plain version")
+        if not held:
+            raise SystemExit(f"19a {name}: the found params are not the strategy's")
+    chains, warmup, samples, depths = INIT_RUN
+    mcmc = MCMC(NUTS(model, init_strategy=init_to_median, max_tree_depth=depths),
+                num_warmup=warmup, num_samples=samples, num_chains=chains)
+    before = glm.launch_counts["glm_split"]
+    mcmc.run(torch.Generator(device=device).manual_seed(192), data)
+    stats = mcmc.last_run_stats
+    n_launch = glm.launch_counts["glm_split"] - before
+    launches += n_launch
+    on_card = mcmc.get_samples(group_by_chain=True)["w"]
+    r_hat, ess = cross_chain_diagnostics(on_card)
+    pooled = pooled_step_size(mcmc.last_state.adapt_state).item()
+    mcmc.transfer_states_to_host()
+    on_host = mcmc.get_samples(group_by_chain=True)["w"]
+    same = on_host.device.type == "cpu" and torch.equal(on_card.cpu(), on_host)
+    r_err = ((r_hat.cpu() - split_gelman_rubin(on_host)).abs()
+             / split_gelman_rubin(on_host).abs()).max().item()
+    e_err = ((ess.cpu() - effective_sample_size(on_host)).abs()
+             / effective_sample_size(on_host).abs()).max().item()
+    log(f"[tail] 19a NUTS from init_to_median, {chains} chains, {warmup} + {samples}, depths "
+        f"{depths}: {stats['potential_evals']} evaluations + {stats['init_traces']} init traces, "
+        f"glm_split launches {n_launch}, init {stats['init_s']:.2f} s, warmup "
+        f"{stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s; transferred draws equal "
+        f"bit for bit: {same}; R-hat (median {r_hat.median().item():.3f}) and ESS (median "
+        f"{ess.median().item():.1f}) on the card within {r_err:.2e} and {e_err:.2e} of the CPU's "
+        f"(rtol {CROSS_RTOL}); pooled step size {pooled:.4f}")
+    if n_launch != stats["potential_evals"] + stats["init_traces"]:
+        raise SystemExit(f"19a NUTS: {n_launch} glm_split launches for {stats['potential_evals']} "
+                         f"evaluations and {stats['init_traces']} init traces")
+    if not (same and r_err <= CROSS_RTOL and e_err <= CROSS_RTOL):
+        raise SystemExit("19a: the transferred draws or the cross-chain diagnostics disagree")
+    del data
+    return time.perf_counter() - t0, launches, try_s
+
+
+def graph_fields(spec):
+    return (spec.membership, spec.parent,
+            {k: (n.observed, n.dist_name, n.constraint) for k, n in spec.nodes.items()},
+            spec.edges)
+
+
+def phase_inspect(X, y):
+    """19b: inspection of the covtype and DSL models on the card against the
+    JAX package's literals, and compute_log_probs against the CPU's; returns
+    the seconds and the glm_split launches."""
+    t0 = time.perf_counter()
+    device = X.device
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    dsl_y = torch.from_numpy(dsl_data()).to(device)
+    launches = 0
+    for name, fn, args in (("covtype", model, (data,)), ("dsl", dsl_model, (dsl_y,))):
+        before = dict(glm.launch_counts)
+        relations = get_model_relations(fn, args)
+        got = {"dependencies": get_dependencies(fn, args), "relations": relations,
+               "graph": graph_fields(generate_graph_specification(relations))}
+        n_launch = glm.launch_counts["glm_split"] - before["glm_split"]
+        plain = glm.launch_counts["plain"] - before["plain"]
+        launches += n_launch
+        wrong = [k for k in got if got[k] != INSPECT_REF[name][k]]
+        log(f"[tail] 19b {name}: dependencies, relations and graph equal the JAX package's: "
+            f"{not wrong}; glm_split launches {n_launch}, plain {plain}; posterior dependencies "
+            f"{got['dependencies']['posterior_dependencies']}")
+        if wrong:
+            raise SystemExit(f"19b {name}: {wrong} differ from the JAX package's: {got}")
+        if name == "covtype" and (n_launch != 4 or plain != 0):
+            raise SystemExit(f"19b: {n_launch} glm_split launches (4 expected: a trace and a "
+                             f"provenance pass each for two calls), {plain} plain")
+    cpu = torch.device("cpu")
+    tr = handlers.trace(handlers.substitute(handlers.seed(dsl_model, 193),
+                                            substitute_fn=init_to_sample())).get_trace(
+        dsl_y.cpu())
+    params = {k: v["value"] for k, v in tr.items()
+              if v["type"] == "sample" and not v["is_observed"]}
+    worst = 0.0
+    for batch_ndims in (0, 1):
+        lp = {}
+        for where in (device, cpu):
+            lp[where.type], _ = infer_util.compute_log_probs(
+                dsl_model, (dsl_y.to(where),), {}, {k: v.to(where) for k, v in params.items()},
+                batch_ndims=batch_ndims)
+        for k, v in lp["cpu"].items():
+            got = lp[device.type][k].cpu()
+            if got.shape != v.shape:
+                raise SystemExit(f"19b compute_log_probs: {k} has shape {tuple(got.shape)} on the "
+                                 f"card and {tuple(v.shape)} on the CPU")
+            worst = max(worst, ((got - v).abs() / v.abs().clamp(min=1e-30)).max().item())
+    log(f"[tail] 19b compute_log_probs of the DSL model ({len(lp['cpu'])} sites) at batch_ndims 0 "
+        f"and 1: within {worst:.2e} of the CPU's (rtol {LOG_PROBS_RTOL})")
+    if not worst <= LOG_PROBS_RTOL:
+        raise SystemExit("19b: compute_log_probs on the card disagrees with the CPU's")
+    return time.perf_counter() - t0, launches
+
+
+def phase_nineteen(X, y):
+    """Phase 19: the init strategies, NUTS from init_to_median, the transfer
+    and the cross-chain diagnostics, then inspection; returns the walls of
+    its legs, the glm_split launches of each and the seconds of one
+    init_to_median try at INIT_CHAINS chains."""
+    wall_a, launches_a, try_s = phase_init_strategies(X, y)
+    wall_b, launches_b = phase_inspect(X, y)
+    return {"19a": wall_a, "19b": wall_b}, {"19a": launches_a, "19b": launches_b}, try_s
+
+
 def phase_horseshoe(X, y, beta_true, leg):
     """7b-7d: one MCMC(NUTS) run of the horseshoe; returns the MCMC object."""
     chains, warmup, samples, depth, nuts_kw = HS_RUNS[leg]
@@ -3704,10 +4042,19 @@ def main():
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 3 s)")
 
+    t19 = time.perf_counter()
+    walls, tail_launches, try_s = phase_nineteen(X, y)
+    wall = time.perf_counter() - t19
+    log(f"[tail] phase 19: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; one init_to_median try at {INIT_CHAINS} chains {try_s:.3f} s; glm_split launches "
+        f"19a {tail_launches['19a']}, 19b {tail_launches['19b']}), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 4 s)")
+
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (
             svi_launches + chees_launches + iaf_launches + neutra_launches
-            if name == "glm_split" else 0)
+            + tail_launches["19a"] + tail_launches["19b"] if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
     if dense_counts["glm_split"] == 0:

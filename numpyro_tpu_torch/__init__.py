@@ -14,6 +14,7 @@ from numpyro_tpu_torch.primitives import (
     subsample,
 )
 from numpyro_tpu_torch import diagnostics, infer, nn, ops, optim
+from numpyro_tpu_torch.infer.inspect import get_dependencies, render_model
 from numpyro_tpu_torch.diagnostics import print_summary
 
 __version__ = "0.1.0"
@@ -25,6 +26,7 @@ __all__ = [
     "distributions",
     "enable_validation",
     "factor",
+    "get_dependencies",
     "get_mask",
     "handlers",
     "infer",
@@ -38,6 +40,7 @@ __all__ = [
     "plate_stack",
     "print_summary",
     "prng_key",
+    "render_model",
     "sample",
     "subsample",
     "validation_enabled",

@@ -20,6 +20,7 @@ import torch
 
 __all__ = [
     "Constraint", "boolean", "circular", "complex", "corr_cholesky", "corr_matrix", "dependent",
+    "is_dependent",
     "greater_than", "greater_than_eq", "independent", "integer_greater_than",
     "integer_interval", "interval", "l1_ball", "less_than", "less_than_eq", "lower_cholesky",
     "multinomial", "nonnegative", "nonnegative_integer", "open_interval", "ordered_vector",
@@ -526,6 +527,11 @@ complex = _Complex()
 corr_cholesky = _CorrCholesky()
 corr_matrix = _CorrMatrix()
 dependent = _Dependent()
+
+
+def is_dependent(constraint):
+    """Whether ``constraint`` is a :data:`dependent` placeholder."""
+    return isinstance(constraint, _Dependent)
 greater_than = _GreaterThan
 greater_than_eq = _GreaterThanEq
 independent = _IndependentConstraint

@@ -33,7 +33,7 @@ from numpyro_tpu_torch.infer.mcmc import MCMCKernel
 from numpyro_tpu_torch.infer.util import ParamInfo, initialize_model
 from numpyro_tpu_torch.util import identity, tree_map
 
-__all__ = ["HMC", "HMCState", "NUTS", "hmc"]
+__all__ = ["HMC", "HMCState", "NUTS", "hmc", "momentum_generator"]
 
 HMCState = namedtuple(
     "HMCState",
@@ -52,6 +52,37 @@ _CHAIN_FIELDS = (
     "z", "z_grad", "potential_energy", "energy", "num_steps", "accept_prob",
     "mean_accept_prob", "diverging", "adapt_state",
 )
+
+
+def momentum_generator(prototype_r, mass_matrix_sqrt, rng_key):
+    """Draw ``r ~ N(0, M)`` in the form of ``prototype_r`` (a tensor or a
+    dict of tensors, raveled in sorted order of its keys) from the square
+    root of the mass matrix: a vector (diagonal mass), a matrix (dense), or a
+    dict of either by tuple of site names (structured mass), whose blocks
+    draw one after another from the generator ``rng_key``.  A helper for
+    kernels outside the engine, which draws its momenta in ``(C, D)``
+    panels."""
+    if isinstance(mass_matrix_sqrt, dict):
+        out = {}
+        for names, block_sqrt in mass_matrix_sqrt.items():
+            out.update(momentum_generator({k: prototype_r[k] for k in names}, block_sqrt, rng_key))
+        return out
+    if isinstance(prototype_r, dict):
+        names = sorted(prototype_r)
+        flat = torch.cat([prototype_r[k].reshape(-1) for k in names])
+    else:
+        flat = prototype_r.reshape(-1)
+    eps = torch.randn(flat.shape, generator=rng_key, dtype=flat.dtype, device=flat.device)
+    if mass_matrix_sqrt.dim() == 1:
+        r = mass_matrix_sqrt * eps
+    elif mass_matrix_sqrt.dim() == 2:
+        r = mass_matrix_sqrt @ eps
+    else:
+        raise ValueError("mass_matrix_sqrt must be 1- or 2-dimensional")
+    if not isinstance(prototype_r, dict):
+        return r.reshape(prototype_r.shape)
+    sizes = [prototype_r[k].numel() for k in names]
+    return {k: part.reshape(prototype_r[k].shape) for k, part in zip(names, r.split(sizes))}
 
 
 def _expand0(tree):
@@ -348,8 +379,11 @@ class HMC(MCMCKernel):
         return self._postprocess_fn(*args, **kwargs)
 
     def get_diagnostics_str(self, state):
+        """The first chain's steps, step size and mean acceptance."""
         return "{} steps of size {:.2e}. acc. prob={:.2f}".format(
-            state.num_steps, state.adapt_state.step_size, state.mean_accept_prob
+            int(state.num_steps.reshape(-1)[0]),
+            float(state.adapt_state.step_size.reshape(-1)[0]),
+            float(state.mean_accept_prob.reshape(-1)[0]),
         )
 
     @property
@@ -431,6 +465,7 @@ class HMC(MCMCKernel):
         model_args=(),
         model_kwargs=None,
         collect_fields=("z", "diverging"),
+        progress=None,
     ):
         """Warmup + sampling for all chains.  ``rng_key`` is a
         ``torch.Generator`` on the device the chains run on.
@@ -439,13 +474,17 @@ class HMC(MCMCKernel):
         ``(num_chains, num_collected, ...)``.  Wall times, the number of
         batched potential evaluations of each phase and the count of divergent
         warmup transitions of all chains land in ``self.last_fused_stats``.
+        ``progress(phase, done, total)``, if given, is called after each
+        warmup transition and at each check of the sampling loop, with the
+        transitions that every chain has finished.
         """
         model_kwargs = {} if model_kwargs is None else model_kwargs
         infer_util.pin_full_f32_matmul()
         t0 = time.perf_counter()
-        evals0 = infer_util.potential_evals
+        evals0, traces0 = infer_util.potential_evals, infer_util.init_traces
         generator = getattr(rng_key, "generator", rng_key)
         init_params = self._setup(generator, num_chains, model_args, model_kwargs, init_params)
+        init_traces = infer_util.init_traces - traces0
         if isinstance(init_params, ParamInfo):
             z, pe, z_grad = init_params
         else:
@@ -492,20 +531,24 @@ class HMC(MCMCKernel):
 
         t1 = time.perf_counter()
         warm = run.warmup(
-            draws, z_flat, pe, grad_flat, self._step_size, self._inverse_mass_matrix
+            draws, z_flat, pe, grad_flat, self._step_size, self._inverse_mass_matrix,
+            progress=progress,
         )
         _sync(warm["z"])
         warmup_s = time.perf_counter() - t1
         evals_warm = infer_util.potential_evals - evals0 - evals_init
 
         t2 = time.perf_counter()
-        out = run.sample(draws, warm["z"], warm["pe"], warm["grad"], warm["adapt"])
+        out = run.sample(draws, warm["z"], warm["pe"], warm["grad"], warm["adapt"],
+                         progress=progress)
         _sync(out["samples_z"])
         sample_s = time.perf_counter() - t2
         self.last_fused_stats = {
             # initialize_model traces the model once, unbatched, to find its
-            # latent sites: a model evaluation that is not a potential one
-            "init_traces": int(self._model is not None),
+            # latent sites, and once per chain and try under a strategy that
+            # draws (infer.util._batched_candidates): model evaluations that
+            # are not potential ones
+            "init_traces": init_traces,
             "init_s": init_s,
             "warmup_s": warmup_s,
             "sample_s": sample_s,

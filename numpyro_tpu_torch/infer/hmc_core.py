@@ -1074,7 +1074,9 @@ class FusedRun:
             self.trajectory_length, self.fixed_num_steps, self.max_delta_energy,
         )
 
-    def warmup(self, draws, z, pe, grad, step_size, inverse_mass_matrix=None):
+    def warmup(self, draws, z, pe, grad, step_size, inverse_mass_matrix=None, progress=None):
+        """Warmup transitions in lockstep; ``progress("warmup", done, total)``
+        is called after each one."""
         adapt = self.wa_init(draws, z, pe, grad, step_size, inverse_mass_matrix)
         mean_acc = torch.zeros_like(pe)
         # divergent warmup transitions of all chains, counted on the device
@@ -1085,6 +1087,8 @@ class FusedRun:
             adapt = self.wa_update(i, adapt, out.accept_prob, z, pe, grad, draws)
             mean_acc = mean_acc + (out.accept_prob - mean_acc) / (i + 1)
             num_divergent = num_divergent + out.diverging.sum()
+            if progress is not None:
+                progress("warmup", i + 1, self.num_warmup)
         return {"z": z, "pe": pe, "grad": grad, "adapt": adapt, "mean_accept_prob": mean_acc,
                 "num_divergent": num_divergent}
 
@@ -1099,7 +1103,7 @@ class FusedRun:
             "mean_accept_prob": z.new_zeros((c, slots)),
         }
 
-    def _sample_sync(self, draws, z, pe, grad, adapt):
+    def _sample_sync(self, draws, z, pe, grad, adapt, progress=None):
         """Fixed-trajectory HMC: transitions in lockstep, every ``thinning``-th
         banked."""
         num_collect = (self.num_samples + self.thinning - 1) // self.thinning
@@ -1118,15 +1122,19 @@ class FusedRun:
                     ("mean_accept_prob", mean_acc),
                 ):
                     buf[name][:, slot] = value
+            if progress is not None:
+                progress("sample", i + 1, self.num_samples)
         return {
             "z": z, "pe": pe, "grad": grad, "samples_z": buf_z, "extras": buf,
             "adapt": adapt, "mean_accept_prob": mean_acc,
         }
 
-    def sample(self, draws, z, pe, grad, adapt):
-        """Harvest loop until every chain has ``num_samples`` transitions."""
+    def sample(self, draws, z, pe, grad, adapt, progress=None):
+        """Harvest loop until every chain has ``num_samples`` transitions;
+        ``progress("sample", done, total)`` is called at each check with the
+        transitions that every chain has finished (a host read)."""
         if self.algo != "NUTS":
-            return self._sample_sync(draws, z, pe, grad, adapt)
+            return self._sample_sync(draws, z, pe, grad, adapt, progress)
         blocks, inv, sqrt = self.blocks, adapt.inverse_mass_matrix, adapt.mass_matrix_sqrt
         c, d = z.shape
         num_samples, thinning = self.num_samples, self.thinning
@@ -1168,6 +1176,8 @@ class FusedRun:
                     t.ck_r.shape[1], *draws.start(z),
                 )._replace(ck_r=t.ck_r, ck_s=t.ck_s)
                 t = NutsCarry(*(_sel(restart, f, o) for f, o in zip(fresh, t)))
+            if progress is not None:
+                progress("sample", min(int(trans_idx.min()), num_samples), num_samples)
             if bool((trans_idx >= num_samples).all()):
                 break
         return {

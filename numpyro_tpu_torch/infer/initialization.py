@@ -1,7 +1,8 @@
-"""Init strategies (port of ``init_to_uniform``, ``init_to_sample``,
-``init_to_median`` and ``init_to_value`` from
-``numpyro_tpu/infer/initialization.py``; the others are listed in
-ROADMAP.md).  Every strategy draws on the device of the site's generator."""
+"""Init strategies (port of ``numpyro_tpu/infer/initialization.py``).  Every
+strategy draws on the device of the site's generator; ``init_to_mean``,
+``init_to_feasible`` and ``init_to_value`` with every site given draw
+nothing, so a batched init search traces them once for all chains
+(``infer.util.find_valid_initial_params``)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,14 @@ import torch
 
 import numpyro_tpu_torch.distributions as dist
 
-__all__ = ["init_to_median", "init_to_sample", "init_to_uniform", "init_to_value"]
+__all__ = [
+    "init_to_feasible",
+    "init_to_mean",
+    "init_to_median",
+    "init_to_sample",
+    "init_to_uniform",
+    "init_to_value",
+]
 
 
 def _strategy(rule):
@@ -37,17 +45,18 @@ def _strategy(rule):
 @_strategy
 def init_to_uniform(site, radius=2.0):
     """Initialize to Uniform(-radius, radius) in unconstrained space (the
-    NUTS default), drawn on the device of the site's generator."""
+    NUTS default), drawn on the device of the site's generator.  Radius 0
+    is the unconstrained zero, which draws nothing."""
     if site["value"] is not None:
         return site["value"]
     rng_key = site["kwargs"].get("rng_key")
     sample_shape = site["kwargs"].get("sample_shape")
     to_support = dist.biject_to(site["fn"].support)
+    shape = tuple(sample_shape) + to_support.inverse_shape(tuple(site["fn"].shape()))
+    if radius == 0:
+        return to_support(torch.zeros(shape, device=rng_key.device))
     bound = torch.tensor(float(radius), device=rng_key.device)
-    box = dist.Uniform(-bound, bound).sample(
-        rng_key, tuple(sample_shape) + to_support.inverse_shape(tuple(site["fn"].shape()))
-    )
-    return to_support(box)
+    return to_support(dist.Uniform(-bound, bound).sample(rng_key, shape))
 
 
 def _median0(draws):
@@ -79,6 +88,34 @@ def init_to_median(site, num_samples=15):
     except NotImplementedError:
         return init_to_uniform(site)
     return _median0(draws)
+
+
+@_strategy
+def init_to_mean(site):
+    """Initialize to the prior mean.  A site without a mean (one that raises
+    ``NotImplementedError``, or one that holds a NaN, as a ``Cauchy``'s does)
+    takes ``init_to_median``; the NaN is read on the host, since
+    initialization runs outside any ``torch.func`` transform."""
+    if site["value"] is not None:
+        return site["value"]
+    try:
+        mean = site["fn"].mean
+        if isinstance(mean, torch.Tensor) and bool(torch.isnan(mean).any()):
+            raise NotImplementedError
+    except NotImplementedError:
+        return init_to_median(site)
+    sample_shape = tuple(site["kwargs"].get("sample_shape") or ())
+    if sample_shape:
+        mean = mean.expand(sample_shape + tuple(mean.shape))
+    return mean
+
+
+def init_to_feasible(site=None):
+    """Initialize to a feasible point: ``init_to_uniform`` of radius 0, the
+    image of the unconstrained zero."""
+    if site is None:
+        return init_to_feasible
+    return init_to_uniform(site, radius=0.0)
 
 
 def init_to_value(site=None, values={}):

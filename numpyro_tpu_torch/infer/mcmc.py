@@ -10,7 +10,20 @@ Chain methods:
   the results stacked on a leading chain axis.  Chain ``i`` runs on its own
   generator, seeded with the ``i``-th of ``num_chains`` integers that the
   run's generator draws first (:func:`chain_generators`).
-- A callable (a JAX transform mapped over chains) is not ported (ROADMAP.md).
+- A callable ``chain_method`` maps a one-chain run over the chains:
+  ``chain_method(one_chain)(generators, init_params)``, where ``generators``
+  is the list of the chains' generators (those of ``"sequential"``),
+  ``init_params`` the initial params with a leading chain axis or ``None``,
+  and ``one_chain(generator, params)`` runs one chain as ``"sequential"``
+  runs it and returns its collected fields and last state without a chain
+  axis; the callable stacks them on a new leading axis, as ``jax.vmap``
+  does in the JAX package.  A callable that maps in order therefore gives
+  ``"sequential"``'s draws.
+
+With ``progress_bar=True`` a ``tqdm`` bar follows the transitions (the fused
+run reports each warmup transition and, while sampling, the transitions
+that every chain has finished); without ``tqdm`` the run goes on without a
+bar, as in the JAX package.
 
 A kernel with a fused run (plain ``HMC``/``NUTS``) is driven through it.
 Any other kernel, and a run that resumes from ``post_warmup_state`` or
@@ -36,6 +49,7 @@ import torch
 
 from numpyro_tpu_torch.diagnostics import print_summary
 from numpyro_tpu_torch.infer import util as infer_util
+from numpyro_tpu_torch.infer.util import chain_generators
 from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
 __all__ = ["MCMC", "MCMCKernel", "chain_generators"]
@@ -77,16 +91,6 @@ class MCMCKernel(ABC):
         return False
 
 
-def chain_generators(rng_key, device, num_chains):
-    """The generators of a ``"sequential"`` run's chains: chain ``i``'s is
-    seeded with the ``i``-th of ``num_chains`` integers drawn from the run's
-    generator (made from ``rng_key`` on ``device`` as ``MCMC.run`` makes
-    it)."""
-    generator = infer_util.device_generator(rng_key, device, "MCMC")
-    seeds = torch.randint(0, 2**62, (num_chains,), generator=generator, device=device).tolist()
-    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
-
-
 def _stack_chains(parts, batched):
     """Per-chain results on a new leading chain axis: ``batched`` parts carry
     a chain axis of one already (a fused run's), the others none.  Leaves
@@ -122,7 +126,9 @@ class MCMC:
 
     :param sampler: an :class:`MCMCKernel`.
     :param chain_method: ``"vectorized"``, ``"parallel"`` (the vectorized
-        program on one card) or ``"sequential"`` (see the module docstring).
+        program on one card), ``"sequential"`` or a callable (see the module
+        docstring).
+    :param progress_bar: follow the run with a ``tqdm`` bar.
     :param device: where the chains run.  ``None`` is ``torch.device("cuda")``;
         :meth:`run` raises when that device is not there and never carries on
         on the CPU.
@@ -141,18 +147,13 @@ class MCMC:
         progress_bar=False,
         device=None,
     ):
-        if callable(chain_method):
-            raise NotImplementedError(
-                "a callable chain_method is not ported to numpyro_tpu_torch yet (see "
-                "ROADMAP.md); use 'vectorized', 'parallel' or 'sequential'"
-            )
-        if chain_method not in ("parallel", "vectorized", "sequential"):
+        if chain_method not in ("parallel", "vectorized", "sequential") and not callable(
+            chain_method
+        ):
             raise ValueError(
                 "Only supporting the following methods to draw chains:"
                 ' "sequential", "parallel", "vectorized", or a callable'
             )
-        if progress_bar:
-            raise NotImplementedError("progress_bar is not ported to numpyro_tpu_torch yet")
         if not isinstance(thinning, int) or thinning < 1:
             raise ValueError("thinning must be a positive integer")
         self.sampler = sampler
@@ -164,6 +165,7 @@ class MCMC:
         self.thinning = thinning
         self.postprocess_fn = postprocess_fn
         self.chain_method = chain_method
+        self.progress_bar = progress_bar
         self.device = torch.device("cuda" if device is None else device)
         self._states = None
         self._states_flat = None
@@ -257,7 +259,10 @@ class MCMC:
         buffers = None
         t_phase, evals_phase = time.perf_counter(), infer_util.potential_evals
         warm_end = self.num_warmup if init_state is None else 0
+        bar = infer_util.tqdm_bar(upper) if self.progress_bar else None
         for i in range(upper):
+            if bar is not None:
+                bar.set_description("warmup" if i < warm_end else "sample", refresh=False)
             if i == warm_end and i > 0:
                 _sync(self.device)
                 stats["warmup_s"] = time.perf_counter() - t_phase
@@ -279,6 +284,11 @@ class MCMC:
                     return buf
 
                 tree_map(write, buffers, values)
+            if bar is not None:
+                bar.set_postfix_str(sampler.get_diagnostics_str(state), refresh=False)
+                bar.update()
+        if bar is not None:
+            bar.close()
         _sync(self.device)
         phase = "warmup" if upper <= warm_end else "sample"
         stats[f"{phase}_s"] = time.perf_counter() - t_phase
@@ -293,17 +303,32 @@ class MCMC:
         it has one, else the per-step loop.  Returns the fields, the last
         state, the run's statistics and whether the fused run took it."""
         if self._can_fuse(collect_fields, init_state):
-            fields, last_state = self.sampler.fused_run(
-                rng_key,
-                num_chains,
-                self.num_warmup,
-                self.num_samples,
-                thinning=self.thinning,
-                init_params=init_params,
-                model_args=args,
-                model_kwargs=kwargs,
-                collect_fields=collect_fields,
-            )
+            total = self.num_warmup + self.num_samples
+            bar = infer_util.tqdm_bar(total) if self.progress_bar else None
+            progress = None
+            if bar is not None:
+
+                def progress(phase, done, total):
+                    bar.n = (0 if phase == "warmup" else self.num_warmup) + done
+                    bar.set_description(phase, refresh=False)
+                    bar.refresh()
+
+            try:
+                fields, last_state = self.sampler.fused_run(
+                    rng_key,
+                    num_chains,
+                    self.num_warmup,
+                    self.num_samples,
+                    thinning=self.thinning,
+                    init_params=init_params,
+                    model_args=args,
+                    model_kwargs=kwargs,
+                    collect_fields=collect_fields,
+                    progress=progress,
+                )
+            finally:
+                if bar is not None:
+                    bar.close()
             return fields, last_state, dict(self.sampler.last_fused_stats), True
         fields, last_state, stats = self._run_per_step(
             rng_key, init_state, init_params, args, kwargs, collect_fields, num_chains
@@ -336,11 +361,29 @@ class MCMC:
             for k in collect_fields
         }
         last_state = _stack_chains([o[1] for o in outs], fused[0])
-        stats = {}
-        for _, _, chain_stats in outs:
-            for k, v in chain_stats.items():
-                stats[k] = stats.get(k, 0) + v
-        return fields, last_state, stats
+        return fields, last_state, _sum_stats(o[2] for o in outs)
+
+    def _run_mapped(self, rng_key, init_state, init_params, args, kwargs, collect_fields):
+        """The chains through the callable ``chain_method``: each lane runs
+        one chain as :meth:`_run_sequential` does, on the same generator."""
+        if init_state is not None:
+            raise ValueError("post_warmup_state is not supported with a callable chain_method")
+        generators = chain_generators(rng_key, self.device, self.num_chains)
+        chain_stats = []
+
+        def one_chain(generator, params):
+            if params is not None and self._can_fuse(collect_fields, None):
+                params = tree_map(lambda x: x[None], params)  # a fused run takes a chain axis
+            fields, last, stats, fused = self._run_chains(
+                generator, None, params, args, kwargs, collect_fields, 1
+            )
+            chain_stats.append(stats)
+            fields = {k: None if v is None else tree_map(lambda x: x[0], v)
+                      for k, v in fields.items()}
+            return fields, tree_map(lambda x: x[0], last) if fused else last
+
+        fields, last_state = self.chain_method(one_chain)(generators, init_params)
+        return fields, last_state, _sum_stats(chain_stats)
 
     def run(self, rng_key, *args, extra_fields=(), init_params=None, **kwargs):
         """Run warmup + sampling and collect fields.  ``rng_key`` is an int
@@ -361,6 +404,10 @@ class MCMC:
         )
         if self.chain_method == "sequential" and self.num_chains > 1:
             fields, last_state, stats = self._run_sequential(
+                rng_key, init_state, init_params, args, kwargs, collect_fields
+            )
+        elif callable(self.chain_method) and self.num_chains > 1:
+            fields, last_state, stats = self._run_mapped(
                 rng_key, init_state, init_params, args, kwargs, collect_fields
             )
         else:
@@ -406,6 +453,24 @@ class MCMC:
         extra_fields = self.get_extra_fields()
         if "diverging" in extra_fields:
             print("Number of divergences: {}".format(int(extra_fields["diverging"].sum())))
+
+    def transfer_states_to_host(self):
+        """Move the collected states, their chain-flattened view and the last
+        state to the CPU, freeing their device memory.  Generators in the
+        last state stay where they are."""
+        to_host = lambda tree: tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+        self._states = to_host(self._states)
+        self._states_flat = to_host(self._states_flat)
+        self._last_state = to_host(self._last_state)
+
+
+def _sum_stats(parts):
+    """The run statistics of the chains' runs, added key by key."""
+    stats = {}
+    for one in parts:
+        for k, v in one.items():
+            stats[k] = stats.get(k, 0) + v
+    return stats
 
 
 def _replace_generators(tree, generator):

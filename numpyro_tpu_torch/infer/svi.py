@@ -25,7 +25,9 @@ import torch
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
-from numpyro_tpu_torch.infer.util import device_generator, pin_full_f32_matmul, transform_fn
+from numpyro_tpu_torch.infer.util import (
+    device_generator, pin_full_f32_matmul, tqdm_bar, transform_fn,
+)
 from numpyro_tpu_torch.util import tree_map
 
 __all__ = ["SVI", "SVIRunResult", "SVIState"]
@@ -160,22 +162,30 @@ class SVI:
     def run(self, rng_key, num_steps, *args, progress_bar=False, stable_update=False,
             init_state=None, init_params=None, forward_mode_differentiation=False, **kwargs):
         """Optimize for ``num_steps``; returns ``SVIRunResult(params, state,
-        losses)`` with the losses, ``(num_steps,)``, on the device."""
-        if progress_bar:
-            raise NotImplementedError("progress_bar is not ported to numpyro_tpu_torch yet")
+        losses)`` with the losses, ``(num_steps,)``, on the device.  With
+        ``progress_bar`` a ``tqdm`` bar follows the steps and shows the loss
+        every 20 steps (a host read); without ``tqdm`` the run goes on
+        without a bar, as in the JAX package.  The steps are the same."""
         if init_state is None:
             svi_state = self.init(rng_key, *args, init_params=init_params, **kwargs)
         else:
             svi_state = init_state
         update_fn = self.stable_update if stable_update else self.update
         pin_full_f32_matmul()
+        bar = tqdm_bar(num_steps) if progress_bar else None
         losses = []
-        for _ in range(num_steps):
+        for i in range(num_steps):
             svi_state, loss = update_fn(
                 svi_state, *args, forward_mode_differentiation=forward_mode_differentiation,
                 **kwargs,
             )
             losses.append(loss)
+            if bar is not None:
+                if i % 20 == 0:
+                    bar.set_description(f"loss: {float(loss):.4f}", refresh=False)
+                bar.update()
+        if bar is not None:
+            bar.close()
         losses = torch.stack(losses) if losses else torch.zeros(0, device=self.device)
         return SVIRunResult(self.get_params(svi_state), svi_state, losses)
 

@@ -1,8 +1,9 @@
-"""Model -> density bridge (port of the parts of ``numpyro_tpu/infer/util.py``
-that the ported slices need: ``log_density``, ``potential_energy``,
-``constrain_fn``, ``unconstrain_fn``, ``find_valid_initial_params``,
-``initialize_model``, ``_without_rsample_stop_gradient``,
-``get_importance_trace``, ``Predictive`` and ``log_likelihood``).
+"""Model -> density bridge (port of ``numpyro_tpu/infer/util.py``:
+``log_density``, ``compute_log_probs``, ``potential_energy``,
+``constrain_fn``, ``unconstrain_fn``, ``transform_fn``, ``get_transforms``,
+``find_valid_initial_params``, ``initialize_model``,
+``_without_rsample_stop_gradient``, ``get_importance_trace``,
+``Predictive`` and ``log_likelihood``).
 
 A model with discrete latent sites of finite support is enumerated, as in
 the JAX package: ``initialize_model`` wraps it in ``contrib.enum.enum``,
@@ -50,6 +51,7 @@ __all__ = [
     "find_valid_initial_params",
     "get_importance_trace",
     "get_potential_fn",
+    "get_transforms",
     "initialize_model",
     "log_density",
     "log_likelihood",
@@ -57,6 +59,7 @@ __all__ = [
     "potential_energy",
     "samples_from_numpy",
     "state_field",
+    "tqdm_bar",
     "transform_fn",
     "tree_from_numpy",
     "unconstrain_fn",
@@ -143,6 +146,17 @@ def batched_value(fn):
     return call
 
 
+def tqdm_bar(total):
+    """A ``tqdm`` bar of ``total`` steps for the drivers, or ``None`` where
+    ``tqdm`` is not installed: the run then goes on without a bar, as in
+    the JAX package."""
+    try:
+        from tqdm.auto import tqdm
+    except ImportError:
+        return None
+    return tqdm(total=total)
+
+
 def pin_full_f32_matmul():
     """Keep f32 matmuls out of TF32, the counterpart of the JAX ``MCMC``'s
     ``matmul_precision="highest"``: truncated products bias the gradients
@@ -198,16 +212,41 @@ def _site_log_prob(site, *, check_shapes=False):
     return lp
 
 
+def _traced_log_probs(model, model_args, model_kwargs, params, **lp_kwargs):
+    """``(site name -> scaled elementwise log-prob, trace)`` for every sample
+    site of the model run with ``params`` substituted."""
+    model = handlers.substitute(model, data=params)
+    trace = handlers.trace(model).get_trace(*model_args, **model_kwargs)
+    lps = {
+        name: _site_log_prob(site, **lp_kwargs)
+        for name, site in trace.items()
+        if site["type"] == "sample"
+    }
+    return lps, trace
+
+
 def log_density(model, model_args, model_kwargs, params):
     """Sum of the scaled log-probs of all sample sites given substituted
     params; returns ``(log_joint, model_trace)``."""
-    model = handlers.substitute(model, data=params)
-    trace = handlers.trace(model).get_trace(*model_args, **model_kwargs)
+    lps, trace = _traced_log_probs(model, model_args, model_kwargs, params, check_shapes=True)
     log_joint = 0.0
-    for site in trace.values():
-        if site["type"] == "sample":
-            log_joint = log_joint + _site_log_prob(site, check_shapes=True).sum()
+    for lp in lps.values():
+        log_joint = log_joint + lp.sum()
     return log_joint, trace
+
+
+def compute_log_probs(model, model_args, model_kwargs, params, batch_ndims=0):
+    """Each sample site's scaled log-prob given substituted params, summed
+    over all its dims (``batch_ndims=0``) or over all but its leading
+    ``batch_ndims``; returns ``(dict by site, model_trace)``.  A site with
+    no more than ``batch_ndims`` dims is left as it is, as in the JAX
+    package."""
+    lps, trace = _traced_log_probs(model, model_args, model_kwargs, params)
+    reduced = {
+        name: lp.sum() if batch_ndims == 0 else sum_rightmost(lp, max(lp.dim() - batch_ndims, 0))
+        for name, lp in lps.items()
+    }
+    return reduced, trace
 
 
 class _without_rsample_stop_gradient(Messenger):
@@ -355,9 +394,54 @@ def potential_energy(model, model_args, model_kwargs, params, enum=False):
 
 def _finite_per_chain(pe, grad):
     ok = torch.isfinite(pe)
+    if grad is None:
+        return ok
     for g in grad.values():
         ok = ok & torch.isfinite(g.reshape(g.shape[0], -1)).all(-1)
     return ok
+
+
+def chain_generators(rng_key, device, num_chains):
+    """The generators of a run's chains, one each: chain ``i``'s is seeded
+    with the ``i``-th of ``num_chains`` integers drawn from the run's
+    generator (made from ``rng_key`` on ``device`` as ``MCMC.run`` makes
+    it).  A ``"sequential"`` run and a batched init search under any
+    strategy but ``init_to_uniform`` draw chain ``i``'s values on its
+    generator."""
+    generator = device_generator(rng_key, device, "MCMC")
+    seeds = torch.randint(0, 2**62, (num_chains,), generator=generator, device=device).tolist()
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+
+
+# model traces made by the init search (``initialize_model``'s first trace
+# and every candidate traced under a strategy); a traced model evaluates its
+# likelihood, so a kernel in it launches once per trace
+init_traces = 0
+
+
+def _trace_candidate(model, strategy, rng_key, model_args, model_kwargs):
+    """One candidate: the model traced under ``strategy`` with the sites'
+    draws on ``rng_key``, each continuous latent value pulled back through
+    its support's bijection."""
+    global init_traces
+    init_traces += 1
+    strategized = handlers.substitute(handlers.seed(model, rng_key), substitute_fn=strategy)
+    trace = handlers.trace(strategized).get_trace(*model_args, **model_kwargs)
+    return {
+        name: biject_to(site["fn"].support).inv(site["value"])
+        for name, site in trace.items()
+        if site["type"] == "sample" and not site["is_observed"]
+        and not site["fn"].support.is_discrete
+    }
+
+
+def _uniform_radius(strategy, prototype_params):
+    """The radius of ``init_to_uniform`` where the search may draw its box
+    in unconstrained space directly (a prototype gives the shapes), else
+    ``None``."""
+    if getattr(strategy, "func", None) is init_to_uniform and prototype_params is not None:
+        return strategy.keywords.get("radius", 2.0)
+    return None
 
 
 def _single_chain_search(rng_key, model, strategy, model_args, model_kwargs,
@@ -367,24 +451,16 @@ def _single_chain_search(rng_key, model, strategy, model_args, model_kwargs,
     ``init_to_uniform`` draws in unconstrained space directly; any other
     strategy traces the model under it and pulls each latent value back
     through its support's bijection."""
-    uniform = getattr(strategy, "func", None) is init_to_uniform and prototype_params is not None
-    radius = strategy.keywords.get("radius", 2.0) if uniform else None
+    radius = _uniform_radius(strategy, prototype_params)
 
     def draw():
-        if uniform:
+        if radius is not None:
             return {
                 name: (torch.rand(tuple(proto.shape), generator=rng_key, device=rng_key.device,
                                   dtype=proto.dtype) * 2 - 1) * radius
                 for name, proto in sorted(prototype_params.items())
             }
-        strategized = handlers.substitute(handlers.seed(model, rng_key), substitute_fn=strategy)
-        trace = handlers.trace(strategized).get_trace(*model_args, **model_kwargs)
-        return {
-            name: biject_to(site["fn"].support).inv(site["value"])
-            for name, site in trace.items()
-            if site["type"] == "sample" and not site["is_observed"]
-            and not site["fn"].support.is_discrete
-        }
+        return _trace_candidate(model, strategy, rng_key, model_args, model_kwargs)
 
     pe_fn = partial(potential_energy, model, model_args, model_kwargs, enum=enum)
     for _ in range(100):
@@ -408,6 +484,57 @@ def _single_chain_search(rng_key, model, strategy, model_args, model_kwargs,
     return (params, pe, grad), ok
 
 
+def _batched_candidates(rng_key, model, strategy, num_chains, model_args, model_kwargs,
+                        prototype_params):
+    """``(candidates, redraw)``: the first candidates of all chains, ``(C,
+    ...)`` per site, and ``redraw(redo)``, which gives fresh ones where the
+    ``(C,)`` mask ``redo`` is set (the others are filler), or ``None`` where
+    a retry would find the same candidates again.
+
+    ``init_to_uniform`` with a prototype draws the chains' boxes together on
+    ``rng_key``.  Any other strategy traces the model once per chain, chain
+    ``i`` on its own generator (:func:`chain_generators`), so that chain
+    ``i`` finds what a single-chain search on that generator finds; the
+    traces run in a loop on the host, because ``torch.func.vmap`` cannot
+    thread each chain's generator through the sites' draws.  Where the first
+    chain's trace drew nothing from its generator (``init_to_mean``,
+    ``init_to_feasible``, ``init_to_value`` with every site given) its
+    candidate is every chain's: that one trace is broadcast."""
+    radius = _uniform_radius(strategy, prototype_params)
+    if radius is not None:
+
+        def draw_box(redo=None):
+            return {
+                name: (
+                    torch.rand(
+                        (num_chains,) + tuple(proto.shape), generator=rng_key,
+                        device=rng_key.device, dtype=proto.dtype,
+                    ) * 2 - 1
+                ) * radius
+                for name, proto in sorted(prototype_params.items())
+            }
+
+        return draw_box(), draw_box
+    generators = chain_generators(rng_key, rng_key.device, num_chains)
+    trace = partial(_trace_candidate, model, strategy, model_args=model_args,
+                    model_kwargs=model_kwargs)
+    before = generators[0].get_state()
+    first = trace(rng_key=generators[0])
+    if torch.equal(generators[0].get_state(), before):
+        return {k: v.expand((num_chains,) + tuple(v.shape)).clone()
+                for k, v in first.items()}, None
+
+    def stack(parts):
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    def redraw(redo):
+        parts = [trace(rng_key=g) if r else None for g, r in zip(generators, redo.tolist())]
+        filler = next(p for p in parts if p is not None)
+        return stack([filler if p is None else p for p in parts])
+
+    return stack([first] + [trace(rng_key=g) for g in generators[1:]]), redraw
+
+
 def find_valid_initial_params(
     rng_key,
     model,
@@ -424,16 +551,16 @@ def find_valid_initial_params(
     """Draw initial latents until the potential and its gradient are finite
     (at most 100 tries per chain).  ``enum`` scores the enumerated potential
     (a model wrapped by ``initialize_model``): its discrete sites take their
-    enumerated values and are never drawn.
+    enumerated values and are never drawn.  ``validate_grad=False`` scores
+    the potential alone and returns no gradient.
 
-    ``num_chains=None`` searches for one chain, unbatched, under any init
-    strategy; ``validate_grad=False`` then scores the potential alone and
-    returns no gradient.  With ``num_chains`` all chains are scored in one
-    batched evaluation per try, and chains that are already valid keep their
-    params (a masked loop in place of the JAX package's batched
-    ``while_loop``; ``init_to_uniform`` only).  Returns
-    ``((init_params, pe, grad), is_valid)``, with a leading chain axis when
-    ``num_chains`` is given.
+    ``num_chains=None`` searches for one chain, unbatched.  With
+    ``num_chains`` the candidates of all chains are scored in one batched
+    evaluation per try, and chains that are already valid keep their params
+    while the others draw again (a masked loop in place of the JAX
+    package's batched ``while_loop``); how each strategy draws is told at
+    :func:`_batched_candidates`.  Returns ``((init_params, pe, grad), is_valid)``,
+    with a leading chain axis when ``num_chains`` is given.
     """
     model_kwargs = {} if model_kwargs is None else model_kwargs
     strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
@@ -442,42 +569,32 @@ def find_valid_initial_params(
             rng_key, model, strategy, model_args, model_kwargs, prototype_params,
             forward_mode_differentiation, validate_grad, enum,
         )
-    if getattr(strategy, "func", None) is not init_to_uniform or prototype_params is None:
-        raise NotImplementedError(
-            "a batched init search takes only init_to_uniform in numpyro_tpu_torch "
-            "(see ROADMAP.md)"
-        )
-    radius = strategy.keywords.get("radius", 2.0)
-
-    def draw():
-        return {
-            name: (
-                torch.rand(
-                    (num_chains,) + tuple(proto.shape), generator=rng_key,
-                    device=rng_key.device, dtype=proto.dtype,
-                ) * 2 - 1
-            ) * radius
-            for name, proto in sorted(prototype_params.items())
-        }
-
-    score = batched_value_and_grad(
-        partial(potential_energy, model, model_args, model_kwargs, enum=enum),
-        forward_mode=forward_mode_differentiation,
+    params, redraw = _batched_candidates(
+        rng_key, model, strategy, num_chains, model_args, model_kwargs, prototype_params
     )
-    params = draw()
+    pe_fn = partial(potential_energy, model, model_args, model_kwargs, enum=enum)
+    if validate_grad:
+        score = batched_value_and_grad(pe_fn, forward_mode=forward_mode_differentiation)
+    else:
+        value = batched_value(pe_fn)
+
+        def score(params):
+            return value(params), None
+
     pe, grad = score(params)
     ok = _finite_per_chain(pe, grad)
-    for _ in range(99):
+    for _ in range(0 if redraw is None else 99):
         if bool(ok.all()):
             break
-        cand = draw()
-        pe_c, grad_c = score(cand)
         redo = ~ok
+        cand = redraw(redo)
+        pe_c, grad_c = score(cand)
         pe = torch.where(redo, pe_c, pe)
         for name in params:
             mask = redo.reshape((-1,) + (1,) * (params[name].dim() - 1))
             params[name] = torch.where(mask, cand[name], params[name])
-            grad[name] = torch.where(mask, grad_c[name], grad[name])
+            if grad is not None:
+                grad[name] = torch.where(mask, grad_c[name], grad[name])
         ok = ok | _finite_per_chain(pe_c, grad_c)
     return (params, pe, grad), ok
 
@@ -508,6 +625,14 @@ def _get_model_transforms(model, model_args=(), model_kwargs=None):
         elif site["type"] == "deterministic":
             replay_model = True
     return inv_transforms, replay_model, has_enumerate_support, model_trace
+
+
+def get_transforms(model, model_args, model_kwargs, params=None):
+    """The ``biject_to`` transform of every continuous latent site, by name,
+    from one trace of the model (with ``params`` substituted, if given)."""
+    substituted = handlers.substitute(model, data=params) if params is not None else model
+    inv_transforms, _, _, _ = _get_model_transforms(substituted, model_args, model_kwargs)
+    return inv_transforms
 
 
 def get_potential_fn(
@@ -559,8 +684,10 @@ def initialize_model(
     should live on.  A model with discrete latent sites runs under
     ``enum(config_enumerate(model), -1 - max_plate_nesting)`` from here on:
     its potential sums them out, and the params are its continuous sites."""
+    global init_traces
     model_kwargs = {} if model_kwargs is None else model_kwargs
     strategy = init_strategy if isinstance(init_strategy, partial) else init_strategy()
+    init_traces += 1
     substituted_model = handlers.substitute(
         handlers.seed(model, rng_key), substitute_fn=strategy
     )

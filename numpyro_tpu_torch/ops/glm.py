@@ -38,6 +38,8 @@ from typing import NamedTuple
 
 import torch
 
+from numpyro_tpu_torch.ops.provenance import ProvenanceTensor, get_provenance
+
 __all__ = [
     "BernoulliLogitsGLMData",
     "bernoulli_logits_loglik",
@@ -496,6 +498,17 @@ class _GLMLoglik(torch.autograd.Function):
         return _GLMLoglik.apply(w, data, value_and_grad), (0, 0)
 
 
+def _loglik(w, data, value_and_grad):
+    """The op on ``w``.  A ``ProvenanceTensor`` ``w`` (a provenance pass:
+    model inspection, ``TraceGraph_ELBO``) reaches the kernel as its plain
+    tensor, and the result carries ``w``'s names: ``autograd.Function``
+    does not pass a tensor subclass through."""
+    names = get_provenance(w)
+    if names:
+        return ProvenanceTensor(_loglik(w._t, data, value_and_grad), names)
+    return _GLMLoglik.apply(w, data, value_and_grad)[0]
+
+
 def bernoulli_logits_loglik(w, data):
     """Σ_n log Bernoulli(y_n | logits = x_n · w), fused with its gradient.
 
@@ -503,11 +516,11 @@ def bernoulli_logits_loglik(w, data):
     :func:`prepare_glm_data`.  Use inside a model as
     ``numpyro_tpu_torch.factor("lik", bernoulli_logits_loglik(w, data))``.
     """
-    return _GLMLoglik.apply(w, data, glm_value_and_grad)[0]
+    return _loglik(w, data, glm_value_and_grad)
 
 
 def plain_bernoulli_logits_loglik(w, data):
     """:func:`bernoulli_logits_loglik` through :func:`plain_value_and_grad`
     on any device: the reference against which a model's gradients through
     the kernel are checked on the card.  Never on a model's path."""
-    return _GLMLoglik.apply(w, data, plain_value_and_grad)[0]
+    return _loglik(w, data, plain_value_and_grad)

@@ -1277,3 +1277,113 @@ def test_dsl_model_on_the_card_makes_no_host_sync_more_than_its_twin(cuda):
     cs = _phase15()
     walls, syncs = cs.phase_dsl(cuda)
     assert syncs["off"] <= syncs["twin"] and syncs["on"] <= syncs["twin"], syncs
+
+
+def _init_model(y):
+    a = npt.sample("a", dist.Normal(y.new_full((), 0.5), y.new_full((), 2.0)))
+    b = npt.sample("b", dist.LogNormal(y.new_full((), 0.2), y.new_full((), 0.5)))
+    npt.sample("d", dist.Dirichlet(y.new_tensor([1.0, 2.0, 3.0])))
+    npt.sample("obs", dist.Normal(a, b), obs=y)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["mean", "feasible", "value", "median", "sample", "uniform"])
+def test_batched_init_strategies_on_the_card(cuda, name):
+    """``initialize_model`` at 8 chains on the card under every strategy:
+    finite potentials; the strategies that draw nothing give the CPU's
+    params and potentials; under those that draw, chain ``i`` is the
+    single-chain search on chain ``i``'s generator."""
+    from numpyro_tpu_torch.infer import initialization, util as infer_util
+
+    strategy = {
+        "mean": initialization.init_to_mean, "feasible": initialization.init_to_feasible,
+        "value": initialization.init_to_value(values={
+            "a": torch.tensor(0.3), "b": torch.tensor(1.5), "d": torch.tensor([0.2, 0.3, 0.5])}),
+        "median": initialization.init_to_median, "sample": initialization.init_to_sample,
+        "uniform": initialization.init_to_uniform,
+    }[name]
+    y = torch.tensor([0.3, -0.2, 1.1])
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        if name == "value" and device.type == "cuda":
+            values = {k: v.to(cuda) for k, v in strategy.keywords["values"].items()}
+            strategy_here = initialization.init_to_value(values=values)
+        else:
+            strategy_here = strategy
+        out[device.type] = infer_util.initialize_model(
+            torch.Generator(device=device).manual_seed(0), _init_model, num_chains=8,
+            init_strategy=strategy_here, model_args=(y.to(device),)).param_info
+    z, pe, _ = out["cuda"]
+    assert bool(torch.isfinite(pe).all()) and all(v.device.type == "cuda" for v in z.values())
+    if name in ("mean", "feasible", "value"):
+        for k in z:
+            torch.testing.assert_close(z[k].cpu(), out["cpu"].z[k], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(pe.cpu(), out["cpu"].potential_energy, rtol=1e-5, atol=0)
+    elif name in ("median", "sample"):
+        (z, _, _), _ = infer_util.find_valid_initial_params(
+            torch.Generator(device=cuda).manual_seed(1), _init_model, num_chains=8,
+            init_strategy=strategy, model_args=(y.to(cuda),))
+        gens = infer_util.chain_generators(torch.Generator(device=cuda).manual_seed(1), cuda, 8)
+        (z3, _, _), _ = infer_util.find_valid_initial_params(
+            gens[3], _init_model, init_strategy=strategy, model_args=(y.to(cuda),))
+        for k in z:
+            assert torch.equal(z[k][3], z3[k]), k
+
+
+@pytest.mark.requires_cuda
+def test_provenance_through_the_glm_op_launches_the_kernel(cuda):
+    """A provenance pass reaches ``glm_split`` with a plain tensor: the
+    kernel launches once, the plain version not at all, and the result
+    carries ``w``'s name; the covtype-shape model's dependencies on the card
+    are the CPU's."""
+    from numpyro_tpu_torch.infer.inspect import get_dependencies
+    from numpyro_tpu_torch.ops.provenance import eval_provenance
+
+    X, y, W, _ = _problem(cuda, n=40000, d=9, c=1)
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    before = dict(glm.launch_counts)
+    out = eval_provenance(lambda w: glm.bernoulli_logits_loglik(w, data), w=W[0])
+    assert out == frozenset({"w"})
+    assert glm.launch_counts["glm_split"] == before["glm_split"] + 1
+    assert glm.launch_counts["plain"] == before["plain"]
+
+    def model(data):
+        w = npt.sample("w", dist.Normal(torch.zeros(9, device=data.device), 1.0).to_event(1))
+        npt.factor("lik", glm.bernoulli_logits_loglik(w, data))
+
+    cpu_data = glm.prepare_glm_data(X.cpu(), y.cpu(), dtype="split")
+    assert get_dependencies(model, (data,)) == get_dependencies(model, (cpu_data,), device="cpu")
+
+
+@pytest.mark.requires_cuda
+def test_transfer_states_to_host_and_cross_chain_diagnostics(cuda):
+    """The draws moved to the host equal the card's bit for bit; the
+    cross-chain diagnostics on the card are the CPU's on autocorrelated
+    draws (an AR(1) series from numpy; a chain that never moves would give
+    0/0 autocorrelations, NaN on the card, where the CPU's mean of a
+    constant rounds off it)."""
+    from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
+    from numpyro_tpu_torch.parallel import cross_chain_diagnostics
+
+    def model():
+        a = npt.sample("a", dist.Normal(0.0, 1.0))
+        npt.sample("b", dist.Normal(a, 0.5).expand([2]).to_event(1))
+
+    mcmc = MCMC(NUTS(model, max_tree_depth=3), num_warmup=20, num_samples=30, num_chains=8)
+    mcmc.run(0)
+    on_card = mcmc.get_samples(group_by_chain=True)
+    mcmc.transfer_states_to_host()
+    on_host = mcmc.get_samples(group_by_chain=True)
+    for k, v in on_card.items():
+        assert v.device.type == "cuda" and on_host[k].device.type == "cpu"
+        assert torch.equal(v.cpu(), on_host[k])
+    rng = np.random.default_rng(0)
+    noise = rng.normal(size=(8, 50, 3)).astype(np.float32)
+    series = np.zeros_like(noise)
+    for t in range(1, 50):
+        series[:, t] = 0.8 * series[:, t - 1] + noise[:, t]
+    draws = {"a": torch.from_numpy(series[..., 0]), "b": torch.from_numpy(series[..., 1:])}
+    got = cross_chain_diagnostics({k: v.to(cuda) for k, v in draws.items()})
+    for k, v in draws.items():
+        torch.testing.assert_close(got[k][0].cpu(), split_gelman_rubin(v), rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[k][1].cpu(), effective_sample_size(v), rtol=1e-5, atol=0)

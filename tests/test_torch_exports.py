@@ -1,8 +1,10 @@
 """The public names of the port's modules against the JAX package's: the
-package root, ``handlers``, ``distributions``, ``ops``, ``ops.indexing`` and
-``contrib.control_flow`` carry every name of the JAX module's ``__all__``
-but those ROADMAP.md leaves out: its "Not to port" list and the names of
-the queue items still to come, each named below with its item."""
+package root, ``handlers``, ``distributions``, ``distributions.constraints``,
+``ops``, ``ops.indexing``, ``contrib.control_flow``, ``infer``,
+``infer.util``, ``infer.initialization``, ``infer.hmc``, ``infer.inspect``
+and ``parallel`` carry every name of the JAX module's ``__all__`` but those
+ROADMAP.md leaves out: its "Not to port" list and the names of the queue
+items still to come, each named below with its item."""
 
 import inspect
 
@@ -12,22 +14,33 @@ import numpyro_tpu
 import numpyro_tpu_torch
 
 # the JAX package's names the port does not carry yet, or at all (ROADMAP.md)
+ONE_CARD = "Not to port (parallel/mesh.py's mesh, sharding and multi-host helpers; one H100)"
 LEFT_OUT = {
     "": {
-        "get_dependencies": "Queue 1 item 7 (infer/inspect.py)",
-        "render_model": "Queue 1 item 7 (infer/inspect.py)",
-        "checkpoint": "Queue 1 item 9",
-        "compat": "Queue 1 item 9",
-        "enable_x64": "Queue 1 item 9 (util.py's helpers)",
-        "set_host_device_count": "Queue 1 item 9 (util.py's helpers)",
-        "set_platform": "Queue 1 item 9 (util.py's helpers)",
+        "checkpoint": "Queue 1 item 3 (checkpoint.py)",
+        "compat": "Queue 1 item 3 (compat/)",
+        "enable_x64": "Queue 1 item 3 (util.py's helpers)",
+        "set_host_device_count": "Queue 1 item 3 (util.py's helpers)",
+        "set_platform": "Queue 1 item 3 (util.py's helpers)",
     },
     "ops": {"PytreeTrace": "Not to port (ops/pytree.py carries a trace through lax control flow)"},
+    "parallel": {name: ONE_CARD for name in (
+        "chain_data_mesh", "chain_mesh", "initialize_distributed", "shard_chain_state",
+        "shard_data")},
 }
-# modules of the port that the JAX module's __all__ does not list
-PORT_ONLY = {"": {"nn"}, "ops": {"glm"}}
+# names in the port's __all__ that the JAX module's does not list
+PORT_ONLY = {
+    "": {"nn"},
+    "ops": {"glm"},
+    "distributions.constraints": {"complex", "positive_definite_circulant_vector"},
+    "infer.util": {"batched_value", "batched_value_and_grad", "device_generator",
+                   "get_importance_trace", "get_potential_fn", "pin_full_f32_matmul",
+                   "samples_from_numpy", "state_field", "tqdm_bar", "tree_from_numpy"},
+}
 
-MODULES = ["", "handlers", "distributions", "ops", "ops.indexing", "contrib.control_flow"]
+MODULES = ["", "handlers", "distributions", "distributions.constraints", "ops", "ops.indexing",
+           "contrib.control_flow", "infer", "infer.util", "infer.initialization", "infer.hmc",
+           "infer.inspect", "parallel"]
 
 
 def _module(package, name):
@@ -50,8 +63,10 @@ def _public(module):
 def test_the_port_carries_the_jax_module_s_names(name):
     import numpyro_tpu.contrib.control_flow  # noqa: F401
     import numpyro_tpu.ops.indexing  # noqa: F401
+    import numpyro_tpu.parallel  # noqa: F401
     import numpyro_tpu_torch.contrib.control_flow  # noqa: F401
     import numpyro_tpu_torch.ops.indexing  # noqa: F401
+    import numpyro_tpu_torch.parallel  # noqa: F401
 
     jax_names = _public(_module(numpyro_tpu, name))
     port_names = _public(_module(numpyro_tpu_torch, name))

@@ -113,11 +113,15 @@ def test_effective_sample_size_matches_jax():
 
 
 def test_unported_options_raise():
-    """A callable ``chain_method`` and the progress bar stay unported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method=lambda f: f)
-    with pytest.raises(NotImplementedError):
-        MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, progress_bar=True)
+    """An unknown ``chain_method`` raises; a callable one and the progress
+    bar are ported (``tests/test_torch_mcmc_tail.py``), and a callable
+    ``chain_method`` refuses ``post_warmup_state``, as the JAX package's."""
+    mcmc = MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, num_chains=2,
+                chain_method=lambda f: f, progress_bar=True, device="cpu")
+    assert callable(mcmc.chain_method) and mcmc.progress_bar
+    mcmc.post_warmup_state = object()
+    with pytest.raises(ValueError, match="post_warmup_state"):
+        mcmc.run(0)
     with pytest.raises(ValueError, match="sequential"):
         MCMC(NUTS(torch_model), num_warmup=1, num_samples=1, chain_method="pmap")
 
