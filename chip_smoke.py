@@ -249,6 +249,26 @@ Phases (each prints on its own lines; any failure exits non-zero):
                model against the JAX package's (``INSPECT_REF``,
                ``dev/inspect_reference.py``), and ``compute_log_probs`` of
                the DSL model on the card against the CPU's.
+20. contrib -- (a) ``examples/hsgp_example.py``'s model at its widths (80
+               points, m = 20, ell = 1.5, the example's data) through the
+               port's ``contrib.hsgp``: its potential and gradient at 256
+               points on the card against the CPU's with the host syncs of
+               an evaluation, then NUTS from ``init_to_median``
+               (``HSGP_RUN``), the posterior means of ``length`` and
+               ``noise`` within 4 combined Monte-Carlo errors of the JAX
+               package's run (``HSGP_REF``, ``dev/contrib_reference.py``);
+               (b) the Matérn (nu 1.5, 2.5) and periodic fragments' potentials
+               on the card against the CPU's, and the periodic density at
+               length 0.05 finite and within 1e-4 of scipy's ``ive``; (c)
+               ``contrib.nested_sampling.NestedSampler`` on the conjugate
+               model of ``tests/contrib/test_nested_sampling.py`` (log Z
+               against the analytic one) and on
+               ``examples/gaussian_shells.py``'s two shells under the
+               example's two asserts; (d) ``contrib.stochastic_support``'s
+               ``DCC`` and ``SDVI`` on the two-branch model of
+               ``tests/contrib/test_stochastic_support.py``, each branch's
+               weight within 0.1 of the exact one, with the host syncs of an
+               evaluation of a branch's model.  No GLM launch.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -272,6 +292,12 @@ from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_ru
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions.util import betaincinv, gammaincinv
 from numpyro_tpu_torch.contrib.control_flow import cond, scan
+from numpyro_tpu_torch.contrib.hsgp import (
+    hsgp_matern, hsgp_periodic_non_centered, hsgp_squared_exponential,
+)
+from numpyro_tpu_torch.contrib.hsgp.spectral_densities import diag_spectral_density_periodic
+from numpyro_tpu_torch.contrib.nested_sampling import NestedSampler
+from numpyro_tpu_torch.contrib.stochastic_support import DCC, SDVI
 from numpyro_tpu_torch.contrib.enum import config_enumerate, enum, markov
 from numpyro_tpu_torch.contrib.enum import log_density as enum_log_density
 from numpyro_tpu_torch.infer import (
@@ -1862,19 +1888,21 @@ def count_syncs(fn):
     return out, sites
 
 
-def potential_check(tag, model, y, points, rtol, seed, scale=1.0):
-    """The potential of ``model`` on ``y`` and its gradient at ``points``
-    unconstrained points (numpy normals of ``scale``, ``seed``) on ``y``'s
-    device against the CPU's, the gradient with an atol of ``rtol`` times
-    each site's largest component.  Returns the worst relative error of the
-    potential, the gradient's in units of its atol, the host syncs of the
-    evaluation on ``y``'s device (the second of two; ``count_syncs``) and
-    the points mapped onto the sites' supports there."""
+def potential_check(tag, model, y, points, rtol, seed, scale=1.0, device=None):
+    """The potential of ``model`` on ``y`` (a tensor, or a tuple of the
+    model's tensor arguments) and its gradient at ``points`` unconstrained
+    points (numpy normals of ``scale``, ``seed``) on ``device`` (by default
+    that of ``y``'s first tensor) against the CPU's, the gradient with an
+    atol of ``rtol`` times each site's largest component.  Returns the worst
+    relative error of the potential, the gradient's in units of its atol,
+    the host syncs of the evaluation on that device (the second of two;
+    ``count_syncs``) and the points mapped onto the sites' supports there."""
     out, rng = {}, np.random.default_rng(seed)
-    for device in (y.device, torch.device("cpu")):
+    args = y if isinstance(y, tuple) else (y,)
+    for device in (device or args[0].device, torch.device("cpu")):
         info = infer_util.initialize_model(torch.Generator(device=device).manual_seed(seed),
                                            model, num_chains=points,
-                                           model_args=(y.to(device),))
+                                           model_args=tuple(a.to(device) for a in args))
         if not out:
             z = {k: rng.normal(0.0, scale, tuple(v.shape)).astype(np.float32)
                  for k, v in info.param_info.z.items()}
@@ -2813,6 +2841,361 @@ def phase_nineteen(X, y):
     wall_a, launches_a, try_s = phase_init_strategies(X, y)
     wall_b, launches_b = phase_inspect(X, y)
     return {"19a": wall_a, "19b": wall_b}, {"19a": launches_a, "19b": launches_b}, try_s
+
+
+# phase 20, contrib: the HSGP approximation, the nested sampler and DCC/SDVI.
+# Its budget is 8 s on the reference host of PERF.md section 2 (the ECS leg at
+# 24.0 ms an evaluation). (a) examples/hsgp_example.py's model at its widths
+# (HSGP_N points, m = HSGP_M, ell = HSGP_ELL, the example's data from numpy's
+# RandomState(0)): its potential and gradient at HSGP_POINTS points (numpy
+# normals of scale 0.5, seed 201) on the card against the CPU's at HSGP_RTOL
+# with the host syncs of an evaluation, then NUTS (HSGP_RUN: chains, warmup,
+# samples, depths), the posterior means of length and noise within 4 combined
+# Monte-Carlo errors of the JAX package's run at the same configuration
+# (HSGP_REF, `JAX_PLATFORMS=cpu python3 -m dev.contrib_reference hsgp`). (b)
+# the Matérn (nu 1.5, 2.5) and periodic fragments in the same model, their
+# potentials at HSGP_POINTS points on the card against the CPU's, and the
+# periodic density at length PERIODIC_SHORT on the card, finite and within
+# PERIODIC_RTOL of scipy's float64 ive. (c) the nested sampler on the conjugate
+# model of tests/contrib/test_nested_sampling.py (NS_Y, NS_CONJ_RUN), log Z
+# within 3 log_Z_err + 0.05 of the analytic one, and on
+# examples/gaussian_shells.py's two shells (radius 2, width 0.1, prior
+# [-6, 6]^2; SHELLS_RUN cut to the budget, SHELLS_DRAWS draws) under the
+# example's own two asserts, which the JAX package's run at SHELLS_RUN passes
+# too (`python3 -m dev.contrib_reference shells`). (d) DCC (DCC_RUN: chains,
+# warmup, samples and NUTS depths a straight-line program) and SDVI (SDVI_RUN: Adam's step,
+# steps, ELBO particles of the combination) on the two-branch model of
+# tests/contrib/test_stochastic_support.py: the weights sum to 1 within 1e-4
+# and each branch's within SS_GATE of its exact share (the JAX test's gate on
+# the first), with the host syncs of an evaluation of a branch's model.
+# Sized on an H100 80GB at 700 W (`python3 -m dev.phase20 --sizing`, warm):
+# 20a 292 evaluations at 12.46 ms, 20c 337 and 407 batched evaluations at 3.02
+# and 1.98 ms, 20d 230 evaluations; phase 20 7.6 s alone, 8.7 and 9.5 s in two
+# whole runs (20a's first evaluations in the script cost 1.6-1.8 s more than
+# alone), so 20a's sampling depth went from 3 to 2. Cut from the examples' and
+# tests' lengths to that: 20a from one chain of 400 + 400 (from init_to_median,
+# whose start the JAX run shares; at 20 warmup draws the chains had not met);
+# 20c from 200 and 500 live points (one slice pass; at 40 live points the
+# shells' left share fell outside the assert for one of eight JAX keys, at 80
+# for none of ten); 20d from 300 + 300 and 500 steps at Adam(0.01): over 16
+# seeds on the CPU each branch's weight came within 0.043 (DCC) and 0.041
+# (SDVI) of the exact one at DCC_RUN and SDVI_RUN, where 16 chains of 12 + 6
+# and 60 steps at Adam(0.15) missed the gate for two seeds in twelve each (the
+# estimate of log Z averages over the posterior draws; more chains cost no
+# more host time).
+HSGP_N, HSGP_M, HSGP_ELL = 80, 20, 1.5
+HSGP_RUN = (32, 30, 10, (3, 2))
+HSGP_REF = {"length": {"mean": 0.401, "se_mean": 0.0209},
+            "noise": {"mean": 0.1997, "se_mean": 0.0033}}
+HSGP_POINTS, HSGP_RTOL = 256, 1e-4
+PERIODIC_M, PERIODIC_W0 = 8, math.pi
+PERIODIC_SHORT, PERIODIC_RTOL = 0.05, 1e-4
+NS_Y = (0.7, 1.1, 0.9, 1.3, 0.8, 1.0, 1.2, 0.95, 1.05, 0.85)
+NS_SP, NS_SO = 2.0, 0.5
+NS_CONJ_RUN = {"num_live_points": 30, "num_delete": 10, "num_slices": 1, "max_samples": 4000}
+SHELLS_RUN = {"num_live_points": 80, "num_delete": 24, "num_slices": 1, "max_samples": 4000}
+SHELLS_CENTERS, SHELLS_RADIUS, SHELLS_WIDTH = ((-3.5, 0.0), (3.5, 0.0)), 2.0, 0.1
+SHELLS_DRAWS = 2000
+DCC_RUN = (64, 10, 5, (3, 3))
+DCC_SLP_SAMPLES = 25
+SDVI_RUN = (0.1, 80, 200)
+SS_OBS, SS_GATE, SS_POINTS = 0.2, 0.1, 32
+
+
+def hsgp_data(n=HSGP_N):
+    """``examples/hsgp_example.py``'s data: ``x`` on [-1, 1] and ``sin(3x)``
+    plus noise of 0.2 from numpy's RandomState(0), float32."""
+    rng = np.random.RandomState(0)
+    x = np.linspace(-1, 1, n).astype(np.float32)
+    y = (np.sin(3 * x) + 0.2 * rng.randn(n)).astype(np.float32)
+    return x, y
+
+
+def hsgp_model(x, y=None, ell=HSGP_ELL, m=HSGP_M):
+    """``examples/hsgp_example.py``'s model."""
+    amp = npt.sample("amp", dist.HalfNormal(1.0))
+    length = npt.sample("length", dist.LogNormal(-1.0, 1.0))
+    noise = npt.sample("noise", dist.HalfNormal(0.5))
+    f = hsgp_squared_exponential(x, alpha=amp, length=length, ell=ell, m=m)
+    with npt.plate("N", x.shape[0]):
+        npt.sample("y", dist.Normal(f, noise), obs=y)
+
+
+def _fragment_model(fragment):
+    """The example's model with ``fragment(x, amp, length)`` for its GP."""
+
+    def model(x, y=None):
+        amp = npt.sample("amp", dist.HalfNormal(1.0))
+        length = npt.sample("length", dist.LogNormal(-1.0, 1.0))
+        noise = npt.sample("noise", dist.HalfNormal(0.5))
+        f = fragment(x, amp, length)
+        with npt.plate("N", x.shape[0]):
+            npt.sample("y", dist.Normal(f, noise), obs=y)
+
+    return model
+
+
+FRAGMENTS = {
+    "matern 1.5": _fragment_model(lambda x, a, l: hsgp_matern(
+        x, nu=1.5, alpha=a, length=l, ell=HSGP_ELL, m=HSGP_M)),
+    "matern 2.5": _fragment_model(lambda x, a, l: hsgp_matern(
+        x, nu=2.5, alpha=a, length=l, ell=HSGP_ELL, m=HSGP_M)),
+    "periodic": _fragment_model(lambda x, a, l: hsgp_periodic_non_centered(
+        x, alpha=a, length=l, w0=PERIODIC_W0, m=PERIODIC_M)),
+}
+
+
+def conjugate_model(y):
+    """``tests/contrib/test_nested_sampling.py``'s conjugate model; its
+    likelihood's scale is filled on the data's device (as a Python number it
+    would be copied to the card at every evaluation, ROADMAP.md Queue 3)."""
+    mu = npt.sample("mu", dist.Normal(0.0, NS_SP))
+    with npt.plate("N", y.shape[0]):
+        npt.sample("y", dist.Normal(mu, y.new_full((), NS_SO)), obs=y)
+
+
+def conjugate_log_evidence(y=NS_Y):
+    y = np.asarray(y)
+    n = len(y)
+    cov = NS_SO**2 * np.eye(n) + NS_SP**2 * np.ones((n, n))
+    _, logdet = np.linalg.slogdet(2 * np.pi * cov)
+    return float(-0.5 * (logdet + y @ np.linalg.solve(cov, y)))
+
+
+def shell_logpdf(x, loc, radius, width):
+    """``examples/gaussian_shells.py``: a ring of ``radius`` and thickness
+    ``width`` about ``loc``."""
+    r = torch.linalg.norm(x - loc, dim=-1)
+    return -0.5 * ((r - radius) / width) ** 2 - math.log(math.sqrt(2 * math.pi) * width)
+
+
+def shells_model(center1, center2, radius, width):
+    """``examples/gaussian_shells.py``'s model."""
+    x = npt.sample("x", dist.Uniform(-6.0, 6.0).expand([2]).to_event(1))
+    lik = torch.logaddexp(shell_logpdf(x, center1, radius, width),
+                          shell_logpdf(x, center2, radius, width))
+    npt.factor("shells", lik)
+
+
+def shells_checks(samples, centers=SHELLS_CENTERS, radius=SHELLS_RADIUS, width=SHELLS_WIDTH):
+    """The example's two asserts on ``(n, 2)`` numpy draws: the share of
+    draws in the left shell and the median distance to the nearest ring,
+    with whether each holds."""
+    left = float((samples[:, 0] < 0).mean())
+    to_ring = np.minimum(
+        np.abs(np.linalg.norm(samples - np.asarray(centers[0]), axis=-1) - radius),
+        np.abs(np.linalg.norm(samples - np.asarray(centers[1]), axis=-1) - radius))
+    median = float(np.median(to_ring))
+    return left, median, 0.2 < left < 0.8, median < 3 * width
+
+
+def branch_model():
+    """``tests/contrib/test_stochastic_support.py``'s two-branch model."""
+    m = npt.sample("m", dist.Bernoulli(0.5), infer={"branching": True})
+    if m == 0:
+        mean = npt.sample("a1", dist.Normal(0.0, 1.0))
+    else:
+        mean = npt.sample("a2", dist.Normal(1.0, 1.0))
+    npt.sample("obs", dist.Normal(mean, 1.0), obs=SS_OBS)
+
+
+def branch_weights():
+    """The exact weight of each branch: N(obs | 0, 2) and N(obs | 1, 2)
+    normalized, by the branch value."""
+    z = [math.exp(-0.5 * (SS_OBS - mu) ** 2 / 2.0) for mu in (0.0, 1.0)]
+    return {"0": z[0] / sum(z), "1": z[1] / sum(z)}
+
+
+def phase_hsgp(device):
+    """20a: the HSGP example's potential against the CPU's, then NUTS;
+    returns its wall seconds, ms per evaluation and host syncs per
+    evaluation."""
+    t0 = time.perf_counter()
+    x, y = (torch.from_numpy(a).to(device) for a in hsgp_data())
+    pe_err, g_err, sites, _ = potential_check("20a", hsgp_model, (x, y), HSGP_POINTS,
+                                              HSGP_RTOL, 201, scale=0.5)
+    check_s = time.perf_counter() - t0
+    chains, warmup, samples, depths = HSGP_RUN
+    mcmc = MCMC(NUTS(hsgp_model, init_strategy=init_to_median, max_tree_depth=depths),
+                num_warmup=warmup,
+                num_samples=samples, num_chains=chains, device=device)
+    mcmc.run(202, x, y)
+    stats = mcmc.last_run_stats
+    evals = stats["potential_evals_warmup"] + stats["potential_evals_sample"]
+    ms = (stats["warmup_s"] + stats["sample_s"]) / evals * 1e3
+    z = mcmc.get_samples(group_by_chain=True)
+    if not all(torch.isfinite(v).all() for v in z.values()):
+        raise SystemExit("20a: draws that are not finite")
+    worst, readings = 0.0, []
+    for site in ("length", "noise"):
+        got, ref = mc_moments(z[site].cpu()), HSGP_REF[site]
+        ratio = abs(got["mean"] - ref["mean"]) / (4 * math.hypot(got["se_mean"], ref["se_mean"]))
+        worst = max(worst, ratio)
+        readings.append(f"{site} {got['mean']:.4f} +- {got['se_mean']:.4f} (JAX "
+                        f"{ref['mean']:.4f} +- {ref['se_mean']:.4f})")
+    syncs = sum(sites.values())
+    wall = time.perf_counter() - t0
+    log(f"[contrib] 20a hsgp_example.py ({HSGP_N} points, m {HSGP_M}, ell {HSGP_ELL}): the "
+        f"potential at {HSGP_POINTS} points within {pe_err:.2e} of the CPU's, its gradient "
+        f"{g_err:.3f} of its atol (rtol {HSGP_RTOL}), {syncs} host syncs per evaluation {sites}, "
+        f"{check_s:.2f} s; NUTS {chains} chains, {warmup} + {samples}, depths {depths}: init "
+        f"{stats['init_s']:.2f} s, {evals} evaluations in "
+        f"{stats['warmup_s'] + stats['sample_s']:.2f} s, {ms:.2f} ms per evaluation; "
+        f"{'; '.join(readings)}; largest gap / 4 combined errors {worst:.3f}; {wall:.2f} s")
+    if not worst < 1.0:
+        raise SystemExit("20a: the posterior means of length or noise are off the JAX package's "
+                         "by more than 4 combined Monte-Carlo errors")
+    return wall, ms, syncs
+
+
+def phase_hsgp_fragments(device):
+    """20b: the Matérn and periodic fragments' potentials against the CPU's
+    and the periodic density at a short length; returns its wall seconds
+    and the host syncs per evaluation of each fragment."""
+    import scipy.special
+
+    t0 = time.perf_counter()
+    x, y = (torch.from_numpy(a).to(device) for a in hsgp_data())
+    syncs = {}
+    for k, (name, model) in enumerate(FRAGMENTS.items()):
+        pe_err, g_err, sites, _ = potential_check(f"20b {name}", model, (x, y), HSGP_POINTS,
+                                                  HSGP_RTOL, 210 + k, scale=0.5)
+        syncs[name] = sum(sites.values())
+        log(f"[contrib] 20b {name}: the potential at {HSGP_POINTS} points within {pe_err:.2e} "
+            f"of the CPU's, its gradient {g_err:.3f} of its atol, {syncs[name]} host syncs per "
+            f"evaluation {sites}")
+    short = x.new_full((), PERIODIC_SHORT)
+    q2 = diag_spectral_density_periodic(1.0, short, PERIODIC_M).double().cpu().numpy()
+    a = PERIODIC_SHORT ** -2
+    exact = np.array([(1.0 if j == 0 else 2.0) * scipy.special.ive(j, a)
+                      for j in range(PERIODIC_M)])
+    err = float(np.abs(q2 / exact - 1).max())
+    log(f"[contrib] 20b the periodic density at length {PERIODIC_SHORT} on the card: "
+        f"{np.round(q2, 5).tolist()}, within {err:.2e} of scipy's float64 ive (rtol "
+        f"{PERIODIC_RTOL})")
+    if not (np.isfinite(q2).all() and err <= PERIODIC_RTOL):
+        raise SystemExit("20b: the periodic density at a short length is not finite or is off")
+    return time.perf_counter() - t0, syncs
+
+
+def _nested_run(tag, model, run, seed, device, *args):
+    """One NestedSampler run; returns it, its seconds and its stats line."""
+    ns = NestedSampler(model, constructor_kwargs=run, device=device)
+    t0 = time.perf_counter()
+    _, sites = count_syncs(lambda: ns.run(seed, *args))
+    res = ns.diagnostics()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = ns.last_run_stats
+    line = (f"{st['iterations']} iterations, {st['evaluations']} batched evaluations "
+            f"({st['evaluations'] / max(st['iterations'], 1):.1f} an iteration), "
+            f"{secs / st['evaluations'] * 1e3:.2f} ms an evaluation, {secs:.2f} s, host syncs "
+            f"{sum(sites.values())} ({sum(sites.values()) / max(st['iterations'], 1):.2f} an "
+            f"iteration; {sites}); log Z {float(res.log_Z):.4f} +- {float(res.log_Z_err):.4f}, "
+            f"ESS {float(res.ess):.1f}")
+    if not (math.isfinite(float(res.log_Z)) and res.samples.device.type == device.type):
+        raise SystemExit(f"{tag}: log Z is not finite or the samples are off the device")
+    return ns, secs, line
+
+
+def phase_nested(device):
+    """20c: the nested sampler on the conjugate model and on the two shells;
+    returns its wall seconds and the ms per batched evaluation of each."""
+    t0 = time.perf_counter()
+    y = torch.tensor(NS_Y, device=device)
+    ns, secs_c, line = _nested_run("20c", conjugate_model, NS_CONJ_RUN, 203, device, y)
+    res = ns.diagnostics()
+    truth = conjugate_log_evidence()
+    gap, bound = abs(float(res.log_Z) - truth), 3 * float(res.log_Z_err) + 0.05
+    log(f"[contrib] 20c conjugate model, {NS_CONJ_RUN}: {line}; analytic {truth:.4f}, gap "
+        f"{gap:.4f} (gate {bound:.4f})")
+    if not gap <= bound:
+        raise SystemExit("20c: the conjugate model's log Z is off the analytic one")
+    ms = {"conjugate": secs_c / ns.last_run_stats["evaluations"] * 1e3}
+    centers = [torch.tensor(c, device=device) for c in SHELLS_CENTERS]
+    ns, secs_s, line = _nested_run("20c", shells_model, SHELLS_RUN, 204, device, *centers,
+                                   SHELLS_RADIUS, SHELLS_WIDTH)
+    samples = ns.get_samples(205, SHELLS_DRAWS)["x"]
+    if samples.shape != (SHELLS_DRAWS, 2) or samples.device.type != device.type:
+        raise SystemExit(f"20c: shells draws {tuple(samples.shape)} on {samples.device}")
+    left, median, left_ok, ring_ok = shells_checks(samples.cpu().numpy())
+    log(f"[contrib] 20c gaussian_shells.py, {SHELLS_RUN}: {line}; {SHELLS_DRAWS} draws, "
+        f"{left:.2%} in the left shell (0.2 to 0.8), median distance to the nearest ring "
+        f"{median:.4f} (below {3 * SHELLS_WIDTH})")
+    if not (left_ok and ring_ok):
+        raise SystemExit("20c: the shells' draws fail the example's asserts")
+    ms["shells"] = secs_s / ns.last_run_stats["evaluations"] * 1e3
+    return time.perf_counter() - t0, ms
+
+
+def _branch_gates(tag, weights):
+    """The weights' sum and each branch's weight against the exact one."""
+    exact = branch_weights()
+    total = sum(float(v) for v in weights.values())
+    first = next(iter(weights))
+    gaps = {k: abs(float(v) - exact[k]) for k, v in weights.items()}
+    first_gap = abs(float(weights[first]) - exact["0"])
+    log(f"[contrib] 20d {tag}: weights {({k: round(float(v), 4) for k, v in weights.items()})}, "
+        f"exact {({k: round(v, 4) for k, v in exact.items()})}, sum {total:.6f}; the first "
+        f"branch found {first!r}, its weight {first_gap:.4f} off z0 / (z0 + z1) (the JAX test's "
+        f"gate {SS_GATE}); each branch off its own by at most {max(gaps.values()):.4f}")
+    if not (abs(total - 1) < 1e-4 and set(weights) == {"0", "1"} and first_gap < SS_GATE
+            and max(gaps.values()) < SS_GATE):
+        raise SystemExit(f"20d {tag}: the branch weights are off the exact ones")
+
+
+def phase_stochastic_support(device):
+    """20d: DCC and SDVI on the two-branch model; returns the walls of each
+    and the host syncs per evaluation of a branch's model."""
+    t0 = time.perf_counter()
+    slp = handlers.condition(branch_model, data={"m": 0})
+    tr = handlers.trace(handlers.seed(slp, torch.Generator(device=device).manual_seed(0))
+                        ).get_trace()
+    if not isinstance(tr["m"]["value"], int):
+        raise SystemExit(f"20d: the conditioned branch value is a {type(tr['m']['value'])}")
+    pe_err, g_err, sites, _ = potential_check("20d", slp, (), SS_POINTS, HSGP_RTOL, 206,
+                                              device=device)
+    syncs = sum(sites.values())
+    chains, warmup, samples, depths = DCC_RUN
+    dcc = DCC(branch_model, mcmc_kwargs=dict(num_warmup=warmup, num_samples=samples,
+                                             num_chains=chains, device=device),
+              kernel_cls=functools.partial(NUTS, max_tree_depth=depths),
+              num_slp_samples=DCC_SLP_SAMPLES)
+    t1, evals0 = time.perf_counter(), infer_util.potential_evals
+    res = dcc.run(207)
+    evals = infer_util.potential_evals - evals0
+    wall_dcc = time.perf_counter() - t0
+    log(f"[contrib] 20d DCC, {DCC_SLP_SAMPLES} simulations, NUTS {chains} chains, {warmup} + "
+        f"{samples} at depths {depths} a branch: {time.perf_counter() - t1:.2f} s, {evals} "
+        f"batched evaluations; the branch m = 0's potential at {SS_POINTS} points within "
+        f"{pe_err:.2e} of the CPU's, {syncs} host syncs per evaluation {sites}")
+    _branch_gates("DCC", res.slp_weights)
+    t1 = time.perf_counter()
+    lr, steps, particles = SDVI_RUN
+    sdvi = SDVI(branch_model, Adam(lr), svi_num_steps=steps, num_slp_samples=DCC_SLP_SAMPLES,
+                combine_elbo_particles=particles, device=device)
+    res = sdvi.run(208)
+    wall_sdvi = time.perf_counter() - t1
+    log(f"[contrib] 20d SDVI, Adam({lr}), {steps} steps a branch, {particles} particles: "
+        f"{wall_sdvi:.2f} s")
+    _branch_gates("SDVI", res.slp_weights)
+    return {"20d DCC": wall_dcc, "20d SDVI": wall_sdvi}, syncs
+
+
+def phase_twenty(device):
+    """Phase 20: HSGP, the nested sampler and DCC/SDVI; returns the walls of
+    its legs, 20a's ms per evaluation, the nested runs' ms per evaluation and
+    the host syncs per evaluation."""
+    launches0 = dict(glm.launch_counts)
+    wall_a, ms_a, syncs_a = phase_hsgp(device)
+    wall_b, syncs_b = phase_hsgp_fragments(device)
+    wall_c, ms_c = phase_nested(device)
+    walls_d, syncs_d = phase_stochastic_support(device)
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("20: the phase launched a GLM kernel")
+    return ({"20a": wall_a, "20b": wall_b, "20c": wall_c, **walls_d}, ms_a, ms_c,
+            {"20a": syncs_a, **syncs_b, "20d": syncs_d})
 
 
 def phase_horseshoe(X, y, beta_true, leg):
@@ -4050,6 +4433,17 @@ def main():
         f"19a {tail_launches['19a']}, 19b {tail_launches['19b']}), about "
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 4 s)")
+
+    t20 = time.perf_counter()
+    walls, ms, ms_nested, syncs = phase_twenty(device)
+    wall = time.perf_counter() - t20
+    log(f"[contrib] phase 20: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s"
+                                                         for k, v in walls.items())
+        + f"; 20a {ms:.2f} ms per evaluation, the nested runs "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms_nested.items())
+        + f" ms per batched evaluation; host syncs per evaluation {syncs}), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 8 s)")
 
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (

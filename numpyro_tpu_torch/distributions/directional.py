@@ -33,6 +33,7 @@ from .util import (
 
 __all__ = [
     "ProjectedNormal", "SineBivariateVonMises", "SineSkewed", "VonMises", "log_bessel_i_orders",
+    "log_scaled_bessel_i_orders",
 ]
 
 _TWO_PI = 2.0 * math.pi
@@ -91,6 +92,13 @@ def log_bessel_i_orders(max_order, value, num_points=_QUAD_POINTS):
     by the trapezoid rule on a uniform grid (spectrally accurate: the even
     periodic extension of the integrand is smooth); every order is one
     ``(..., n) @ (n, orders)`` product."""
+    return value.unsqueeze(-1) + log_scaled_bessel_i_orders(max_order, value, num_points)
+
+
+def log_scaled_bessel_i_orders(max_order, value, num_points=_QUAD_POINTS):
+    """``log(I_m(value) e^{-value})`` for ``m = 0 .. max_order``, the
+    quadrature of :func:`log_bessel_i_orders` before ``value`` is added
+    back: finite wherever the quadrature is, however large ``value``."""
     kappa = value.unsqueeze(-1)
     dtype = torch.promote_types(torch.float32, kappa.dtype)
     theta = torch.linspace(0.0, math.pi, num_points, dtype=dtype, device=kappa.device)
@@ -102,7 +110,7 @@ def log_bessel_i_orders(max_order, value, num_points=_QUAD_POINTS):
     w[0] *= 0.5
     w[-1] *= 0.5
     scaled = torch.matmul(envelope * w, cos_m_theta) / math.pi
-    return kappa + torch.log(scaled.clamp(min=torch.finfo(dtype).tiny))
+    return torch.log(scaled.clamp(min=torch.finfo(dtype).tiny))
 
 
 def _radial_moment(t, order):

@@ -330,7 +330,9 @@ class AffineTransform(Transform):
 
     def log_abs_det_jacobian(self, x, y, intermediates=None):
         if isinstance(self.scale, torch.Tensor):
-            return torch.broadcast_to(torch.log(torch.abs(self.scale)), x.shape)
+            # on x's device: a 0-dim scale made from a Python number lives on
+            # the CPU (an interval's bounds), and joins x's device as a scalar
+            return torch.zeros_like(x) + torch.log(torch.abs(self.scale))
         return torch.full_like(x, math.log(abs(self.scale)))
 
     def forward_shape(self, shape):

@@ -139,12 +139,29 @@ def in_transform():
     return torch._C._functorch.maybe_current_level() is not None
 
 
+def _number_as_tensor(dist, value):
+    """A Python number given as a value (an ``obs`` or a ``condition``, as
+    the JAX package takes them) as a 0-dim tensor, filled on the device of
+    the distribution's first tensor attribute: a fill, not a copy from the
+    host.  Anything else passes as it is."""
+    if isinstance(value, torch.Tensor) or not isinstance(value, (int, float)):
+        return value
+    like = next((v for v in vars(dist).values() if isinstance(v, torch.Tensor)), None)
+    dtype = torch.int64 if isinstance(value, int) else torch.get_default_dtype()
+    return torch.full((), value, dtype=dtype, device=None if like is None else like.device)
+
+
 def validate_sample(log_prob_fn):
-    """Decorate a ``log_prob``: with validation on, a value outside the
+    """Decorate a ``log_prob``: a Python number is taken as a 0-dim tensor
+    (:func:`_number_as_tensor`), and with validation on, a value outside the
     support gets ``-inf``, selected by ``torch.where`` (no host read)."""
 
     @functools.wraps(log_prob_fn)
     def wrapper(self, *args, **kwargs):
+        if args:
+            args = (_number_as_tensor(self, args[0]),) + args[1:]
+        elif "value" in kwargs:
+            kwargs["value"] = _number_as_tensor(self, kwargs["value"])
         out = log_prob_fn(self, *args, **kwargs)
         if self._validate_args:
             value = kwargs.get("value", args[0] if args else None)

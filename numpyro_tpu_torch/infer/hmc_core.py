@@ -404,7 +404,11 @@ class GeneratorDraws:
         """``int64`` uniform in ``[low, high)``; ``high`` is a number or a
         tensor that broadcasts against ``shape`` (one bound per chain)."""
         u = torch.rand(shape, generator=self.generator, device=like.device, dtype=torch.float64)
-        span = torch.as_tensor(high, device=like.device) - low
+        if not isinstance(high, torch.Tensor):
+            # a number stays on the host: no copy to the device
+            span = high - low
+            return (low + torch.clamp(torch.floor(u * span), max=span - 1)).to(torch.int64)
+        span = high.to(like.device) - low
         return (low + torch.minimum(torch.floor(u * span), span - 1)).to(torch.int64)
 
     def permutations(self, shape, like):

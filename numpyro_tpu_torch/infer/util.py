@@ -198,13 +198,14 @@ def _site_log_prob(site, *, check_shapes=False):
         lp = site["fn"].log_prob(value, site["intermediates"])
     else:
         if check_shapes:
-            fn_shape = tuple(site["fn"].shape())
+            # an observed or conditioned value may be a Python number
+            fn_shape, value_shape = tuple(site["fn"].shape()), tuple(np.shape(value))
             try:
-                broadcast_shape(tuple(value.shape), fn_shape)
+                broadcast_shape(value_shape, fn_shape)
             except RuntimeError:
                 raise ValueError(
                     f"Model and guide shapes disagree at site: "
-                    f"'{site['name']}': {fn_shape} vs {tuple(value.shape)}"
+                    f"'{site['name']}': {fn_shape} vs {value_shape}"
                 )
         lp = site["fn"].log_prob(value)
     if site["scale"] is not None:

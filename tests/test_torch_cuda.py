@@ -15,7 +15,8 @@ structured and matrix families and transforms on the card against the CPU,
 their draws through ``gof``, a Wishart gradient on the same draws, and
 phase 17's two potentials; ``Vindex``, a validated ``log_prob`` and
 ``cond`` on the card against the CPU, and phase 18b's host syncs against
-its twin's.
+its twin's; the HSGP potentials on the card against the CPU without host
+syncs, the nested sampler, and DCC and SDVI on the card.
 
 Every test here carries ``requires_cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -1387,3 +1388,78 @@ def test_transfer_states_to_host_and_cross_chain_diagnostics(cuda):
     for k, v in draws.items():
         torch.testing.assert_close(got[k][0].cpu(), split_gelman_rubin(v), rtol=1e-5, atol=0)
         torch.testing.assert_close(got[k][1].cpu(), effective_sample_size(v), rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# contrib: HSGP, the nested sampler and DCC/SDVI (phase 20)
+
+
+@pytest.mark.requires_cuda
+def test_hsgp_potentials_on_the_card_match_the_cpu_without_host_syncs(cuda):
+    """``examples/hsgp_example.py``'s model and the Matérn and periodic
+    fragments: the potential and gradient at 64 points on the card against
+    the CPU's (``chip_smoke.potential_check``), with no host sync in an
+    evaluation (every constant of ``contrib.hsgp`` is made on the device);
+    the periodic density at length 0.05 finite and the CPU's."""
+    from numpyro_tpu_torch.contrib.hsgp.spectral_densities import diag_spectral_density_periodic
+
+    cs = _phase15()
+    x, y = (torch.from_numpy(a).to(cuda) for a in cs.hsgp_data())
+    for k, model in enumerate([cs.hsgp_model, *cs.FRAGMENTS.values()]):
+        pe_err, g_err, sites, _ = cs.potential_check("hsgp", model, (x, y), 64, cs.HSGP_RTOL,
+                                                     300 + k, scale=0.5)
+        assert pe_err <= cs.HSGP_RTOL and g_err <= 1.0 and not sites
+    short = torch.tensor(0.05, device=cuda)
+    on_card = diag_spectral_density_periodic(1.0, short, 8)
+    assert torch.isfinite(on_card).all()
+    torch.testing.assert_close(on_card.cpu(), diag_spectral_density_periodic(1.0, short.cpu(), 8),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_nested_sampler_on_the_card(cuda):
+    """The conjugate model's log Z against the analytic one, and the
+    shells' uniform prior, whose bijection carries 0-dim scales made on the
+    host, through a short run with its draws on the card."""
+    from numpyro_tpu_torch.contrib.nested_sampling import NestedSampler
+
+    cs = _phase15()
+    ns = NestedSampler(cs.conjugate_model, constructor_kwargs=cs.NS_CONJ_RUN)
+    ns.run(0, torch.tensor(cs.NS_Y, device=cuda))
+    res = ns.diagnostics()
+    assert res.samples.device.type == "cuda"
+    assert abs(float(res.log_Z) - cs.conjugate_log_evidence()) <= 3 * float(res.log_Z_err) + 0.05
+    centers = [torch.tensor(c, device=cuda) for c in cs.SHELLS_CENTERS]
+    ns = NestedSampler(cs.shells_model, constructor_kwargs=dict(cs.SHELLS_RUN, max_samples=240))
+    ns.run(1, *centers, cs.SHELLS_RADIUS, cs.SHELLS_WIDTH)
+    draws = ns.get_samples(2, 100)["x"]
+    assert draws.device.type == "cuda" and draws.shape == (100, 2)
+    assert bool(((draws >= -6) & (draws <= 6)).all())
+
+
+@pytest.mark.requires_cuda
+def test_dcc_and_sdvi_on_the_card(cuda):
+    """Short DCC and SDVI runs on the card (their default device): the
+    weights sum to 1 and each branch's is within 0.1 of the exact one; a
+    branch's model keeps its branch value a Python int."""
+    import functools
+
+    from numpyro_tpu_torch.contrib.stochastic_support import DCC, SDVI
+
+    cs = _phase15()
+    chains, warmup, samples, depths = cs.DCC_RUN
+    dcc = DCC(cs.branch_model, mcmc_kwargs=dict(num_warmup=warmup, num_samples=samples,
+                                                num_chains=chains),
+              kernel_cls=functools.partial(NUTS, max_tree_depth=depths),
+              num_slp_samples=cs.DCC_SLP_SAMPLES)
+    lr, steps, particles = cs.SDVI_RUN
+    sdvi = SDVI(cs.branch_model, Adam(lr), svi_num_steps=steps,
+                num_slp_samples=cs.DCC_SLP_SAMPLES, combine_elbo_particles=particles)
+    exact = cs.branch_weights()
+    for res in (dcc.run(0), sdvi.run(1)):
+        weights = {k: float(v) for k, v in res.slp_weights.items()}
+        assert abs(sum(weights.values()) - 1) < 1e-4
+        assert max(abs(v - exact[k]) for k, v in weights.items()) < cs.SS_GATE
+    slp = handlers.condition(cs.branch_model, data={"m": 1})
+    tr = handlers.trace(handlers.seed(slp, torch.Generator(device=cuda).manual_seed(0))).get_trace()
+    assert isinstance(tr["m"]["value"], int) and tr["a2"]["value"].device.type == "cuda"
