@@ -16,7 +16,7 @@ Phases (each prints on its own lines; any failure exits non-zero):
 4. main     -- with every launch count set to 0: MCMC(NUTS) with 256
                vectorized chains on the covtype model in each precision mode.
                Split mode (the bench's) runs 100 + 10 transitions, f32 mode
-               (``prepare_glm_data``'s default) 50 + 10, both at warmup depth
+               (``prepare_glm_data``'s default) 50 + 5, both at warmup depth
                5, and both must
                recover the generating coefficients to 0.05.  bf16 mode runs a
                short depth-6 chain whose draws must be finite (its quantized
@@ -57,7 +57,7 @@ Phases (each prints on its own lines; any failure exits non-zero):
                just before its ``init`` and read just after its last step:
                (a) the MAP of the covtype model by ``AutoDelta`` with
                ``Trace_ELBO`` and ``Adam(0.01)``, 500 steps, split mode; (b)
-               ``AutoDiagonalNormal`` with 16 particles, 1,500 steps; (c)
+               ``AutoDiagonalNormal`` with 16 particles, 1,000 steps; (c)
                ``AutoMultivariateNormal`` with 16 particles, 1,000 steps; each
                must recover the generating coefficients to 0.05 and launch
                ``glm_split`` once per step (all particles in one launch) beside
@@ -269,6 +269,23 @@ Phases (each prints on its own lines; any failure exits non-zero):
                ``tests/contrib/test_stochastic_support.py``, each branch's
                weight within 0.1 of the exact one, with the host syncs of an
                evaluation of a branch's model.  No GLM launch.
+21. stein   -- contrib part two: (a) ``SVGD`` on the covtype model in split
+               mode at full width, the SVGD paper's experiment
+               (``STEIN_COVTYPE``: 100 particles, ``Adagrad``,
+               ``RBFKernel()``): one ``glm_split`` launch a step for all
+               particles (B = 100) beside the init traces, the particles'
+               mean within 0.05 of the generating coefficients, their
+               per-coefficient std beside NUTS's, the host syncs of a step,
+               and ``glm_split`` at 100 chains timed beside its bound; (b)
+               ``examples/stein_bnn.py`` at its widths (``STEIN_BNN``: 8
+               particles, 2 ELBO draws, ``AutoNormal``, ``Adagrad(0.5)``),
+               then ``MixtureGuidePredictive``'s draws of ``y``, whose mean's
+               RMSE against ``0.5 sin(4x)`` is within ``STEIN_BNN_GATE`` of
+               the JAX package's run (``dev/stein_reference.py``); (c)
+               ``ASVGD`` on the Gaussian of ``tests/contrib/test_einstein.py``,
+               the SVGD force under each Stein kernel and one ``SteinVI`` step
+               under ``ProbabilityProductKernel`` on the card against the
+               same calls on CPU tensors from the same particles and draws.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -292,6 +309,11 @@ from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_ru
 from numpyro_tpu_torch import handlers
 from numpyro_tpu_torch.distributions.util import betaincinv, gammaincinv
 from numpyro_tpu_torch.contrib.control_flow import cond, scan
+from numpyro_tpu_torch.contrib.einstein import (
+    ASVGD, SVGD, GraphicalKernel, IMQKernel, LinearKernel, MixtureGuidePredictive, MixtureKernel,
+    ProbabilityProductKernel, RadialGaussNewtonKernel, RandomFeatureKernel, RBFKernel, SteinVI,
+)
+from numpyro_tpu_torch.contrib.einstein.steinvi import SteinVIState
 from numpyro_tpu_torch.contrib.hsgp import (
     hsgp_matern, hsgp_periodic_non_centered, hsgp_squared_exponential,
 )
@@ -314,7 +336,7 @@ from numpyro_tpu_torch.infer.inspect import generate_graph_specification
 from numpyro_tpu_torch.infer.mcmc import POSTPROCESS_CHUNK
 from numpyro_tpu_torch.ops import _cuda, glm
 from numpyro_tpu_torch.ops.indexing import Vindex
-from numpyro_tpu_torch.optim import Adam, Minimize
+from numpyro_tpu_torch.optim import Adagrad, Adam, Minimize
 from numpyro_tpu_torch.parallel import cross_chain_diagnostics, pooled_step_size
 from numpyro_tpu_torch.util import tree_leaves
 
@@ -337,12 +359,14 @@ SWEEP_CHAINS = (64, 256, 1024)
 # main-path runs: kernel -> (warmup, samples, max_tree_depth, coefficient gate).
 # The whole script must end within 1,200 s on the slowest host it meets, whose
 # host-bound legs run up to 2.5 times as long as on the fastest: draws are cut
-# (split 50 -> 30 -> 10, f32 25 -> 10, bf16 20 -> 10), never warmup, and the
+# (split 50 -> 30 -> 10, f32 25 -> 10 -> 5, bf16 20 -> 10), never warmup, and the
 # warmup depth of the split and f32 runs from 6 to 5 to make room for phase 11
-# (nearly every warmup transition filled the cap of 6)
+# (nearly every warmup transition filled the cap of 6).  The f32 run's draws
+# went from 10 to 5 to make room for phase 21: its 10 draws took 17.37 s at
+# depth 10 (2,232 evaluations), and 256 chains of 5 draws still hold its gate.
 RUNS = {
     "glm_split": (100, 10, (5, 10), 0.05),
-    "glm_fused_f32": (50, 10, (5, 10), 0.05),
+    "glm_fused_f32": (50, 5, (5, 10), 0.05),
     "glm_fused_bf16": (20, 10, 6, None),
 }
 PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
@@ -395,9 +419,12 @@ DENSE_COVTYPE = (100, 20, (6, 10), 0.05)
 # model traces of init that launch the kernel: the guide's prototype trace, its
 # init search (for init_to_median a trace under the strategy and the potential;
 # init_to_uniform draws without a trace) and SVI.init's trace of the model
+# 8b's steps went from 1,500 to 1,000 to make room for phase 21: at 1,500 its
+# location was 0.0087 off (NVIDIA H100 80GB HBM3, 700.00 W), and 8c's 1,000
+# steps of the wider guide reach 0.0164 against the gate of 0.05.
 SVI_LEGS = {
     "8a": ("AutoDelta", 1, 500, 4),
-    "8b": ("AutoDiagonalNormal", 16, 1500, 3),
+    "8b": ("AutoDiagonalNormal", 16, 1000, 3),
     "8c": ("AutoMultivariateNormal", 16, 1000, 3),
 }
 SVI_GATE = 0.05
@@ -3198,6 +3225,322 @@ def phase_twenty(device):
             {"20a": syncs_a, **syncs_b, "20d": syncs_d})
 
 
+# phase 21, contrib part two: SteinVI, SVGD and ASVGD.  (a) SVGD on covtype at
+# full width, the SVGD paper's experiment (Liu & Wang 2016, sec. 5: 100
+# particles, AdaGrad): particles, steps, Adagrad step size.  Every step is one
+# batched evaluation of the model for all particles, one glm_split launch at
+# B = 100; the init traces the model STEIN_INIT_TRACES times (AutoDelta's
+# prototype and init_to_median's trace and potential, SteinVI's trace of the
+# model).  The gate is the bench's 0.05, which the JAX package's own run at
+# this configuration meets (`JAX_PLATFORMS=cpu python3 -m dev.stein_reference
+# covtype 100 100 0.5 0 1`: 0.0079 and 0.0084).  Adagrad(0.5) settles by about
+# 75 steps at a tenth of the rows on the CPU, where 0.1 and 0.2 had not settled
+# by 200.
+STEIN_COVTYPE = (100, 100, 0.5)
+STEIN_COVTYPE_GATE = 0.05
+STEIN_INIT_TRACES = 4
+# (b) examples/stein_bnn.py at its widths (60 points, hidden 8, 8 particles, 2
+# ELBO draws, AutoNormal, Adagrad(0.5), RBFKernel()): steps (cut from the
+# example's 500 to the phase's budget) and predictive draws of y.  The gate on
+# the RMSE of the predictive mean against 0.5 sin(4x) is max(2e, e + 0.05) for
+# e = 0.2983, the JAX package's own run at this length (`JAX_PLATFORMS=cpu
+# python3 -m dev.stein_reference bnn`: 0.2983-0.3414 over keys 0-4).
+STEIN_BNN_N, STEIN_BNN_HIDDEN, STEIN_BNN_PARTICLES = 60, 8, 8
+STEIN_BNN = (80, 200)
+STEIN_BNN_GATE = 0.5967
+# (c) ASVGD on the Gaussian of tests/contrib/test_einstein.py: particles,
+# cycles, steps; the SVGD forces of the kernels and one SteinVI step under
+# ProbabilityProductKernel: particles; on the card against the CPU from the
+# same particles (and draws), rtol STEIN_RTOL
+ASVGD_RUN = (50, 3, 60)
+STEIN_FORCE_PARTICLES, STEIN_STEP_PARTICLES = 20, 6
+STEIN_RTOL = 1e-4
+
+
+class TableDraws:
+    """A draw source of the einstein module (``contrib.einstein.steinvi``):
+    ``normals`` serves ``tables`` in order, each indexed by the (batched)
+    indices that ``at`` collected (particle, ELBO draw), and ``randints``
+    serves ``ints``; ``generator`` takes the init traces' draws."""
+
+    def __init__(self, tables, ints=(), index=(), generator=None):
+        self.tables, self.ints, self.index = list(tables), list(ints), index
+        self.generator = generator if generator is not None else torch.Generator()
+        self._next = 0
+
+    def at(self, i):
+        return TableDraws(self.tables, self.ints, self.index + (i,), self.generator)
+
+    def normals(self, shape, like):
+        if self._next >= len(self.tables):
+            raise RuntimeError("the draw source has no table left")
+        out = self.tables[self._next]
+        self._next += 1
+        for i in self.index:
+            # a batched 0-dim index under vmap selects through index_select
+            out = out[i] if isinstance(i, int) else out.index_select(0, i.reshape(1))[0]
+        if tuple(out.shape) != tuple(shape):
+            raise RuntimeError(f"a draw of shape {tuple(shape)} met a table of {tuple(out.shape)}")
+        return out
+
+    def randints(self, low, high, shape):
+        return self.ints.pop(0)
+
+
+def stein_bnn_data(n=STEIN_BNN_N):
+    """``examples/stein_bnn.py``'s data: ``x`` on [-1, 1] and ``0.5 sin(4x)``
+    plus noise of 0.1 from numpy's RandomState(0), float32."""
+    rng = np.random.RandomState(0)
+    x = np.linspace(-1, 1, n)[:, None]
+    y = 0.5 * np.sin(4 * x[:, 0]) + 0.1 * rng.randn(n)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def stein_bnn_model(x, y=None, hidden=STEIN_BNN_HIDDEN):
+    """``examples/stein_bnn.py``'s network; its Python-number scales are
+    copied to the card at every evaluation (ROADMAP Queue 3)."""
+    D = x.shape[1]
+    w1 = npt.sample("w1", dist.Normal(torch.zeros((D, hidden), device=x.device), 1.0).to_event(2))
+    b1 = npt.sample("b1", dist.Normal(torch.zeros(hidden, device=x.device), 1.0).to_event(1))
+    w2 = npt.sample("w2", dist.Normal(torch.zeros(hidden, device=x.device), 1.0).to_event(1))
+    prec = npt.sample("prec", dist.Gamma(1.0, 0.1))
+    mean = torch.tanh(x @ w1 + b1) @ w2
+    with npt.plate("N", x.shape[0]):
+        npt.sample("y", dist.Normal(mean, 1 / torch.sqrt(prec)), obs=y)
+
+
+def stein_gauss(loc, scale):
+    """The Gaussian of ``tests/contrib/test_einstein.py``."""
+    npt.sample("x", dist.Normal(loc, scale).to_event(1))
+
+
+def stein_two(loc, scale):
+    """Two sites, so that the graphical kernel has two blocks."""
+    a = npt.sample("a", dist.Normal(loc, scale).to_event(1))
+    npt.sample("b", dist.Normal(0.5 * a.sum(), scale[0]))
+
+
+def stein_args(device):
+    return (torch.tensor([1.0, -1.0], device=device), torch.tensor([1.0, 0.5], device=device))
+
+
+def _close(tag, got, want, rtol=STEIN_RTOL):
+    """The largest error of ``got`` (a tensor or a dict of them, on the card)
+    against ``want`` (the CPU's) in units of ``rtol`` times each entry's
+    largest component; raises above 1."""
+    got = got if isinstance(got, dict) else {"": got}
+    want = want if isinstance(want, dict) else {"": want}
+    worst = 0.0
+    for k in want:
+        a, b = got[k].double().cpu(), want[k].double()
+        scale = rtol * max(b.abs().max().item(), 1e-30)
+        worst = max(worst, ((a - b).abs() / (rtol * b.abs() + scale)).max().item())
+    if not worst <= 1.0:
+        raise SystemExit(f"21c {tag}: the card is off the CPU by {worst:.3f} of the tolerance")
+    return worst
+
+
+def phase_svgd_covtype(X, y, true_w, posterior, kernels):
+    """21a: SVGD on covtype in split mode at full width; returns its wall
+    seconds, ms per step (init included), host syncs of a step and
+    glm_split launches.  On CPU tensors (a rehearsal) the plain version's
+    calls are counted in their place and the kernel is not timed."""
+    particles, steps, step_size = STEIN_COVTYPE
+    on_card = X.device.type == "cuda"
+    name = "glm_split" if on_card else "plain"
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    svgd = SVGD(model, Adagrad(step_size), RBFKernel(), num_stein_particles=particles)
+    glm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svgd.run(210, steps, data)
+    losses = res.losses.cpu()
+    wall = time.perf_counter() - t0
+    launches = dict(glm.launch_counts)
+    (state, _), sites = count_syncs(lambda: svgd.update(res.state, data))
+    w = svgd.get_params(state)["auto_w_loc"]
+    step_launches = glm.launch_counts[name] - launches[name]
+    if (launches[name] != STEIN_INIT_TRACES + steps or step_launches != 1
+            or any(v for k, v in glm.launch_counts.items() if k != name)):
+        raise SystemExit(f"21a: launched {launches} in the run and {dict(glm.launch_counts)} with "
+                         f"one more step; expected {STEIN_INIT_TRACES} + {steps} {name} "
+                         "launches, then one")
+    if not torch.isfinite(losses).all():
+        raise SystemExit("21a: a loss is not finite")
+    err = (w.mean(0).cpu() - torch.from_numpy(true_w)).abs().max().item()
+    std = w.double().std(0).cpu()
+    ratio = std / posterior["std"].cpu()
+    syncs = sum(sites.values())
+    ms = wall / steps * 1e3
+    log(f"[stein] 21a SVGD on covtype, {particles} particles, {steps} steps of "
+        f"Adagrad({step_size}): {wall:.2f} s, {ms:.2f} ms per step (init included); loss "
+        f"{losses[0].item():.1f} -> {losses[-1].item():.1f}; max |particle mean - true_w| "
+        f"{err:.4f} (gate {STEIN_COVTYPE_GATE}); per-coefficient std of the particles median "
+        f"{std.median().item():.5f} (NUTS's in phase 4: {posterior['std'].median().item():.5f}; "
+        f"ratio median {ratio.median().item():.3f}, min {ratio.min().item():.3f}, max "
+        f"{ratio.max().item():.3f}); {syncs} host syncs in a step {sites}; {name} launches "
+        f"{launches[name] + 1} ({STEIN_INIT_TRACES} init traces, one a step)")
+    if not err < STEIN_COVTYPE_GATE:
+        raise SystemExit(f"21a: the particles' mean is off by {err:.4f} (>= {STEIN_COVTYPE_GATE})")
+    if on_card:
+        # the kernel at this batch, by CUDA events, beside its bound
+        d_pad, n_pad = data.x_t.shape
+        wb = w.contiguous()
+        t = cuda_ms(lambda: glm.glm_value_and_grad(wb, data))
+        bound, by = bound_ms("split", particles, d_pad, n_pad)
+        log(f"[stein] glm_split at {particles} chains: {t:.3f} ms (bound {bound:.4f} ms by {by}, "
+            f"share {bound / t:.3f})")
+        kernels["glm_split"][f"ms_at_{particles}_chains"] = t
+        kernels["glm_split"][f"bound_ms_at_{particles}_chains"] = bound
+    return wall, ms, syncs, launches[name] + 1
+
+
+def phase_stein_bnn(device):
+    """21b: examples/stein_bnn.py's SteinVI and its mixture predictive;
+    returns its wall seconds, ms per step (init included) and host syncs of
+    a step."""
+    steps, draws = STEIN_BNN
+    x, y = (torch.from_numpy(a).to(device) for a in stein_bnn_data())
+    guide = autoguide.AutoNormal(stein_bnn_model)
+    stein = SteinVI(stein_bnn_model, guide, Adagrad(0.5), RBFKernel(),
+                    num_stein_particles=STEIN_BNN_PARTICLES, num_elbo_particles=2)
+    t0 = time.perf_counter()
+    res = stein.run(211, steps, x, y)
+    losses = res.losses.cpu()
+    wall_run = time.perf_counter() - t0
+    _, sites = count_syncs(lambda: stein.update(res.state, x, y))
+    pred = MixtureGuidePredictive(stein_bnn_model, guide, res.params, set(res.params),
+                                  num_samples=draws)(212, x)
+    mean = pred["y"].mean(0).double().cpu()
+    wall = time.perf_counter() - t0
+    truth = 0.5 * torch.sin(4 * x[:, 0].double().cpu())
+    rmse = (mean - truth).pow(2).mean().sqrt().item()
+    syncs = sum(sites.values())
+    ms = wall_run / steps * 1e3
+    log(f"[stein] 21b stein_bnn.py, {STEIN_BNN_PARTICLES} particles, 2 ELBO draws, {steps} "
+        f"steps: {wall_run:.2f} s, {ms:.2f} ms per step (init included); loss "
+        f"{losses[0].item():.1f} -> {losses[-1].item():.1f}; {syncs} host syncs in a step "
+        f"{sites}; MixtureGuidePredictive {draws} draws of y {tuple(pred['y'].shape)}, "
+        f"assignments {tuple(pred['mixture_assignments'].shape)}: the predictive mean's RMSE "
+        f"against 0.5 sin(4x) {rmse:.4f} (gate {STEIN_BNN_GATE})")
+    if not torch.isfinite(losses).all():
+        raise SystemExit("21b: a loss is not finite")
+    if pred["y"].shape != (draws, STEIN_BNN_N) or pred["y"].device.type != device.type:
+        raise SystemExit(f"21b: predictive draws {tuple(pred['y'].shape)} on {pred['y'].device}")
+    if STEIN_BNN_GATE is not None and not rmse <= STEIN_BNN_GATE:
+        raise SystemExit(f"21b: the predictive mean's RMSE {rmse:.4f} is above {STEIN_BNN_GATE}")
+    return wall, ms, syncs
+
+
+def _asvgd_steps(device, params):
+    """ASVGD_RUN's annealed steps from the given particles on ``device``;
+    the particles after them."""
+    particles, cycles, steps = ASVGD_RUN
+    args = stein_args(device)
+    a = ASVGD(stein_gauss, Adagrad(0.5), RBFKernel(), num_stein_particles=particles,
+              num_cycles=cycles, device=device)
+    a.init(0, *args)
+    # the state at the given particles
+    state = SteinVIState(a.optim.init({k: v.to(device) for k, v in params.items()}),
+                         torch.Generator(device=device))
+    schedule = a._cyclical_annealing(steps, cycles, a.transition_speed,
+                                     np.arange(steps, dtype=np.float32)).to(device)
+    for t in range(steps):
+        u = a.optim.get_params(state.optim_state)
+        _, grads = a._annealed_loss_and_grads(schedule[t], state.rng_key, u, *args)
+        state = state._replace(optim_state=a.optim.update(grads, state.optim_state))
+    return a.get_params(state)["auto_x_loc"]
+
+
+STEIN_KERNELS = {
+    "RBFKernel": lambda: RBFKernel(),
+    "RBFKernel vector": lambda: RBFKernel(mode="vector"),
+    "RBFKernel matrix": lambda: RBFKernel(mode="matrix"),
+    "IMQKernel": lambda: IMQKernel(),
+    "LinearKernel": lambda: LinearKernel(),
+    "RandomFeatureKernel": lambda: RandomFeatureKernel(),
+    "MixtureKernel": lambda: MixtureKernel([0.5, 0.5], [RBFKernel(), IMQKernel()]),
+    "GraphicalKernel": lambda: GraphicalKernel(local_kernel_fns={"auto_b_loc": IMQKernel()}),
+    "RadialGaussNewtonKernel": lambda: RadialGaussNewtonKernel(),
+}
+
+
+def phase_stein_surface(device):
+    """21c: ASVGD, the kernels' SVGD forces and a SteinVI step under
+    ProbabilityProductKernel on the card against the CPU; returns the
+    worst error of each in units of the tolerance."""
+    cpu = torch.device("cpu")
+    worst = {}
+    particles, cycles, steps = ASVGD_RUN
+    a = ASVGD(stein_gauss, Adagrad(0.5), RBFKernel(), num_stein_particles=particles,
+              num_cycles=cycles, device=cpu)
+    start = a.optim.get_params(a.init(213, *stein_args(cpu)).optim_state)
+    got, want = _asvgd_steps(device, start), _asvgd_steps(cpu, start)
+    worst["ASVGD"] = _close("ASVGD", got, want)
+    mean_err = (got.mean(0).cpu() - torch.tensor([1.0, -1.0])).abs().max().item()
+    log(f"[stein] 21c ASVGD, {particles} particles, {cycles} cycles, {steps} steps: the card "
+        f"within {worst['ASVGD']:.3f} of rtol {STEIN_RTOL} of the CPU; particle mean off "
+        f"[1, -1] by {mean_err:.4f} (the JAX test's gate 0.35)")
+    if not mean_err < 0.35:
+        raise SystemExit("21c: ASVGD's particle mean is off the Gaussian's")
+
+    rng = np.random.default_rng(214)
+    p = STEIN_FORCE_PARTICLES
+    params = {"auto_a_loc": torch.from_numpy(rng.normal(0.0, 1.0, (p, 2)).astype(np.float32)),
+              "auto_b_loc": torch.from_numpy(rng.normal(0.0, 1.0, (p,)).astype(np.float32))}
+    rf = {k: torch.from_numpy(v.astype(np.float32))
+          for k, v in (("w", rng.standard_normal((p, 3))), ("b", 2 * np.pi * rng.random((p, 3))))}
+    for name, make in STEIN_KERNELS.items():
+        out = {}
+        for dev in (device, cpu):
+            s = SVGD(stein_two, Adagrad(0.5), make(), num_stein_particles=p, device=dev)
+            s.init(0, *stein_args(dev))
+            for kf in getattr(s.kernel_fn, "kernel_fns", [s.kernel_fn]):
+                if isinstance(kf, RandomFeatureKernel):
+                    kf._random_weights, kf._random_biases = rf["w"].to(dev), rf["b"].to(dev)
+            loss, grads = s._loss_and_grads(torch.Generator(device=dev), {
+                k: v.to(dev) for k, v in params.items()}, *stein_args(dev))
+            out[dev.type] = {"loss": loss, **grads}
+        worst[name] = _close(name, out[device.type], out["cpu"])
+
+    p, draws = STEIN_STEP_PARTICLES, 2
+    out = {}
+    tables = [rng.standard_normal((p, draws) + s).astype(np.float32) for s in ((2,), ())]
+    for dev in (device, cpu):
+        guide = autoguide.AutoNormal(stein_two)
+        s = SteinVI(stein_two, guide, Adagrad(0.5), ProbabilityProductKernel(guide=guide),
+                    num_stein_particles=p, num_elbo_particles=draws, device=dev)
+        state = s.init(215, *stein_args(dev))
+        if not out:
+            start = s.optim.get_params(state.optim_state)
+        source = TableDraws([torch.from_numpy(t).to(dev) for t in tables],
+                            generator=torch.Generator(device=dev))
+        u = {k: v.to(dev) for k, v in start.items()}
+        loss, grads = s._loss_and_grads(source, u, *stein_args(dev))
+        out[dev.type] = {"loss": loss, **grads}
+    worst["SteinVI ProbabilityProductKernel"] = _close("SteinVI", out[device.type], out["cpu"])
+    log(f"[stein] 21c the card against the CPU, in units of rtol {STEIN_RTOL} (SVGD forces at "
+        f"{STEIN_FORCE_PARTICLES} particles, a SteinVI step at {STEIN_STEP_PARTICLES} on the "
+        f"same draws): " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    return worst
+
+
+def phase_twenty_one(X, y, true_w, posterior, kernels):
+    """Phase 21: SVGD on covtype, examples/stein_bnn.py and the rest of the
+    einstein module on the card; returns the walls of its legs, the ms and
+    host syncs per step of 21a and 21b and 21a's glm_split launches."""
+    t0 = time.perf_counter()
+    wall_a, ms_a, syncs_a, launches = phase_svgd_covtype(X, y, true_w, posterior, kernels)
+    t1 = time.perf_counter()
+    launches0 = dict(glm.launch_counts)
+    wall_b, ms_b, syncs_b = phase_stein_bnn(X.device)
+    t2 = time.perf_counter()
+    phase_stein_surface(X.device)
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("21b-c: launched a GLM kernel")
+    walls = {"21a": t1 - t0, "21b": t2 - t1, "21c": time.perf_counter() - t2}
+    return walls, {"21a": ms_a, "21b": ms_b}, {"21a": syncs_a, "21b": syncs_b}, launches
+
+
 def phase_horseshoe(X, y, beta_true, leg):
     """7b-7d: one MCMC(NUTS) run of the horseshoe; returns the MCMC object."""
     chains, warmup, samples, depth, nuts_kw = HS_RUNS[leg]
@@ -4445,10 +4788,21 @@ def main():
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 8 s)")
 
+    t21 = time.perf_counter()
+    walls, ms, syncs, stein_launches = phase_twenty_one(X, y, true_w, split["posterior"], kernels)
+    wall = time.perf_counter() - t21
+    log(f"[stein] phase 21: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s"
+                                                       for k, v in walls.items())
+        + f"; ms per step 21a {ms['21a']:.2f}, 21b {ms['21b']:.2f}; host syncs in a step "
+        f"{syncs}; glm_split launches 21a {stein_launches}), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 6 s)")
+
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (
             svi_launches + chees_launches + iaf_launches + neutra_launches
-            + tail_launches["19a"] + tail_launches["19b"] if name == "glm_split" else 0)
+            + tail_launches["19a"] + tail_launches["19b"] + stein_launches
+            if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
     if dense_counts["glm_split"] == 0:

@@ -228,10 +228,10 @@ class Distribution:
     def __call__(self, *args, **kwargs):
         """Sampler entry point used by the effect-handler stack."""
         key = kwargs.pop("rng_key")
-        if not isinstance(key, torch.Generator):
+        if not isinstance(key, torch.Generator) and not hasattr(key, "normals"):
             raise ValueError(
                 f"sampling {type(self).__name__} needs a torch.Generator rng_key "
-                "(use handlers.seed)"
+                "(use handlers.seed) or a draw source"
             )
         if kwargs.pop("sample_intermediates", False):
             return self.sample_with_intermediates(key, *args, **kwargs)

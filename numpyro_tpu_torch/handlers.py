@@ -259,12 +259,14 @@ class infer_config(Messenger):
 class seed(Messenger):
     """Give every unobserved sample site and every plate that draws its
     subsample below this handler the generator ``rng_seed`` (a
-    ``torch.Generator``, or an int seeding a CPU one)."""
+    ``torch.Generator``, or an int seeding a CPU one).  A draw source (an
+    object with ``normals``, ``distributions.util.standard_draw``) is
+    handed on as it is, for samplers that draw through it."""
 
     def __init__(self, fn=None, rng_seed=None, hide_types=None):
         if isinstance(rng_seed, int):
             rng_seed = torch.Generator().manual_seed(rng_seed)
-        if not isinstance(rng_seed, torch.Generator):
+        if not isinstance(rng_seed, torch.Generator) and not hasattr(rng_seed, "normals"):
             raise TypeError(
                 "Incorrect type for rng_seed: expected int or torch.Generator, "
                 f"got {type(rng_seed)}"

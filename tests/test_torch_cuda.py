@@ -16,9 +16,11 @@ their draws through ``gof``, a Wishart gradient on the same draws, and
 phase 17's two potentials; ``Vindex``, a validated ``log_prob`` and
 ``cond`` on the card against the CPU, and phase 18b's host syncs against
 its twin's; the HSGP potentials on the card against the CPU without host
-syncs, the nested sampler, and DCC and SDVI on the card.
+syncs, the nested sampler, and DCC and SDVI on the card; one SVGD and one
+SteinVI step on the card against the CPU from the same particles and draws.
 
-Every test here carries ``requires_cuda`` and skips without a GPU.  The file
+Every test here carries ``requires_cuda`` and skips without a GPU, but the
+check that SteinVI and SVGD raise without one, which runs everywhere.  The file
 imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest tests/test_torch_cuda.py -m requires_cuda``.
 """
@@ -1463,3 +1465,58 @@ def test_dcc_and_sdvi_on_the_card(cuda):
     slp = handlers.condition(cs.branch_model, data={"m": 1})
     tr = handlers.trace(handlers.seed(slp, torch.Generator(device=cuda).manual_seed(0))).get_trace()
     assert isinstance(tr["m"]["value"], int) and tr["a2"]["value"].device.type == "cuda"
+
+
+@pytest.mark.requires_cuda
+def test_svgd_and_steinvi_steps_on_the_card_match_the_cpu(cuda):
+    """One SVGD step (its objective draws nothing) and one SteinVI step
+    (the same draws through a draw source) from the same particles: the
+    loss and the particles' gradients within rtol 1e-4 of the CPU's."""
+    from numpyro_tpu_torch.contrib.einstein import SVGD, RBFKernel, SteinVI
+    from numpyro_tpu_torch.optim import Adagrad
+
+    cs = _phase15()
+    rng = np.random.default_rng(0)
+    cpu = torch.device("cpu")
+    svgd_particles = {"auto_a_loc": torch.tensor(rng.normal(size=(10, 2)), dtype=torch.float32),
+                      "auto_b_loc": torch.tensor(rng.normal(size=(10,)), dtype=torch.float32)}
+    tables = [rng.standard_normal((6, 2) + s).astype(np.float32) for s in ((2,), ())]
+    out = {}
+    for dev in (cuda, cpu):
+        svgd = SVGD(cs.stein_two, Adagrad(0.5), RBFKernel(), num_stein_particles=10,
+                    device=dev)
+        svgd.init(0, *cs.stein_args(dev))
+        u = {k: v.to(dev) for k, v in svgd_particles.items()}
+        loss, grads = svgd._loss_and_grads(torch.Generator(device=dev), u,
+                                           *cs.stein_args(dev))
+        out[("svgd", dev.type)] = {"loss": loss, **grads}
+        stein = SteinVI(cs.stein_two, autoguide.AutoNormal(cs.stein_two), Adagrad(0.5),
+                        RBFKernel(), num_stein_particles=6, num_elbo_particles=2, device=dev)
+        state = stein.init(1, *cs.stein_args(dev))
+        if dev == cuda:
+            start = {k: v.cpu() for k, v in stein.optim.get_params(state.optim_state).items()}
+        u = {k: v.to(dev) for k, v in start.items()}
+        source = cs.TableDraws([torch.from_numpy(t).to(dev) for t in tables],
+                               generator=torch.Generator(device=dev))
+        loss, grads = stein._loss_and_grads(source, u, *cs.stein_args(dev))
+        out[("steinvi", dev.type)] = {"loss": loss, **grads}
+    for kind in ("svgd", "steinvi"):
+        got, want = out[(kind, "cuda")], out[(kind, "cpu")]
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].device.type == "cuda"
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                       atol=1e-4 * want[k].abs().max().item())
+
+
+def test_stein_methods_raise_without_a_card_at_their_default_device(monkeypatch):
+    """Runs everywhere: with no CUDA device, the default device raises."""
+    from numpyro_tpu_torch.contrib.einstein import SVGD, RBFKernel
+    from numpyro_tpu_torch.optim import Adagrad
+
+    cs = _phase15()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    svgd = SVGD(cs.stein_gauss, Adagrad(0.5), RBFKernel(), num_stein_particles=4)
+    assert svgd.device == torch.device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        svgd.run(0, 2, *cs.stein_args("cpu"))

@@ -1,8 +1,8 @@
 """The public names of the port's modules against the JAX package's: the
 package root, ``handlers``, ``distributions``, ``distributions.constraints``,
-``ops``, ``ops.indexing``, ``contrib.control_flow``, ``contrib.hsgp`` (and
-its ``laplacian`` and ``spectral_densities``), ``contrib.nested_sampling``,
-``contrib.stochastic_support``, ``infer``, ``infer.util``,
+``ops``, ``ops.indexing``, ``contrib.control_flow``, ``contrib.einstein``,
+``contrib.hsgp`` (and its ``laplacian`` and ``spectral_densities``),
+``contrib.nested_sampling``, ``contrib.stochastic_support``, ``infer``, ``infer.util``,
 ``infer.initialization``, ``infer.hmc``, ``infer.inspect`` and ``parallel``
 carry every name of the JAX module's ``__all__`` but those
 ROADMAP.md leaves out: its "Not to port" list and the names of the queue
@@ -41,7 +41,7 @@ PORT_ONLY = {
 }
 
 MODULES = ["", "handlers", "distributions", "distributions.constraints", "ops", "ops.indexing",
-           "contrib.control_flow", "contrib.hsgp", "contrib.hsgp.laplacian",
+           "contrib.control_flow", "contrib.einstein", "contrib.hsgp", "contrib.hsgp.laplacian",
            "contrib.hsgp.spectral_densities", "contrib.nested_sampling",
            "contrib.stochastic_support", "infer", "infer.util", "infer.initialization", "infer.hmc",
            "infer.inspect", "parallel"]
@@ -66,6 +66,7 @@ def _public(module):
 @pytest.mark.parametrize("name", MODULES)
 def test_the_port_carries_the_jax_module_s_names(name):
     import numpyro_tpu.contrib.control_flow  # noqa: F401
+    import numpyro_tpu.contrib.einstein  # noqa: F401
     import numpyro_tpu.contrib.hsgp.laplacian  # noqa: F401
     import numpyro_tpu.contrib.hsgp.spectral_densities  # noqa: F401
     import numpyro_tpu.contrib.nested_sampling  # noqa: F401
@@ -73,6 +74,7 @@ def test_the_port_carries_the_jax_module_s_names(name):
     import numpyro_tpu.ops.indexing  # noqa: F401
     import numpyro_tpu.parallel  # noqa: F401
     import numpyro_tpu_torch.contrib.control_flow  # noqa: F401
+    import numpyro_tpu_torch.contrib.einstein  # noqa: F401
     import numpyro_tpu_torch.contrib.hsgp.laplacian  # noqa: F401
     import numpyro_tpu_torch.contrib.hsgp.spectral_densities  # noqa: F401
     import numpyro_tpu_torch.contrib.nested_sampling  # noqa: F401
