@@ -24,8 +24,11 @@ Phases (each prints on its own lines; any failure exits non-zero):
                coefficient gate).  Every potential evaluation of every run
                must have launched its mode's kernel exactly once.
                A fourth run drives NUTS in split mode through the per-step
-               ``init``/``sample`` API (64 chains, 10 + 10), which must launch
-               the split kernel once per evaluation too.
+               ``init``/``sample`` API (64 chains, 10 + 5), which must launch
+               the split kernel once per evaluation too; its warmup runs
+               first, its ``post_warmup_state`` is saved with
+               ``checkpoint.save_checkpoint`` and sampling resumes from it in
+               memory (phase 22a resumes from the file).
 5. f32/bf16 -- one batched potential-and-gradient evaluation of the f32- and
                bf16-mode models through ``batched_potential``, checked
                against the plain version.
@@ -286,6 +289,22 @@ Phases (each prints on its own lines; any failure exits non-zero):
                the SVGD force under each Stein kernel and one ``SteinVI`` step
                under ``ProbabilityProductKernel`` on the card against the
                same calls on CPU tensors from the same particles and draws.
+22. port tail -- the port's last modules: (a) phase 4's per-step leg resumed
+               from its checkpoint on disk (``checkpoint.restore_checkpoint``
+               onto the card, the generator's state included): its first
+               ``RESUME_TRANSITIONS`` transitions through ``glm_split`` must
+               equal the leg's own, resumed in memory, bit for bit, with one
+               launch an evaluation; (b) ``examples/vae.py`` at its widths
+               (784 -> 64 -> 16, batch 64 of the MNIST surrogate of
+               ``examples.datasets``) through ``contrib.module.torch_module``,
+               ``VAE_STEPS`` of ``Adam(1e-3)``: the loss must fall and stay
+               finite (the example's check), the ELBO at the same weights and
+               draws on the card within ``VAE_RTOL`` of the CPU's, with the
+               host syncs of a step; (c) ``examples/minipyro.py`` through
+               ``compat`` (``MINIPYRO_STEPS``), the example's gate on
+               ``loc_q`` and its trajectory on the card within
+               ``MINIPYRO_RTOL`` of the CPU's.  22b and 22c launch no GLM
+               kernel.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -297,6 +316,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -307,6 +327,14 @@ import numpyro_tpu_torch as npt
 import numpyro_tpu_torch.distributions as dist
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
 from numpyro_tpu_torch import handlers
+from numpyro_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+from numpyro_tpu_torch.compat import distributions as compat_dist
+from numpyro_tpu_torch.compat import infer as compat_infer
+from numpyro_tpu_torch.compat import ops as compat_ops
+from numpyro_tpu_torch.compat import optim as compat_optim
+from numpyro_tpu_torch.compat import pyro as compat_pyro
+from numpyro_tpu_torch.contrib.module import torch_module
+from numpyro_tpu_torch.examples.datasets import MNIST, load_dataset
 from numpyro_tpu_torch.distributions.util import betaincinv, gammaincinv
 from numpyro_tpu_torch.contrib.control_flow import cond, scan
 from numpyro_tpu_torch.contrib.einstein import (
@@ -359,17 +387,22 @@ SWEEP_CHAINS = (64, 256, 1024)
 # main-path runs: kernel -> (warmup, samples, max_tree_depth, coefficient gate).
 # The whole script must end within 1,200 s on the slowest host it meets, whose
 # host-bound legs run up to 2.5 times as long as on the fastest: draws are cut
-# (split 50 -> 30 -> 10, f32 25 -> 10 -> 5, bf16 20 -> 10), never warmup, and the
-# warmup depth of the split and f32 runs from 6 to 5 to make room for phase 11
-# (nearly every warmup transition filled the cap of 6).  The f32 run's draws
-# went from 10 to 5 to make room for phase 21: its 10 draws took 17.37 s at
-# depth 10 (2,232 evaluations), and 256 chains of 5 draws still hold its gate.
+# (split 50 -> 30 -> 10, f32 25 -> 10 -> 5, bf16 20 -> 10 -> 5), never warmup,
+# and the warmup depth of the split and f32 runs from 6 to 5 to make room for
+# phase 11 (nearly every warmup transition filled the cap of 6).  The f32 run's
+# draws went from 10 to 5 to make room for phase 21: its 10 draws took 17.37 s
+# at depth 10 (2,232 evaluations), and 256 chains of 5 draws still hold its
+# gate.  To make room for phase 22 the bf16 run's draws went from 10 to 5 (its
+# 10 took 5.04 s, 632 evaluations; its draws need only be finite) and the
+# per-step run's from 10 to 5 (its 10 took 3.72 s; phase 22a resumes its first
+# 3): phase 8c, tried first, was 0.0931 off at 700 steps against the gate of
+# 0.05 (NVIDIA H100 80GB HBM3, 700.00 W).
 RUNS = {
     "glm_split": (100, 10, (5, 10), 0.05),
     "glm_fused_f32": (50, 5, (5, 10), 0.05),
-    "glm_fused_bf16": (20, 10, 6, None),
+    "glm_fused_bf16": (20, 5, 6, None),
 }
-PER_STEP = (64, 10, 10)  # chains, warmup, samples of the per-step NUTS run
+PER_STEP = (64, 10, 5)  # chains, warmup, samples of the per-step NUTS run
 # the HMCECS leg: chains, warmup, samples, max_tree_depth, coefficient gate.
 # ``MCMC``'s per-step loop waits for the deepest tree of all chains at every
 # transition, and a potential evaluation costs ~25 ms of host time: with the
@@ -864,31 +897,44 @@ def phase_main(X, y, true_w, name, run=None, tag="main", **nuts_kw):
     return stats
 
 
-def phase_per_step(X, y):
+def phase_per_step(X, y, checkpoint_path):
     """NUTS in split mode through the per-step API (a field that the fused
-    run does not bank sends ``MCMC`` there): one launch per evaluation."""
+    run does not bank sends ``MCMC`` there): one launch per evaluation.
+    Warmup runs first and its ``post_warmup_state`` is saved to
+    ``checkpoint_path`` before sampling resumes from it in memory (phase 22a
+    resumes from the file); returns what 22a needs: the data, the kernel,
+    the state as a target to restore onto, the saved generator state, and
+    the sampling run's draws and potential energies."""
     chains, warmup, samples = PER_STEP
     data = glm.prepare_glm_data(X, y, dtype="split")
     mcmc = MCMC(NUTS(model, max_tree_depth=6), num_warmup=warmup, num_samples=samples,
                 num_chains=chains)
     before = glm.launch_counts["glm_split"]
+    mcmc.warmup(2, data)
+    warm = mcmc.last_run_stats
+    save_checkpoint(checkpoint_path, mcmc.post_warmup_state)
+    rng_state = mcmc.post_warmup_state.rng_key.get_state()
     mcmc.run(2, data, extra_fields=("potential_energy",))
     stats = mcmc.last_run_stats
     launches = glm.launch_counts["glm_split"] - before
     draws = mcmc.get_samples(group_by_chain=True)["w"]
     pe = mcmc.get_extra_fields(group_by_chain=True)["potential_energy"]
-    log(f"[main] per-step NUTS, {chains} chains, {warmup} + {samples}: "
-        f"{stats['potential_evals']} potential evaluations, glm_split launches {launches}, "
-        f"warmup {stats['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s")
+    evals = warm["potential_evals"] + stats["potential_evals"]
+    log(f"[main] per-step NUTS, {chains} chains, {warmup} + {samples} (sampling resumed from "
+        f"post_warmup_state): {evals} potential evaluations, glm_split launches {launches}, "
+        f"warmup {warm['warmup_s']:.2f} s, sampling {stats['sample_s']:.2f} s")
     if draws.shape != (chains, samples, D) or not torch.isfinite(draws).all():
         raise SystemExit(f"per-step NUTS: bad draws, shape {tuple(draws.shape)}")
     if pe.shape != (chains, samples) or not torch.isfinite(pe).all():
         raise SystemExit("per-step NUTS: bad collected potential energies")
-    if "init_s" not in stats or launches != stats["potential_evals"] + 1:
+    if "init_s" not in warm or launches != evals + 1:
         raise SystemExit(
             f"per-step NUTS launched glm_split {launches} times for "
-            f"{stats['potential_evals']} potential evaluations and 1 init trace"
+            f"{evals} potential evaluations and 1 init trace"
         )
+    return {"path": checkpoint_path, "data": data, "kernel": mcmc.sampler,
+            "target": mcmc.post_warmup_state,
+            "rng_state": rng_state, "draws": draws, "pe": pe}
 
 
 def model_ecs(X, y):
@@ -4659,6 +4705,236 @@ def phase_flow_examples(device):
         raise SystemExit("14c-e: a leg launched a GLM kernel")
     return time.perf_counter() - t0
 
+# phase 22.  (a) transitions sampled from phase 4's per-step leg's
+# post_warmup_state restored from a checkpoint on disk, which must equal the
+# leg's own first transitions (resumed from the state in memory) bit for bit
+RESUME_TRANSITIONS = 3
+# (b) examples/vae.py at its widths (784 -> 64 -> 16, batch 64 of the MNIST
+# surrogate, Adam(1e-3)): steps (cut from the example's 300 to the phase's
+# budget); the ELBO on the card against the CPU's at the same weights and
+# draws, rtol VAE_RTOL
+VAE_HIDDEN, VAE_Z, VAE_BATCH = 64, 16, 64
+VAE_STEPS = 100
+VAE_RTOL = 1e-4
+# (c) examples/minipyro.py through compat: steps (cut from the example's 400
+# to the fewest that hold its gate, |loc_hat - mean(data)| < 0.1, on the CPU)
+# and the rtol of the card's trajectory of loc_q against the CPU's
+MINIPYRO_STEPS = 60
+MINIPYRO_GATE = 0.1
+MINIPYRO_RTOL = 1e-5
+
+
+class VaeEncoder(torch.nn.Module):
+    """``examples/vae.py``'s encoder: a softplus hidden layer, then the
+    location and the scale (the exponential of a linear layer)."""
+
+    def __init__(self, out=784, hidden=VAE_HIDDEN, z_dim=VAE_Z):
+        super().__init__()
+        self.hidden = torch.nn.Sequential(torch.nn.Linear(out, hidden), torch.nn.Softplus())
+        self.loc = torch.nn.Linear(hidden, z_dim)
+        self.scale = torch.nn.Linear(hidden, z_dim)
+
+    def forward(self, x):
+        h = self.hidden(x)
+        return self.loc(h), torch.exp(self.scale(h))
+
+
+def vae_networks(device, out=784, hidden=VAE_HIDDEN, z_dim=VAE_Z, seed=0):
+    """The example's encoder and decoder (``nn.Linear`` layers in the order
+    of the flax modules' ``Dense_i``), built on the CPU from ``seed``
+    (torch's initializers draw from its global generator, forked here) and
+    moved to ``device``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        encoder = VaeEncoder(out, hidden, z_dim)
+        decoder = torch.nn.Sequential(torch.nn.Linear(z_dim, hidden), torch.nn.Softplus(),
+                                      torch.nn.Linear(hidden, out), torch.nn.Sigmoid())
+    return encoder.to(device), decoder.to(device)
+
+
+def vae_model(batch, encoder, decoder):
+    """``examples/vae.py``'s model: ``z ~ N(0, 1)`` per image, the decoder's
+    pixel probabilities clipped to [1e-6, 1 - 1e-6]."""
+    net = torch_module("decoder", decoder)
+    z_dim = decoder[0].in_features
+    with npt.plate("batch", batch.shape[0]):
+        z = npt.sample("z", dist.Normal(torch.zeros(z_dim, device=batch.device),
+                                        torch.ones(z_dim, device=batch.device)).to_event(1))
+        probs = net(z).clamp(1e-6, 1 - 1e-6)
+        npt.sample("obs", dist.Bernoulli(probs).to_event(1), obs=batch)
+
+
+def vae_guide(batch, encoder, decoder):
+    """``examples/vae.py``'s guide: ``z ~ N(loc, scale)`` from the encoder."""
+    net = torch_module("encoder", encoder)
+    with npt.plate("batch", batch.shape[0]):
+        loc, scale = net(batch)
+        npt.sample("z", dist.Normal(loc, scale).to_event(1))
+
+
+def vae_batches(batch_size=VAE_BATCH):
+    """``examples/vae.py``'s batches: the MNIST training split in order (the
+    JAX package's surrogate where the files are not in ``DATA_DIR``), the
+    pixels binarized at 0.5; returns the number of batches and a function
+    of the step."""
+    init, get_batch = load_dataset(MNIST, batch_size=batch_size, split="train", shuffle=False)
+    num_batches, idxs = init()
+    return num_batches, lambda i: (get_batch(i % num_batches, idxs)[0] > 0.5).astype(np.float32)
+
+
+def minipyro_data():
+    """``examples/minipyro.py``'s data: 100 draws of N(2, 0.5^2) from numpy's
+    RandomState(0)."""
+    return 2.0 + 0.5 * np.random.RandomState(0).randn(100)
+
+
+def minipyro_model(data):
+    loc = compat_pyro.sample("loc", compat_dist.Normal(0.0, 1.0))
+    with compat_pyro.plate("N", data.shape[0]):
+        compat_pyro.sample("obs", compat_dist.Normal(loc, 1.0), obs=data)
+
+
+def minipyro_guide(data):
+    loc_q = compat_pyro.param("loc_q", torch.zeros((), device=data.device))
+    compat_pyro.sample("loc", compat_dist.Delta(loc_q))
+
+
+def minipyro_trajectory(device, steps=MINIPYRO_STEPS):
+    """``examples/minipyro.py``'s SVI through ``compat`` on ``device``: the
+    loss and ``loc_q`` after each step, and the data."""
+    data = compat_ops.tensor(minipyro_data(), device=device)
+    svi = compat_infer.SVI(minipyro_model, minipyro_guide, compat_optim.Adam({"lr": 0.05}),
+                           compat_infer.Trace_ELBO(), device=device)
+    locs, losses = [], []
+    for i in range(steps):
+        losses.append(svi.step(data, rng_key=0 if i == 0 else None))
+        locs.append(svi.get_params()["loc_q"])
+    return torch.stack(losses), torch.stack(locs), data
+
+
+def phase_resume(resume):
+    """22a: the per-step leg's post_warmup_state from the checkpoint on disk
+    onto the card, then RESUME_TRANSITIONS transitions, which must equal the
+    leg's first ones bit for bit; returns the glm_split launches and the
+    wall seconds."""
+    t0 = time.perf_counter()
+    chains, warmup, _ = PER_STEP
+    target = resume["target"]
+    state = restore_checkpoint(resume["path"], target)
+    leaves, restored = tree_leaves(target), tree_leaves(state)
+    if not (len(leaves) == len(restored)
+            and all(a.device == b.device and torch.equal(a, b) for a, b in zip(leaves, restored))
+            and state.rng_key.device == target.rng_key.device
+            and torch.equal(state.rng_key.get_state(), resume["rng_state"])):
+        raise SystemExit("22a: the restored state differs from the saved one")
+    # the leg's kernel, initialized there (a kernel state resumes on the
+    # kernel that made it, as in the JAX package)
+    mcmc = MCMC(resume["kernel"], num_warmup=warmup, num_samples=RESUME_TRANSITIONS,
+                num_chains=chains)
+    mcmc.post_warmup_state = state
+    before = glm.launch_counts["glm_split"]
+    mcmc.run(2, resume["data"], extra_fields=("potential_energy",))
+    launches = glm.launch_counts["glm_split"] - before
+    evals = mcmc.last_run_stats["potential_evals"]
+    draws = mcmc.get_samples(group_by_chain=True)["w"]
+    pe = mcmc.get_extra_fields(group_by_chain=True)["potential_energy"]
+    want_draws = resume["draws"][:, :RESUME_TRANSITIONS]
+    want_pe = resume["pe"][:, :RESUME_TRANSITIONS]
+    same = torch.equal(draws, want_draws) and torch.equal(pe, want_pe)
+    gap = (draws - want_draws).abs().max().item()
+    wall = time.perf_counter() - t0
+    log(f"[resume] 22a: {chains} chains, {RESUME_TRANSITIONS} transitions from the "
+        f"checkpoint ({state.rng_key.device} generator restored): {evals} potential "
+        f"evaluations, glm_split launches {launches}, {wall:.2f} s; equal to the in-memory "
+        f"resume bit for bit: {same} (largest gap of a draw {gap:.3e})")
+    if launches != evals or evals == 0:
+        raise SystemExit(f"22a launched glm_split {launches} times for {evals} evaluations")
+    if not same:
+        raise SystemExit("22a: the run resumed from the checkpoint differs from the one resumed "
+                         "in memory")
+    return launches, wall
+
+
+def phase_vae(device):
+    """22b: examples/vae.py through torch_module; returns its wall seconds,
+    ms per step and host syncs of a step."""
+    t0 = time.perf_counter()
+    num_batches, batch_of = vae_batches()
+    encoder, decoder = vae_networks(device)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    svi = SVI(vae_model, vae_guide, Adam(1e-3), Trace_ELBO())
+    state = svi.init(221, to(batch_of(0)), encoder, decoder)
+    losses = []
+    for i in range(VAE_STEPS):
+        state, loss = svi.update(state, to(batch_of(i)), encoder, decoder)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu()
+    wall_run = time.perf_counter() - t0
+    batch = to(batch_of(VAE_STEPS))
+    _, sites = count_syncs(lambda: svi.update(state, batch, encoder, decoder))
+    # the ELBO at the same weights and draws on the card and on the CPU
+    params = svi.get_params(state)
+    eps = np.random.default_rng(222).standard_normal((VAE_BATCH, VAE_Z)).astype(np.float32)
+    elbo = {}
+    for where in (device, torch.device("cpu")):
+        moved = {k: {n: v.to(where) for n, v in p.items()} for k, p in params.items()}
+        draws = TableDraws([torch.from_numpy(eps).to(where)])
+        elbo[where.type] = Trace_ELBO().loss(draws, moved, vae_model, vae_guide,
+                                             batch.to(where), encoder, decoder).item()
+    err = abs(elbo[device.type] - elbo["cpu"]) / abs(elbo["cpu"])
+    syncs = sum(sites.values())
+    ms = wall_run / VAE_STEPS * 1e3
+    first, last = losses[0].item(), losses[-10:].mean().item()
+    log(f"[vae] 22b vae.py, batch {VAE_BATCH} of {num_batches}, {VAE_STEPS} steps of "
+        f"Adam(1e-3): {wall_run:.2f} s, {ms:.2f} ms per step (init included); ELBO loss "
+        f"{first:.1f} -> {last:.1f} (mean of the last 10); {syncs} host syncs in a step "
+        f"{sites}; the loss at the same weights and draws {elbo[device.type]:.4f} on the card, "
+        f"{elbo['cpu']:.4f} on the CPU (rel err {err:.2e}, rtol {VAE_RTOL})")
+    if not (torch.isfinite(losses).all() and last < first):
+        raise SystemExit(f"22b: the loss does not fall or is not finite ({first} -> {last})")
+    if not err <= VAE_RTOL:
+        raise SystemExit(f"22b: the ELBO on the card is off the CPU's by {err:.2e}")
+    return time.perf_counter() - t0, ms, syncs
+
+
+def phase_minipyro(device):
+    """22c: examples/minipyro.py through compat on the card and on the CPU;
+    returns its wall seconds and ms per step on the card."""
+    t0 = time.perf_counter()
+    losses, locs, data = minipyro_trajectory(device)
+    wall_card = time.perf_counter() - t0
+    _, cpu_locs, _ = minipyro_trajectory(torch.device("cpu"))
+    locs = locs.cpu()
+    loc_hat, mean = locs[-1].item(), data.mean().item()
+    err = ((locs - cpu_locs).abs() / cpu_locs.abs().clamp(min=1e-30)).max().item()
+    ms = wall_card / MINIPYRO_STEPS * 1e3
+    log(f"[compat] 22c minipyro.py, {MINIPYRO_STEPS} steps on {losses.device}: "
+        f"{wall_card:.2f} s, {ms:.2f} ms per step; loc_hat {loc_hat:.4f} against the data's mean "
+        f"{mean:.4f} (gate {MINIPYRO_GATE}); the trajectory of loc_q against the CPU's: largest "
+        f"rel err {err:.2e} (rtol {MINIPYRO_RTOL})")
+    if losses.device.type != device.type:
+        raise SystemExit(f"22c: compat's SVI ran on {losses.device}, not on the card")
+    if not (torch.isfinite(losses).all() and abs(loc_hat - mean) < MINIPYRO_GATE):
+        raise SystemExit(f"22c: loc_hat {loc_hat:.4f} is off the data's mean {mean:.4f}")
+    if not err <= MINIPYRO_RTOL:
+        raise SystemExit(f"22c: the card's trajectory is off the CPU's by {err:.2e}")
+    return time.perf_counter() - t0, ms
+
+
+def phase_twenty_two(device, resume):
+    """Phase 22: a NUTS run resumed from a checkpoint, examples/vae.py
+    through torch_module and examples/minipyro.py through compat; returns
+    the walls of its legs, 22b's ms and host syncs per step, 22c's ms per
+    step and 22a's glm_split launches."""
+    launches, wall_a = phase_resume(resume)
+    launches0 = dict(glm.launch_counts)
+    wall_b, ms_b, syncs_b = phase_vae(device)
+    wall_c, ms_c = phase_minipyro(device)
+    if launches0 != dict(glm.launch_counts):
+        raise SystemExit("22b-c: launched a GLM kernel")
+    walls = {"22a": wall_a, "22b": wall_b, "22c": wall_c}
+    return walls, {"22b": ms_b, "22c": ms_c}, syncs_b, launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4684,7 +4960,8 @@ def main():
 
     glm.reset_launch_counts()
     stats = {name: phase_main(X, y, true_w, name) for name in RUNS}
-    phase_per_step(X, y)
+    checkpoints = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    resume = phase_per_step(X, y, f"{checkpoints.name}/per_step_warm.pt")
     counts = dict(glm.launch_counts)
 
     split = stats["glm_split"]
@@ -4798,10 +5075,22 @@ def main():
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 6 s)")
 
+    t22 = time.perf_counter()
+    walls, ms, syncs, resume_launches = phase_twenty_two(device, resume)
+    checkpoints.cleanup()
+    del resume
+    wall = time.perf_counter() - t22
+    log(f"[port tail] phase 22: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s"
+                                                          for k, v in walls.items())
+        + f"; ms per step 22b {ms['22b']:.2f}, 22c {ms['22c']:.2f}; host syncs in a 22b step "
+        f"{syncs}; glm_split launches 22a {resume_launches}), about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 4 s)")
+
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (
             svi_launches + chees_launches + iaf_launches + neutra_launches
-            + tail_launches["19a"] + tail_launches["19b"] + stein_launches
+            + tail_launches["19a"] + tail_launches["19b"] + stein_launches + resume_launches
             if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")

@@ -16,15 +16,20 @@ from numpyro_tpu_torch.primitives import (
 from numpyro_tpu_torch import diagnostics, infer, nn, ops, optim
 from numpyro_tpu_torch.infer.inspect import get_dependencies, render_model
 from numpyro_tpu_torch.diagnostics import print_summary
+from numpyro_tpu_torch.util import enable_x64
+from numpyro_tpu_torch import checkpoint, compat
 
 __version__ = "0.1.0"
 
 __all__ = [
     "__version__",
+    "checkpoint",
+    "compat",
     "deterministic",
     "diagnostics",
     "distributions",
     "enable_validation",
+    "enable_x64",
     "factor",
     "get_dependencies",
     "get_mask",

@@ -19,9 +19,11 @@ import torch
 __all__ = ["eigenfunctions", "eigenfunctions_periodic", "eigenindices", "sqrt_eigenvalues"]
 
 
-def _convert_ell(ell, dim, device=None, dtype=torch.float32):
+def _convert_ell(ell, dim, device=None, dtype=None):
     """``ell`` as a ``(dim, 1)`` tensor: a number repeated, a list of
-    ``dim`` numbers, or a tensor of that shape."""
+    ``dim`` numbers (in ``dtype``, by default the default dtype), or a tensor
+    of that shape."""
+    dtype = torch.get_default_dtype() if dtype is None else dtype
     if isinstance(ell, (float, int)):
         return torch.full((dim, 1), float(ell), device=device, dtype=dtype)
     if isinstance(ell, list):

@@ -63,6 +63,15 @@ def _classify_site(site, loss, params, inv_transforms, mutable, overrides):
         )
 
 
+def _fresh(mutable_state):
+    """The mutable sites' values with each dict copied: a model that updates
+    its state in place (``contrib.module.torch_module``'s buffers) updates
+    the copy, which the step returns as the new state, and leaves the held
+    state as it was (inside ``torch.func.grad`` it would hold tensors of the
+    transform)."""
+    return {k: dict(v) if isinstance(v, dict) else v for k, v in mutable_state.items()}
+
+
 class SVI:
     """Stochastic variational inference.
 
@@ -135,7 +144,7 @@ class SVI:
                 svi_state.rng_key.set_state(start)
             site_values = self.constrain_fn(unconstrained)
             if held_mutable is not None:
-                site_values.update(held_mutable)
+                site_values.update(_fresh(held_mutable))
             out = self.loss.loss_with_mutable_state(
                 svi_state.rng_key, site_values, self.model, self.guide,
                 *args, **kwargs, **self.static_kwargs,
@@ -197,6 +206,6 @@ class SVI:
         fork.set_state(rng_key.get_state())
         params = self.get_params(svi_state)
         if svi_state.mutable_state is not None:
-            params.update(svi_state.mutable_state)
+            params.update(_fresh(svi_state.mutable_state))
         return self.loss.loss(fork, params, self.model, self.guide, *args, **kwargs,
                               **self.static_kwargs)

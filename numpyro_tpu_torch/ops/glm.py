@@ -506,7 +506,10 @@ def _loglik(w, data, value_and_grad):
     names = get_provenance(w)
     if names:
         return ProvenanceTensor(_loglik(w._t, data, value_and_grad), names)
-    return _GLMLoglik.apply(w, data, value_and_grad)[0]
+    # the kernels and the plain version compute in float32: a float64 ``w``
+    # (under ``enable_x64``) is cast here, as the JAX op casts it into its
+    # float32 padding, and the log-likelihood comes out in float32
+    return _GLMLoglik.apply(w.to(torch.float32), data, value_and_grad)[0]
 
 
 def bernoulli_logits_loglik(w, data):

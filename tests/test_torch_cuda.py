@@ -17,7 +17,10 @@ phase 17's two potentials; ``Vindex``, a validated ``log_prob`` and
 ``cond`` on the card against the CPU, and phase 18b's host syncs against
 its twin's; the HSGP potentials on the card against the CPU without host
 syncs, the nested sampler, and DCC and SDVI on the card; one SVGD and one
-SteinVI step on the card against the CPU from the same particles and draws.
+SteinVI step on the card against the CPU from the same particles and draws;
+a checkpoint saved from the card restored onto the card and onto the CPU,
+``torch_module``'s ELBO on the card against the CPU's, and the compat
+``SVI`` on the card by default.
 
 Every test here carries ``requires_cuda`` and skips without a GPU, but the
 check that SteinVI and SVGD raise without one, which runs everywhere.  The file
@@ -1520,3 +1523,107 @@ def test_stein_methods_raise_without_a_card_at_their_default_device(monkeypatch)
     assert svgd.device == torch.device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         svgd.run(0, 2, *cs.stein_args("cpu"))
+
+
+def _resume_model(y):
+    mu = npt.sample("mu", dist.Normal(torch.zeros((), device=y.device), 5.0))
+    npt.sample("y", dist.Normal(mu, 1.0), obs=y)
+
+
+@pytest.mark.requires_cuda
+def test_checkpoint_from_the_card_restores_onto_the_card_and_the_cpu(cuda, tmp_path):
+    """A warmed-up state of four chains saved from the card: restored onto
+    the card it equals the saved one leaf for leaf (its CUDA generator's
+    state too) and resumes bit for bit; restored onto a CPU target its
+    tensors are the card's on the host and its generator, which cannot carry
+    a CUDA state, is seeded from it with a warning; a CUDA target on a
+    machine without CUDA raises."""
+    import warnings
+
+    from numpyro_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from numpyro_tpu_torch.util import tree_leaves, tree_map
+
+    y = torch.tensor(2.0, device=cuda)
+    m = MCMC(NUTS(_resume_model), num_warmup=20, num_samples=5, num_chains=4, device=cuda)
+    m.warmup(0, y)
+    warm = m.post_warmup_state
+    path = save_checkpoint(tmp_path / "card.pt", warm)
+    saved_rng = warm.rng_key.get_state()
+    on_card = restore_checkpoint(path, warm)
+    assert on_card.rng_key.device.type == "cuda"
+    assert torch.equal(on_card.rng_key.get_state(), saved_rng)
+    for a, b in zip(tree_leaves(warm), tree_leaves(on_card)):
+        assert b.device == a.device and torch.equal(a, b)
+    m.run(1, y)
+    from_memory = m.get_samples()["mu"]
+    m.post_warmup_state = on_card
+    m.run(1, y)
+    assert torch.equal(m.get_samples()["mu"], from_memory)
+
+    cpu_target = tree_map(lambda x: x.cpu(), warm)._replace(rng_key=torch.Generator())
+    with pytest.warns(UserWarning, match="does not carry across device types"):
+        on_cpu = restore_checkpoint(path, cpu_target)
+    for a, b in zip(tree_leaves(on_card), tree_leaves(on_cpu)):
+        assert b.device.type == "cpu" and torch.equal(a.cpu(), b)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        again = restore_checkpoint(path, cpu_target)
+    assert torch.equal(again.rng_key.get_state(), on_cpu.rng_key.get_state())
+
+    real = torch.cuda.is_available
+    try:
+        torch.cuda.is_available = lambda: False
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            restore_checkpoint(path, warm)
+    finally:
+        torch.cuda.is_available = real
+
+
+@pytest.mark.requires_cuda
+def test_torch_module_on_the_card_gives_the_cpu_s_loss(cuda):
+    """``examples/vae.py`` through ``torch_module``: the ELBO at the same
+    weights and draws on the card and on the CPU (rtol 1e-4), then three
+    SVI steps on the card with finite losses and the networks' parameters
+    on the card."""
+    cs = _phase15()
+    from numpyro_tpu_torch.optim import Adam as TAdam
+
+    _, batch_of = cs.vae_batches()
+    batch = batch_of(0)
+    eps = np.random.default_rng(0).standard_normal((cs.VAE_BATCH, cs.VAE_Z)).astype(np.float32)
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        encoder, decoder = cs.vae_networks(dev)
+        params = {"encoder$params": {k: v.detach() for k, v in encoder.named_parameters()},
+                  "decoder$params": {k: v.detach() for k, v in decoder.named_parameters()}}
+        draws = cs.TableDraws([torch.from_numpy(eps).to(dev)])
+        losses[dev.type] = Trace_ELBO().loss(draws, params, cs.vae_model, cs.vae_guide,
+                                             torch.from_numpy(batch).to(dev), encoder, decoder)
+    assert losses["cuda"].device.type == "cuda"
+    torch.testing.assert_close(losses["cuda"].cpu(), losses["cpu"], rtol=1e-4, atol=0)
+    encoder, decoder = cs.vae_networks(cuda)
+    svi = SVI(cs.vae_model, cs.vae_guide, TAdam(1e-3), Trace_ELBO())
+    res = svi.run(0, 3, torch.from_numpy(batch).to(cuda), encoder, decoder)
+    assert torch.isfinite(res.losses).all() and res.losses.device.type == "cuda"
+    assert all(v.device.type == "cuda" for v in res.params["decoder$params"].values())
+
+
+@pytest.mark.requires_cuda
+def test_compat_svi_runs_on_the_card_by_default(cuda):
+    """``examples/minipyro.py`` through ``compat`` with no device given runs
+    on the card, and its trajectory of ``loc_q`` equals the CPU's (rtol
+    1e-5)."""
+    cs = _phase15()
+    from numpyro_tpu_torch.compat import infer as cinfer
+    from numpyro_tpu_torch.compat import optim as coptim
+
+    data = torch.tensor(cs.minipyro_data(), dtype=torch.float32, device=cuda)
+    svi = cinfer.SVI(cs.minipyro_model, cs.minipyro_guide, coptim.Adam({"lr": 0.05}),
+                     cinfer.Trace_ELBO())
+    locs = []
+    for i in range(20):
+        loss = svi.step(data, rng_key=0 if i == 0 else None)
+        locs.append(svi.get_params()["loc_q"])
+    assert svi.device.type == "cuda" and loss.device.type == "cuda"
+    _, want, _ = cs.minipyro_trajectory(torch.device("cpu"), steps=20)
+    torch.testing.assert_close(torch.stack(locs).cpu(), want, rtol=1e-5, atol=0)
