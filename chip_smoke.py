@@ -24,7 +24,7 @@ Phases (each prints on its own lines; any failure exits non-zero):
                coefficient gate).  Every potential evaluation of every run
                must have launched its mode's kernel exactly once.
                A fourth run drives NUTS in split mode through the per-step
-               ``init``/``sample`` API (64 chains, 10 + 5), which must launch
+               ``init``/``sample`` API (64 chains, 10 + 5, depth 5), which must launch
                the split kernel once per evaluation too; its warmup runs
                first, its ``post_warmup_state`` is saved with
                ``checkpoint.save_checkpoint`` and sampling resumes from it in
@@ -38,7 +38,7 @@ Phases (each prints on its own lines; any failure exits non-zero):
                device, with the modes that ``auto`` resolves; the posterior means must recover
                the generating coefficients to 0.1.  Then the other modes by
                name (``bf16`` and ``lean`` panels, ``recompute`` proxy) at 256
-               chains, 20 + 5, depth 5, gate 0.2.  This path is plain PyTorch
+               chains, 20 + 5, depth 3, gate 0.2.  This path is plain PyTorch
                (gathers, small products, nested JVPs) and launches none of
                the hand-written kernels.
 7. dense    -- dense and structured mass matrices and forward-mode gradients,
@@ -306,13 +306,34 @@ Phases (each prints on its own lines; any failure exits non-zero):
                ``MINIPYRO_RTOL`` of the CPU's.  22b and 22c launch no GLM
                kernel.
 
+23. ranks   -- chains and data across processes: two ranks spawned from
+               this script (``--phase23-rank``) when it starts share the one
+               card over gloo; they join and lay out their data while the
+               kernels build, warm up on the card before phase 3 (the script
+               waits for them, and counts the wait in phase 23), idle through
+               phases 3-22 and start when phase 22 ends.
+               (a) phase 4's per-step leg with its 64 chains sharded 2 x 32
+               (``MCMC(chain_method="parallel")`` on a ``chain_mesh``): the
+               draws and potential energies gathered on each rank must equal
+               the leg's own bit for bit, one ``glm_split`` launch an
+               evaluation on each rank; (b) a 1 x 2 data mesh: each rank's
+               ``glm_split`` on its 290,506 rows plus one ``all_reduce`` of
+               loglik and gradient, at phase 3's 256 chains, within
+               ``glm.kernel_tolerances`` of ``glm_split`` on all 581,012 rows;
+               the kernel on a shard timed at 32 and 256 chains, the sum
+               timed; then pooled NUTS on the data-sharded model, whose ranks
+               must draw the same panel.  A rank that fails, or runs past
+               ``RANK_TIMEOUT``, fails the script.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -402,7 +423,13 @@ RUNS = {
     "glm_fused_f32": (50, 5, (5, 10), 0.05),
     "glm_fused_bf16": (20, 5, 6, None),
 }
-PER_STEP = (64, 10, 5)  # chains, warmup, samples of the per-step NUTS run
+# chains, warmup, samples and tree depth of the per-step NUTS run; its depth
+# went from 6 to 5 to make room for phase 23, which runs it again over two
+# ranks (at 6: 622 evaluations, 6.97 s in the script and 18.16 s a rank in
+# phase 23 on a host whose ECS leg took 37.05 ms an evaluation, NVIDIA H100
+# 80GB HBM3, 700.00 W); its gates (finite draws, one launch an evaluation,
+# 22a's and 23a's draws equal to its own) hold at any depth
+PER_STEP = (64, 10, 5, 5)
 # the HMCECS leg: chains, warmup, samples, max_tree_depth, coefficient gate.
 # ``MCMC``'s per-step loop waits for the deepest tree of all chains at every
 # transition, and a potential evaluation costs ~25 ms of host time: with the
@@ -415,8 +442,12 @@ PER_STEP = (64, 10, 5)  # chains, warmup, samples of the per-step NUTS run
 SUBSAMPLE, NUM_BLOCKS = 1000, 100
 ECS_MAIN = (1024, 100, 10, 5, 0.1)
 # the other modes by name, their draws cut from 20 to 5 to make room for phase
-# 7, their depth from 6 to 5 as the main leg's
-ECS_MODES = (256, 20, 5, 5, 0.2)
+# 7, their depth from 6 to 5 as the main leg's, then to 4 and to 3 to make
+# room for phase 23.  Their max |mean(w) - true_w| (bf16, lean, recompute)
+# against the gate of 0.2: at depth 5 0.0171, 0.0114 and 0.0101 (about 20 s
+# each, 28.1-29.5 of 32 evaluations a transition), at depth 4 0.0160, 0.0106
+# and 0.0088 (8.7-10.1 s each, 15.1 of 16), NVIDIA H100 80GB HBM3, 700.00 W
+ECS_MODES = (256, 20, 5, 3, 0.2)
 # phase 7.  Every tick costs 4-12 ms of host time, and warmup waits at every
 # transition for the deepest tree of all chains, so the legs cap the warmup
 # depth low, keep their warmup length and take few draws.
@@ -905,9 +936,9 @@ def phase_per_step(X, y, checkpoint_path):
     resumes from the file); returns what 22a needs: the data, the kernel,
     the state as a target to restore onto, the saved generator state, and
     the sampling run's draws and potential energies."""
-    chains, warmup, samples = PER_STEP
+    chains, warmup, samples, depth = PER_STEP
     data = glm.prepare_glm_data(X, y, dtype="split")
-    mcmc = MCMC(NUTS(model, max_tree_depth=6), num_warmup=warmup, num_samples=samples,
+    mcmc = MCMC(NUTS(model, max_tree_depth=depth), num_warmup=warmup, num_samples=samples,
                 num_chains=chains)
     before = glm.launch_counts["glm_split"]
     mcmc.warmup(2, data)
@@ -4818,7 +4849,7 @@ def phase_resume(resume):
     leg's first ones bit for bit; returns the glm_split launches and the
     wall seconds."""
     t0 = time.perf_counter()
-    chains, warmup, _ = PER_STEP
+    chains, warmup = PER_STEP[:2]
     target = resume["target"]
     state = restore_checkpoint(resume["path"], target)
     leaves, restored = tree_leaves(target), tree_leaves(state)
@@ -4936,6 +4967,308 @@ def phase_twenty_two(device, resume):
     return walls, {"22b": ms_b, "22c": ms_c}, syncs_b, launches
 
 
+# phase 23: chains and data across ranks, two ranks sharing the one card over
+# gloo (NCCL refuses two ranks on one device), spawned from this script.
+# (a) phase 4's per-step leg (PER_STEP: 64 chains, 10 + 5, warmup then a run
+# from post_warmup_state) with its chains sharded 2 x 32: the gathered draws
+# and potential energies against the leg's own; (b) a 1 x 2 data mesh: each
+# rank's glm_split on its half of the rows plus one all_reduce, at phase 3's
+# w_chains, against the one-process glm_split on the whole X, then pooled
+# NUTS on the data-sharded model: chains, warmup, samples, tree depth
+RANKS = 2
+DATA_NUTS = (64, 5, 5, 4)
+SHARD_CHAINS = (32, 256)  # chains at which glm_split is timed on one data shard
+RANK_TIMEOUT = 300  # seconds to warm up, and from the go to the end, before the script fails
+SCRIPT_LIMIT = 1200  # seconds: a rank still waiting for the go by then ends itself
+WARM_ROWS = 1000  # rows of the plain model a rank warms up on while the kernels build
+
+
+def _rank_model_run(mcmc, data, step):
+    """``mcmc``'s run on ``data`` (``step``: warmup then a resumed run, as
+    phase 4's per-step leg; else one run) with the split kernel's launches
+    counted from 0; returns the draws, the potential energies (or None), the
+    launches, the evaluations and init traces, and the seconds."""
+    name = "glm_split" if data.device.type == "cuda" else "plain"
+    glm.reset_launch_counts()
+    t0 = time.perf_counter()
+    if step:
+        mcmc.warmup(2, data)
+        warm = dict(mcmc.last_run_stats)
+        mcmc.run(2, data, extra_fields=("potential_energy",))
+        evals = warm["potential_evals"] + mcmc.last_run_stats["potential_evals"] + 1
+        pe = mcmc.get_extra_fields(group_by_chain=True)["potential_energy"].cpu()
+        phases = {"init": warm["init_s"], "warmup": warm["warmup_s"],
+                  "sampling": mcmc.last_run_stats["sample_s"]}
+    else:
+        mcmc.run(2, data)
+        stats = mcmc.last_run_stats
+        evals = stats["potential_evals"] + stats["init_traces"]
+        pe = None
+        phases = {k: stats[f"{k}_s"] for k in ("init", "warmup", "sample")}
+    wall = time.perf_counter() - t0
+    return {"draws": mcmc.get_samples(group_by_chain=True)["w"].cpu(), "pe": pe,
+            "launches": glm.launch_counts[name], "evals": evals, "s": wall, "phases": phases}
+
+
+def warm_model(x, y):
+    """Logistic regression in plain PyTorch ops, no GLM kernel: a rank's
+    first NUTS run before the kernels are built."""
+    w = npt.sample("w", dist.Normal(torch.zeros(x.shape[1], device=x.device), 1.0).to_event(1))
+    npt.sample("y", dist.Bernoulli(logits=x @ w), obs=y)
+
+
+def _wait_for(path, parent, since, limit, what):
+    """Sleep until ``path`` exists; end this rank if the script (``parent``)
+    is gone or ``limit`` seconds have passed ``since``."""
+    while not os.path.exists(path):
+        if os.getppid() != parent or time.time() - since > limit:
+            raise SystemExit(f"no {what} from the script")
+        time.sleep(0.05)
+
+
+def phase23_rank(rank, tmp):
+    """One rank of phase 23, in a process of its own, spawned as the script
+    starts: joins the others through a file store in ``tmp`` and lays out
+    the data the script wrote there; warms up on the card, first on a plain
+    model while the script builds the kernels, then, once the ``built`` file
+    is there, on its own data through ``glm_split``; writes ``warm<r>``,
+    waits idle for the script's ``go`` file, runs (a) and (b) and writes what
+    they give to ``tmp/rank<r>.pt``."""
+    from numpyro_tpu_torch.parallel import (
+        chain_data_mesh, chain_mesh, initialize_distributed, shard_data,
+    )
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+
+    parent = os.getppid()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(f"{tmp}/inputs.pt")
+    spawned = inputs["spawned_at"]
+    # "cards": one card a rank (cuda:LOCAL_RANK, NCCL); else every rank on one device
+    device = mesh_lib.rank_device() if inputs["device"] == "cards" else torch.device(
+        inputs["device"])
+    backend = initialize_distributed(f"file://{tmp}/store", inputs["world"], rank, device=device)
+    X, y = inputs["X"].to(device), inputs["y"].to(device)
+    w_chains = inputs["w_chains"].to(device)
+    del inputs["X"], inputs["y"]
+    _sync(device)
+    out = {"backend": backend, "joined_s": time.time() - spawned}
+    # the first NUTS run of a fresh process pays for its first CUDA work and
+    # model trace (7.5-14 s): a plain model pays most of it during the build
+    MCMC(NUTS(warm_model, max_tree_depth=2), num_warmup=2, num_samples=2, num_chains=2,
+         device=device).run(0, X[:WARM_ROWS], y[:WARM_ROWS])
+    _sync(device)
+    out["plain_warm_s"] = time.time() - spawned - out["joined_s"]
+    _wait_for(f"{tmp}/built", parent, spawned, SCRIPT_LIMIT, "built kernels")
+    out["built_at_s"] = time.time() - spawned
+    mesh = chain_mesh(device=device)
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    grid = chain_data_mesh(1, inputs["world"], device=device)
+    rows = glm.prepare_glm_data(shard_data(X, grid), shard_data(y, grid), dtype="split")
+    out["rows"] = rows.n
+    del X, y
+    MCMC(NUTS(model, max_tree_depth=2), num_warmup=2, num_samples=2, num_chains=2,
+         device=device).run(0, data)
+    _sync(device)
+    out["warm_s"] = time.time() - spawned - out["built_at_s"]
+    open(f"{tmp}/warm{rank}", "w").close()
+    _wait_for(f"{tmp}/go", parent, spawned, SCRIPT_LIMIT, "go")
+
+    # (a) the per-step leg with its chains sharded over the ranks
+    chains, warmup, samples, depth = PER_STEP
+    mcmc = MCMC(NUTS(model, max_tree_depth=depth), num_warmup=warmup, num_samples=samples,
+                num_chains=chains, chain_method="parallel", mesh=mesh)
+    mesh_lib.reset_collective_counts()
+    out["a"] = _rank_model_run(mcmc, data, step=True)
+    out["a"]["all_reduce"] = mesh_lib.collective_counts["all_reduce"]
+    del data
+
+    # (b) the rows over the ranks: the kernel on this rank's rows, one sum
+    t0 = time.perf_counter()
+    mesh_lib.reset_collective_counts()
+    ll, g = glm.sum_data_shards(*glm.glm_value_and_grad(w_chains, rows), rows)
+    out["b_sum"] = (ll.cpu(), g.cpu(), mesh_lib.collective_counts["all_reduce"])
+    if device.type == "cuda":
+        # the ranks time the kernel in turn, so that none shares the card then
+        d_pad, n_pad = rows.x_t.shape
+        timed = {}
+        for turn in range(grid.num_data_shards):
+            mesh_lib.all_reduce(torch.zeros(1, device=device), None)
+            for c in SHARD_CHAINS if turn == rank else ():
+                w = w_chains[:c].contiguous()
+                timed[c] = {"ms": cuda_ms(lambda: glm.glm_value_and_grad(w, rows)),
+                            "bound": bound_ms("split", c, d_pad, n_pad)}
+        ll, g = glm.glm_value_and_grad(w_chains, rows)
+        torch.cuda.synchronize()
+        reps, t1 = 20, time.perf_counter()
+        for _ in range(reps):
+            glm.sum_data_shards(ll, g, rows)
+        torch.cuda.synchronize()
+        out["b_timed"] = timed
+        out["all_reduce_ms"] = (time.perf_counter() - t1) / reps * 1e3
+        # a loop check's all_reduce: one count, read on the host
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            int(mesh_lib.all_reduce(torch.ones(1, dtype=torch.int64, device=device), None))
+        out["check_ms"] = (time.perf_counter() - t1) / reps * 1e3
+    out["b_checks_s"] = time.perf_counter() - t0
+    c, warm_b, draws_b, depth_b = DATA_NUTS
+    mcmc = MCMC(NUTS(model, max_tree_depth=depth_b, pooled_adaptation=True), num_warmup=warm_b,
+                num_samples=draws_b, num_chains=c, chain_method="parallel", mesh=grid)
+    mesh_lib.reset_collective_counts()
+    out["b"] = _rank_model_run(mcmc, rows, step=False)
+    out["b"]["all_reduce"] = mesh_lib.collective_counts["all_reduce"]
+    out["b"]["ms_per_eval"] = out["b"]["s"] / out["b"]["evals"] * 1e3
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Ranks:
+    """The ranks of phase 23, spawned from this script (``--phase23-rank``)
+    with the data of the phase written beside their file store; they lay out
+    their data, warm up once :meth:`warm_up` says the kernels are built, and
+    wait for :meth:`finish` to start them.  Every rank is killed when the
+    script ends, however it ends."""
+
+    def __init__(self, X, y, w_chains, world=RANKS, device="cuda:0"):
+        self.world, self.t0 = world, time.perf_counter()
+        self.tmp = tempfile.TemporaryDirectory(prefix="phase23_")
+        torch.save({"X": X.cpu(), "y": y.cpu(), "w_chains": w_chains.cpu(), "world": world,
+                    "device": device, "spawned_at": time.time()}, f"{self.tmp.name}/inputs.pt")
+        self.procs, self.logs = [], []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(world))
+            self.logs.append(open(f"{self.tmp.name}/rank{rank}.log", "w"))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase23-rank", str(rank),
+                 self.tmp.name], env=env, stdout=self.logs[-1], stderr=subprocess.STDOUT))
+        atexit.register(self.stop)
+        self.spawn_s = time.perf_counter() - self.t0
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in self.logs:
+            f.close()
+
+    def _fail(self, what, wall):
+        self.stop()
+        for rank, p in enumerate(self.procs):
+            with open(f"{self.tmp.name}/rank{rank}.log") as f:
+                print(f"[ranks] rank {rank} (exit {p.returncode}):\n{f.read()[-4000:]}",
+                      flush=True)
+        raise SystemExit(f"phase 23: {what} after {wall:.1f} s; ranks exited "
+                         f"{[p.returncode for p in self.procs]}")
+
+    def warm_up(self):
+        """Tell the ranks that the kernels are built and wait until every
+        rank has warmed up on the card; returns the seconds waited."""
+        t0 = time.perf_counter()
+        open(f"{self.tmp.name}/built", "w").close()
+        warm = [f"{self.tmp.name}/warm{r}" for r in range(self.world)]
+        while not all(map(os.path.exists, warm)):
+            if (any(p.poll() is not None for p in self.procs)
+                    or time.perf_counter() - t0 > RANK_TIMEOUT):
+                self._fail("the ranks did not warm up", time.perf_counter() - t0)
+            time.sleep(0.05)
+        self.warm_wait_s = time.perf_counter() - t0
+        return self.warm_wait_s
+
+    def finish(self):
+        """Start the ranks and wait for them; returns their results and the
+        seconds from the start to their end."""
+        t0 = time.perf_counter()
+        open(f"{self.tmp.name}/go", "w").close()
+        while any(p.poll() is None for p in self.procs):
+            if (any(p.poll() not in (None, 0) for p in self.procs)
+                    or time.perf_counter() - t0 > RANK_TIMEOUT):
+                break
+            time.sleep(0.05)
+        self.stop()
+        wall = time.perf_counter() - t0
+        if any(p.returncode for p in self.procs):
+            self._fail("the ranks failed", wall)
+        res = [torch.load(f"{self.tmp.name}/rank{r}.pt") for r in range(self.world)]
+        self.tmp.cleanup()
+        return res, wall
+
+
+def phase_ranks(ranks, per_step, X, y, w_chains):
+    """Phase 23 (the ranks started by :class:`Ranks`), held against phase 4's
+    per-step leg (``per_step``: its draws and potential energies) and
+    against the one-process ``glm_split`` on ``X``, ``y`` at phase 3's
+    ``w_chains``.  Returns the phase's wall from the go, the ranks' results
+    and their ``glm_split`` launches on the main path."""
+    whole = glm.prepare_glm_data(X, y, dtype="split")
+    ll_ref, g_ref = (t.cpu() for t in glm.glm_value_and_grad(w_chains, whole))
+    del whole
+    res, wall = ranks.finish()
+    world = ranks.world
+
+    # (a) the chain-sharded per-step leg against phase 4's
+    ref_draws, ref_pe = per_step["draws"].cpu(), per_step["pe"].cpu()
+    for r, got in enumerate(res):
+        a = got["a"]
+        same = torch.equal(a["draws"], ref_draws) and torch.equal(a["pe"], ref_pe)
+        log(f"[ranks] 23a rank {r} ({got['backend']}; joined and holding the data "
+            f"{got['joined_s']:.1f} s after the spawn, the plain warm-up {got['plain_warm_s']:.1f} "
+            f"s, told the kernels were built {got['built_at_s']:.1f} s after the spawn, warmed up "
+            f"on its data in {got['warm_s']:.1f} s): chains sharded {world} x "
+            f"{PER_STEP[0] // world}, "
+            f"{a['evals'] - 1} evaluations, glm_split launches {a['launches']}, all_reduce "
+            f"{a['all_reduce']} (a loop check's {got.get('check_ms', float('nan')):.3f} ms), "
+            f"{a['s']:.2f} s ("
+            + ", ".join(f"{k} {v:.2f} s" for k, v in a["phases"].items())
+            + "); draws and potential energies "
+            f"equal phase 4's per-step leg bit for bit: {same} (largest difference "
+            f"{(a['draws'] - ref_draws).abs().max().item():.3e}, "
+            f"{(a['pe'] - ref_pe).abs().max().item():.3e})")
+        if a["launches"] != a["evals"]:
+            raise SystemExit(f"23a rank {r}: {a['launches']} launches for {a['evals'] - 1} "
+                             "evaluations and 1 init trace")
+        if not same:
+            raise SystemExit(f"23a rank {r}: the sharded leg's draws differ from phase 4's")
+
+    # (b) the data-sharded sum against the one-process kernel on the whole X
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", N)
+    for r, got in enumerate(res):
+        ll, g, reduces = got["b_sum"]
+        ll_err = ((ll - ll_ref).abs() / ll_ref.abs()).max().item()
+        g_need = ((g - g_ref).abs() - g_rtol * g_ref.abs()).max().item()
+        b = got["b"]
+        timed = got.get("b_timed", {})
+        log(f"[ranks] 23b rank {r}: {got['rows']:,} rows, one all_reduce ({reduces}) for "
+            f"{CHAINS} chains; loglik max rel err {ll_err:.3e} (rtol {ll_rtol}), gradient least "
+            f"atol {g_need:.3e} (atol {g_atol:.3e}) against glm_split on all {N:,} rows; "
+            + "".join(f"glm_split at B = {c} on the shard {t['ms']:.3f} ms (bound "
+                      f"{t['bound'][0]:.4f} ms, {t['bound'][1]}); " for c, t in timed.items())
+            + f"all_reduce of ({CHAINS}, {D + 1}) {got.get('all_reduce_ms', float('nan')):.3f} "
+            f"ms; these checks {got['b_checks_s']:.2f} s; pooled NUTS {DATA_NUTS[1]} + "
+            f"{DATA_NUTS[2]} at {DATA_NUTS[0]} chains: {b['evals']} evaluations and init "
+            f"traces, glm_split launches {b['launches']}, all_reduce {b['all_reduce']}, "
+            f"{b['ms_per_eval']:.2f} ms an evaluation, {b['s']:.2f} s")
+        if reduces != 1 or ll_err > ll_rtol or g_need > g_atol:
+            raise SystemExit(f"23b rank {r}: the data-sharded sum disagrees with glm_split on X")
+        if b["launches"] != b["evals"] or not torch.isfinite(b["draws"]).all():
+            raise SystemExit(f"23b rank {r}: {b['launches']} launches for {b['evals']} "
+                             "evaluations and init traces, or draws that are not finite")
+        if b["draws"].shape != (DATA_NUTS[0], DATA_NUTS[2], D) or not torch.equal(
+                b["draws"], res[0]["b"]["draws"]):
+            raise SystemExit(f"23b rank {r}: its draws differ from rank 0's")
+    launches = [got["a"]["launches"] + got["b"]["launches"] for got in res]
+    log(f"[ranks] phase 23: {wall:.1f} s from the go, {ranks.warm_wait_s:.1f} s waiting for the "
+        f"warm-up, the spawn {ranks.spawn_s:.1f} s; glm_split launches per rank {launches}")
+    return wall, res, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this smoke run needs an NVIDIA GPU")
@@ -4948,14 +5281,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    X, y, true_w, w_chains = make_data(device)
+    # phase 23's ranks start now: they reach the card, lay out their data and
+    # warm up on a plain model while the kernels build
+    ranks = Ranks(X, y, w_chains)
+    log(f"[ranks] {ranks.world} ranks spawned for phase 23 in {ranks.spawn_s:.1f} s")
     t0 = time.perf_counter()
     _cuda.load()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"({_cuda.build_info['path']})")
+        f"({_cuda.build_info['path']}; the ranks starting beside the build)")
     for line in _cuda.ptxas_summary():
         log(f"[build] {line}")
-
-    X, y, true_w, w_chains = make_data(device)
+    # and finish their warm-up through glm_split before anything is timed
+    log(f"[ranks] waited {ranks.warm_up():.1f} s for the ranks to warm up")
     kernels = phase_kernels(X, y, w_chains)
 
     glm.reset_launch_counts()
@@ -5078,6 +5416,7 @@ def main():
     t22 = time.perf_counter()
     walls, ms, syncs, resume_launches = phase_twenty_two(device, resume)
     checkpoints.cleanup()
+    per_step = {"draws": resume["draws"], "pe": resume["pe"]}
     del resume
     wall = time.perf_counter() - t22
     log(f"[port tail] phase 22: {wall:.1f} s (" + ", ".join(f"{k} {v:.1f} s"
@@ -5087,10 +5426,24 @@ def main():
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 4 s)")
 
+    t23 = time.perf_counter()
+    _, rank_results, rank_launches = phase_ranks(ranks, per_step, X, y, w_chains)
+    wall = time.perf_counter() - t23 + ranks.spawn_s + ranks.warm_wait_s
+    log(f"[ranks] phase 23: {wall:.1f} s with the spawn and the wait for the warm-up, about "
+        f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
+        f"evaluation (budget 10 s)")
+    for c in SHARD_CHAINS:
+        kernels["glm_split"][f"ms_on_a_shard_at_{c}_chains"] = [
+            got["b_timed"][c]["ms"] for got in rank_results]
+        kernels["glm_split"][f"bound_ms_on_a_shard_at_{c}_chains"] = \
+            rank_results[0]["b_timed"][c]["bound"][0]
+    kernels["glm_split"]["launches_per_rank_phase23"] = rank_launches
+
     for name, entry in kernels.items():
         entry["launches"] = counts[name] + dense_counts[name] + (
             svi_launches + chees_launches + iaf_launches + neutra_launches
             + tail_launches["19a"] + tail_launches["19b"] + stein_launches + resume_launches
+            + sum(rank_launches)
             if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")
@@ -5109,4 +5462,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase23-rank":  # a rank of phase 23
+        phase23_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -21,6 +21,13 @@ across device types (a CUDA generator's is a seed and an offset, a CPU
 generator's the Mersenne twister): such a generator is seeded from the
 saved state and a warning says that its draws differ.
 
+A state whose chains are sharded over ranks (``parallel.shard_chain_state``,
+or a per-step run under ``MCMC(chain_method="parallel")``) is gathered by
+:func:`save_checkpoint` (every rank calls it), written once, by rank 0, and
+the ranks wait for the file before they return.  :func:`restore_checkpoint`
+onto a target of the full panel, then ``shard_chain_state``, gives each rank
+its rows again, and the resumed run draws what the uninterrupted one would.
+
 Usage::
 
     mcmc.warmup(0, *args)
@@ -92,14 +99,27 @@ def _saved(leaf):
 def save_checkpoint(path, state, *, async_save=False):
     """Write ``state`` to the file ``path`` (its directory is made if it is
     missing; the file is written beside it and renamed, so a reader never
-    sees half a checkpoint).  ``async_save`` is accepted and not used, as in
-    the JAX package.  Returns the absolute path."""
+    sees half a checkpoint).  A state sharded over ranks is gathered first,
+    written by rank 0 only, and every rank returns once the file is there.
+    ``async_save`` is accepted and not used, as in the JAX package.  Returns
+    the absolute path."""
+    from numpyro_tpu_torch.infer.hmc_core import ShardedDraws, gather_state
+    from numpyro_tpu_torch.parallel.mesh import all_reduce
+
     path = os.path.abspath(os.fspath(path))
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {"format": _FORMAT, "leaves": [_saved(leaf) for leaf in _leaves(state)]}
-    partial = path + ".partial"
-    torch.save(payload, partial)
-    os.replace(partial, path)
+    sharded = [leaf for leaf in _leaves(state)
+               if isinstance(leaf, ShardedDraws) and leaf.shard.group is not None]
+    if sharded:
+        state = gather_state(state)
+    if not sharded or torch.distributed.get_rank() == 0:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        payload = {"format": _FORMAT, "leaves": [_saved(leaf) for leaf in _leaves(state)]}
+        partial = path + ".partial"
+        torch.save(payload, partial)
+        os.replace(partial, path)
+    if sharded:
+        # every rank waits for rank 0's file (a sum over the world)
+        all_reduce(torch.zeros(1, device=sharded[0].generator.device), None)
     return path
 
 

@@ -251,6 +251,7 @@ class CheesHMC(MCMCKernel):
         return self._postprocess_fn(*args, **kwargs)
 
     def sample(self, state, model_args=(), model_kwargs=None):
+        core.refuse_sharded(state.rng_key, "CheesHMC")
         a = state.adapt_state
         draws = core.as_draws(state.rng_key)
         zf = self._layout.ravel_batch(state.z)

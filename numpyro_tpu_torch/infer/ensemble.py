@@ -230,6 +230,7 @@ class EnsembleSampler(MCMCKernel, ABC):
 
     def sample(self, state, model_args, model_kwargs):
         z, inner_state, rng_key = state
+        core.refuse_sharded(rng_key, type(self).__name__)
         panel, unravel = batch_ravel_pytree(z)
         if self._randomize_split:
             draws = core.as_draws(rng_key)

@@ -11,6 +11,12 @@ Two ways to run a kernel:
   squeezed at the boundary.  The Gibbs-composed kernels stand on it: they
   hand each chain its own conditioning through ``model_kwargs["_per_chain"]``.
 
+A state from ``parallel.shard_chain_state`` holds one rank's rows of the
+chains and a ``hmc_core.ShardedDraws`` in place of its generator: ``sample``
+steps those rows with the full panel's draws for them (pooled adaptation
+pools over every rank's chains), as the JAX package steps a state whose
+chain axis is sharded over a mesh.
+
 The step index ``i`` of a state is a host integer, so the JAX package's
 ``lax.cond(i < num_warmup, ...)`` is a plain ``if``.  ``rng_key`` is a
 ``torch.Generator`` or a draw source (see ``hmc_core.GeneratorDraws``).
@@ -468,7 +474,10 @@ class HMC(MCMCKernel):
         progress=None,
     ):
         """Warmup + sampling for all chains.  ``rng_key`` is a
-        ``torch.Generator`` on the device the chains run on.
+        ``torch.Generator`` on the device the chains run on, or a
+        ``hmc_core.ShardedDraws``: then every rank initializes all
+        ``num_chains`` chains and runs its rows of them, and the collected
+        fields and last state hold those rows.
 
         Returns ``(fields, last_state)``; every collected field has shape
         ``(num_chains, num_collected, ...)``.  Wall times, the number of
@@ -489,6 +498,12 @@ class HMC(MCMCKernel):
             z, pe, z_grad = init_params
         else:
             z, pe, z_grad = init_params, None, None
+        shard = getattr(rng_key, "shard", None)
+        if shard is not None:
+            # every rank initializes the full panel and keeps its rows
+            z, pe, z_grad = (None if x is None else tree_map(shard.take, x)
+                             for x in (z, pe, z_grad))
+            num_chains = shard.size
         layout = core.FlatLayout({k: v[0] for k, v in z.items()})
         blocks = core.build_mass_blocks(layout, self._dense_mass)
         pe_fn = (

@@ -30,8 +30,14 @@ What differs from the JAX engine:
 - A structured mass matrix gathers a panel once into block order and back
   (``MassBlocks.permutation``), where JAX takes and scatters each block.
 
-Pooled adaptation pools over the chains of one device; pooling across devices
-is not ported yet (ROADMAP.md).
+Chains sharded over ranks (``parallel.mesh``) run on a :class:`ShardedDraws`
+source, which draws the full panel on every rank and keeps the rank's rows.
+The loops' host conditions then hold for every rank's real chains (one
+``all_reduce`` of a count at each read, so every rank runs the ticks that one
+process would run and draws the same panels), and pooled adaptation (the
+step-size search's harmonic mean, the geometric mean of the accept
+probabilities, the Welford merge) gathers its per-chain inputs over the chain
+group and computes the one-process numbers on every rank.
 """
 
 from __future__ import annotations
@@ -44,10 +50,13 @@ import torch
 
 from numpyro_tpu_torch.distributions.util import cholesky as _cholesky
 from numpyro_tpu_torch.infer.util import batched_value_and_grad
+from numpyro_tpu_torch.util import tree_map
 
 __all__ = [
     "FlatLayout",
     "GeneratorDraws",
+    "ShardedDraws",
+    "gather_state",
     "MassBlocks",
     "AdaptPanel",
     "batched_potential",
@@ -65,6 +74,8 @@ __all__ = [
     "leapfrog",
     "nuts_transition",
     "popcount",
+    "replace_draw_sources",
+    "shard_state",
     "stan_windows",
     "welford_step",
 ]
@@ -331,18 +342,26 @@ def init_mass(blocks, num_chains, like, init_inverse=None):
 class GeneratorDraws:
     """The engine's random numbers from one ``torch.Generator``: every call
     draws for all chains at once, on the device and in the dtype of ``like``
-    (a ``(C, D)`` panel)."""
+    (a ``(C, D)`` panel).  Every draw goes through :meth:`_draw`, which a
+    sharded source (:class:`ShardedDraws`) overrides."""
+
+    shard = None
 
     def __init__(self, generator):
         self.generator = generator
 
-    def _rand(self, like, shape):
-        return torch.rand(shape, generator=self.generator, device=like.device, dtype=like.dtype)
+    def _draw(self, draw, shape):
+        """``draw(generator, shape)``."""
+        return draw(self.generator, tuple(shape))
+
+    def _rand(self, like, shape, dtype=None):
+        dtype = like.dtype if dtype is None else dtype
+        return self._draw(
+            lambda g, s: torch.rand(s, generator=g, device=like.device, dtype=dtype), shape
+        )
 
     def normal(self, like):
-        return torch.randn(
-            like.shape, generator=self.generator, device=like.device, dtype=like.dtype
-        )
+        return self.normals(like.shape, like)
 
     def rademacher(self, like):
         return torch.where(self._rand(like, like.shape[:1]) < 0.5, 1.0, -1.0).to(like.dtype)
@@ -369,11 +388,12 @@ class GeneratorDraws:
         the number of the block to redraw ``(...)`` and its ``block_size``
         replacement rows below ``size`` ``(..., block_size)``, as ``int64``."""
         lead = tuple(idx.shape[:-1])
-        b = torch.randint(num_blocks, lead, generator=self.generator, device=idx.device)
-        repl = torch.randint(
-            size, lead + (block_size,), generator=self.generator, device=idx.device
-        )
-        return b, repl
+
+        def randint(high):
+            return lambda g, s: torch.randint(high, s, generator=g, device=idx.device)
+
+        blocks = self._draw(randint(num_blocks), lead)
+        return blocks, self._draw(randint(size), lead + (block_size,))
 
     def fork(self):
         """The source of the adaptation's draws within one transition (JAX
@@ -386,7 +406,9 @@ class GeneratorDraws:
     # a test's draw source follows to hand the port JAX's draws.
 
     def normals(self, shape, like):
-        return torch.randn(shape, generator=self.generator, device=like.device, dtype=like.dtype)
+        return self._draw(
+            lambda g, s: torch.randn(s, generator=g, device=like.device, dtype=like.dtype), shape
+        )
 
     def uniforms(self, shape, like):
         return self._rand(like, shape)
@@ -403,7 +425,7 @@ class GeneratorDraws:
     def randints(self, low, high, shape, like):
         """``int64`` uniform in ``[low, high)``; ``high`` is a number or a
         tensor that broadcasts against ``shape`` (one bound per chain)."""
-        u = torch.rand(shape, generator=self.generator, device=like.device, dtype=torch.float64)
+        u = self._rand(like, shape, torch.float64)
         if not isinstance(high, torch.Tensor):
             # a number stays on the host: no copy to the device
             span = high - low
@@ -433,6 +455,131 @@ class GeneratorDraws:
         ``vmap`` (each draws its own values)."""
         dummy = torch.zeros(num, device=self.generator.device)
         return torch.func.vmap(lambda _: draw_fn(self.generator), randomness="different")(dummy)
+
+
+class ShardedDraws(GeneratorDraws):
+    """This rank's rows of the draws of a chain panel that is sharded over
+    ranks (``shard``: a ``parallel.mesh.ChainShard``).  Every draw is made
+    for all ``shard.num_chains`` real chains from ``generator``, as
+    :class:`GeneratorDraws` makes it in one process, then for the pad rows
+    from ``pad_generator`` (only on the rank that holds them), and the rank
+    keeps its rows: a sharded run draws what the one-process run draws, row
+    for row, and the pad draws nothing from the real chains' generator.
+    Every rank's ``generator`` goes through the same states.
+
+    A draw without a leading chain axis (``choice``, ``categorical``,
+    ``prior``, an ensemble's half-panel draws) raises: the kernels that make
+    one couple their chains and do not run sharded."""
+
+    def __init__(self, generator, shard, pad_generator=None):
+        super().__init__(generator)
+        self.shard = shard
+        self.pad_generator = pad_generator
+
+    def _draw(self, draw, shape):
+        shard = self.shard
+        shape = tuple(shape)
+        if not shape or shape[0] != shard.size:
+            raise NotImplementedError(
+                f"a draw of shape {shape} has no leading axis of this rank's {shard.size} "
+                "chains, so it cannot be taken from the full panel's draws"
+            )
+        rest = shape[1:]
+        full = draw(self.generator, (shard.num_chains,) + rest)
+        if shard.stop > shard.num_chains:
+            if self.pad_generator is None:
+                raise ValueError("this rank holds pad chains but has no pad generator")
+            full = torch.cat([full, draw(self.pad_generator, (shard.padded - shard.num_chains,)
+                                         + rest)])
+        return full[shard.start : shard.stop]
+
+    def _unsharded(self, *args, **kwargs):
+        raise NotImplementedError(
+            "this draw has no chain axis to shard: the kernel that makes it couples its "
+            "chains and runs on one process (ROADMAP.md)"
+        )
+
+    choice = categorical = prior = _unsharded
+
+
+def _draw_sources(tree):
+    """The generators and draw sources in ``tree``, in order."""
+    if isinstance(tree, torch.Generator) or hasattr(tree, "generator"):
+        return [tree]
+    if isinstance(tree, dict):
+        return [g for v in tree.values() for g in _draw_sources(v)]
+    if isinstance(tree, (tuple, list)):
+        return [g for v in tree for g in _draw_sources(v)]
+    return []
+
+
+def replace_draw_sources(tree, source):
+    """``tree`` with every generator or draw source in it replaced by
+    ``source``."""
+    if isinstance(tree, torch.Generator) or hasattr(tree, "generator"):
+        return source
+    if isinstance(tree, dict):
+        return {k: replace_draw_sources(v, source) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(replace_draw_sources(v, source) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(replace_draw_sources(v, source) for v in tree)
+    return tree
+
+
+def shard_state(state, shard, pad_generator=None):
+    """This rank's rows (``shard.take``) of every tensor leaf of ``state``
+    with a leading axis of ``shard.num_chains``; its generators (or draw
+    sources) become one :class:`ShardedDraws` on the first one's generator."""
+    rows = tree_map(
+        lambda x: shard.take(x) if x.dim() >= 1 and x.shape[0] == shard.num_chains else x, state
+    )
+    sources = _draw_sources(state)
+    if not sources:
+        return rows
+    generator = getattr(sources[0], "generator", sources[0])
+    return replace_draw_sources(rows, ShardedDraws(generator, shard, pad_generator))
+
+
+def gather_state(state):
+    """The full panel of a state that :func:`shard_state` sharded (``state``
+    as it is otherwise): every rank's rows of its chain fields gathered over
+    the chain group, the pad dropped, and its sharded draw source
+    (:class:`ShardedDraws`) replaced by the generator under it, which every
+    rank holds in the same state."""
+    found = [g for g in _draw_sources(state) if getattr(g, "shard", None) is not None]
+    if not found:
+        return state
+    shard = found[0].shard
+    whole = tree_map(
+        lambda x: shard.gather(x) if x.dim() >= 1 and x.shape[0] == shard.size else x, state
+    )
+    return replace_draw_sources(whole, found[0].generator)
+
+
+def refuse_sharded(rng_key, kernel):
+    """Raise for a kernel whose transition couples its chains when its state
+    is sharded over more than one rank."""
+    shard = getattr(rng_key, "shard", None)
+    if shard is not None and shard.group is not None:
+        raise NotImplementedError(
+            f"{kernel} couples its chains in every transition and does not run with its "
+            "chains sharded over ranks yet (ROADMAP.md)"
+        )
+
+
+def _all_chains(draws, mask):
+    """Whether ``mask`` ``(C,)`` holds for every chain: this process's, or
+    with a sharded draw source every rank's real chains (one host read)."""
+    shard = getattr(draws, "shard", None)
+    return bool(mask.all()) if shard is None else shard.all(mask)
+
+
+def _full_panel(draws, x):
+    """Every chain's ``x``: this process's, or gathered over the chain group
+    where ``draws`` is sharded (the real chains only)."""
+    shard = getattr(draws, "shard", None)
+    return x if shard is None else shard.gather(x)
 
 
 def as_draws(rng_key):
@@ -690,7 +837,7 @@ def nuts_transition(
         )
         ticks += 1
         if ticks == next_check:
-            if bool(t.done.all()):
+            if _all_chains(draws, t.done):
                 break
             next_check = 2 * next_check + 1
     accept_prob = t.accept_sum / t.n_leaf.clamp(min=1)
@@ -783,7 +930,7 @@ def batched_step_size_search(
             prev_dir = torch.where(settled, prev_dir, new_dir)
             cur_dir = torch.where(settled, cur_dir, new_dir)
             settled = settled | crossed | extreme
-        if bool(settled.all()):
+        if _all_chains(draws, settled):
             return ss
 
 
@@ -920,21 +1067,27 @@ def _welford_finalize(blocks, wf, regularize=True):
     return _expose(blocks, inv_p), _expose(blocks, sqrt_p), _expose(blocks, sqrt_inv_p)
 
 
-def _welford_pool(blocks, wf):
+def _welford_pool(blocks, wf, draws=None):
     """Pool per-chain Welford states into one estimate broadcast over chains
-    (parallel-Welford merge with the between-chain spread)."""
-    means, m2s, count = wf
+    (parallel-Welford merge with the between-chain spread).  With a sharded
+    ``draws`` the states of every rank's real chains are pooled, as one
+    process pools them, and broadcast over this rank's rows."""
+    local_means, local_m2s, local_count = wf
+    means, m2s, count = tree_map(lambda x: _full_panel(draws, x), wf)
     pooled_means, pooled_m2s = [], []
-    for dense, mean, m2 in zip(blocks.dense, _as_parts(blocks, means), _as_parts(blocks, m2s)):
+    for dense, mean, m2, local_mean, local_m2 in zip(
+        blocks.dense, _as_parts(blocks, means), _as_parts(blocks, m2s),
+        _as_parts(blocks, local_means), _as_parts(blocks, local_m2s),
+    ):
         grand = mean.mean(0, keepdim=True)  # equal per-chain counts
         spread = mean - grand
         n = count.reshape(count.shape + (1,) * (m2.dim() - 1))
         between = spread[:, :, None] * spread[:, None, :] if dense else spread**2
-        pooled_means.append(grand.expand_as(mean))
-        pooled_m2s.append((m2 + n * between).sum(0, keepdim=True).expand_as(m2))
+        pooled_means.append(grand.expand_as(local_mean))
+        pooled_m2s.append((m2 + n * between).sum(0, keepdim=True).expand_as(local_m2))
     return (
         _expose(blocks, pooled_means), _expose(blocks, pooled_m2s),
-        count.sum().expand_as(count),
+        count.sum().expand_as(local_count),
     )
 
 
@@ -953,9 +1106,10 @@ def dual_averaging_step(g, t, g_avg, x_avg, prox_center, t0=10.0, kappa=0.75, ga
     return x_t, x_avg, g_avg, t
 
 
-def _pool_step_size(ss):
-    """Harmonic-mean pooled step size, broadcast over chains."""
-    return (1.0 / (1.0 / ss).mean()).expand_as(ss)
+def _pool_step_size(ss, draws=None):
+    """Harmonic-mean pooled step size, broadcast over chains (every rank's
+    real chains with a sharded ``draws``)."""
+    return (1.0 / (1.0 / _full_panel(draws, ss)).mean()).expand_as(ss)
 
 
 def build_warmup(
@@ -975,7 +1129,7 @@ def build_warmup(
         ss = batched_step_size_search(
             pe_grad, blocks, draws, z, pe, grad, inv, sqrt, ss, target=target_accept_prob
         )
-        return _pool_step_size(ss) if pool_chains else ss
+        return _pool_step_size(ss, draws) if pool_chains else ss
 
     def init_fn(draws, z, pe, grad, step_size, inverse_mass_matrix=None):
         c, d = z.shape
@@ -985,11 +1139,12 @@ def build_warmup(
             ss = search(draws, z, pe, grad, inv, sqrt, ss)
         return AdaptPanel(ss, inv, sqrt, sqrt_inv, *da_reset(ss), *_welford_init(blocks, c, z))
 
-    def _da_update(adapt, accept_prob, is_last):
+    def _da_update(adapt, accept_prob, is_last, draws):
         if pool_chains:
             # geometric mean: one stuck chain vetoes equilibrium
             # (numpyro_tpu/infer/hmc_core.py:1011)
-            pooled = torch.exp(torch.log(torch.clamp(accept_prob, min=1e-6)).mean())
+            full = _full_panel(draws, accept_prob)
+            pooled = torch.exp(torch.log(torch.clamp(full, min=1e-6)).mean())
             accept_prob = pooled.expand_as(accept_prob)
         log_ss, log_avg, grad_avg, count = dual_averaging_step(
             target_accept_prob - accept_prob, adapt.da_count, adapt.da_grad_avg,
@@ -1010,7 +1165,7 @@ def build_warmup(
         if adapt_mass_matrix:
             wf = (adapt.wf_mean, adapt.wf_m2, adapt.wf_count)
             if pool_chains:
-                wf = _welford_pool(blocks, wf)
+                wf = _welford_pool(blocks, wf, draws)
             inv, sqrt, sqrt_inv = _welford_finalize(blocks, wf, regularize=regularize_mass_matrix)
         ss = adapt.step_size
         if adapt_step_size:
@@ -1026,7 +1181,7 @@ def build_warmup(
         """``i``: the warmup step index, the same for every chain."""
         idx = min(i, max(num_warmup - 1, 0))
         if adapt_step_size:
-            adapt = _da_update(adapt, accept_prob, i == num_warmup - 1)
+            adapt = _da_update(adapt, accept_prob, i == num_warmup - 1, draws)
         if adapt_mass_matrix and num_warmup > 0 and in_middle[idx]:
             wf = _welford_update(blocks, (adapt.wf_mean, adapt.wf_m2, adapt.wf_count), z)
             adapt = adapt._replace(wf_mean=wf[0], wf_m2=wf[1], wf_count=wf[2])
@@ -1083,18 +1238,18 @@ class FusedRun:
         is called after each one."""
         adapt = self.wa_init(draws, z, pe, grad, step_size, inverse_mass_matrix)
         mean_acc = torch.zeros_like(pe)
-        # divergent warmup transitions of all chains, counted on the device
-        num_divergent = torch.zeros((), dtype=torch.int64, device=z.device)
+        # divergent warmup transitions of each chain, counted on the device
+        divergent = torch.zeros(pe.shape, dtype=torch.int64, device=z.device)
         for i in range(self.num_warmup):
             out = self.transition(draws, z, pe, grad, adapt, self.warmup_max_depth)
             z, pe, grad = out.z, out.pe, out.grad
             adapt = self.wa_update(i, adapt, out.accept_prob, z, pe, grad, draws)
             mean_acc = mean_acc + (out.accept_prob - mean_acc) / (i + 1)
-            num_divergent = num_divergent + out.diverging.sum()
+            divergent = divergent + out.diverging
             if progress is not None:
                 progress("warmup", i + 1, self.num_warmup)
         return {"z": z, "pe": pe, "grad": grad, "adapt": adapt, "mean_accept_prob": mean_acc,
-                "num_divergent": num_divergent}
+                "num_divergent": _full_panel(draws, divergent).sum()}
 
     def _buffers(self, z, slots):
         c, d = z.shape
@@ -1182,7 +1337,7 @@ class FusedRun:
                 t = NutsCarry(*(_sel(restart, f, o) for f, o in zip(fresh, t)))
             if progress is not None:
                 progress("sample", min(int(trans_idx.min()), num_samples), num_samples)
-            if bool((trans_idx >= num_samples).all()):
+            if _all_chains(draws, trans_idx >= num_samples):
                 break
         return {
             "z": t.prop_z,

@@ -3,9 +3,22 @@
 Chain methods:
 
 - ``"vectorized"``: all chains advance together in one batched program.
-- ``"parallel"``: the JAX package shards the vectorized program's chain axis
-  over a device mesh.  On one card the port runs it as the vectorized
-  program, so the same seed gives the same draws.
+- ``"parallel"``: the vectorized program with its chain axis sharded over
+  the ranks of a process group, one process per device (the JAX package
+  shards it over a device mesh).  Each rank of the mesh's ``chains`` axis
+  (``mesh=``, by default every rank of the world: ``parallel.chain_mesh``)
+  initializes all chains from the seed, runs its rows of them on a
+  ``hmc_core.ShardedDraws`` source, which draws the full panel and keeps the
+  rank's rows, and the collected fields, ``last_state`` and the summary hold
+  the full panel on every rank (gathered over the chain group): the same
+  seed gives the draws of the vectorized run.  ``num_chains`` that the chain
+  shards do not divide is padded with copies of the first chains, which draw
+  from a generator of their own, count in no pooled statistic and in no
+  loop's end, and are dropped at collection, so the real chains' draws are
+  an unpadded run's; a run resumed from ``post_warmup_state`` is not padded
+  and runs unsharded then.  With one rank, or no process group, it is the
+  vectorized program.  Kernels whose transition couples chains (ChEES, the
+  ensembles) raise under more than one chain shard.
 - ``"sequential"``: one single-chain run per chain, one after another, with
   the results stacked on a leading chain axis.  Chain ``i`` runs on its own
   generator, seeded with the ``i``-th of ``num_chains`` integers that the
@@ -42,14 +55,17 @@ from __future__ import annotations
 
 import math
 import time
+import warnings
 from abc import ABC, abstractmethod
 from operator import attrgetter
 
 import torch
 
 from numpyro_tpu_torch.diagnostics import print_summary
+from numpyro_tpu_torch.infer import hmc_core as core
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.util import chain_generators
+from numpyro_tpu_torch.parallel import mesh as mesh_lib
 from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
 __all__ = ["MCMC", "MCMCKernel", "chain_generators"]
@@ -126,12 +142,14 @@ class MCMC:
 
     :param sampler: an :class:`MCMCKernel`.
     :param chain_method: ``"vectorized"``, ``"parallel"`` (the vectorized
-        program on one card), ``"sequential"`` or a callable (see the module
-        docstring).
+        program sharded over ranks), ``"sequential"`` or a callable (see the
+        module docstring).
     :param progress_bar: follow the run with a ``tqdm`` bar.
-    :param device: where the chains run.  ``None`` is ``torch.device("cuda")``;
-        :meth:`run` raises when that device is not there and never carries on
-        on the CPU.
+    :param device: where the chains run.  ``None`` is the mesh's device, or
+        ``torch.device("cuda")``; :meth:`run` raises when that device is not
+        there and never carries on on the CPU.
+    :param mesh: the ``parallel.mesh.Mesh`` whose ``chains`` axis
+        ``"parallel"`` shards over; ``None`` is every rank of the world.
     """
 
     def __init__(
@@ -146,6 +164,7 @@ class MCMC:
         chain_method="vectorized",
         progress_bar=False,
         device=None,
+        mesh=None,
     ):
         if chain_method not in ("parallel", "vectorized", "sequential") and not callable(
             chain_method
@@ -166,7 +185,10 @@ class MCMC:
         self.postprocess_fn = postprocess_fn
         self.chain_method = chain_method
         self.progress_bar = progress_bar
-        self.device = torch.device("cuda" if device is None else device)
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
+        self.device = torch.device(device)
+        self.mesh = mesh
         self._states = None
         self._states_flat = None
         self._last_state = None
@@ -222,6 +244,39 @@ class MCMC:
             and set(collect_fields) <= set(self.sampler.FUSED_FIELDS)
         )
 
+    def _shard_over_chains(self, allow_pad=True):
+        """This rank's :class:`~numpyro_tpu_torch.parallel.mesh.ChainShard`
+        of the run's chains over the mesh's ``chains`` axis, or ``None``
+        where that axis has one shard.  ``num_chains`` that the shards do not
+        divide is padded to the next multiple (the extra chains are dropped
+        at collection), except for a run that resumes from an unpadded
+        state (``allow_pad=False``), which then runs unsharded, as in the JAX
+        package."""
+        mesh = mesh_lib.chain_mesh(device=self.device) if self.mesh is None else self.mesh
+        n = mesh.num_chain_shards
+        if n <= 1:
+            return None
+        if self.sampler.is_ensemble_kernel:
+            raise NotImplementedError(
+                f"{type(self.sampler).__name__} couples its chains in every transition and does "
+                "not run with its chains sharded over ranks yet (ROADMAP.md)"
+            )
+        pad = (-self.num_chains) % n
+        if pad and not allow_pad:
+            warnings.warn(
+                f"num_chains={self.num_chains} is not divisible by the {n} chain shards and the "
+                "run resumes from an existing state, so the chain axis cannot be padded; "
+                "running unsharded.", stacklevel=3,
+            )
+            return None
+        if pad:
+            warnings.warn(
+                f"num_chains={self.num_chains} is not divisible by the {n} chain shards; "
+                f"padding the chain axis to {self.num_chains + pad} (extras dropped at "
+                "collection).", stacklevel=3,
+            )
+        return mesh.chain_shard(self.num_chains, self.num_chains + pad)
+
     def _run_per_step(self, rng_key, init_state, init_params, args, kwargs, collect_fields,
                       num_chains):
         """``init`` and a loop over ``sample``; every ``thinning``-th state
@@ -232,16 +287,22 @@ class MCMC:
         stats = {}
         evals0 = infer_util.potential_evals
         t0 = time.perf_counter()
+        shard = rng_key.shard if isinstance(rng_key, core.ShardedDraws) else None
         if init_state is None:
+            # sharded, every rank initializes the full panel and keeps its rows
             state = sampler.init(
-                rng_key, self.num_warmup, init_params, model_args=args, model_kwargs=kwargs,
-                num_chains=num_chains if batched else None,
+                rng_key if shard is None else rng_key.generator, self.num_warmup, init_params,
+                model_args=args, model_kwargs=kwargs, num_chains=num_chains if batched else None,
             )
+            if shard is not None:
+                state = core.shard_state(state, shard, rng_key.pad_generator)
             _sync(self.device)
             stats["init_s"] = time.perf_counter() - t0
             stats["potential_evals_init"] = infer_util.potential_evals - evals0
         else:
-            state = init_state
+            state = init_state if shard is None else core.shard_state(init_state, shard)
+        if shard is not None:
+            num_chains = shard.size
         remove_sites = tuple(getattr(sampler, "collect_exclude_sites", ()) or ())
         getters = [attrgetter(f) for f in collect_fields]
 
@@ -345,7 +406,7 @@ class MCMC:
         for i, generator in enumerate(generators):
             state_i = params_i = None
             if init_state is not None:
-                state_i = _replace_generators(tree_map(lambda x: x[i], init_state), generator)
+                state_i = core.replace_draw_sources(tree_map(lambda x: x[i], init_state), generator)
             if init_params is not None:
                 # a fused run takes params with a chain axis, the per-step
                 # API one chain's without
@@ -402,6 +463,16 @@ class MCMC:
         collect_fields = (self._sample_field,) + tuple(
             sorted(f for f in collect_fields if f != self._sample_field)
         )
+        shard = None
+        if self.chain_method == "parallel" and self.num_chains > 1:
+            shard = self._shard_over_chains(allow_pad=init_state is None)
+        if shard is not None:
+            pad_generator = None
+            if shard.stop > shard.num_chains:
+                pad_generator = torch.Generator(device=self.device).manual_seed(
+                    (rng_key.initial_seed() * 1_000_003 + self.num_chains) % 2**63
+                )
+            rng_key = core.ShardedDraws(rng_key, shard, pad_generator)
         if self.chain_method == "sequential" and self.num_chains > 1:
             fields, last_state, stats = self._run_sequential(
                 rng_key, init_state, init_params, args, kwargs, collect_fields
@@ -414,6 +485,9 @@ class MCMC:
             fields, last_state, stats, _ = self._run_chains(
                 rng_key, init_state, init_params, args, kwargs, collect_fields, self.num_chains
             )
+        if shard is not None:
+            fields = tree_map(shard.gather, fields)
+            last_state = core.gather_state(last_state)
         postprocess_fn = (
             self.sampler.postprocess_fn(args, kwargs)
             if self.postprocess_fn is None
@@ -471,20 +545,6 @@ def _sum_stats(parts):
         for k, v in one.items():
             stats[k] = stats.get(k, 0) + v
     return stats
-
-
-def _replace_generators(tree, generator):
-    """``tree`` with every generator or draw source in it replaced by
-    ``generator``."""
-    if isinstance(tree, torch.Generator) or hasattr(tree, "generator"):
-        return generator
-    if isinstance(tree, dict):
-        return {k: _replace_generators(v, generator) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_replace_generators(v, generator) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_replace_generators(v, generator) for v in tree)
-    return tree
 
 
 def _flatten_chains(x):

@@ -39,6 +39,7 @@ from numpyro_tpu_torch.infer import hmc_core as core
 from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.initialization import init_to_sample
 from numpyro_tpu_torch.infer.util import _site_log_prob, log_density
+from numpyro_tpu_torch.parallel import mesh as mesh_lib
 
 __all__ = ["SMC", "SMCResult", "SMCState", "smc_state_from_numpy"]
 
@@ -75,6 +76,10 @@ class SMC:
     :param device: where the particles live; ``None`` is
         ``torch.device("cuda")``, and :meth:`run` raises when it is not there
         (it never carries on on the CPU).
+
+    In a process group of more than one rank :meth:`run` raises: the
+    particle axis couples every particle (the resampling's normalisation)
+    and does not run sharded over ranks yet (ROADMAP.md).
     """
 
     def __init__(self, model, *, num_particles=1024, ess_threshold=0.5,
@@ -159,6 +164,12 @@ class SMC:
         constrained posterior samples and the log-evidence estimate.
         ``rng_key`` is an int seed, from which the run makes a generator on
         its device, or a ``torch.Generator`` on that device."""
+        shards = mesh_lib.chain_mesh().num_chain_shards
+        if shards > 1:
+            raise NotImplementedError(
+                "SMC's particle axis couples every particle and does not run sharded over "
+                f"{shards} chain shards yet (ROADMAP.md)"
+            )
         generator = infer_util.device_generator(rng_key, self.device, "SMC")
         draws = core.as_draws(generator)
         self._setup(generator, args, kwargs)

@@ -25,6 +25,17 @@ the exact f32 product), ``"split"`` (bf16-stored design matrix with
 f32-accurate hi+lo ``w``) and ``torch.bfloat16`` (all-bf16, including ``w``
 and the residual).
 
+Data sharded over ranks (``parallel.shard_data`` of X and y, then
+:func:`prepare_glm_data`) gives each rank GLM data of its own rows, with its
+own ``n``, padding and TMA descriptor.  The op then runs the kernel (or the
+plain version) on those rows and adds one ``all_reduce`` of the partial
+``(loglik (B,), grad (B, D))`` over the mesh's data group per evaluation,
+for all chains at once (:func:`sum_data_shards`): the result is the whole
+data set's, as the JAX package computes it for a ``shard_data``-placed X.
+Each partial is float32 (the kernel sums its own partials in float64 and
+rounds once), so the sum of ``S`` shards may differ from one card's value by
+about ``S`` roundings of the partials, far inside ``kernel_tolerances``.
+
 The kernels' launch plan (:func:`glm_launch_plan`) and one call's count of
 operations and bytes (:func:`glm_work`) are pure functions, tested on the CPU.
 """
@@ -39,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from numpyro_tpu_torch.ops.provenance import ProvenanceTensor, get_provenance
+from numpyro_tpu_torch.parallel.mesh import all_reduce
 
 __all__ = [
     "BernoulliLogitsGLMData",
@@ -58,6 +70,7 @@ __all__ = [
     "six_product_matmul",
     "split_hi_lo",
     "split_hi_mid_lo",
+    "sum_data_shards",
 ]
 
 # same layout as the JAX package, so both score the same padded matrix; the
@@ -129,9 +142,11 @@ def _mode(dtype):
 class BernoulliLogitsGLMData:
     """Pre-laid-out design matrix: Xᵀ padded to ``(D_pad, N_pad)`` with the
     observation row padded to match.  Build once via :func:`prepare_glm_data`
-    (or :func:`from_numpy_glm_data`); reused across every leapfrog step."""
+    (or :func:`from_numpy_glm_data`); reused across every leapfrog step.
+    ``group``: the data group whose ranks hold the other rows (``None``: the
+    rows are the whole data set)."""
 
-    def __init__(self, x_t, y_row, n, d, dtype):
+    def __init__(self, x_t, y_row, n, d, dtype, group=None):
         if x_t.device != y_row.device:
             raise ValueError("x_t and y_row must be on the same device")
         self.x_t = x_t  # (D_pad, N_pad) float32 or bfloat16
@@ -140,6 +155,7 @@ class BernoulliLogitsGLMData:
         self.d = d
         self.dtype = dtype
         self.mode = _mode(dtype)
+        self.group = group
         self._tensor_maps = {}  # TMA descriptors of x_t, made once each
 
     @property
@@ -149,7 +165,17 @@ class BernoulliLogitsGLMData:
 
 def prepare_glm_data(X, y, dtype=torch.float32):
     """Lay out an (N, D) design matrix and (N,) binary observations on the
-    device of ``X`` (see the module docstring for ``dtype``)."""
+    device of ``X`` (see the module docstring for ``dtype``).  Rows from
+    ``parallel.shard_data`` (of X and y alike) give this rank's GLM data,
+    whose op sums over the data group."""
+    x_shard, y_shard = getattr(X, "data_shard", None), getattr(y, "data_shard", None)
+    if (x_shard is None) != (y_shard is None) or (
+        x_shard is not None and (x_shard.start, x_shard.stop) != (y_shard.start, y_shard.stop)
+    ):
+        raise ValueError("X and y must be the same rows: both from shard_data on one mesh, "
+                         "or neither")
+    if x_shard is not None and x_shard.axis != 0:
+        raise ValueError("the GLM data is sharded by rows (shard_data(..., axis=0))")
     N, D = X.shape
     mode = _mode(dtype)
     d_pad = max(8 * ((D + 7) // 8), 8)
@@ -159,7 +185,8 @@ def prepare_glm_data(X, y, dtype=torch.float32):
     x_t[:D, :N] = X.T.to(store)
     y_row = torch.zeros((1, n_pad), dtype=torch.float32, device=X.device)
     y_row[0, :N] = y.to(torch.float32)
-    return BernoulliLogitsGLMData(x_t, y_row, N, D, dtype)
+    return BernoulliLogitsGLMData(x_t, y_row, N, D, dtype,
+                                  None if x_shard is None else x_shard.group)
 
 
 def from_numpy_glm_data(x_t, y_row, n, d, dtype, device="cpu"):
@@ -450,6 +477,17 @@ def glm_value_and_grad(w, data):
     raise NotImplementedError(f"no GLM kernel for device {w.device}")
 
 
+def sum_data_shards(ll, grad, data):
+    """The whole data set's ``(loglik, grad)`` from this rank's partials:
+    one ``all_reduce`` of both over ``data``'s data group (nothing without
+    one)."""
+    if data.group is None:
+        return ll, grad
+    both = torch.cat([ll[:, None], grad], 1)
+    all_reduce(both, data.group)
+    return both[:, 0], both[:, 1:]
+
+
 _NO_SECOND_DERIVATIVE = (
     "bernoulli_logits_loglik has no forward-mode derivative and no second derivative "
     "(nor has the JAX package's custom_vjp op), so forward mode and Hessians (jacfwd or "
@@ -470,7 +508,7 @@ class _GLMLoglik(torch.autograd.Function):
     @staticmethod
     def forward(w, data, value_and_grad):
         flat = w.reshape(-1, w.shape[-1]).contiguous()
-        ll, g = value_and_grad(flat, data)
+        ll, g = sum_data_shards(*value_and_grad(flat, data), data)
         return ll.reshape(w.shape[:-1]), g.reshape(w.shape)
 
     @staticmethod

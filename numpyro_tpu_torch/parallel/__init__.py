@@ -1,7 +1,22 @@
-"""numpyro_tpu_torch.parallel: cross-chain helpers on one device (port of the
-one-device part of ``numpyro_tpu/parallel``; the mesh, sharding and
-multi-host helpers are not ported, the port runs on one card)."""
+"""numpyro_tpu_torch.parallel: chains and data across processes, one per
+device (port of ``numpyro_tpu/parallel``; see ``mesh.py``)."""
 
-from numpyro_tpu_torch.parallel.mesh import cross_chain_diagnostics, pooled_step_size
+from numpyro_tpu_torch.parallel.mesh import (
+    chain_data_mesh,
+    chain_mesh,
+    cross_chain_diagnostics,
+    initialize_distributed,
+    pooled_step_size,
+    shard_chain_state,
+    shard_data,
+)
 
-__all__ = ["cross_chain_diagnostics", "pooled_step_size"]
+__all__ = [
+    "chain_data_mesh",
+    "chain_mesh",
+    "cross_chain_diagnostics",
+    "initialize_distributed",
+    "pooled_step_size",
+    "shard_chain_state",
+    "shard_data",
+]

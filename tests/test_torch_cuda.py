@@ -20,7 +20,8 @@ syncs, the nested sampler, and DCC and SDVI on the card; one SVGD and one
 SteinVI step on the card against the CPU from the same particles and draws;
 a checkpoint saved from the card restored onto the card and onto the CPU,
 ``torch_module``'s ELBO on the card against the CPU's, and the compat
-``SVI`` on the card by default.
+``SVI`` on the card by default; a one-rank mesh that leaves ``glm_split``'s
+bits as they are.
 
 Every test here carries ``requires_cuda`` and skips without a GPU, but the
 check that SteinVI and SVGD raise without one, which runs everywhere.  The file
@@ -1627,3 +1628,31 @@ def test_compat_svi_runs_on_the_card_by_default(cuda):
     assert svi.device.type == "cuda" and loss.device.type == "cuda"
     _, want, _ = cs.minipyro_trajectory(torch.device("cpu"), steps=20)
     torch.testing.assert_close(torch.stack(locs).cpu(), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_one_rank_mesh_gives_glm_split_the_same_bits(cuda):
+    """``shard_data`` over a one-rank ``chain_data_mesh`` on ``cuda:0`` keeps
+    every row and no data group, so the GLM op launches ``glm_split`` once
+    and gives the bits of the call without a mesh."""
+    from numpyro_tpu_torch.parallel import chain_data_mesh, shard_data
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+
+    X, y, W, _ = _problem(cuda, n=40000, d=9, c=33)
+    mesh = chain_data_mesh(device="cuda:0")
+    assert mesh.shape == {"chains": 1, "data": 1} and mesh.device == torch.device("cuda", 0)
+    rows = glm.prepare_glm_data(shard_data(X, mesh), shard_data(y, mesh), dtype="split")
+    whole = glm.prepare_glm_data(X, y, dtype="split")
+    assert rows.group is None and rows.n == whole.n
+    assert torch.equal(rows.x_t.view(torch.int16), whole.x_t.view(torch.int16))
+
+    def value_and_grad(data):
+        return torch.func.vmap(torch.func.grad_and_value(glm.bernoulli_logits_loglik),
+                               in_dims=(0, None))(W, data)
+
+    mesh_lib.reset_collective_counts()
+    before = glm.launch_counts["glm_split"]
+    got = value_and_grad(rows)
+    assert glm.launch_counts["glm_split"] == before + 1
+    assert mesh_lib.collective_counts["all_reduce"] == 0
+    assert _same_bits(got, value_and_grad(whole))

@@ -18,7 +18,6 @@ import numpyro_tpu
 import numpyro_tpu_torch
 
 # the JAX package's names the port does not carry (ROADMAP.md, "Not to port")
-ONE_CARD = "Not to port (parallel/mesh.py's mesh, sharding and multi-host helpers; one H100)"
 PLATFORM = "Not to port (sets JAX's platform or XLA's flags; the port takes an explicit device)"
 JAX_LOOPS = "Not to port (lax control flow and its debug switch; the port's loops are Python)"
 LEFT_OUT = {
@@ -44,9 +43,6 @@ LEFT_OUT = {
         "flax_module", "haiku_module", "nnx_module", "random_flax_module",
         "random_haiku_module", "random_nnx_module")},
     "ops": {"PytreeTrace": "Not to port (ops/pytree.py carries a trace through lax control flow)"},
-    "parallel": {name: ONE_CARD for name in (
-        "chain_data_mesh", "chain_mesh", "initialize_distributed", "shard_chain_state",
-        "shard_data")},
 }
 # names in the port's __all__ that the JAX module's does not list
 PORT_ONLY = {
