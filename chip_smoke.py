@@ -322,7 +322,21 @@ Phases (each prints on its own lines; any failure exits non-zero):
                ``glm.kernel_tolerances`` of ``glm_split`` on all 581,012 rows;
                the kernel on a shard timed at 32 and 256 chains, the sum
                timed; then pooled NUTS on the data-sharded model, whose ranks
-               must draw the same panel.  A rank that fails, or runs past
+               must draw the same panel; then ``glm_fused`` in f32 and bf16
+               mode on the shard through the model's op, one launch and one
+               ``all_reduce`` each, within ``glm.kernel_tolerances`` of the
+               kernel on all rows, and timed at 32 and 256 chains.  (c)
+               HMCECS with the Taylor proxy at phase 8d's MAP on the 1 x 2
+               data mesh (``DATA_ECS``: the bench's subsample and blocks),
+               held against the same leg run by this script on all rows: the
+               first evaluation's potential and gradient within
+               ``DATA_ECS_RTOL``, the posterior means within the ECS modes'
+               gate, one ``all_reduce`` over the data a Gibbs step and none
+               an evaluation, the same draws on both ranks.  (d) ChEES at
+               ``CHEES_RUN``'s step size and trajectory with its 64 chains
+               sharded 2 x 32 (``SHARDED_CHEES``): draws and adaptation equal
+               the same leg's in this script bit for bit, one ``glm_split``
+               launch an evaluation.  A rank that fails, or runs past
                ``RANK_TIMEOUT``, fails the script.
 
 The last two lines are a JSON summary of the kernels and
@@ -968,9 +982,11 @@ def phase_per_step(X, y, checkpoint_path):
             "rng_state": rng_state, "draws": draws, "pe": pe}
 
 
-def model_ecs(X, y):
+def model_ecs(X, y, size=None):
+    """The subsampled covtype model; ``size``: the whole data's rows, which a
+    rank's data shard (``parallel.shard_data``) holds only part of."""
     w = npt.sample("w", dist.Normal(torch.zeros(D, device=X.device), 1.0).to_event(1))
-    with npt.plate("N", X.shape[0], subsample_size=SUBSAMPLE):
+    with npt.plate("N", X.shape[0] if size is None else size, subsample_size=SUBSAMPLE):
         xb = npt.subsample(X, event_dim=1)
         yb = npt.subsample(y, event_dim=0)
         npt.sample("obs", dist.Bernoulli(logits=xb @ w), obs=yb)
@@ -4974,10 +4990,34 @@ def phase_twenty_two(device, resume):
 # and potential energies against the leg's own; (b) a 1 x 2 data mesh: each
 # rank's glm_split on its half of the rows plus one all_reduce, at phase 3's
 # w_chains, against the one-process glm_split on the whole X, then pooled
-# NUTS on the data-sharded model: chains, warmup, samples, tree depth
+# NUTS on the data-sharded model (chains, warmup, samples, tree depth), then
+# the fused kernel's modes on the shard; (c) HMCECS on the data mesh; (d)
+# ChEES with its chains sharded
 RANKS = 2
 DATA_NUTS = (64, 5, 5, 4)
-SHARD_CHAINS = (32, 256)  # chains at which glm_split is timed on one data shard
+SHARD_CHAINS = (32, 256)  # chains at which each kernel is timed on one data shard
+# (b) the fused kernel's modes on the shard, beside glm_split
+SHARD_MODES = {"glm_fused_f32": torch.float32, "glm_fused_bf16": torch.bfloat16}
+# (c) HMCECS with the Taylor proxy at phase 8d's MAP, its chains started
+# there, on the 1 x 2 data mesh and in one process on the whole X (the
+# bench's subsample and blocks): chains, warmup, samples, tree depth, the
+# ECS modes' gate.  Its length comes from a CPU rehearsal (``python3 -m
+# dev.phase23 cpu``), to fit phase 23's budget
+DATA_ECS = (32, 4, 4, 3, 0.2)
+# the first evaluation's potential and gradient, data-sharded against one
+# process: the proxy's whole-data sums add the two shards' float32 sums of
+# 290,506 terms where one process sums all 581,012 in one reduction, so they
+# differ by the rounding of a float32 sum (the CPU tests: 1.3e-7 relative on
+# 64 rows).  The potential is held to DATA_ECS_RTOL of itself (its terms
+# share one sign), each gradient component to DATA_ECS_RTOL of the sum of
+# its terms' magnitudes, sum_n |x_nj (y_n - sigmoid(x_n . w))| at the MAP,
+# since at the MAP the terms cancel to about 0 (about 2^7 float32 epsilons
+# of rounding, of which a pairwise float32 sum of 2^20 terms spends 20)
+DATA_ECS_RTOL = 1e-5
+# (d) ChEES at CHEES_RUN's step size, trajectory and step cap, its chains
+# sharded 2 x 32 on a chain mesh: chains, warmup, samples; held bit for bit
+# against the same leg in one process
+SHARDED_CHEES = (64, 4, 2)
 RANK_TIMEOUT = 300  # seconds to warm up, and from the go to the end, before the script fails
 SCRIPT_LIMIT = 1200  # seconds: a rank still waiting for the go by then ends itself
 WARM_ROWS = 1000  # rows of the plain model a rank warms up on while the kernels build
@@ -5015,6 +5055,69 @@ def warm_model(x, y):
     first NUTS run before the kernels are built."""
     w = npt.sample("w", dist.Normal(torch.zeros(x.shape[1], device=x.device), 1.0).to_event(1))
     npt.sample("y", dist.Bernoulli(logits=x @ w), obs=y)
+
+
+def ecs_leg(X, y, w_map, device):
+    """23c: HMCECS with the Taylor proxy at ``w_map`` (phase 8d's MAP), its
+    chains started there (``DATA_ECS``), through the per-step API; on a
+    rank ``X`` and ``y`` are its rows of a data shard, in one process the
+    whole data.  Returns the first evaluation's potential and gradient, the
+    draws, the all_reduces over the data axis at setup and in the
+    transitions, the potential evaluations and the seconds."""
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+
+    chains, warmup, samples, depth, _ = DATA_ECS
+    anchor = {"w": w_map}
+    kernel = HMCECS(NUTS(model_ecs, max_tree_depth=depth, init_strategy=init_to_value(
+        values=anchor)), num_blocks=NUM_BLOCKS, proxy=HMCECS.taylor_proxy(anchor))
+    # the plate's size is the whole data's, which a data shard's tag holds
+    kwargs = {"size": X.data_shard.size if hasattr(X, "data_shard") else X.shape[0]}
+    glm.reset_launch_counts()
+    mesh_lib.reset_collective_counts()
+    t0 = time.perf_counter()
+    state = kernel.init(torch.Generator(device=device).manual_seed(5), warmup, None, (X, y),
+                        kwargs, num_chains=chains)
+    setup = mesh_lib.collective_counts["over_data"]
+    first = (state.hmc_state.potential_energy.cpu(), state.hmc_state.z_grad["w"].cpu())
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    mesh_lib.reset_collective_counts()
+    evals = infer_util.potential_evals
+    draws = []
+    t0 = time.perf_counter()
+    for i in range(warmup + samples):
+        state = kernel.sample(state, (X, y), kwargs)
+        if i >= warmup:
+            draws.append(state.z["w"])
+    _sync(device)
+    return {"first": first, "draws": torch.stack(draws, 1).cpu(), "setup_reduces": setup,
+            "reduces": mesh_lib.collective_counts["over_data"],
+            "evals": infer_util.potential_evals - evals, "transitions": warmup + samples,
+            "init_s": init_s, "s": time.perf_counter() - t0, "modes": dict(kernel.resolved_modes),
+            "glm_launches": sum(glm.launch_counts.values())}
+
+
+def chees_leg(data, chain_method, mesh=None):
+    """23d: ChEES at ``CHEES_RUN``'s step size, trajectory length and step
+    cap (``SHARDED_CHEES``): its draws, last adaptation state, split-kernel
+    launches, evaluations (with the init trace) and seconds."""
+    chains, warmup, samples = SHARDED_CHEES
+    _, _, _, max_steps, step_size, traj = CHEES_RUN
+    mcmc = MCMC(CheesHMC(model, step_size=step_size, trajectory_length=traj,
+                         max_num_steps=max_steps),
+                num_warmup=warmup, num_samples=samples, num_chains=chains,
+                chain_method=chain_method, mesh=mesh)
+    name = "glm_split" if data.device.type == "cuda" else "plain"
+    glm.reset_launch_counts()
+    t0 = time.perf_counter()
+    mcmc.run(2, data)
+    adapt = mcmc.last_state.adapt_state
+    return {"draws": mcmc.get_samples(group_by_chain=True)["w"].cpu(),
+            "adapt": (adapt.step_size.cpu(), adapt.trajectory_length.cpu(),
+                      adapt.inverse_mass_matrix.cpu()),
+            "launches": glm.launch_counts[name],
+            "evals": mcmc.last_run_stats["potential_evals"] + CHEES_INIT_TRACES,
+            "s": time.perf_counter() - t0}
 
 
 def _wait_for(path, parent, since, limit, what):
@@ -5064,7 +5167,10 @@ def phase23_rank(rank, tmp):
     mesh = chain_mesh(device=device)
     data = glm.prepare_glm_data(X, y, dtype="split")
     grid = chain_data_mesh(1, inputs["world"], device=device)
-    rows = glm.prepare_glm_data(shard_data(X, grid), shard_data(y, grid), dtype="split")
+    Xs, ys = shard_data(X, grid), shard_data(y, grid)
+    rows = glm.prepare_glm_data(Xs, ys, dtype="split")
+    fused_rows = {name: glm.prepare_glm_data(Xs, ys, dtype=mode)
+                  for name, mode in SHARD_MODES.items()}
     out["rows"] = rows.n
     del X, y
     MCMC(NUTS(model, max_tree_depth=2), num_warmup=2, num_samples=2, num_chains=2,
@@ -5074,6 +5180,8 @@ def phase23_rank(rank, tmp):
     open(f"{tmp}/warm{rank}", "w").close()
     _wait_for(f"{tmp}/go", parent, spawned, SCRIPT_LIMIT, "go")
 
+    go = torch.load(f"{tmp}/go.pt")
+
     # (a) the per-step leg with its chains sharded over the ranks
     chains, warmup, samples, depth = PER_STEP
     mcmc = MCMC(NUTS(model, max_tree_depth=depth), num_warmup=warmup, num_samples=samples,
@@ -5081,6 +5189,11 @@ def phase23_rank(rank, tmp):
     mesh_lib.reset_collective_counts()
     out["a"] = _rank_model_run(mcmc, data, step=True)
     out["a"]["all_reduce"] = mesh_lib.collective_counts["all_reduce"]
+
+    # (d) ChEES with its chains sharded over the ranks
+    mesh_lib.reset_collective_counts()
+    out["d"] = chees_leg(data, "parallel", mesh)
+    out["d"]["all_reduce"] = mesh_lib.collective_counts["all_reduce"]
     del data
 
     # (b) the rows over the ranks: the kernel on this rank's rows, one sum
@@ -5106,6 +5219,17 @@ def phase23_rank(rank, tmp):
         torch.cuda.synchronize()
         out["b_timed"] = timed
         out["all_reduce_ms"] = (time.perf_counter() - t1) / reps * 1e3
+        # the fused kernel's modes on the shard, timed in turns as above
+        out["b_fused_timed"] = {name: {} for name in SHARD_MODES}
+        for turn in range(grid.num_data_shards):
+            mesh_lib.all_reduce(torch.zeros(1, device=device), None)
+            for name in SHARD_MODES if turn == rank else ():
+                d_pad, n_pad = fused_rows[name].x_t.shape
+                for c in SHARD_CHAINS:
+                    w = w_chains[:c].contiguous()
+                    out["b_fused_timed"][name][c] = {
+                        "ms": cuda_ms(lambda: glm.glm_value_and_grad(w, fused_rows[name])),
+                        "bound": bound_ms(fused_rows[name].mode, c, d_pad, n_pad)}
         # a loop check's all_reduce: one count, read on the host
         t1 = time.perf_counter()
         for _ in range(reps):
@@ -5119,6 +5243,23 @@ def phase23_rank(rank, tmp):
     out["b"] = _rank_model_run(mcmc, rows, step=False)
     out["b"]["all_reduce"] = mesh_lib.collective_counts["all_reduce"]
     out["b"]["ms_per_eval"] = out["b"]["s"] / out["b"]["evals"] * 1e3
+    del rows
+    # the fused kernel's modes through the model's op on the shard: one
+    # launch and one all_reduce an evaluation of every chain
+    out["b_fused"] = {}
+    for name, rows_m in fused_rows.items():
+        glm.reset_launch_counts()
+        mesh_lib.reset_collective_counts()
+        g, ll = torch.func.vmap(torch.func.grad_and_value(glm.bernoulli_logits_loglik),
+                                in_dims=(0, None))(w_chains, rows_m)
+        launched = "plain" if device.type == "cpu" else name
+        out["b_fused"][name] = {"ll": ll.cpu(), "g": g.cpu(),
+                                "launches": glm.launch_counts[launched],
+                                "all_reduce": mesh_lib.collective_counts["all_reduce"]}
+    del fused_rows
+
+    # (c) HMCECS on the data shard
+    out["c"] = ecs_leg(Xs, ys, go["w_map"].to(device), device)
     torch.save(out, f"{tmp}/rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -5182,10 +5323,12 @@ class Ranks:
         self.warm_wait_s = time.perf_counter() - t0
         return self.warm_wait_s
 
-    def finish(self):
-        """Start the ranks and wait for them; returns their results and the
-        seconds from the start to their end."""
+    def finish(self, go):
+        """Start the ranks, handing them ``go`` (phase 8d's MAP as ``w_map``),
+        and wait for them; returns their results and the seconds from the
+        start to their end."""
         t0 = time.perf_counter()
+        torch.save(go, f"{self.tmp.name}/go.pt")
         open(f"{self.tmp.name}/go", "w").close()
         while any(p.poll() is None for p in self.procs):
             if (any(p.poll() not in (None, 0) for p in self.procs)
@@ -5201,16 +5344,31 @@ class Ranks:
         return res, wall
 
 
-def phase_ranks(ranks, per_step, X, y, w_chains):
+def phase_ranks(ranks, per_step, X, y, w_chains, w_map, true_w):
     """Phase 23 (the ranks started by :class:`Ranks`), held against phase 4's
-    per-step leg (``per_step``: its draws and potential energies) and
-    against the one-process ``glm_split`` on ``X``, ``y`` at phase 3's
-    ``w_chains``.  Returns the phase's wall from the go, the ranks' results
-    and their ``glm_split`` launches on the main path."""
-    whole = glm.prepare_glm_data(X, y, dtype="split")
-    ll_ref, g_ref = (t.cpu() for t in glm.glm_value_and_grad(w_chains, whole))
-    del whole
-    res, wall = ranks.finish()
+    per-step leg (``per_step``: its draws and potential energies), against
+    each kernel on ``X``, ``y`` at phase 3's ``w_chains``, and against 23c's
+    and 23d's legs in this process (HMCECS anchored at ``w_map``, phase 8d's
+    MAP, its posterior means held to ``true_w``).  Returns the phase's wall
+    from the start of those legs, the ranks' results and the launches of
+    each kernel on the main path: a list of each rank's, and this process's."""
+    refs = {}
+    for name, mode in (("glm_split", "split"), *SHARD_MODES.items()):
+        whole = glm.prepare_glm_data(X, y, dtype=mode)
+        refs[name] = tuple(t.cpu() for t in glm.glm_value_and_grad(w_chains, whole))
+        del whole
+    # the scale of 23c's first gradient: its terms' magnitudes summed at the MAP
+    w_dev = torch.as_tensor(w_map, device=X.device)
+    g_scale = (X.abs() * (y - torch.sigmoid(X @ w_dev)).abs()[:, None]).sum(0).cpu()
+    t0 = time.perf_counter()
+    # 23c's and 23d's legs in this process, before the ranks start
+    ecs_ref = ecs_leg(X, y, w_dev, X.device)
+    data = glm.prepare_glm_data(X, y, dtype="split")
+    chees_ref = chees_leg(data, "vectorized")
+    del data
+    ref_s = time.perf_counter() - t0
+    res, wall = ranks.finish({"w_map": torch.as_tensor(w_map).cpu()})
+    wall += ref_s
     world = ranks.world
 
     # (a) the chain-sharded per-step leg against phase 4's
@@ -5237,35 +5395,94 @@ def phase_ranks(ranks, per_step, X, y, w_chains):
         if not same:
             raise SystemExit(f"23a rank {r}: the sharded leg's draws differ from phase 4's")
 
-    # (b) the data-sharded sum against the one-process kernel on the whole X
-    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", N)
+    # (b) the data-sharded sums against each kernel on the whole X
     for r, got in enumerate(res):
-        ll, g, reduces = got["b_sum"]
-        ll_err = ((ll - ll_ref).abs() / ll_ref.abs()).max().item()
-        g_need = ((g - g_ref).abs() - g_rtol * g_ref.abs()).max().item()
+        checks = {"glm_split": (*got["b_sum"][:2], got["b_sum"][2], 1)}
+        for name in SHARD_MODES:
+            f = got["b_fused"][name]
+            checks[name] = (f["ll"], f["g"], f["all_reduce"], f["launches"])
+        timed = {"glm_split": got.get("b_timed", {}), **got.get("b_fused_timed", {})}
+        for name, (ll, g, reduces, launches) in checks.items():
+            ll_ref, g_ref = refs[name]
+            ll_rtol, g_rtol, g_atol = glm.kernel_tolerances(glm._mode(KERNELS[name][0]), N)
+            ll_err = ((ll - ll_ref).abs() / ll_ref.abs()).max().item()
+            g_need = ((g - g_ref).abs() - g_rtol * g_ref.abs()).max().item()
+            log(f"[ranks] 23b rank {r} {name}: {got['rows']:,} rows, one all_reduce ({reduces}) "
+                f"and {launches} launch for {CHAINS} chains; loglik max rel err {ll_err:.3e} "
+                f"(rtol {ll_rtol}), gradient least atol {g_need:.3e} (atol {g_atol:.3e}) against "
+                f"{name} on all {N:,} rows; "
+                + "; ".join(f"at B = {c} on the shard {t['ms']:.3f} ms (bound "
+                            f"{t['bound'][0]:.4f} ms, {t['bound'][1]}, share "
+                            f"{t['bound'][0] / t['ms']:.3f})"
+                            for c, t in timed.get(name, {}).items()))
+            if reduces != 1 or launches != 1 or ll_err > ll_rtol or g_need > g_atol:
+                raise SystemExit(f"23b rank {r}: the data-sharded {name} disagrees with {name} "
+                                 "on X")
         b = got["b"]
-        timed = got.get("b_timed", {})
-        log(f"[ranks] 23b rank {r}: {got['rows']:,} rows, one all_reduce ({reduces}) for "
-            f"{CHAINS} chains; loglik max rel err {ll_err:.3e} (rtol {ll_rtol}), gradient least "
-            f"atol {g_need:.3e} (atol {g_atol:.3e}) against glm_split on all {N:,} rows; "
-            + "".join(f"glm_split at B = {c} on the shard {t['ms']:.3f} ms (bound "
-                      f"{t['bound'][0]:.4f} ms, {t['bound'][1]}); " for c, t in timed.items())
-            + f"all_reduce of ({CHAINS}, {D + 1}) {got.get('all_reduce_ms', float('nan')):.3f} "
-            f"ms; these checks {got['b_checks_s']:.2f} s; pooled NUTS {DATA_NUTS[1]} + "
+        log(f"[ranks] 23b rank {r}: all_reduce of ({CHAINS}, {D + 1}) "
+            f"{got.get('all_reduce_ms', float('nan')):.3f} ms; these checks "
+            f"{got['b_checks_s']:.2f} s; pooled NUTS {DATA_NUTS[1]} + "
             f"{DATA_NUTS[2]} at {DATA_NUTS[0]} chains: {b['evals']} evaluations and init "
             f"traces, glm_split launches {b['launches']}, all_reduce {b['all_reduce']}, "
             f"{b['ms_per_eval']:.2f} ms an evaluation, {b['s']:.2f} s")
-        if reduces != 1 or ll_err > ll_rtol or g_need > g_atol:
-            raise SystemExit(f"23b rank {r}: the data-sharded sum disagrees with glm_split on X")
         if b["launches"] != b["evals"] or not torch.isfinite(b["draws"]).all():
             raise SystemExit(f"23b rank {r}: {b['launches']} launches for {b['evals']} "
                              "evaluations and init traces, or draws that are not finite")
         if b["draws"].shape != (DATA_NUTS[0], DATA_NUTS[2], D) or not torch.equal(
                 b["draws"], res[0]["b"]["draws"]):
             raise SystemExit(f"23b rank {r}: its draws differ from rank 0's")
-    launches = [got["a"]["launches"] + got["b"]["launches"] for got in res]
-    log(f"[ranks] phase 23: {wall:.1f} s from the go, {ranks.warm_wait_s:.1f} s waiting for the "
-        f"warm-up, the spawn {ranks.spawn_s:.1f} s; glm_split launches per rank {launches}")
+
+    # (c) HMCECS on the data mesh against the same leg in this process
+    chains_c, warm_c, draws_c, depth_c, gate_c = DATA_ECS
+    pe_ref, g_ref = ecs_ref["first"]
+    for r, c in enumerate([ecs_ref] + [got["c"] for got in res]):
+        tag = "23c in one process on all rows" if r == 0 else f"23c rank {r - 1}"
+        pe, g = c["first"]
+        pe_err = ((pe - pe_ref).abs() / pe_ref.abs()).max().item()
+        g_err = ((g - g_ref).abs() / g_scale).max().item()
+        err = (c["draws"].double().mean((0, 1)) - torch.from_numpy(true_w).double()).abs().max()
+        counts = (f"{c['setup_reduces']} at setup, {c['reduces']} in {c['transitions']} Gibbs "
+                  f"steps ({c['reduces'] / c['transitions']:.2f} a step, "
+                  f"{(c['reduces'] - c['transitions']) / c['evals']:.2f} an evaluation)"
+                  if r else "none (one process)")
+        log(f"[ranks] {tag}: HMCECS {chains_c} chains, {warm_c} + {draws_c} at depth {depth_c}, "
+            f"subsample {SUBSAMPLE}, {NUM_BLOCKS} blocks, proxy at phase 8d's MAP, resolved "
+            f"{c['modes']}; init {c['init_s']:.2f} s, transitions {c['s']:.2f} s, "
+            f"{c['evals']} evaluations ({c['s'] / c['evals'] * 1e3:.2f} ms each); all_reduces "
+            f"over the data axis: {counts}; first potential max rel err {pe_err:.3e}, gradient "
+            f"max error {g_err:.3e} of its terms' magnitudes (both {DATA_ECS_RTOL}); max "
+            f"|mean(w) - true_w| {err.item():.4f} (gate {gate_c})")
+        if c["glm_launches"] or not torch.isfinite(c["draws"]).all():
+            raise SystemExit(f"{tag}: a GLM launch, or draws that are not finite")
+        if pe_err > DATA_ECS_RTOL or g_err > DATA_ECS_RTOL or not err < gate_c:
+            raise SystemExit(f"{tag}: disagrees with the one-process leg or misses its gate")
+        if r and (c["reduces"] != c["transitions"] or c["modes"] != ecs_ref["modes"]
+                  or not torch.equal(c["draws"], res[0]["c"]["draws"])):
+            raise SystemExit(f"{tag}: not one all_reduce a Gibbs step, another mode, or "
+                             "draws other than rank 0's")
+
+    # (d) ChEES sharded over the chains against the same leg in this process
+    for r, got in enumerate(res):
+        d = got["d"]
+        same = torch.equal(d["draws"], chees_ref["draws"]) and all(
+            torch.equal(u, v) for u, v in zip(d["adapt"], chees_ref["adapt"]))
+        log(f"[ranks] 23d rank {r}: CheesHMC {SHARDED_CHEES[0]} chains sharded {world} x "
+            f"{SHARDED_CHEES[0] // world}, {SHARDED_CHEES[1]} + {SHARDED_CHEES[2]}: "
+            f"{d['evals']} evaluations and init traces, glm_split launches {d['launches']}, "
+            f"all_reduce {d['all_reduce']}, {d['s']:.2f} s (one process: {chees_ref['s']:.2f} "
+            f"s); draws and adaptation equal the one-process leg's bit for bit: {same}")
+        if d["launches"] != d["evals"] or not same:
+            raise SystemExit(f"23d rank {r}: {d['launches']} launches for {d['evals']} "
+                             "evaluations, or draws other than the one-process leg's")
+    launches = {
+        "glm_split": [got["a"]["launches"] + got["b"]["launches"] + got["d"]["launches"]
+                      for got in res] + [chees_ref["launches"]],
+        **{name: [got["b_fused"][name]["launches"] for got in res] + [0]
+           for name in SHARD_MODES},
+    }
+    log(f"[ranks] phase 23: {wall:.1f} s from the one-process legs of 23c and 23d "
+        f"({ref_s:.1f} s) to the ranks' end, {ranks.warm_wait_s:.1f} s waiting for the warm-up, "
+        f"the spawn {ranks.spawn_s:.1f} s; launches per rank and in this process {launches}")
     return wall, res, launches
 
 
@@ -5427,23 +5644,24 @@ def main():
         f"evaluation (budget 4 s)")
 
     t23 = time.perf_counter()
-    _, rank_results, rank_launches = phase_ranks(ranks, per_step, X, y, w_chains)
+    _, rank_results, rank_launches = phase_ranks(ranks, per_step, X, y, w_chains, w_map,
+                                                 true_w)
     wall = time.perf_counter() - t23 + ranks.spawn_s + ranks.warm_wait_s
     log(f"[ranks] phase 23: {wall:.1f} s with the spawn and the wait for the warm-up, about "
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
         f"evaluation (budget 10 s)")
-    for c in SHARD_CHAINS:
-        kernels["glm_split"][f"ms_on_a_shard_at_{c}_chains"] = [
-            got["b_timed"][c]["ms"] for got in rank_results]
-        kernels["glm_split"][f"bound_ms_on_a_shard_at_{c}_chains"] = \
-            rank_results[0]["b_timed"][c]["bound"][0]
-    kernels["glm_split"]["launches_per_rank_phase23"] = rank_launches
+    for name in kernels:
+        for c in SHARD_CHAINS:
+            timed = [got["b_timed"] if name == "glm_split" else got["b_fused_timed"][name]
+                     for got in rank_results]
+            kernels[name][f"ms_on_a_shard_at_{c}_chains"] = [t[c]["ms"] for t in timed]
+            kernels[name][f"bound_ms_on_a_shard_at_{c}_chains"] = timed[0][c]["bound"][0]
+        kernels[name]["launches_per_rank_phase23"] = rank_launches[name][:-1]
 
     for name, entry in kernels.items():
-        entry["launches"] = counts[name] + dense_counts[name] + (
+        entry["launches"] = counts[name] + dense_counts[name] + sum(rank_launches[name]) + (
             svi_launches + chees_launches + iaf_launches + neutra_launches
             + tail_launches["19a"] + tail_launches["19b"] + stein_launches + resume_launches
-            + sum(rank_launches)
             if name == "glm_split" else 0)
         if counts[name] == 0:
             raise SystemExit(f"{name} was never launched on the main path")

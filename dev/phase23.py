@@ -12,7 +12,9 @@ and phase 23.  ``--cards`` spawns one rank per card instead, each on its own
 card over NCCL (a machine with two or more cards); ``--twice`` runs the
 phase a second time.  With ``cpu`` it rehearses the phase on the CPU with
 ``rows`` rows (20,000 by default; about 90 s at 3,000), one thread a
-process, the GLM op's plain version standing for ``glm_split``.  Exits non-zero where a leg fails.
+process, the GLM op's plain version standing for ``glm_split``.  23c's
+proxy is anchored at the generating coefficients, where the script anchors
+it at phase 8d's MAP.  Exits non-zero where a leg fails.
 
 ``--contention`` measures what sharing one card costs, without any
 collective: phase 4's per-step leg, warm (each process runs it once first),
@@ -129,7 +131,7 @@ def main(argv):
             world, where = torch.cuda.device_count(), "cards"
             if world < 2:
                 raise SystemExit("--cards needs two or more cards")
-    X, y, _, w_chains = cs.make_data(device)
+    X, y, true_w, w_chains = cs.make_data(device)
     if "--idle" in argv:
         cs._cuda.load()
         return idle_ranks(X, y, w_chains, world, where, device)
@@ -147,9 +149,10 @@ def main(argv):
                 t0 = time.perf_counter()
                 per_step = cs.phase_per_step(X, y, os.path.join(tmp, "per_step_warm.pt"))
                 cs.log(f"[main] per-step leg: {time.perf_counter() - t0:.1f} s")
-            wall, _, launches = cs.phase_ranks(ranks, per_step, X, y, w_chains)
-            cs.log(f"[ranks] phase 23 alone: {wall:.1f} s from the go, {ranks.warm_wait_s:.1f} s "
-                   f"waiting for the warm-up; glm_split launches per rank {launches}")
+            wall, _, launches = cs.phase_ranks(ranks, per_step, X, y, w_chains, true_w, true_w)
+            cs.log(f"[ranks] phase 23 alone: {wall:.1f} s from the one-process legs to the "
+                   f"ranks' end, {ranks.warm_wait_s:.1f} s waiting for the warm-up; launches "
+                   f"per rank and in this process {launches}")
 
 
 if __name__ == "__main__":

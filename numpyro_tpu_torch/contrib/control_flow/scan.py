@@ -20,10 +20,17 @@ PyTorch has no ``lax.scan``, so each form takes its own design:
   step gives a factor ``M_t[..., cur, prev]``; a pairwise tree of
   ``logmatmulexp`` products (log2 T rounds, each a batched ``torch.matmul``)
   collapses time to ``M_T ... M_1``, which meets step 0's factor; the result
-  enters the enclosing enumeration as one ``factor`` site.  The body's
-  carry must therefore be its enumerated state, or pass through unchanged:
-  any other carry raises.  The JAX package's scope holds as well:
-  ``history <= 1`` and one enumerated site per step.
+  enters the enclosing enumeration as one ``factor`` site.  That holds while
+  the body's carry is its enumerated state or passes through unchanged.  A
+  carry that changes otherwise (a counter, a running sum of the data) makes
+  each step depend on the one before: the vmapped pass is dropped and the
+  steps run one at a time, each taking the last one's carry with its
+  enumerated value moved back to ``d_prev``, as the JAX package's
+  ``lax.scan`` carries it.  A substituted series shorter than the scan gives
+  the steps past its end a draw from the site's distribution (a
+  ``torch.where`` on the step index, the JAX package's ``lax.cond``).  The
+  JAX package's scope holds as well: ``history <= 1`` and one enumerated
+  site per step.
 """
 
 from __future__ import annotations
@@ -85,14 +92,14 @@ def _subs_wrapper(subs_map, i, length, site):
         if n == length:
             return value[i]
         if n < length:
+            draw = partial(site["fn"], rng_key=site["kwargs"]["rng_key"],
+                           sample_shape=sample_shape)
             if isinstance(i, torch.Tensor):
-                raise NotImplementedError(
-                    f"a series shorter than the scan at site {site['name']} inside an "
-                    "enumerated scan is not ported to numpyro_tpu_torch (see ROADMAP.md)"
-                )
-            if i < n:
-                return value[i]
-            return site["fn"](rng_key=site["kwargs"]["rng_key"], sample_shape=sample_shape)
+                # the enumerated scan's steps run together: those past the
+                # series' end take a draw
+                taken = torch.index_select(value, 0, i.clamp(max=n - 1).reshape(1))[0]
+                return torch.where(i < n, taken, draw())
+            return value[i] if i < n else draw()
         raise RuntimeError(
             f"Substituted value for site {site['name']} requires length <= {length}, got {n}."
         )
@@ -218,6 +225,12 @@ def _chain_reduce(f0, M, d_cur, d_prev, reverse):
     if f0.dim() < -d_prev:
         f0 = f0.reshape((1,) * (-d_prev - f0.dim()) + tuple(f0.shape))
     Mm = torch.movedim(M, (d_cur, d_prev), (-2, -1))
+    if Mm.shape[-1] == 1 < Mm.shape[-2]:
+        # the JAX package's product fails on these shapes as well
+        raise NotImplementedError(
+            "the enumerated site of a scan step with history=1 must depend on the carried "
+            "state; a site that does not is independent per step: use history=0"
+        )
     if reverse:
         Mm = Mm.flip(0)
     while Mm.shape[0] > 1:
@@ -227,6 +240,32 @@ def _chain_reduce(f0, M, d_cur, d_prev, reverse):
         Mm = torch.cat([pairs, Mm[even:]]) if n % 2 else pairs
     f0m = torch.movedim(f0, d_prev, -1).unsqueeze(-2)
     return torch.logsumexp(Mm[0] + f0m, dim=(-2, -1))
+
+
+def _steps_one_at_a_time(run_step, step_factor, y_leaves_of, carry, xs_rest, unroll, n_scan,
+                         history, reverse):
+    """The steps after the first, each from the carry the one before gave,
+    as the JAX package's ``lax.scan`` runs them: a reverse scan walks
+    ``xs_rest`` from its end, and every step's factor and output land at
+    its ``x``'s place in time.  Each new carry is reshaped to the old one's
+    shape, which moves the enumerated value from ``d_cur`` back to
+    ``d_prev``.  Returns the last carry, the factors and the outputs'
+    leaves, stacked in time order."""
+    factors, outputs = [None] * n_scan, [None] * n_scan
+    old_leaves, spec = pytree.tree_flatten(carry)
+    for j in range(n_scan):
+        k = n_scan - 1 - j if reverse else j
+        new_carry, y, tr = run_step(unroll + j, carry, tree_map(lambda z: z[k], xs_rest),
+                                    slot=history)
+        new_leaves = pytree.tree_leaves(new_carry)
+        carry = pytree.tree_unflatten([
+            torch.as_tensor(b).reshape(torch.as_tensor(a).shape)
+            if torch.as_tensor(b).numel() == torch.as_tensor(a).numel() else b
+            for a, b in zip(old_leaves, new_leaves)
+        ], spec)
+        old_leaves = pytree.tree_leaves(carry)
+        factors[k], outputs[k] = step_factor(tr), y_leaves_of(y)
+    return carry, torch.stack(factors), [torch.stack(parts) for parts in zip(*outputs)]
 
 
 def _scan_enum_wrapper(f, init, xs, length, reverse, rng_key=None, substitute_stack=None,
@@ -305,11 +344,16 @@ def _scan_enum_wrapper(f, init, xs, length, reverse, rng_key=None, substitute_st
         f0 = step_factor(tr0)
         name_hint = next((nm for nm, s in tr0.items() if s["type"] == "sample"), name_hint)
 
-    # every later step at once: they all see the same carry
+    # every later step at once while they all see the same carry
     n_scan = length - unroll
     Cs, ys = None, None
     if n_scan > 0:
-        y_spec = []
+        y_spec, carry_moves = [], []
+
+        def y_leaves_of(y):
+            leaves, spec = pytree.tree_flatten(y)
+            y_spec[:] = [spec, [leaf is None for leaf in leaves]]
+            return [torch.as_tensor(leaf) for leaf in leaves if leaf is not None]
 
         def body(i, x):
             new_carry, y, tr = run_step(i, carry, x, slot=history)
@@ -319,18 +363,16 @@ def _scan_enum_wrapper(f, init, xs, length, reverse, rng_key=None, substitute_st
             if len(old) != len(new) or not all(
                 b is a or any(b is v for v in enumerated) for a, b in zip(old, new)
             ):
-                raise NotImplementedError(
-                    "the carry of an enumerated scan must be its enumerated state or pass "
-                    "through unchanged in numpyro_tpu_torch, whose steps after the first run "
-                    "together under vmap (see ROADMAP.md)"
-                )
-            leaves, spec = pytree.tree_flatten(y)
-            y_spec[:] = [spec, [leaf is None for leaf in leaves]]
-            return step_factor(tr), [torch.as_tensor(leaf) for leaf in leaves if leaf is not None]
+                carry_moves.append(True)
+            return step_factor(tr), y_leaves_of(y)
 
         leaves = tree_leaves(xs_rest)
         steps = torch.arange(unroll, length, device=leaves[0].device if leaves else None)
         Cs, y_leaves = torch.func.vmap(body, randomness="different")(steps, xs_rest)
+        if carry_moves:
+            carry, Cs, y_leaves = _steps_one_at_a_time(
+                run_step, step_factor, y_leaves_of, carry, xs_rest, unroll, n_scan, history,
+                reverse)
         spec, is_none = y_spec
         it = iter(y_leaves)
         ys = pytree.tree_unflatten([None if gap else next(it) for gap in is_none], spec)

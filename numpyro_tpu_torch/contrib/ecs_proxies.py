@@ -27,6 +27,7 @@ import torch
 import numpyro_tpu_torch.primitives as primitives
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.handlers import block, substitute, trace
+from numpyro_tpu_torch.parallel.mesh import all_reduce, shard_sum_mode, sum_partial_panels
 
 __all__ = [
     "TaylorProxyStats",
@@ -47,6 +48,14 @@ class subsample_panels(primitives.Messenger):
 
     - ``record=True``: perform the enclosing subsampled plates' takes, append
       each panel to ``out``, and flag the message so the plates skip their own.
+      A take from a data shard (``parallel.shard_data``) is this rank's part
+      of the panel (``parallel.mesh.shard_sum_mode("defer")``): ``groups``,
+      if given, gets each panel's data group (``None`` for a whole panel),
+      which the caller sums over after its ``vmap``
+      (``parallel.mesh.sum_partial_panels``); ``shards``, if given, maps
+      each plate that took from a shard to the shard; ``axes``, if given,
+      gets each panel's ``(plate name, axis)`` where one plate took it,
+      else ``None``.
     - ``record=False``: put ``panels`` (in the model's call order) in place of
       the takes, in the dtype of the data they stand for (a panel carried at
       half width is widened here; the widening is exact), and flag the message.
@@ -54,9 +63,11 @@ class subsample_panels(primitives.Messenger):
     Record and replay traverse the same model, so call order aligns.
     """
 
-    def __init__(self, fn=None, panels=None, record=False, out=None):
+    def __init__(self, fn=None, panels=None, record=False, out=None, groups=None, shards=None,
+                 axes=None):
         self.record = record
         self.panels = out if record else panels
+        self.groups, self.shards, self.axes = groups, shards, axes
         self._i = 0
         super().__init__(fn)
 
@@ -68,12 +79,23 @@ class subsample_panels(primitives.Messenger):
         if msg["type"] != "subsample" or msg.get("_pregathered"):
             return
         if self.record:
-            for h in primitives._PYRO_STACK:
-                if isinstance(h, primitives.plate) and h.subsample_size < h.size:
+            takers = [h for h in primitives._PYRO_STACK
+                      if isinstance(h, primitives.plate) and h.subsample_size < h.size]
+            with shard_sum_mode("defer"):
+                for h in takers:
                     h.postprocess_message(msg)
             self.panels.append(msg["value"])
+            if self.axes is not None:
+                one = len(takers) == 1
+                self.axes.append(
+                    (takers[0].name, takers[0].dim - msg["kwargs"]["event_dim"]) if one else None)
+            if self.groups is not None:
+                self.groups.append(msg.get("_partial_over"))
+            if self.shards is not None and msg.get("_shard_gathered"):
+                self.shards[msg["_shard_gathered"]] = msg["_data_shard"]
         else:
             msg["value"] = self.panels[self._i].to(msg["value"].dtype)
+            msg["_replayed"] = True
             self._i += 1
         msg["_pregathered"] = True
 
@@ -258,6 +280,31 @@ class subsample_estimator(primitives.Messenger):
             self._plate_idx[msg["name"]] = msg["value"]
 
 
+def _block_panels(panels, axes, fresh):
+    """The data panels of the refreshed blocks' replacement rows, cut from
+    the ``panels`` of the new index sets (each taken by the one plate and
+    along the axis that ``axes`` gives; ``None`` if one was taken by more or
+    none).  The new indices hold the replacements at the block's positions;
+    where the last block is cut short, the positions past the end repeat the
+    last row, which the merge leaves out."""
+    if any(a is None for a in axes):
+        return None
+    out = []
+    for panel, (name, axis) in zip(panels, axes):
+        _, mask, repl, start = fresh[name]
+        m, bs = mask.shape[-1], repl.shape[-1]
+        pos = (start[..., None] + torch.arange(bs, device=start.device)).clamp(max=m - 1)
+        lead = pos.dim() - 1
+        at = panel.dim() + axis
+        shape = list(panel.shape)
+        view = [1] * panel.dim()
+        view[:lead] = shape[:lead]
+        view[at] = bs
+        shape[at] = bs
+        out.append(torch.take_along_dim(panel, pos.reshape(view).expand(shape), at))
+    return tuple(out)
+
+
 def _as_tensor(value, like):
     if isinstance(value, torch.Tensor):
         return value.to(device=like.device, dtype=like.dtype)
@@ -342,27 +389,77 @@ def taylor_proxy(reference_params, degree=2, mode="auto"):
                             out[frame.name] = out.get(frame.name, 0.0) + ll
             return out
 
-        def _stats_at(idx_dict, margs=None, mkwargs=None):
-            value = pointwise_loglik(ref_flat, idx_dict, None, margs, mkwargs)
+        def _panels_at(idx_dict, margs=None, mkwargs=None, batch_dims=0):
+            """The subsample plates' data panels at ``idx_dict`` (with
+            ``batch_dims`` leading axes), recorded under ``vmap`` at the
+            reference and summed over a data group where the data is a
+            data shard (one ``all_reduce``), so they are the whole data's."""
+            margs = model_args if margs is None else margs
+            mkwargs = model_kwargs if mkwargs is None else mkwargs
+            params = _apply(unravel(ref_flat), False)
+            groups = []
+
+            def record(idx):
+                out = []
+                groups.clear()
+                with block(), subsample_panels(record=True, out=out, groups=groups), \
+                        substitute(data=idx), substitute(data=params):
+                    model(*margs, **mkwargs)
+                return tuple(out)
+
+            for _ in range(batch_dims):
+                record = torch.func.vmap(record)
+            return sum_partial_panels(record(idx_dict), groups)
+
+        def _stats_at(idx_dict, margs=None, mkwargs=None, panels=None):
+            if panels is None:
+                panels = _panels_at(idx_dict, margs, mkwargs)
+            value = pointwise_loglik(ref_flat, idx_dict, panels, margs, mkwargs)
             # forward mode: P << m, so P tangents beat m cotangents
             grad = torch.func.jacfwd(
-                lambda p: pointwise_loglik(p, idx_dict, None, margs, mkwargs)
+                lambda p: pointwise_loglik(p, idx_dict, panels, margs, mkwargs)
             )(ref_flat)
             return TaylorProxyStats(value, grad)
 
-        # full-data reference statistics, computed once
-        full_idx = {k: torch.arange(v[0], device=device) for k, v in plate_sizes.items()}
+        # full-data reference statistics, computed once: where a plate takes
+        # from a data shard, over this rank's rows, then summed over the
+        # data group (one all_reduce)
+        shards = {}
+        with block(), subsample_panels(record=True, out=[], shards=shards), substitute(
+            data={k: prototype_trace[k]["value"] for k in plate_sizes}
+        ), substitute(data=_apply(unravel(ref_flat), False)):
+            model(*model_args, **model_kwargs)
+        full_idx = {
+            k: torch.arange(shards[k].start, shards[k].stop, device=device) if k in shards
+            else torch.arange(v[0], device=device)
+            for k, v in plate_sizes.items()
+        }
 
         def _summed(params_flat):
             lls = pointwise_loglik(params_flat, full_idx)
             return {k: v.sum() for k, v in lls.items()}
 
-        with torch.no_grad():
-            full_value = _summed(ref_flat)
-        full_grad = torch.func.jacrev(_summed)(ref_flat)
-        full_hess = (
-            torch.func.jacfwd(torch.func.jacrev(_summed))(ref_flat) if degree == 2 else None
-        )
+        with shard_sum_mode("local"):
+            with torch.no_grad():
+                full_value = _summed(ref_flat)
+            full_grad = torch.func.jacrev(_summed)(ref_flat)
+            full_hess = (
+                torch.func.jacfwd(torch.func.jacrev(_summed))(ref_flat) if degree == 2
+                else None
+            )
+        groups = {id(sh.group): sh.group for sh in shards.values() if sh.group is not None}
+        if len(groups) > 1:
+            raise ValueError("the subsample plates take from data shards of different groups")
+        if groups:
+            parts = [d for d in (full_value, full_grad, full_hess) if d is not None]
+            flat = torch.cat([d[k].reshape(-1) for d in parts for k in sorted(shards)])
+            all_reduce(flat, next(iter(groups.values())), over_data=True)
+            at = 0
+            for d in parts:
+                for k in sorted(shards):
+                    n = d[k].numel()
+                    d[k] = flat[at : at + n].reshape(d[k].shape)
+                    at += n
 
         # --- the stats-vs-recompute trade
         resolved = mode
@@ -391,7 +488,8 @@ def taylor_proxy(reference_params, degree=2, mode="auto"):
             def proxy_init_r(idx_dict, margs=None, mkwargs=None):
                 return ()
 
-            def proxy_update_r(draws, idx_dict, stats, margs=None, mkwargs=None):
+            def proxy_update_r(draws, idx_dict, stats, margs=None, mkwargs=None,
+                               panels_of=None):
                 return {k: v[0] for k, v in _refresh_all(draws, idx_dict).items()}, ()
 
             def proxy_fn_r(params, plate_names, stats, idx_dict=None, panels=None,
@@ -428,16 +526,29 @@ def taylor_proxy(reference_params, degree=2, mode="auto"):
         def proxy_init(idx_dict, margs=None, mkwargs=None):
             return _stats_at(idx_dict, margs, mkwargs)
 
-        def proxy_update(draws, idx_dict, stats, margs=None, mkwargs=None):
+        def proxy_update(draws, idx_dict, stats, margs=None, mkwargs=None, panels_of=None):
             """Refresh one block of every chain's index vectors and merge the
-            reference statistics of the replacements into the carried ones."""
+            reference statistics of the replacements into the carried ones.
+            ``panels_of(new_idx)``, if given, records the data panels of the
+            new index sets for the caller and returns them with their
+            ``(plate, axis)``; the replacements' panels are then cut from
+            them, where each panel has one plate, and not gathered again."""
             fresh = _refresh_all(draws, idx_dict)
             new_idx = {k: v[0] for k, v in fresh.items()}
             repls = {k: v[2] for k, v in fresh.items()}
-            stats_at = partial(_stats_at, margs=margs, mkwargs=mkwargs)
-            for _ in range(next(iter(repls.values())).dim() - 1):
+            batch_dims = next(iter(repls.values())).dim() - 1
+            repl_panels = None
+            if panels_of is not None:
+                repl_panels = _block_panels(*panels_of(new_idx), fresh)
+            if repl_panels is None:
+                repl_panels = _panels_at(repls, margs, mkwargs, batch_dims)
+
+            def stats_at(idx, panels):
+                return _stats_at(idx, margs, mkwargs, panels)
+
+            for _ in range(batch_dims):
                 stats_at = torch.func.vmap(stats_at)
-            repl_stats = stats_at(repls)
+            repl_stats = stats_at(repls, repl_panels)
 
             def merge(old, new):
                 """Positions inside the refreshed block take the replacement's

@@ -25,6 +25,16 @@ What differs from the JAX kernel:
   this order a transition: ``normals((C, D))`` (the momentum) and
   ``uniforms((C,))`` (the accept test).  ``init`` draws through the init
   search of ``initialize_model`` from the source's generator.
+
+Under ``chain_method="parallel"`` each rank holds its rows of the chain
+panel (``hmc_core.ShardedDraws``) and runs their leapfrog steps.  What
+couples the chains, the warmup adaptation's cross-chain means, the Welford
+merge and the pooled accept probability, runs on the whole panel: a warmup
+transition gathers its positions, proposals, momenta, accept probabilities
+and divergences over the chain group in one exact ``all_reduce``
+(``parallel.mesh.gather_rows``), and every rank adapts alike.  The run equals
+the one-process run bit for bit where a chain's potential does not depend on
+how many chains share its batch.
 """
 
 from __future__ import annotations
@@ -118,6 +128,24 @@ def _welford_batch_merge(mean, m2, n, batch):
 
 def _select(cond, new, old):
     return tree_map(lambda a, b: torch.where(cond, a, b), new, old)
+
+
+def _whole_panels(draws, *panels):
+    """Every chain's rows of ``(C, ...)`` panels: as they are in one
+    process; under a sharded draw source gathered over the chain group, all
+    at once and bit for bit (the pad chains left out)."""
+    shard = getattr(draws, "shard", None)
+    if shard is None:
+        return panels
+    like = panels[0]
+    cols = [p.reshape(p.shape[0], -1).to(like.dtype) for p in panels]
+    whole = shard.gather(torch.cat(cols, 1))
+    out, at = [], 0
+    for p, c in zip(panels, cols):
+        out.append(whole[:, at : at + c.shape[1]].reshape((-1,) + tuple(p.shape[1:]))
+                   .to(p.dtype))
+        at += c.shape[1]
+    return out
 
 
 class CheesHMC(MCMCKernel):
@@ -251,7 +279,6 @@ class CheesHMC(MCMCKernel):
         return self._postprocess_fn(*args, **kwargs)
 
     def sample(self, state, model_args=(), model_kwargs=None):
-        core.refuse_sharded(state.rng_key, "CheesHMC")
         a = state.adapt_state
         draws = core.as_draws(state.rng_key)
         zf = self._layout.ravel_batch(state.z)
@@ -289,7 +316,8 @@ class CheesHMC(MCMCKernel):
         i = state.i + 1
         in_warmup = i <= self._num_warmup
         if in_warmup:
-            adapt = self._adapt(a, i, u, zf, z_prop, p_prop, z_new, accept_prob, diverging)
+            adapt = self._adapt(a, i, u, *_whole_panels(
+                draws, zf, z_prop, p_prop, z_new, accept_prob, diverging))
         else:
             adapt = a
         n = i if in_warmup else i - self._num_warmup

@@ -31,6 +31,21 @@ distinct pair (``randints(0, n, (M,))``, then ``randints(1, n, (M,))``) and
 ``randints(0, n, (M,))``; ``RandomMove`` and ``GaussianMove``
 ``normals((M, D))``; ``KDEMove`` ``categorical(weights, (2M,))`` and
 ``normals((2M, D))``; ``DifferentialMove`` a distinct pair.
+
+Under ``chain_method="parallel"`` each rank holds its rows of the ensemble
+(``hmc_core.ShardedDraws``).  A step gathers the whole ensemble over the
+chain group (one exact ``all_reduce``, ``parallel.mesh.gather_rows``); every
+rank then draws every walker's draws from the run's generator, as one
+process draws them, and evaluates the density of its part of the active
+half only, rows ``[i M / S, (i + 1) M / S)`` of the ``M`` active walkers on
+chain shard ``i`` of ``S``.  The refreshed half is gathered back (one
+``all_reduce`` a half step) before the other half moves against it; ESS
+also sums its loop conditions and its counts of steps over the chain group
+(one ``all_reduce`` a bracket iteration).  Each rank keeps its rows of the
+result, so the run equals the one-process run bit for bit where a walker's
+density does not depend on how many walkers share its batch.  The walkers
+are the ensemble, so a chain count that the shards do not divide cannot be
+padded: such a run runs unsharded (``MCMC`` warns).
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from numpyro_tpu_torch.infer.ensemble_util import batch_ravel_pytree
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
 from numpyro_tpu_torch.infer.mcmc import MCMCKernel
 from numpyro_tpu_torch.infer.util import initialize_model
+from numpyro_tpu_torch.parallel.mesh import all_reduce, gather_rows
 from numpyro_tpu_torch.util import identity, tree_leaves
 
 __all__ = [
@@ -125,11 +141,49 @@ class gaussian_kde:
         return torch.logsumexp(self.weights.log()[None, :] + arg, dim=1)
 
 
+def _whole_draws(rng_key):
+    """The draws of the whole ensemble: a sharded source's generator, which
+    every rank holds in one state, as one process draws from it."""
+    if getattr(rng_key, "shard", None) is not None:
+        return core.GeneratorDraws(rng_key.generator)
+    return core.as_draws(rng_key)
+
+
 def _distinct_pair(draws, n, shape, like):
     """Uniform ordered pairs (i, j), i != j, by a modular offset."""
     i = draws.randints(0, n, shape, like)
     delta = draws.randints(1, n, shape, like)
     return i, (i + delta) % n
+
+
+class _HalfStep:
+    """The walkers of the active half that this process moves, rows
+    ``own`` of the ``m`` active walkers, and the chain group that holds the
+    rest (``None`` in one process, where ``own`` is every row)."""
+
+    def __init__(self, m, shard=None):
+        self.m = m
+        self.group = None if shard is None else shard.group
+        if self.group is None:
+            self.start, self.stop = 0, m
+        else:
+            c = shard.num_chains
+            self.start, self.stop = shard.start * m // c, shard.stop * m // c
+        self.own = slice(self.start, self.stop)
+
+    def gather(self, rows):
+        """The whole half from this process's rows (bit for bit)."""
+        return gather_rows(rows, self.start, self.m, self.group)
+
+    def total(self, count):
+        """``count`` summed over the chain group (integers: exact)."""
+        if self.group is None:
+            return count
+        return all_reduce(count.clone(), self.group)
+
+    def any(self, mask):
+        """Whether ``mask`` holds for any walker of the half (one host read)."""
+        return bool(self.total(mask.sum()) > 0)
 
 
 def _move_weights(moves):
@@ -145,6 +199,8 @@ class EnsembleSampler(MCMCKernel, ABC):
     ensemble given the second, then the second given the refreshed first."""
 
     sample_field = "z"
+    # the chains are the walkers of one ensemble: MCMC never pads them
+    pads_chains = False
 
     def __init__(self, model=None, potential_fn=None, *, randomize_split, init_strategy):
         if not (model is None) ^ (potential_fn is None):
@@ -170,7 +226,9 @@ class EnsembleSampler(MCMCKernel, ABC):
         raise NotImplementedError
 
     @abstractmethod
-    def update_active_chains(self, active, inactive, inner_state):
+    def update_active_chains(self, active, inactive, inner_state, part=None):
+        """The active half moved against the inactive one; ``part`` (a
+        ``_HalfStep``) says which of its walkers this process evaluates."""
         raise NotImplementedError
 
     def _pick_move(self, draws):
@@ -230,19 +288,27 @@ class EnsembleSampler(MCMCKernel, ABC):
 
     def sample(self, state, model_args, model_kwargs):
         z, inner_state, rng_key = state
-        core.refuse_sharded(rng_key, type(self).__name__)
         panel, unravel = batch_ravel_pytree(z)
+        shard = getattr(rng_key, "shard", None)
+        if shard is not None:
+            # the whole ensemble, and the draws that one process makes
+            panel = shard.gather(panel)
+            inner_state = inner_state._replace(rng_key=_whole_draws(inner_state.rng_key))
         if self._randomize_split:
-            draws = core.as_draws(rng_key)
+            draws = _whole_draws(rng_key)
             panel = panel[draws.permutations((self._num_chains,), panel)]
         half = self._num_chains // 2
+        part = _HalfStep(half, shard)
         for mine, other in ((slice(0, half), slice(half, None)),
                             (slice(half, None), slice(0, half))):
             refreshed, inner_state = self.update_active_chains(
-                panel[mine], panel[other], inner_state
+                panel[mine], panel[other], inner_state, part
             )
             panel = torch.cat([refreshed, panel[other]] if mine.start == 0
                               else [panel[other], refreshed])
+        if shard is not None:
+            panel = panel[shard.start : shard.stop]
+            inner_state = inner_state._replace(rng_key=rng_key)
         return EnsembleSamplerState(unravel(panel), inner_state, rng_key)
 
     def __getstate__(self):
@@ -272,15 +338,22 @@ class AIES(EnsembleSampler):
         zero = like.new_zeros(())
         return AIESState(0.0, zero, zero, rng_key)
 
-    def update_active_chains(self, active, inactive, inner_state):
+    def update_active_chains(self, active, inactive, inner_state, part=None):
         i, _, mean_accept, rng_key = inner_state
+        part = _HalfStep(active.shape[0]) if part is None else part
         draws = core.as_draws(rng_key)
         move = self._moves[self._pick_move(draws)]
         proposal, hastings = move(draws, active, inactive)
-        log_ratio = hastings + self._batch_log_density(proposal) - self._batch_log_density(active)
-        take = torch.log(draws.uniforms(tuple(log_ratio.shape), active)) < log_ratio
-        refreshed = torch.where(take[:, None], proposal, active)
-        accept_rate = take.to(active.dtype).mean()
+        own = part.own
+        log_ratio = hastings[own] + self._batch_log_density(proposal[own]) \
+            - self._batch_log_density(active[own])
+        u = draws.uniforms((active.shape[0],), active)[own]
+        take = torch.log(u) < log_ratio
+        rows = torch.where(take[:, None], proposal[own], active[own])
+        # the refreshed half and its accepts, from every process's rows
+        both = part.gather(torch.cat([rows, take[:, None].to(rows.dtype)], 1))
+        refreshed, take = both[:, :-1], both[:, -1]
+        accept_rate = take.mean()
         half_step = i + 0.5
         denom = half_step if i < self._num_warmup else half_step - self._num_warmup
         mean_accept = mean_accept + (accept_rate - mean_accept) / denom
@@ -344,16 +417,19 @@ class ESS(EnsembleSampler):
     def _logdens_col(self, panel):
         return self._batch_log_density(panel)[:, None]
 
-    def update_active_chains(self, active, inactive, inner_state):
+    def update_active_chains(self, active, inactive, inner_state, part=None):
         i, n_exp, n_con, mu, rng_key = inner_state
+        part = _HalfStep(active.shape[0]) if part is None else part
         draws = core.as_draws(rng_key)
         move = self._moves[self._pick_move(draws)]
         directions = move(draws, inactive, mu)
-        m = active.shape[0]
+        m, own = active.shape[0], part.own
         # the slice height under the current point
-        height = self._logdens_col(active) + torch.log(draws.uniforms((m, 1), active))
-        n_out, left, right = self._expand_bracket(draws, height, active, directions)
-        proposal, n_in = self._sample_bracket(draws, height, left, right, active, directions)
+        height = self._logdens_col(active[own]) \
+            + torch.log(draws.uniforms((m, 1), active)[own])
+        n_out, left, right = self._expand_bracket(draws, height, active, directions, part)
+        rows, n_in = self._sample_bracket(draws, height, left, right, active, directions, part)
+        proposal = part.gather(rows)
         n_exp = n_exp + n_out
         n_con = n_con + n_in
         half_step = i + 0.5
@@ -415,23 +491,27 @@ class ESS(EnsembleSampler):
 
     # the slice machinery
 
-    def _expand_bracket(self, draws, height, active, directions):
+    def _expand_bracket(self, draws, height, active, directions, part):
         """Grow [left, right] until both ends are outside the slice, with a
         per-walker stepping budget split at random (Neal 2003's step-out,
-        batched over all walkers by masks)."""
-        m = active.shape[0]
-        left = -draws.uniforms((m, 1), active)
+        batched over all walkers by masks).  The draws are the whole half's;
+        the brackets are those of ``part``'s walkers, and the loop runs while
+        any walker of the half grows."""
+        m, own = active.shape[0], part.own
+        active, directions = active[own], directions[own]
+        left = -draws.uniforms((m, 1), active)[own]
         right = left + 1.0
-        budget_l = torch.floor(draws.uniforms((m, 1), active) * self._max_steps)
+        budget_l = torch.floor(draws.uniforms((m, 1), active)[own] * self._max_steps)
         budget_r = (self._max_steps - 1) - budget_l
-        grow_l = torch.ones((m, 1), dtype=torch.bool, device=active.device)
+        k = active.shape[0]
+        grow_l = torch.ones((k, 1), dtype=torch.bool, device=active.device)
         grow_r = grow_l
         count = torch.zeros((), dtype=torch.int64, device=active.device)
         it = 0
-        while it < self._max_iter and bool((grow_l | grow_r).any()):
+        while it < self._max_iter and part.any(grow_l | grow_r):
             both = self._logdens_col(torch.cat([active + left * directions,
                                                 active + right * directions]))
-            inside_l, inside_r = both[:m] > height, both[m:] > height
+            inside_l, inside_r = both[:k] > height, both[k:] > height
             step_l, step_r = grow_l & inside_l, grow_r & inside_r
             left = torch.where(step_l, left - 1.0, left)
             right = torch.where(step_r, right + 1.0, right)
@@ -442,18 +522,20 @@ class ESS(EnsembleSampler):
             grow_r = step_r & (budget_r > 0)
             count = count + step_l.sum() + step_r.sum()
             it += 1
-        return count, left, right
+        return part.total(count), left, right
 
-    def _sample_bracket(self, draws, height, left, right, active, directions):
+    def _sample_bracket(self, draws, height, left, right, active, directions, part):
         """Draw within [left, right], shrinking toward the current point on
-        each rejection (batched)."""
-        m = active.shape[0]
+        each rejection (batched over ``part``'s walkers; the draws are the
+        whole half's)."""
+        m, own = active.shape[0], part.own
+        active, directions = active[own], directions[own]
         proposal = active
-        pending = torch.ones((m, 1), dtype=torch.bool, device=active.device)
+        pending = torch.ones((active.shape[0], 1), dtype=torch.bool, device=active.device)
         count = torch.zeros((), dtype=torch.int64, device=active.device)
         it = 0
-        while it < self._max_iter and bool(pending.any()):
-            offset = left + (right - left) * draws.uniforms((m, 1), active)
+        while it < self._max_iter and part.any(pending):
+            offset = left + (right - left) * draws.uniforms((m, 1), active)[own]
             candidate = active + offset * directions
             proposal = torch.where(pending, candidate, proposal)
             rejected = pending & (self._logdens_col(proposal) < height)
@@ -464,7 +546,7 @@ class ESS(EnsembleSampler):
             count = count + shrink_l.sum() + shrink_r.sum()
             pending = rejected
             it += 1
-        return proposal, count
+        return proposal, part.total(count)
 
 
 def ensemble_state_from_numpy(fields, device="cpu", rng_key=None, inner_rng_key=None):

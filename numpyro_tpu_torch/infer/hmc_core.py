@@ -469,7 +469,8 @@ class ShardedDraws(GeneratorDraws):
 
     A draw without a leading chain axis (``choice``, ``categorical``,
     ``prior``, an ensemble's half-panel draws) raises: the kernels that make
-    one couple their chains and do not run sharded."""
+    one draw the whole ensemble's draws from the generator itself (the
+    ensembles), or do not run sharded (SMC)."""
 
     def __init__(self, generator, shard, pad_generator=None):
         super().__init__(generator)
@@ -555,17 +556,6 @@ def gather_state(state):
         lambda x: shard.gather(x) if x.dim() >= 1 and x.shape[0] == shard.size else x, state
     )
     return replace_draw_sources(whole, found[0].generator)
-
-
-def refuse_sharded(rng_key, kernel):
-    """Raise for a kernel whose transition couples its chains when its state
-    is sharded over more than one rank."""
-    shard = getattr(rng_key, "shard", None)
-    if shard is not None and shard.group is not None:
-        raise NotImplementedError(
-            f"{kernel} couples its chains in every transition and does not run with its "
-            "chains sharded over ranks yet (ROADMAP.md)"
-        )
 
 
 def _all_chains(draws, mask):

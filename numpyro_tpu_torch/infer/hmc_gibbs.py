@@ -42,6 +42,7 @@ from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc import HMC, HMCState
 from numpyro_tpu_torch.infer.initialization import init_to_sample
 from numpyro_tpu_torch.infer.mcmc import MCMCKernel
+from numpyro_tpu_torch.parallel.mesh import sum_partial_panels
 from numpyro_tpu_torch.util import identity, tree_map
 
 __all__ = [
@@ -475,6 +476,7 @@ class HMCECS(HMCGibbs):
         self._num_blocks = num_blocks
         self._proxy = proxy
         self._proxy_update = None
+        self._update_takes_panels = False
         self._has_proxy = False
         self.resolved_modes = {}
 
@@ -552,26 +554,34 @@ class HMCECS(HMCGibbs):
                 self._base_inner_model, self._subsample_plate_sizes, proxy_fn
             )
             self.resolved_modes["proxy"] = getattr(proxy_fn, "mode", None)
+            self._update_takes_panels = "panels_of" in inspect.signature(
+                self._proxy_update).parameters
         else:
             proxy_init, self._proxy_update = None, None
             self.inner_kernel._model = self._base_inner_model
         self._has_proxy = proxy_init is not None
 
         proto_idx = {name: tr[name]["value"] for name in self._gibbs_sites}
-        idx_panel = tree_map(lambda x: x.expand((c,) + tuple(x.shape)).clone(), proto_idx)
-        if self._has_proxy:
-            gibbs_state = torch.func.vmap(
-                lambda idx: proxy_init(idx, model_args, model_kwargs)
-            )(idx_panel)
-        else:
-            gibbs_state = ()
+
+        def panel(x):
+            return x.expand((c,) + tuple(x.shape)).clone()
+
+        idx_panel = tree_map(panel, proto_idx)
+        # every chain starts at the prototype's indices: the proxy's
+        # statistics there are computed once, for one chain
+        one_state = proxy_init(proto_idx, model_args, model_kwargs) if self._has_proxy else ()
+        gibbs_state = tree_map(panel, one_state)
         self._resolve_panel_mode(proto_idx, model_args, model_kwargs, c)
         if self._panel_mode_resolved == "lean":
             panels = ()
         else:
-            panels = self._record_panels(idx_panel, model_args, model_kwargs)
+            whole = self._record_panels(idx_panel, model_args, model_kwargs)
+            panels = self._cast_panels(whole)
+            # the init's evaluations replay the prototype's panels, at the
+            # data's own width as a gather would give them
+            model_kwargs["_subsample_panels"] = _unbatched(whole)
 
-        model_kwargs["_gibbs_state"] = _unbatched(gibbs_state) if self._has_proxy else ()
+        model_kwargs["_gibbs_state"] = one_state
         state = super().init(
             rng_key, num_warmup, init_params, model_args, model_kwargs, num_chains=num_chains
         )
@@ -587,7 +597,7 @@ class HMCECS(HMCGibbs):
         inside one Gibbs step) against the device's memory."""
         mode = self._panel_mode
         if mode == "auto":
-            one = self._record_panels(_batched(proto_idx), model_args, model_kwargs, cast=False)
+            one, _ = self._record_partial_panels(_batched(proto_idx), model_args, model_kwargs)
             per_chain = sum(x.numel() * x.element_size() for x in one)
             est = 3 * num_chains * per_chain
             device = one[0].device if one else "cpu"
@@ -601,35 +611,61 @@ class HMCECS(HMCGibbs):
         self._panel_mode_resolved = mode
         self.resolved_modes["panel"] = mode
 
-    def _record_panels(self, z_gibbs, model_args, model_kwargs, cast=True):
-        """Gather every subsample plate's data panels once for the given
-        per-chain index sets; potential evaluations replay them.  The model
-        runs under ``vmap`` with the prototype's latent values, so no site
-        draws and every take becomes one batched gather."""
+    def _record_partial_panels(self, z_gibbs, model_args, model_kwargs, axes=None):
+        """Every subsample plate's data panels for the given per-chain index
+        sets, each with the data group it still has to be summed over (a
+        data shard's rows) or ``None``.  The model runs under ``vmap`` with
+        the prototype's latent values, so no site draws and every take
+        becomes one batched gather."""
+        groups = []
 
         def one(zg):
             out = []
-            with block(), subsample_panels(record=True, out=out), substitute(
-                data=self._proto_latents
-            ):
+            groups.clear()
+            if axes is not None:
+                axes.clear()
+            with block(), subsample_panels(record=True, out=out, groups=groups, axes=axes), \
+                    substitute(data=self._proto_latents):
                 self._base_inner_model(*model_args, _gibbs_sites=zg, **model_kwargs)
             return tuple(out)
 
-        panels = torch.func.vmap(one)(z_gibbs)
-        if cast and self._panel_mode_resolved == "bf16":
-            panels = tree_map(
-                lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x, panels
-            )
-        return panels
+        return torch.func.vmap(one)(z_gibbs), groups
+
+    def _record_panels(self, z_gibbs, model_args, model_kwargs, axes=None):
+        """Gather every subsample plate's data panels once for the given
+        per-chain index sets, at the data's width; potential evaluations
+        replay them.  Panels taken from data shards are summed over their
+        data group after the ``vmap``: one ``all_reduce`` for all of them,
+        which makes them the whole data's panels bit for bit."""
+        return sum_partial_panels(*self._record_partial_panels(
+            z_gibbs, model_args, model_kwargs, axes=axes))
+
+    def _cast_panels(self, panels):
+        """The panels as the state carries them: floats at half width in
+        ``bf16`` mode."""
+        if self._panel_mode_resolved != "bf16":
+            return panels
+        return tree_map(lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x, panels)
 
     def _sample_batched(self, state, model_args, model_kwargs):
         draws = core.as_draws(state.rng_key)
         z_gibbs = {k: v for k, v in state.z.items() if k not in state.hmc_state.z}
 
-        # propose a block refresh of each chain's subsample indices
+        # propose a block refresh of each chain's subsample indices; the
+        # proxy takes its replacements' panels from the new panels, so that
+        # one gather (one sum over a data group) serves the step
+        lean = self._panel_mode_resolved == "lean"
+        recorded = []
+
+        def panels_of(idx):
+            axes = []
+            recorded.append(self._record_panels(idx, model_args, model_kwargs, axes=axes))
+            return recorded[-1], axes
+
         if self._has_proxy:
+            kwargs = {} if lean or not self._update_takes_panels else {"panels_of": panels_of}
             z_gibbs_new, gibbs_state_new = self._proxy_update(
-                draws, z_gibbs, state.gibbs_state, model_args, model_kwargs
+                draws, z_gibbs, state.gibbs_state, model_args, model_kwargs, **kwargs
             )
         else:
             z_gibbs_new, gibbs_state_new = block_update(
@@ -637,13 +673,12 @@ class HMCECS(HMCGibbs):
             )
 
         # batched pseudo-marginal MH on the likelihood-estimator difference
-        lean = self._panel_mode_resolved == "lean"
         per_chain_new = {"_gibbs_sites": z_gibbs_new, "_gibbs_state": gibbs_state_new}
         if not lean:
             # one gather per step: the whole inner trajectory replays it
-            per_chain_new["_subsample_panels"] = self._record_panels(
-                z_gibbs_new, model_args, model_kwargs
-            )
+            whole = recorded[0] if recorded else self._record_panels(
+                z_gibbs_new, model_args, model_kwargs)
+            per_chain_new["_subsample_panels"] = self._cast_panels(whole)
         pe = state.hmc_state.potential_energy
         pe_new, grad_new = self._value_and_grad(
             state.hmc_state.z, per_chain_new, model_args, model_kwargs

@@ -17,8 +17,10 @@ Chain methods:
   loop's end, and are dropped at collection, so the real chains' draws are
   an unpadded run's; a run resumed from ``post_warmup_state`` is not padded
   and runs unsharded then.  With one rank, or no process group, it is the
-  vectorized program.  Kernels whose transition couples chains (ChEES, the
-  ensembles) raise under more than one chain shard.
+  vectorized program.  Kernels whose transition couples chains gather what
+  couples them over the chain group: ChEES its adaptation's panels, the
+  ensembles the walkers (``infer/chees.py``, ``infer/ensemble.py``); an
+  ensemble is not padded, and runs unsharded where it would be.
 - ``"sequential"``: one single-chain run per chain, one after another, with
   the results stacked on a leading chain axis.  Chain ``i`` runs on its own
   generator, seeded with the ``i``-th of ``num_chains`` integers that the
@@ -256,12 +258,14 @@ class MCMC:
         n = mesh.num_chain_shards
         if n <= 1:
             return None
-        if self.sampler.is_ensemble_kernel:
-            raise NotImplementedError(
-                f"{type(self.sampler).__name__} couples its chains in every transition and does "
-                "not run with its chains sharded over ranks yet (ROADMAP.md)"
-            )
         pad = (-self.num_chains) % n
+        if pad and not getattr(self.sampler, "pads_chains", True):
+            warnings.warn(
+                f"num_chains={self.num_chains} is not divisible by the {n} chain shards, and "
+                f"{type(self.sampler).__name__}'s chains are the walkers of one ensemble, "
+                "which a pad would join; running unsharded.", stacklevel=3,
+            )
+            return None
         if pad and not allow_pad:
             warnings.warn(
                 f"num_chains={self.num_chains} is not divisible by the {n} chain shards and the "

@@ -39,7 +39,7 @@ from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
-from numpyro_tpu_torch.primitives import Messenger, factor
+from numpyro_tpu_torch.primitives import Messenger, _refuse_data_shard, factor
 from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
 __all__ = [
@@ -192,8 +192,10 @@ def device_generator(rng_key, device, owner):
 
 def _site_log_prob(site, *, check_shapes=False):
     """Scaled elementwise log-prob of one sample site; a draw made with its
-    intermediates (``TransformedDistribution``) is scored with them."""
+    intermediates (``TransformedDistribution``) is scored with them.  A value
+    that holds one rank's rows of a data shard raises."""
     value = site["value"]
+    _refuse_data_shard(value, f"the value of sample site {site['name']!r}")
     if site.get("intermediates"):
         lp = site["fn"].log_prob(value, site["intermediates"])
     else:

@@ -484,7 +484,7 @@ def sum_data_shards(ll, grad, data):
     if data.group is None:
         return ll, grad
     both = torch.cat([ll[:, None], grad], 1)
-    all_reduce(both, data.group)
+    all_reduce(both, data.group, over_data=True)
     return both[:, 0], both[:, 1:]
 
 

@@ -18,7 +18,9 @@ collectives.  PyTorch's idiom is one process per device, joined by
   draws, row for row (``infer.hmc_core.ShardedDraws``).
 - :func:`shard_data` gives a rank its rows of the observations, rows
   ``[j N / S, (j + 1) N / S)`` of ``N`` on data shard ``j`` of ``S``; the
-  GLM op adds its partial sums over the data group (``ops.glm``).
+  GLM op adds its partial sums over the data group (``ops.glm``), and a
+  ``subsample`` of such rows under a plate that subsamples them takes the
+  whole data's rows (:func:`subsample_shard`).
 
 Collectives are ``all_reduce`` (and nothing else) on tensors of the device
 the data lives on: gloo supports only ``all_reduce`` and ``broadcast`` on
@@ -31,12 +33,14 @@ collective adds one to :data:`collective_counts`.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
+from numpyro_tpu_torch.distributions.util import in_transform
 from numpyro_tpu_torch.util import tree_leaves, tree_map
 
 __all__ = [
@@ -49,8 +53,10 @@ __all__ = [
     "shard_data",
 ]
 
-# collectives launched by this package, by kind
-collective_counts = {"all_reduce": 0}
+# collectives launched by this package: every all_reduce, and those over a
+# data axis (the GLM op's sum, the subsample panels' sum, the Taylor proxy's
+# whole-data statistics) once more under "over_data"
+collective_counts = {"all_reduce": 0, "over_data": 0}
 
 
 def reset_collective_counts():
@@ -58,10 +64,12 @@ def reset_collective_counts():
         collective_counts[k] = 0
 
 
-def all_reduce(tensor, group):
+def all_reduce(tensor, group, over_data=False):
     """In-place sum of ``tensor`` over ``group`` (counted)."""
     dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     collective_counts["all_reduce"] += 1
+    if over_data:
+        collective_counts["over_data"] += 1
     return tensor
 
 
@@ -228,6 +236,32 @@ def chain_data_mesh(num_chain_shards=None, num_data_shards=None, devices=None, d
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
+def _as_bits(x):
+    """``x``'s bits as an integer tensor of at least 4 bytes an element (what
+    gloo sums), and the integer type of ``x``'s own width."""
+    bits = x.contiguous().view(_INT_OF_SIZE[x.element_size()])
+    return (bits.to(torch.int32) if bits.element_size() < 4 else bits), bits.dtype
+
+
+def _from_bits(wide, bits_dtype, dtype):
+    return wide.to(bits_dtype).view(dtype)
+
+
+def gather_rows(x, start, total, group):
+    """The panel of ``total`` rows of which this rank holds rows ``[start,
+    start + len(x))`` and the other ranks of ``group`` the rest, equal bit
+    for bit to the panel one process holds: each rank writes its rows into a
+    zero-filled buffer, and the buffers are summed as integers of the same
+    bits (one ``all_reduce``)."""
+    if group is None:
+        return x
+    wide, bits_dtype = _as_bits(x)
+    full = wide.new_zeros((total,) + tuple(x.shape[1:]))
+    full[start : start + x.shape[0]] = wide
+    all_reduce(full, group)
+    return _from_bits(full, bits_dtype, x.dtype)
+
+
 class ChainShard:
     """Rows ``[start, stop)`` of a chain panel of ``padded`` rows held by this
     rank; the first ``num_chains`` rows are real chains, the rest padding
@@ -260,14 +294,7 @@ class ChainShard:
         bit for bit to the panel one process holds: each rank writes its
         rows into a zero-filled buffer, and the buffers are summed as
         integers of the same bits."""
-        if self.group is None:
-            return x[: self.num_chains]
-        bits = x.contiguous().view(_INT_OF_SIZE[x.element_size()])
-        wide = bits.to(torch.int32) if bits.element_size() < 4 else bits
-        full = wide.new_zeros((self.padded,) + tuple(x.shape[1:]))
-        full[self.start : self.stop] = wide
-        all_reduce(full, self.group)
-        return full[: self.num_chains].to(bits.dtype).view(x.dtype)
+        return gather_rows(x, self.start, self.padded, self.group)[: self.num_chains]
 
     def all(self, mask):
         """Whether ``mask`` ``(size,)`` holds for every real chain of every
@@ -314,28 +341,134 @@ def shard_chain_state(state, mesh, num_chains=None):
 
 
 class DataShard:
-    """Rows ``[start, stop)`` along ``axis``, held by this rank of the data
-    axis's process ``group``."""
+    """Rows ``[start, stop)`` along ``axis`` of a tensor of ``size`` rows
+    there, held by this rank of the data axis's process ``group``."""
 
-    def __init__(self, start, stop, axis, group):
+    def __init__(self, start, stop, axis, group, size):
         self.start, self.stop, self.axis, self.group = start, stop, axis, group
+        self.size = size
 
 
 def shard_data(data, mesh, axis=0):
     """This rank's rows of ``data`` along ``axis`` over the mesh's ``data``
     axis (replicated over ``chains``), on the mesh's device: rows
     ``[j N / S, (j + 1) N / S)`` on data shard ``j`` of ``S``, so a count that
-    does not divide evenly leaves the first shards a row fewer.  The result
-    carries a ``data_shard`` (:class:`DataShard`) with the data group, which
-    ``ops.glm.prepare_glm_data`` reads: the GLM op then sums its partial
-    log-likelihood and gradient over the group."""
+    does not divide evenly leaves the first shards a row fewer.
+
+    The result carries a ``data_shard`` (:class:`DataShard`: its rows, the
+    whole length ``N`` and the data group), which two paths read:
+
+    - ``ops.glm.prepare_glm_data``: the GLM op sums its partial
+      log-likelihood and gradient over the group;
+    - ``subsample`` under a plate of size ``N`` that subsamples ``axis``:
+      the plate's indices run over the whole data, and the panel it gives is
+      the whole data's, bit for bit (:func:`subsample_shard`).  A model
+      gives such a plate the whole size, never ``X.shape[0]``, which is this
+      rank's count.
+
+    Anything else raises a ``ValueError`` where the tag reaches it: ``obs=``
+    of a sample site, a scored site value, ``subsample`` under no plate that
+    subsamples the axis.  A tensor derived from the rows (``y.float()``,
+    ``X[:, :3]``, ``X @ w``) has no tag and holds this rank's rows alone:
+    derive it before ``shard_data``, or inside the subsampled plate."""
     data = torch.as_tensor(data)
     n = data.shape[axis]
     j, s = mesh.coords.get("data", 0), mesh.num_data_shards
     start, stop = j * n // s, (j + 1) * n // s
     rows = data.narrow(axis, start, stop - start).to(mesh.device).contiguous()
-    rows.data_shard = DataShard(start, stop, axis, mesh.data_group)
+    rows.data_shard = DataShard(start, stop, axis % data.dim(), mesh.data_group, n)
     return rows
+
+
+# how subsample_shard sums: "now" (an all_reduce at once; not inside a
+# torch.func transform), "defer" (the caller sums after its vmap) or
+# "local" (this rank's own rows, summed by nobody)
+_SUM_MODES = []
+
+
+@contextmanager
+def shard_sum_mode(mode):
+    """Context under which :func:`subsample_shard` sums as ``mode`` says:
+    ``"defer"`` leaves the partial panel for the caller, who sums it after
+    its ``vmap`` (:func:`sum_partial_panels`); ``"local"`` takes only this
+    rank's own rows (every index must fall in them) for a statistic the
+    caller sums itself (the Taylor proxy's whole-data sums)."""
+    assert mode in ("defer", "local")
+    _SUM_MODES.append(mode)
+    try:
+        yield
+    finally:
+        _SUM_MODES.pop()
+
+
+def subsample_shard(value, dim, indices, shard):
+    """The rows at the whole data's ``indices`` along ``dim`` (negative) of
+    ``value``, this rank's rows of a data shard.  Each rank gathers the
+    indices that fall in its rows and writes zeros for the rest (a masked
+    local gather, which runs under ``torch.func.vmap``); the partial panels
+    are then summed over the data group, where adding zeros is exact, so
+    every rank holds the whole data's panel bit for bit and no rank holds
+    more than its rows of the data.
+
+    Returns ``(panel, group)``: ``group`` is the data group whose sum the
+    caller still owes under ``shard_sum_mode("defer")``, else ``None``.
+    Outside those modes the sum is one ``all_reduce`` at once, which a
+    ``torch.func`` transform cannot hold: there it raises."""
+    mode = _SUM_MODES[-1] if _SUM_MODES else "now"
+    n_local = value.shape[dim]
+    local = indices - shard.start
+    inside = (local >= 0) & (local < n_local)
+    if mode == "local":
+        if not in_transform() and not bool(inside.all()):
+            raise ValueError("a local subsample of a data shard took rows of another rank")
+        return torch.index_select(value, dim, local.clamp(0, n_local - 1)), None
+    if mode == "now" and shard.group is not None and (
+            in_transform()):
+        raise NotImplementedError(
+            "a subsample of a data shard inside a batched or differentiated evaluation "
+            "(torch.func.vmap or grad) needs a collective there, which torch.func cannot "
+            "run: HMCECS gathers its panels once a Gibbs step instead, and "
+            'panel_mode="lean", which gathers in every evaluation, does not run on data '
+            "shards (ROADMAP.md)"
+        )
+    taken = torch.index_select(value, dim, local.clamp(0, n_local - 1))
+    shape = [1] * value.dim()
+    shape[dim] = -1
+    panel = torch.where(inside.reshape(shape), taken, taken.new_zeros(()))
+    if shard.group is None or mode == "defer":
+        return panel, shard.group
+    wide, bits_dtype = _as_bits(panel)
+    return _from_bits(all_reduce(wide, shard.group, over_data=True), bits_dtype,
+                      panel.dtype), None
+
+
+def sum_partial_panels(panels, groups):
+    """``panels`` with each partial one (its ``groups`` entry a data group,
+    not ``None``) summed over its group, bit for bit: one ``all_reduce`` a
+    group, of every such panel's bits at once (integers of at least 4 bytes;
+    of 8 where the panels' widths differ)."""
+    panels = list(panels)
+    by_group = {}
+    for i, g in enumerate(groups):
+        if g is not None:
+            by_group.setdefault(id(g), (g, []))[1].append(i)
+    if by_group and in_transform():
+        raise NotImplementedError(
+            "the partial panels of a data shard are summed once their vmap has returned: "
+            "record them outside any torch.func transform"
+        )
+    for group, idx in by_group.values():
+        bits = [_as_bits(panels[i]) for i in idx]
+        if len({w.dtype for w, _ in bits}) > 1:
+            bits = [(w.to(torch.int64), b) for w, b in bits]
+        flat = torch.cat([w.reshape(-1) for w, _ in bits])
+        all_reduce(flat, group, over_data=True)
+        at = 0
+        for i, (w, b) in zip(idx, bits):
+            panels[i] = _from_bits(flat[at : at + w.numel()].reshape(w.shape), b,
+                                   panels[i].dtype)
+            at += w.numel()
+    return tuple(panels)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,14 @@ per batched evaluation, and only the summed log density leaves it.
 Subsample indices are ``int64`` tensors everywhere (what ``torch.topk``
 returns and what every indexing path under ``vmap`` accepts); the JAX package
 keeps them as ``int32``.
+
+A tensor from ``parallel.shard_data`` holds one rank's rows of the data, where
+the JAX package's sharded array is the whole array.  ``subsample`` under a
+plate of the whole data's size that subsamples its rows takes the whole
+data's panel (``parallel.mesh.subsample_shard``); every other place where
+such a tensor would give this rank's rows alone raises a ``ValueError``:
+``obs=``, ``subsample`` with no plate that subsamples the sharded axis, a
+plate whose size is not the whole length.
 """
 
 from __future__ import annotations
@@ -111,6 +119,26 @@ def _dispatch(msg_type, name=None, fn=identity, value=None, kwargs=None, **extra
     return apply_stack(msg)
 
 
+def partial_data_shard(value):
+    """The ``data_shard`` of ``value`` if it holds part of the data's rows
+    (``parallel.shard_data`` over more than one data shard), else ``None``."""
+    shard = getattr(value, "data_shard", None)
+    if shard is None or shard.stop - shard.start == shard.size:
+        return None
+    return shard
+
+
+def _refuse_data_shard(value, where):
+    shard = partial_data_shard(value)
+    if shard is not None:
+        raise ValueError(
+            f"{where} is a data shard (parallel.shard_data): rows {shard.start} to "
+            f"{shard.stop} of {shard.size}, this rank's alone.  Take it through "
+            f"subsample() under a plate of size {shard.size} that subsamples it, or pass "
+            "the whole data"
+        )
+
+
 def _masked_observe(name, fn, obs, obs_mask, **kwargs):
     """A partly observed site as two: ``{name}_unobserved``, a latent of the
     whole shape whose density is masked out, and ``{name}_observed``, scored
@@ -130,6 +158,7 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
     entries of ``obs`` that are observed, the rest being latent."""
     if not isinstance(fn, dist.Distribution):
         raise TypeError(f"sample() fn must be a Distribution, got {fn!r}")
+    _refuse_data_shard(obs, f"obs of sample site {name!r}")
     if not _PYRO_STACK:
         if obs is not None:
             return obs
@@ -212,13 +241,28 @@ def get_mask():
 
 
 def subsample(data, event_dim):
-    """Subselect ``data`` along the dims of the active subsampled plates."""
+    """Subselect ``data`` along the dims of the active subsampled plates.  A
+    data shard's rows (``parallel.shard_data``) give the whole data's rows at
+    the plate's indices; such a tensor must meet a plate that subsamples its
+    sharded axis."""
+    shard = partial_data_shard(data)
     if not _PYRO_STACK:
+        _refuse_data_shard(data, "the data of subsample() outside any plate")
         return data
     assert isinstance(event_dim, int) and event_dim >= 0
-    return _dispatch(
-        "subsample", fn=lambda *a, **k: data, value=data, kwargs={"event_dim": event_dim}
-    )["value"]
+    extras = {}
+    if shard is not None:
+        extras = {"_data_shard": shard, "_data_shard_dim": shard.axis - data.dim()}
+    msg = _dispatch(
+        "subsample", fn=lambda *a, **k: data, value=data, kwargs={"event_dim": event_dim},
+        **extras,
+    )
+    if shard is not None and not (msg.get("_shard_gathered") or msg.get("_replayed")):
+        _refuse_data_shard(
+            data, f"the data of subsample(..., event_dim={event_dim}) under no plate that "
+            f"subsamples its dim {extras['_data_shard_dim']}, so it"
+        )
+    return msg["value"]
 
 
 class plate(Messenger):
@@ -334,6 +378,9 @@ class plate(Messenger):
         if event_dim is None:
             return
         axis = self.dim - event_dim
+        if msg.get("_data_shard") is not None and axis == msg["_data_shard_dim"]:
+            self._subsample_shard(msg, axis)
+            return
         shape = tuple(msg["value"].shape)
         if len(shape) < -axis or shape[axis] == 1:
             return
@@ -349,6 +396,29 @@ class plate(Messenger):
             )
         if self.subsample_size < self.size:
             msg["value"] = torch.index_select(msg["value"], axis, self._indices)
+
+    def _subsample_shard(self, msg, axis):
+        """The whole data's rows at this plate's indices from a data shard
+        (``parallel.mesh.subsample_shard``); ``msg["_partial_over"]`` names
+        the data group whose sum a ``defer`` caller still owes."""
+        from numpyro_tpu_torch.parallel.mesh import subsample_shard
+
+        shard = msg["_data_shard"]
+        if self.size != shard.size:
+            raise ValueError(
+                f"plate({self.name!r}, {self.size}) subsamples a data shard of {shard.size} "
+                f"rows (this rank holds rows {shard.start} to {shard.stop}): give the plate "
+                "the whole data's size, not the shard's"
+            )
+        if self.subsample_size >= self.size:
+            raise ValueError(
+                f"plate({self.name!r}, {self.size}) does not subsample, so subsample() of a "
+                "data shard under it would give this rank's rows alone: give the plate a "
+                "subsample_size, or pass the whole data"
+            )
+        msg["value"], msg["_partial_over"] = subsample_shard(
+            msg["value"], axis, self._indices, shard)
+        msg["_shard_gathered"] = self.name
 
 
 @contextmanager

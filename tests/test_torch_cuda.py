@@ -21,7 +21,9 @@ SteinVI step on the card against the CPU from the same particles and draws;
 a checkpoint saved from the card restored onto the card and onto the CPU,
 ``torch_module``'s ELBO on the card against the CPU's, and the compat
 ``SVI`` on the card by default; a one-rank mesh that leaves ``glm_split``'s
-bits as they are.
+bits as they are, and whose data shard ``subsample`` takes from as from the
+data; an enumerated ``scan`` whose carry moves beside its state, and one
+given a series shorter than itself, on the card against the CPU.
 
 Every test here carries ``requires_cuda`` and skips without a GPU, but the
 check that SteinVI and SVGD raise without one, which runs everywhere.  The file
@@ -1656,3 +1658,87 @@ def test_one_rank_mesh_gives_glm_split_the_same_bits(cuda):
     assert glm.launch_counts["glm_split"] == before + 1
     assert mesh_lib.collective_counts["all_reduce"] == 0
     assert _same_bits(got, value_and_grad(whole))
+
+
+@pytest.mark.requires_cuda
+def test_subsample_of_a_one_rank_data_shard_on_gpu_is_the_plain_take(cuda):
+    """A one-rank mesh's data shard holds every row: ``subsample`` under a
+    subsampled plate gives the rows at the indices, bit for bit, and makes
+    no collective."""
+    from numpyro_tpu_torch.parallel import chain_data_mesh, shard_data
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+
+    X, y, _, _ = _problem(cuda, n=5000, d=9, c=1)
+    mesh = chain_data_mesh(device="cuda:0")
+    Xs, ys = shard_data(X, mesh), shard_data(y, mesh)
+    idx = torch.randperm(5000, generator=torch.Generator().manual_seed(0))[:300].to(cuda)
+
+    def take(X, y):
+        with npt.plate("N", 5000, subsample_size=300):
+            return npt.subsample(X, event_dim=1), npt.subsample(y, event_dim=0)
+
+    mesh_lib.reset_collective_counts()
+    xb, yb = handlers.substitute(take, data={"N": idx})(Xs, ys)
+    assert torch.equal(xb, X[idx]) and torch.equal(yb, y[idx])
+    assert mesh_lib.collective_counts["all_reduce"] == 0
+
+
+SCAN_P = ((0.8, 0.2), (0.3, 0.7))
+SCAN_LOCS = (-2.0, 0.0)
+
+
+def _scan_density(model, *args):
+    return float(log_density(enum(config_enumerate(model), first_available_dim=-1), args, {},
+                             {})[0])
+
+
+def _counter_hmm(device):
+    P, locs = torch.tensor(SCAN_P, device=device), torch.tensor(SCAN_LOCS, device=device)
+
+    def model(ys):
+        def transition(carry, y):
+            x_prev, t = carry
+            x = npt.sample("x", dist.Categorical(P[x_prev]))
+            npt.sample("y", dist.Normal(locs[x] + 0.3 * t, 1.0), obs=y)
+            return (x, t + 1.0), None
+
+        scan(transition, (0, torch.zeros((), device=device)), ys)
+
+    return model
+
+
+def _latent_hmm(device, out):
+    P, locs = torch.tensor(SCAN_P, device=device), torch.tensor(SCAN_LOCS, device=device)
+
+    def model(ys):
+        def transition(x_prev, y):
+            x = npt.sample("x", dist.Categorical(P[x_prev]))
+            z = npt.sample("z", dist.Normal(torch.zeros((), device=device), 1.0))
+            npt.sample("y", dist.Normal(locs[x] + z, 1.0), obs=y)
+            return x, z
+
+        _, zs = scan(transition, 0, ys)
+        out.append(zs)
+
+    return model
+
+
+@pytest.mark.requires_cuda
+def test_enumerated_scan_cases_on_gpu_match_the_cpu(cuda):
+    """A carry that moves beside the enumerated state (its steps one at a
+    time) and a substituted series shorter than the scan (its last steps
+    drawn on the card's generator): the card's densities equal the CPU's
+    on the same values, to ``rtol=1e-5``."""
+    ys = torch.from_numpy(np.random.default_rng(9).standard_normal(7).astype(np.float32))
+    got = _scan_density(_counter_hmm(cuda), ys.to(cuda))
+    want = _scan_density(_counter_hmm(torch.device("cpu")), ys)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+    z_short = torch.from_numpy(np.random.default_rng(10).standard_normal(3).astype(np.float32))
+    out = []
+    seeded = handlers.seed(_latent_hmm(cuda, out), torch.Generator(device=cuda).manual_seed(3))
+    got = _scan_density(handlers.substitute(seeded, data={"z": z_short.to(cuda)}), ys.to(cuda))
+    zs = out[-1]
+    assert zs.device.type == "cuda" and torch.equal(zs[:3].cpu(), z_short)
+    whole = handlers.substitute(_latent_hmm(torch.device("cpu"), []), data={"z": zs.cpu()})
+    np.testing.assert_allclose(got, _scan_density(whole, ys), rtol=1e-5)

@@ -1,7 +1,9 @@
 """Chains and data across processes in the port (``parallel/mesh.py``,
 ``MCMC(chain_method="parallel")``, pooled adaptation over ranks, the
-data-sharded GLM op, sharded checkpoints and HMCECS), held against the
-port's own one-process runs and the JAX package.
+data-sharded GLM op in its three modes, sharded checkpoints, HMCECS with its
+chains and its data sharded, the shard-aware ``subsample``, ChEES and the
+ensembles), held against the port's own one-process runs and the JAX
+package.
 
 Two jobs run once per module, as subprocesses of gloo ranks on the CPU that
 meet through a file store in a temporary directory
@@ -13,8 +15,11 @@ rank fails, so a hung collective cannot hang the suite.
 Tolerances:
 
 - a chain-sharded run (fused or per-step, pooled or not, padded or not, a
-  resumed one, HMCECS, a checkpoint resumed from its file) against the
-  one-process run of the same seed: bit for bit.  Every rank draws the full
+  resumed one, HMCECS, a checkpoint resumed from its file, ChEES, AIES, ESS)
+  against the one-process run of the same seed: bit for bit.  So is HMCECS
+  without a proxy with its data sharded as well, and a data shard's
+  subsample panels against the whole data's: each rank writes its rows of
+  a panel into zeros and the panels are summed as integers of their bits.  Every rank draws the full
   panel and keeps its rows, the loops end when every rank's chains are done,
   pooled statistics are computed on the gathered panel, and each chain's
   arithmetic here does not depend on how many chains share its panel (the
@@ -39,6 +44,19 @@ Tolerances:
   loglik to ``JAX_LL_RTOL``: the JAX op sums the 32,768 padded terms in
   float32 and stands 1.2e-5 relative off the float64 sum at this shape
   (the port, sharded or not, 1e-7).
+- HMCECS with the Taylor proxy and its data sharded against the one-process
+  run: the proxy's whole-data sums (value, gradient, Hessian at the
+  reference) are float32 sums of each rank's rows added over the group, in
+  another order than one process's, so the potential and its gradient
+  differ in their last bits (1.3e-7 relative here): ``ECS_PROXY_RTOL``.
+  Everything else (indices, panels, per-point statistics) is exact.
+- one HMCECS transition from the JAX package's state on its draws (the
+  configuration of ``tests/parallel/test_ecs_sharded_data.py``): the
+  sharded step against the port's one-process step on the same draws bit
+  for bit, and against JAX's step as ``test_torch_hmc_gibbs.py`` holds one
+  transition (potential rtol 1e-4, positions rtol 1e-4 and atol 1e-5, the
+  gradient rtol 1e-4 and atol 1e-4 of its largest component, the accept
+  probability rtol 1e-3 and atol 1e-4; indices and panels exactly).
 - a data-sharded NUTS run against the one-process run: the posterior means
   within 4 combined Monte-Carlo standard errors.  The sums above move the
   potential's last bits, and NUTS trajectories carry that apart within a
@@ -63,15 +81,22 @@ import jax.numpy as jnp
 from jax import random
 
 import numpyro_tpu.parallel as jparallel
+import numpyro_tpu
+import numpyro_tpu.distributions as jdist
+from numpyro_tpu.infer import HMCECS as JHMCECS, NUTS as JNUTS
 from numpyro_tpu.infer import hmc as jhmc
 from numpyro_tpu.ops import glm as jglm
 from numpyro_tpu_torch.diagnostics import effective_sample_size
 from numpyro_tpu_torch.infer import NUTS
 from numpyro_tpu_torch.infer import hmc_core as core
+from numpyro_tpu_torch.infer.hmc_gibbs import ecs_state_from_numpy
 from numpyro_tpu_torch.ops import glm
 from numpyro_tpu_torch.parallel import chain_data_mesh, chain_mesh, initialize_distributed
 
 import torch_parallel_worker as w
+from test_torch_glm import MODES as GLM_MODES, _jax_reference
+from test_torch_hmc_gibbs import JaxEcsDraws
+from test_torch_hmc_step import JaxDraws as JaxInnerDraws
 
 torch.set_num_threads(1)
 
@@ -79,6 +104,7 @@ JOB_TIMEOUT = 300
 RTOL, ATOL = 1e-4, 1e-5
 STATE_RTOL, STATE_ATOL, GRAD_ATOL = 1e-5, 1e-4, 5e-3
 G_RTOL, G_ATOL, JAX_LL_RTOL = 1e-3, 1e-3, 2e-5
+ECS_PROXY_RTOL = 1e-5
 WORKER = Path(w.__file__)
 REPO = WORKER.parent.parent
 
@@ -161,6 +187,57 @@ def _jax_pooled_run(out):
     return [jax.tree.map(np.asarray, s) for s in states]
 
 
+def _plain(tree):
+    """A JAX state as nested dicts and tuples of numpy arrays, which a rank
+    unpickles without the JAX package."""
+    if hasattr(tree, "_fields"):
+        return {k: _plain(v) for k, v in zip(tree._fields, tree)}
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_plain(v) for v in tree)
+    return None if tree is None else np.asarray(tree)
+
+
+def _jax_ecs_step(out):
+    """The JAX package's HMCECS in ``tests/parallel/test_ecs_sharded_data.py``'s
+    configuration on ``w.ecs_data()``: init and one transition, so that every
+    chain holds indices of its own, then one more transition.  The port
+    steps from the same state on JAX's draws of that transition, recording
+    them for the ranks (``OUT/ecs_jax.pt``).  Returns the port's state and
+    JAX's, both after the compared transition."""
+    X, y = w.ecs_data()
+    n, d, sub = w.ECS_RUN[:3]
+    chains, depth, warmup = w.ECS_JAX
+
+    def jax_model(X, y):
+        wv = numpyro_tpu.sample("w", jdist.Normal(jnp.zeros(d), 1.0).to_event(1))
+        with numpyro_tpu.plate("N", n, subsample_size=sub):
+            xb = numpyro_tpu.subsample(X, event_dim=1)
+            yb = numpyro_tpu.subsample(y, event_dim=0)
+            numpyro_tpu.sample("y", jdist.Bernoulli(logits=xb @ wv), obs=yb)
+
+    args = (jnp.asarray(X), jnp.asarray(y))
+    k_j = JHMCECS(JNUTS(jax_model, max_tree_depth=depth), num_blocks=w.ECS_RUN[3])
+    step = jax.jit(lambda s: k_j.sample(s, args, {}))
+    s_j = step(k_j.init(random.split(random.PRNGKey(5), chains), warmup, None, args, {}))
+    state = _plain(jax.tree.map(np.asarray, s_j))
+    model, Xt, yt = w.ecs_problem()
+    k_t = w.ecs_jax_kernel(model)
+    k_t.init(torch.Generator().manual_seed(0), warmup, None, (Xt, yt), {}, num_chains=chains)
+    outer, inner = [], []
+    s_t = ecs_state_from_numpy(state)
+    s_t = s_t._replace(
+        rng_key=w.RecordedDraws(JaxEcsDraws(s_j.rng_key), outer),
+        hmc_state=s_t.hmc_state._replace(
+            rng_key=w.RecordedDraws(JaxInnerDraws(s_j.hmc_state.rng_key), inner)))
+    s_t = k_t.sample(s_t, (Xt, yt), {})
+    path = out / "ecs_jax.pt"
+    torch.save({"state": state, "outer": outer, "inner": inner}, str(path) + ".partial")
+    os.replace(str(path) + ".partial", path)
+    return s_t, jax.tree.map(np.asarray, step(s_j))
+
+
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
     out = tmp_path_factory.mktemp("parallel")
@@ -169,10 +246,18 @@ def jobs(tmp_path_factory):
         jax_states = _jax_pooled_run(out)
     except BaseException:
         (out / "jax_pooled.pt.failed").touch()
+        (out / "ecs_jax.pt.failed").touch()
         for job in started.values():
             job.kill()
         raise
-    yield {"jax_pooled": jax_states, **started}
+    try:
+        ecs_steps = _jax_ecs_step(out)
+    except BaseException:
+        (out / "ecs_jax.pt.failed").touch()
+        for job in started.values():
+            job.kill()
+        raise
+    yield {"jax_pooled": jax_states, "ecs_jax": ecs_steps, **started}
     for job in started.values():
         job.kill()
 
@@ -187,6 +272,8 @@ def one_process():
         "per_step": w.per_step_run(8, "vectorized"),
         "per_step_padded": w.per_step_run(7, "vectorized"),
         "ecs": w.ecs_run("vectorized"),
+        "ecs_proxy": w.ecs_proxy_steps(),
+        **{name: w.coupled_run(name, "vectorized") for name in w.COUPLED},
     }
 
 
@@ -310,11 +397,25 @@ def test_sharded_checkpoint_resumes_bit_for_bit(jobs):
         assert torch.equal(ck["pe"], torch.stack([s.potential_energy for s in states]))
 
 
-@pytest.mark.parametrize("kernel", ["CheesHMC", "AIES", "ESS", "SMC"])
+@pytest.mark.parametrize("kernel", ["SMC"])
 def test_coupled_kernels_raise_under_two_chain_shards(jobs, kernel):
+    """SMC has no sharded path in the JAX package either."""
     for r in jobs["two"].results():
-        message = r["coupled"][kernel]
+        message = r["smc"]
         assert message is not None and "ROADMAP.md" in message
+
+
+@pytest.mark.parametrize("kernel", w.COUPLED)
+def test_coupled_kernels_sharded_equal_one_process(jobs, one_process, kernel):
+    """ChEES (8 chains, and 7 padded to 8) and AIES and ESS (20 walkers) with
+    their chains over two ranks: the draws and the last state (the adapted
+    step size, trajectory length and mass; the ensembles' accept and slice
+    statistics) equal the one-process run's bit for bit."""
+    ref = one_process[kernel]
+    chains = (w.CHEES_RUN if kernel.startswith("CheesHMC") else w.ENSEMBLE_RUN)[0]
+    assert ref["w"].shape[0] == chains - kernel.endswith("_padded")
+    for r in jobs["two"].results():
+        _equal_trees(r["coupled"][kernel], ref)
 
 
 def test_pooled_warmup_on_jax_draws_matches_sharded_jax(jobs):
@@ -345,31 +446,37 @@ def test_pooled_warmup_on_jax_draws_matches_sharded_jax(jobs):
         assert torch.equal(ss, ss[:1].expand_as(ss))
 
 
-def test_data_sharded_glm_matches_jax(jobs):
+@pytest.mark.parametrize("mode", list(GLM_MODES))
+def test_data_sharded_glm_matches_jax(jobs, mode):
     """2 x 2 mesh: each rank holds 4 of 8 chains and 1,000 or 1,001 of 2,001
     rows; one evaluation of every chain's loglik and gradient is one plain
-    call and one all_reduce, and the gathered values are the whole data's."""
+    call and one all_reduce, and the gathered values are the whole data's,
+    in each of the op's modes."""
     X, y, _ = w.covtype_like(w.SHARDED_ROWS)
     W = w.glm_weights()
-    jd = jglm.prepare_glm_data(jnp.asarray(X), jnp.asarray(y), dtype="split")
-    ll_j, g_j = jax.vmap(jax.value_and_grad(jglm.bernoulli_logits_loglik),
-                         in_axes=(0, None))(jnp.asarray(W), jd)
-    td = glm.prepare_glm_data(torch.from_numpy(X), torch.from_numpy(y), dtype="split")
+    jmode, tmode = GLM_MODES[mode]
+    jd = jglm.prepare_glm_data(jnp.asarray(X), jnp.asarray(y), dtype=jmode)
+    ll_j, g_j = _jax_reference(W, jd, mode)
+    td = glm.prepare_glm_data(torch.from_numpy(X), torch.from_numpy(y), dtype=tmode)
     g_t, ll_t = torch.func.vmap(torch.func.grad_and_value(glm.bernoulli_logits_loglik),
                                 in_dims=(0, None))(torch.from_numpy(W), td)
-    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("split", w.SHARDED_ROWS)
-    hi, lo = glm.split_hi_lo(torch.from_numpy(W))
-    logits = (hi.double() + lo.double()) @ td.x_t[: td.d, : td.n].double()
-    exact = -(torch.nn.functional.softplus(logits) - td.y_row[0, : td.n].double() * logits).sum(-1)
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances(mode, w.SHARDED_ROWS)
+    exact = None
+    if mode != "bf16":  # bf16 mode rounds w and the residual: no float64 twin
+        hi, lo = glm.split_hi_lo(torch.from_numpy(W))
+        wd = hi.double() + lo.double() if mode == "split" else torch.from_numpy(W).double()
+        logits = wd @ td.x_t[: td.d, : td.n].double()
+        exact = -(torch.nn.functional.softplus(logits)
+                  - td.y_row[0, : td.n].double() * logits).sum(-1)
     for rank, r in enumerate(jobs["four"].results()):
-        got = r["glm"]
+        got = r["glm"][mode]
         assert got["rows"] == ((0, 1000), (1000, 2001))[rank % 2]
         assert got["n"] == got["rows"][1] - got["rows"][0]
         assert got["all_reduce"] == 1 and got["plain"] == 1
-        np.testing.assert_allclose(got["ll"].numpy(), exact.numpy(), rtol=1e-6)
-        np.testing.assert_allclose(got["ll"].numpy(), np.asarray(ll_j), rtol=JAX_LL_RTOL)
-        np.testing.assert_allclose(got["grad"].numpy(), np.asarray(g_j), rtol=G_RTOL,
-                                   atol=G_ATOL)
+        if exact is not None:
+            np.testing.assert_allclose(got["ll"].numpy(), exact.numpy(), rtol=1e-6)
+        np.testing.assert_allclose(got["ll"].numpy(), ll_j, rtol=JAX_LL_RTOL)
+        np.testing.assert_allclose(got["grad"].numpy(), g_j, rtol=G_RTOL, atol=G_ATOL)
         np.testing.assert_allclose(got["ll"].numpy(), ll_t.detach().numpy(), rtol=ll_rtol)
         np.testing.assert_allclose(got["grad"].numpy(), g_t.numpy(), rtol=g_rtol, atol=g_atol)
 
@@ -393,6 +500,113 @@ def test_data_sharded_pooled_nuts_on_a_2x2_mesh(jobs, one_process):
     (m1, e1), (m2, e2) = _mean_and_error(res[0]["w"]), _mean_and_error(ref["w"])
     assert ((m1 - m2).abs() <= 4 * (e1**2 + e2**2).sqrt()).all()
     assert not torch.equal(res[0]["w"], ref["w"])  # two samples, not one
+
+
+def test_shard_aware_subsample_gives_the_whole_datas_panels(jobs):
+    """``subsample`` of X and y through ``shard_data`` on the 2 x 2 mesh,
+    under a plate of the whole size: eagerly (one all_reduce a take) and
+    recorded under vmap for 8 chains as HMCECS records them (one all_reduce
+    for both panels), the panels equal the whole data's rows bit for bit."""
+    X, y = (torch.from_numpy(a) for a in w.ecs_data())
+    idx = w.shard_idx()
+    for rank, r in enumerate(jobs["four"].results()):
+        sub = r["subsample"]
+        assert sub["rows"] == ((0, 32, 64), (32, 64, 64))[rank % 2]
+        assert torch.equal(sub["eager"][0], X[idx[0]]) and torch.equal(sub["eager"][1], y[idx[0]])
+        assert sub["eager_reduces"] == 2
+        assert torch.equal(sub["batched"][0], X[idx]) and torch.equal(sub["batched"][1], y[idx])
+        assert sub["batched_reduces"] == 1
+
+
+@pytest.mark.parametrize("case,words", [
+    ("obs", "obs of sample site 'y' is a data shard"),
+    ("unsubsampled", "does not subsample"),
+    ("local_size", "give the plate the whole data's size"),
+    ("no_plate", "under no plate that subsamples its dim -2"),
+    ("outside", "outside any plate"),
+    ("ten_rows", "obs of sample site 'y' is a data shard"),
+    ("lean", 'panel_mode="lean"'),
+])
+def test_data_shard_where_it_would_give_a_shards_result_raises(jobs, case, words):
+    """``obs=`` of a shard, a plate that does not subsample, a plate of the
+    shard's own size, ``subsample`` with no plate or outside every handler,
+    the 10-row ``Bernoulli(logits=X @ w)`` that gave a rank's log-likelihood
+    alone (-5.6259 and -2.1496 for -7.7756), and lean panels: each raises on
+    every rank."""
+    for r in jobs["four"].results():
+        message = r["subsample"]["raises"][case]
+        assert message is not None and words in message, message
+
+
+def test_hmcecs_chain_and_data_sharded_equals_one_process(jobs, one_process):
+    """HMCECS without a proxy on the 2 x 2 mesh: its chains over the chain
+    axis, X and y over the data axis; every rank holds the one-process
+    run's draws, accept probabilities and indices bit for bit."""
+    ref = one_process["ecs"]
+    for r in jobs["four"].results():
+        _equal_trees(r["ecs"], ref)
+
+
+def test_hmcecs_with_the_taylor_proxy_on_a_data_mesh(jobs, one_process):
+    """HMCECS with the Taylor proxy (stats mode) on the 2 x 2 mesh against
+    one process, at init and after each of two transitions: indices,
+    panels and per-point statistics exactly, the rest to
+    ``ECS_PROXY_RTOL``; setup's all_reduces over the data axis: the
+    prototype's two takes, the proxy's whole-data sums, its statistics at the
+    prototype's indices and the first panels; then one a transition, the
+    refreshed panels, whose replacement rows the proxy's statistics take.  The accept probability is
+    ``exp`` of a difference of two potentials, each within ``ECS_PROXY_RTOL``
+    of its size: it is held to twice that of the largest potential,
+    relative."""
+    ref = one_process["ecs_proxy"]
+    assert ref["modes"] == {"proxy": "stats", "panel": "carry"}
+    for r in jobs["four"].results():
+        got = r["ecs_proxy"]
+        assert got["modes"] == ref["modes"] and got["setup"]["over_data"] == 5
+        assert got["step_reduces"] == [1] * w.ECS_PROXY[2]
+        for s, t in zip(got["states"], ref["states"]):
+            _equal_trees((s["z"]["N"], s["stats"], s["panels"]),
+                         (t["z"]["N"], t["stats"], t["panels"]))
+            np.testing.assert_allclose(s["pe"].numpy(), t["pe"].numpy(), rtol=ECS_PROXY_RTOL)
+            np.testing.assert_allclose(
+                s["accept"].numpy(), t["accept"].numpy(),
+                rtol=2 * ECS_PROXY_RTOL * t["pe"].abs().max().item())
+            for key in ("z", "grad"):
+                np.testing.assert_allclose(s[key]["w"].numpy(), t[key]["w"].numpy(),
+                                           rtol=ECS_PROXY_RTOL, atol=1e-6, err_msg=key)
+
+
+def test_hmcecs_step_on_a_data_mesh_matches_jax(jobs):
+    """One transition from the JAX package's state on its draws, with X and
+    y sharded over the mesh's data axis and the 8 chains over its chain
+    axis: equal to the port's one-process step on the same draws, near JAX's
+    step; one all_reduce over the data axis (the refreshed panels) and none
+    in any of the transition's potential evaluations; a rank holds its 32
+    rows of X and its 4 chains' panels."""
+    s_t, s_j = jobs["ecs_jax"]
+    for r in jobs["four"].results():
+        got = r["ecs_jax"]
+        assert got["over_data"] == 1 and got["evals"] > 1
+        assert got["x_rows"] == (32, w.ECS_RUN[1])
+        assert got["panel_rows"] == (w.ECS_JAX[0] // 2, w.ECS_RUN[2], w.ECS_RUN[1])
+        _equal_trees({k: got[k] for k in ("z", "pe", "grad", "panels", "accept", "num_steps")},
+                     {"z": s_t.z, "pe": s_t.hmc_state.potential_energy,
+                      "grad": s_t.hmc_state.z_grad, "panels": s_t.panels,
+                      "accept": s_t.accept_prob, "num_steps": s_t.hmc_state.num_steps})
+    h_j = s_j.hmc_state
+    np.testing.assert_array_equal(s_t.z["N"].numpy(), np.asarray(s_j.z["N"]))
+    for a, b in zip(s_t.panels, s_j.panels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(s_t.hmc_state.num_steps.numpy(), np.asarray(h_j.num_steps))
+    np.testing.assert_allclose(s_t.accept_prob.numpy(), np.asarray(s_j.accept_prob),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(s_t.hmc_state.potential_energy.numpy(),
+                               np.asarray(h_j.potential_energy), rtol=1e-4)
+    g_j = np.asarray(h_j.z_grad["w"])
+    np.testing.assert_allclose(s_t.hmc_state.z_grad["w"].numpy(), g_j, rtol=1e-4,
+                               atol=1e-4 * np.abs(g_j).max())
+    np.testing.assert_allclose(s_t.hmc_state.z["w"].numpy(), np.asarray(h_j.z["w"]),
+                               rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -494,7 +708,23 @@ def test_glm_data_rows_must_be_sharded_alike():
 
     Xs = shard_data(torch.from_numpy(X), mesh)
     assert Xs.data_shard.group is None and Xs.shape == X.shape
+    assert Xs.data_shard.size == 64
     with pytest.raises(ValueError, match="same rows"):
         glm.prepare_glm_data(Xs, torch.from_numpy(y), dtype="split")
     data = glm.prepare_glm_data(Xs, shard_data(torch.from_numpy(y), mesh), dtype="split")
     assert data.group is None and data.n == 64
+
+
+def test_subsample_of_a_one_rank_data_shard_is_the_plain_take():
+    """On a mesh of one rank a data shard holds every row: ``subsample``
+    takes from it as from the data itself, and nothing raises."""
+    from numpyro_tpu_torch import handlers
+    from numpyro_tpu_torch.parallel import shard_data
+
+    X, y = (torch.from_numpy(a) for a in w.ecs_data())
+    mesh = chain_data_mesh(device="cpu")
+    Xs, ys = shard_data(X, mesh), shard_data(y, mesh)
+    idx = w.shard_idx()[0]
+    n, _, sub = w.ECS_RUN[:3]
+    xb, yb = handlers.substitute(w.subsample_take, data={"N": idx})(Xs, ys, n, sub)
+    assert torch.equal(xb, X[idx]) and torch.equal(yb, y[idx])

@@ -3,7 +3,8 @@
 ``tests/contrib/test_enum.py``): a continuous scan's trace, density,
 substitution and potential; enumerated HMMs (a chain from step 0, a mixture
 of HMMs, a plate inside the step, a chain per element of a plate, history 0,
-length 1, a reverse scan); and the cases that raise.
+length 1, a reverse scan, a carry that moves beside the enumerated state, a
+substituted series shorter than the scan); and the cases that raise.
 
 Models are written once for both packages (``JAX`` and ``TORCH`` hold a
 package's primitives), on numpy inputs from a seed.  Tolerances: densities
@@ -336,6 +337,74 @@ def test_history_zero_and_length_one_match_jax():
     np.testing.assert_allclose(got1, _density(JAX, _hmm(JAX, P), (JAX.arr(ys[:1]),)), rtol=RTOL)
 
 
+def _counter_hmm(pkg, P, reverse=False):
+    """An HMM whose carry is its state and a step counter that shifts the
+    emission: the carry moves in a way other than the enumerated state."""
+    def model(ys):
+        def transition(carry, y):
+            x_prev, t = carry
+            x = pkg.sample("x", pkg.dist.Categorical(pkg.arr(P)[x_prev]))
+            pkg.sample("y", pkg.dist.Normal(pkg.arr(LOCS[:2])[x] + 0.3 * t, 1.0), obs=y)
+            return (x, t + 1.0), None
+
+        pkg.scan(transition, (0, pkg.arr(0.0)), ys, reverse=reverse)
+
+    return model
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_enumerated_scan_with_a_moving_carry_matches_jax(reverse):
+    """T = 7: the steps run one at a time, each from the last one's carry,
+    against the JAX package's ``lax.scan`` and the forward algorithm."""
+    T = 7
+    P = np.array([[0.8, 0.2], [0.3, 0.7]], np.float32)
+    ys = np.random.default_rng(9).standard_normal(T).astype(np.float32)
+    got_t = _density(TORCH, _counter_hmm(TORCH, P, reverse), (TORCH.arr(ys),))
+    got_j = _density(JAX, _counter_hmm(JAX, P, reverse), (JAX.arr(ys),))
+    order = ys[::-1] if reverse else ys
+    locs = LOCS[:2].astype(np.float64)[None] + 0.3 * np.arange(T)[:, None]
+    emit = norm(locs, 1.0).logpdf(order[:, None].astype(np.float64))
+    want = _forward(P[0].astype(np.float64), np.log(P.astype(np.float64)), emit)
+    np.testing.assert_allclose(got_t, want, rtol=RTOL)
+    np.testing.assert_allclose(got_t, got_j, rtol=RTOL)
+
+
+def _latent_hmm(pkg, P, out):
+    """An HMM with a continuous latent ``z`` a step beside the enumerated
+    state; the scan's outputs, the series of ``z``, go to ``out``."""
+    def model(ys):
+        def transition(x_prev, y):
+            x = pkg.sample("x", pkg.dist.Categorical(pkg.arr(P)[x_prev]))
+            z = pkg.sample("z", pkg.dist.Normal(0.0, 1.0))
+            pkg.sample("y", pkg.dist.Normal(pkg.arr(LOCS[:2])[x] + z, 1.0), obs=y)
+            return x, z
+
+        _, zs = pkg.scan(transition, 0, ys)
+        out.append(zs)
+
+    return model
+
+
+def test_enumerated_scan_with_a_shorter_substituted_series_matches_jax():
+    """T = 6, a series of 3 values of ``z`` substituted: the steps past its
+    end draw ``z`` from its distribution, as the JAX package's do.  The
+    port's density equals the JAX package's with the whole series, the
+    given values then the port's draws, substituted."""
+    T, n = 6, 3
+    P = np.array([[0.8, 0.2], [0.3, 0.7]], np.float32)
+    ys = np.random.default_rng(9).standard_normal(T).astype(np.float32)
+    z_short = np.random.default_rng(10).standard_normal(n).astype(np.float32)
+    out = []
+    model = handlers.substitute(handlers.seed(_latent_hmm(TORCH, P, out), 3),
+                                data={"z": TORCH.arr(z_short)})
+    got_t = _density(TORCH, model, (TORCH.arr(ys),))
+    zs = out[-1].numpy()
+    assert zs.shape == (T,) and np.array_equal(zs[:n], z_short)
+    assert np.unique(zs[n:]).size == T - n  # a draw of its own for each step
+    whole = jhandlers.substitute(_latent_hmm(JAX, P, []), data={"z": JAX.arr(zs)})
+    np.testing.assert_allclose(got_t, _density(JAX, whole, (JAX.arr(ys),)), rtol=RTOL)
+
+
 def test_unsupported_enumerated_scans_raise():
     ys = TORCH.arr(np.zeros(4))
     P = np.array([[0.8, 0.2], [0.3, 0.7]], np.float32)
@@ -355,7 +424,8 @@ def test_unsupported_enumerated_scans_raise():
         _density(TORCH, two_sites, (ys,))
 
     def data_carry(ys):
-        # the carry depends on the data: the port's steps cannot run together
+        # the carry depends on the data and the enumerated site on nothing
+        # carried: the JAX package's time collapse fails on its factors too
         def transition(c, y):
             x = npt.sample("x", dist.Categorical(TORCH.arr(P)[0]))
             npt.sample("y", dist.Normal(x + c, 1.0), obs=y)
@@ -363,7 +433,7 @@ def test_unsupported_enumerated_scans_raise():
 
         tscan(transition, torch.tensor(0.0), ys)
 
-    with pytest.raises(NotImplementedError, match="carry of an enumerated scan"):
+    with pytest.raises(NotImplementedError, match="must depend on the carried state"):
         _density(TORCH, data_carry, (ys,))
 
     def under_plate(ys):

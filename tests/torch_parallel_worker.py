@@ -26,10 +26,14 @@ torch.set_num_threads(1)
 
 import numpyro_tpu_torch as npt  # noqa: E402
 import numpyro_tpu_torch.distributions as dist  # noqa: E402
+from numpyro_tpu_torch import handlers  # noqa: E402
 from numpyro_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from numpyro_tpu_torch.contrib.ecs_proxies import subsample_panels  # noqa: E402
 from numpyro_tpu_torch.infer import AIES, ESS, HMCECS, MCMC, NUTS, SMC, CheesHMC  # noqa: E402
 from numpyro_tpu_torch.infer import hmc as thmc  # noqa: E402
 from numpyro_tpu_torch.infer import hmc_core as core  # noqa: E402
+from numpyro_tpu_torch.infer import util as infer_util  # noqa: E402
+from numpyro_tpu_torch.infer.hmc_gibbs import ecs_state_from_numpy  # noqa: E402
 from numpyro_tpu_torch.ops import glm  # noqa: E402
 from numpyro_tpu_torch.parallel import (  # noqa: E402
     chain_data_mesh, chain_mesh, cross_chain_diagnostics, initialize_distributed,
@@ -43,14 +47,27 @@ GLM_SHAPE = (2000, 9, 8)
 # warmup, samples and tree depth of the NUTS runs (20 warmup transitions
 # have one middle window, so the pooled Welford merge runs once)
 NUTS_RUN = (20, 10, 4)
-# the data-sharded GLM: rows (odd, so the two data shards differ by one)
+# the data-sharded GLM: rows (odd, so the two data shards differ by one),
+# and its modes
 SHARDED_ROWS = 2001
+GLM_MODES = {"split": "split", "f32": torch.float32, "bf16": torch.bfloat16}
 # HMCECS: rows, coefficients, subsample, blocks, chains, warmup, samples
 ECS_RUN = (64, 4, 16, 4, 8, 5, 5)
 # the per-step run on the JAX package's draws: chains, warmup, steps, depths
 JAX_RUN = (8, 20, 22, (3, 4))
 JAX_PROBLEM = (200, 4)  # rows, coefficients of the logistic potential
 CKPT_STEPS = 3
+# ChEES (chains, warmup, samples) and the ensembles (walkers, warmup,
+# samples), sharded over the two-rank chain mesh
+CHEES_RUN = (8, 6, 4)
+ENSEMBLE_RUN = (20, 3, 3)
+COUPLED = ("CheesHMC", "CheesHMC_padded", "AIES", "ESS")
+# HMCECS with the Taylor proxy on the 2 x 2 mesh: its reference, warmup and
+# transitions compared
+ECS_PROXY = (np.linspace(-0.8, 0.8, ECS_RUN[1]).astype(np.float32), 10, 2)
+# the JAX package's step on its own draws (tests/parallel/test_ecs_sharded_data.py):
+# chains, tree depth, warmup
+ECS_JAX = (8, 4, 10)
 
 
 def covtype_like(n=GLM_SHAPE[0], d=GLM_SHAPE[1], seed=0):
@@ -110,15 +127,23 @@ def per_step_run(chains, chain_method, mesh=None):
             "warnings": [str(c.message) for c in caught]}
 
 
-def ecs_problem():
-    n, d, sub = ECS_RUN[:3]
+def ecs_data():
+    n, d = ECS_RUN[:2]
     rng = np.random.default_rng(5)
     X = rng.standard_normal((n, d)).astype(np.float32)
     y = (rng.random(n) < 1 / (1 + np.exp(-X @ np.linspace(-1, 1, d)))).astype(np.float32)
+    return X, y
+
+
+def ecs_problem():
+    """The subsampled logistic model, its plate of the whole data's size
+    (the rows a rank holds of a data shard are fewer), and the data."""
+    n, d, sub = ECS_RUN[:3]
+    X, y = ecs_data()
 
     def model(X, y):
         w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
-        with npt.plate("N", X.shape[0], subsample_size=sub):
+        with npt.plate("N", n, subsample_size=sub):
             xb = npt.subsample(X, event_dim=1)
             yb = npt.subsample(y, event_dim=0)
             npt.sample("y", dist.Bernoulli(logits=xb @ w), obs=yb)
@@ -126,16 +151,247 @@ def ecs_problem():
     return model, torch.from_numpy(X), torch.from_numpy(y)
 
 
-def ecs_run(chain_method, mesh=None):
+def ecs_run(chain_method, mesh=None, data_mesh=None, proxy=None):
+    """HMCECS on ``ECS_RUN``; ``data_mesh``: X and y as its data shards."""
     model, X, y = ecs_problem()
+    if data_mesh is not None:
+        X, y = shard_data(X, data_mesh), shard_data(y, data_mesh)
     _, _, _, blocks, chains, warmup, samples = ECS_RUN
-    m = MCMC(HMCECS(NUTS(model, max_tree_depth=3), num_blocks=blocks), num_warmup=warmup,
-             num_samples=samples, num_chains=chains, chain_method=chain_method, mesh=mesh,
-             device="cpu")
+    m = MCMC(HMCECS(NUTS(model, max_tree_depth=3), num_blocks=blocks, proxy=proxy),
+             num_warmup=warmup, num_samples=samples, num_chains=chains,
+             chain_method=chain_method, mesh=mesh, device="cpu")
     m.run(3, X, y, extra_fields=("accept_prob",))
     return {"w": m.get_samples(group_by_chain=True)["w"],
             "accept_prob": m.get_extra_fields(group_by_chain=True)["accept_prob"],
             "idx": m.last_state.z["N"]}
+
+
+def ecs_proxy_steps(mesh=None):
+    """HMCECS with the Taylor proxy (``ECS_PROXY``), through the per-step
+    API: the state after init and after each compared transition (every
+    chain's, gathered), with the data sharded over ``mesh``'s data axis and
+    the chains over its chain axis, or whole in one process."""
+    model, X, y = ecs_problem()
+    chains = ECS_RUN[4]
+    ref, warmup, steps = ECS_PROXY
+    if mesh is not None:
+        X, y = shard_data(X, mesh), shard_data(y, mesh)
+    kernel = HMCECS(NUTS(model, max_tree_depth=3), num_blocks=ECS_RUN[3],
+                    proxy=HMCECS.taylor_proxy({"w": ref}, mode="stats"))
+    mesh_lib.reset_collective_counts()
+    state = kernel.init(torch.Generator().manual_seed(4), warmup, None, (X, y), {},
+                        num_chains=chains)
+    setup = dict(mesh_lib.collective_counts)
+    if mesh is not None:
+        state = shard_chain_state(state, mesh)
+    states, step_reduces = [state], []
+    for _ in range(steps):
+        mesh_lib.reset_collective_counts()
+        states.append(kernel.sample(states[-1], (X, y), {}))
+        step_reduces.append(mesh_lib.collective_counts["over_data"])
+    out = []
+    for s in states:
+        g = core.gather_state(s)
+        out.append({"z": g.z, "pe": g.hmc_state.potential_energy, "grad": g.hmc_state.z_grad,
+                    "stats": g.gibbs_state, "panels": g.panels, "accept": g.accept_prob})
+    return {"states": out, "setup": setup, "step_reduces": step_reduces,
+            "modes": dict(kernel.resolved_modes)}
+
+
+class RecordedDraws:
+    """A draw source that records what ``source`` draws, one entry a call in
+    call order (the forked adaptation source records into the same list)."""
+
+    shard = None
+
+    def __init__(self, source, log):
+        self.source, self.log = source, log
+        self.generator = source.generator
+
+    def _keep(self, out):
+        self.log.append(out)
+        return out
+
+    def normal(self, like):
+        return self._keep(self.source.normal(like))
+
+    def start(self, like):
+        return self._keep(self.source.start(like))
+
+    def tick(self, like):
+        return self._keep(self.source.tick(like))
+
+    def uniform(self, like):
+        return self._keep(self.source.uniform(like))
+
+    def hmc_start(self, like):
+        return self._keep(self.source.hmc_start(like))
+
+    def block(self, idx, num_blocks, block_size, size):
+        return self._keep(self.source.block(idx, num_blocks, block_size, size))
+
+    def fork(self):
+        return RecordedDraws(self.source.fork(), self.log)
+
+
+class ReplayedDraws:
+    """The draws of a :class:`RecordedDraws` list, in order, each cut to this
+    rank's rows of the chain panel (``shard``)."""
+
+    generator = torch.Generator().manual_seed(0)
+
+    def __init__(self, log, shard):
+        self.log, self.shard = list(log), shard
+
+    def _next(self, *args):
+        out = self.log.pop(0)
+        rows = slice(self.shard.start, self.shard.stop)
+        return tuple(x[rows] for x in out) if isinstance(out, tuple) else out[rows]
+
+    normal = start = tick = uniform = hmc_start = block = _next
+
+    def fork(self):
+        return self
+
+
+def ecs_jax_kernel(model):
+    return HMCECS(NUTS(model, max_tree_depth=ECS_JAX[1]), num_blocks=ECS_RUN[3])
+
+
+def ecs_on_jax_draws(mesh, out):
+    """One HMCECS transition from the JAX package's state on its draws,
+    recorded by the test (``OUT/ecs_jax.pt``), with X and y sharded over the
+    mesh's data axis and the chains over its chain axis: the gathered state,
+    the all_reduces over the data axis and the potential evaluations of the
+    transition."""
+    path = os.path.join(out, "ecs_jax.pt")
+    _wait_for_file(path)
+    got = torch.load(path, weights_only=False)
+    model, X, y = ecs_problem()
+    Xs, ys = shard_data(X, mesh), shard_data(y, mesh)
+    kernel = ecs_jax_kernel(model)
+    kernel.init(torch.Generator().manual_seed(0), ECS_JAX[2], None, (Xs, ys), {},
+                num_chains=ECS_JAX[0])
+    shard = mesh.chain_shard(ECS_JAX[0])
+    state = shard_chain_state(ecs_state_from_numpy(got["state"]), mesh)
+    state = state._replace(rng_key=ReplayedDraws(got["outer"], shard),
+                           hmc_state=state.hmc_state._replace(
+                               rng_key=ReplayedDraws(got["inner"], shard)))
+    mesh_lib.reset_collective_counts()
+    evals = infer_util.potential_evals
+    state = kernel.sample(state, (Xs, ys), {})
+    counts = dict(mesh_lib.collective_counts)
+    g = core.gather_state(state)
+    return {"z": g.z, "pe": g.hmc_state.potential_energy, "grad": g.hmc_state.z_grad,
+            "panels": g.panels, "accept": g.accept_prob, "num_steps": g.hmc_state.num_steps,
+            "over_data": counts["over_data"], "evals": infer_util.potential_evals - evals,
+            "x_rows": tuple(Xs.shape), "panel_rows": tuple(state.panels[0].shape)}
+
+
+def subsample_take(X, y, n, sub):
+    with npt.plate("N", n, subsample_size=sub):
+        return npt.subsample(X, event_dim=1), npt.subsample(y, event_dim=0)
+
+
+def shard_idx():
+    n, _, sub = ECS_RUN[:3]
+    rng = np.random.default_rng(12)
+    return torch.from_numpy(np.stack([rng.permutation(n)[:sub] for _ in range(ECS_RUN[4])]))
+
+
+def shard_subsample_checks(mesh):
+    """The shard-aware subsample on the mesh's data axis: the panels, eager
+    (one all_reduce a take) and recorded under vmap as HMCECS records them
+    (one all_reduce for both), and what raises."""
+    n, d, sub = ECS_RUN[:3]
+    X, y = ecs_data()
+    Xs, ys = shard_data(torch.from_numpy(X), mesh), shard_data(torch.from_numpy(y), mesh)
+    idx = shard_idx()
+    res = {"rows": (Xs.data_shard.start, Xs.data_shard.stop, Xs.data_shard.size)}
+    mesh_lib.reset_collective_counts()
+    res["eager"] = handlers.substitute(subsample_take, data={"N": idx[0]})(Xs, ys, n, sub)
+    res["eager_reduces"] = mesh_lib.collective_counts["over_data"]
+    groups = []
+
+    def record(i):
+        panels = []
+        groups.clear()
+        with subsample_panels(record=True, out=panels, groups=groups), \
+                handlers.substitute(data={"N": i}):
+            subsample_take(Xs, ys, n, sub)
+        return tuple(panels)
+
+    mesh_lib.reset_collective_counts()
+    res["batched"] = mesh_lib.sum_partial_panels(torch.func.vmap(record)(idx), groups)
+    res["batched_reduces"] = mesh_lib.collective_counts["over_data"]
+
+    def obs_model(X, y):
+        w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
+        npt.sample("y", dist.Bernoulli(logits=X @ w), obs=y)
+
+    def unsubsampled(X, y):
+        with npt.plate("N", n):
+            npt.subsample(X, event_dim=1)
+
+    def local_size(X, y):
+        with npt.plate("N", X.shape[0], subsample_size=sub):
+            npt.subsample(X, event_dim=1)
+
+    def no_plate(X, y):
+        npt.subsample(X, event_dim=1)
+
+    # the re-anchor's example: 10 rows, w all ones, Bernoulli(logits=X @ w)
+    X10, y10 = shard_data(torch.from_numpy(X[:10]), mesh), shard_data(torch.from_numpy(y[:10]),
+                                                                        mesh)
+
+    def ten_rows():
+        w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
+        npt.sample("y", dist.Bernoulli(logits=X10 @ w), obs=y10)
+
+    seeded = lambda fn, *a: lambda: handlers.seed(fn, 0)(*a)  # noqa: E731
+    res["raises"] = {
+        "obs": raises(seeded(obs_model, Xs, ys), ValueError),
+        "unsubsampled": raises(seeded(unsubsampled, Xs, ys), ValueError),
+        "local_size": raises(seeded(local_size, Xs, ys), ValueError),
+        "no_plate": raises(seeded(no_plate, Xs, ys), ValueError),
+        "outside": raises(lambda: npt.subsample(Xs, event_dim=1), ValueError),
+        "ten_rows": raises(lambda: infer_util.log_density(
+            ten_rows, (), {}, {"w": torch.ones(d)}), ValueError),
+        "lean": raises(lambda: ecs_run_lean(mesh), NotImplementedError),
+    }
+    return res
+
+
+def ecs_run_lean(mesh):
+    model, X, y = ecs_problem()
+    kernel = HMCECS(NUTS(model, max_tree_depth=3), num_blocks=ECS_RUN[3], panel_mode="lean")
+    kernel.init(torch.Generator().manual_seed(0), 2, None,
+                (shard_data(X, mesh), shard_data(y, mesh)), {}, num_chains=2)
+
+
+def coupled_kernel(name):
+    """ChEES and the ensembles on the covtype-shape model (AIES with both
+    of its moves, so that the move is drawn)."""
+    if name.startswith("CheesHMC"):
+        return CheesHMC(model=glm_model, step_size=0.01, trajectory_length=0.1,
+                        max_num_steps=8)
+    if name == "AIES":
+        return AIES(model=glm_model, moves={AIES.DEMove(): 0.5, AIES.StretchMove(): 0.5})
+    return ESS(model=glm_model)
+
+
+def coupled_run(name, chain_method, mesh=None):
+    """A run of ``name`` (``CheesHMC_padded``: one chain fewer, which two
+    chain shards pad): its draws and its last state (generators left out)."""
+    chains, warmup, samples = CHEES_RUN if name.startswith("CheesHMC") else ENSEMBLE_RUN
+    chains -= name.endswith("_padded")
+    m = MCMC(coupled_kernel(name), num_warmup=warmup, num_samples=samples, num_chains=chains,
+             chain_method=chain_method, mesh=mesh, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the ensembles want more walkers than 2 x 9
+        m.run(6, glm_data())
+    return {"w": m.get_samples(group_by_chain=True)["w"],
+            "last": core.replace_draw_sources(m.last_state, None)}
 
 
 def logistic_problem(chains=JAX_RUN[0], seed=0):
@@ -258,17 +514,21 @@ class ShardedJaxDraws:
         return ShardedJaxDraws(adapt_keys, self.shard)
 
 
+def _wait_for_file(path):
+    deadline = time.time() + 240
+    while not os.path.exists(path):
+        if time.time() > deadline or os.path.exists(path + ".failed"):
+            raise RuntimeError(f"the test did not write {os.path.basename(path)}")
+        time.sleep(0.2)
+
+
 def pooled_on_jax_draws(mesh, out):
     """The port's pooled warmup through the per-step API, each transition
     fed the JAX package's keys of that step (``OUT/jax_pooled.pt``)."""
     import jax.numpy as jnp
 
     path = os.path.join(out, "jax_pooled.pt")
-    deadline = time.time() + 240
-    while not os.path.exists(path):
-        if time.time() > deadline or os.path.exists(path + ".failed"):
-            raise RuntimeError("the test did not write the JAX package's keys")
-        time.sleep(0.2)
+    _wait_for_file(path)
     keys = torch.load(path, weights_only=False)["keys"]
     chains, num_warmup, steps, depths = JAX_RUN
     _, _, pe_t, z0 = logistic_problem()
@@ -301,16 +561,9 @@ def job_two(rank, out):
                               + [None] * (len(core.AdaptPanel._fields) - 1)))
     res["pooled_step_size"] = pooled_step_size(adapt, mesh)
     res["checkpoint"] = checkpoint_resume(mesh, os.path.join(out, "ckpt.pt"))
-    kernels = {"CheesHMC": CheesHMC(model=glm_model), "AIES": AIES(model=glm_model),
-               "ESS": ESS(model=glm_model)}
-    res["coupled"] = {
-        name: raises(lambda k=k: MCMC(k, num_warmup=2, num_samples=2, num_chains=8,
-                                      chain_method="parallel", mesh=mesh).run(0, glm_data()),
-                     NotImplementedError)
-        for name, k in kernels.items()
-    }
-    res["coupled"]["SMC"] = raises(lambda: SMC(glm_model, device="cpu").run(0, glm_data()),
-                                   NotImplementedError)
+    res["coupled"] = {name: coupled_run(name, "parallel", mesh) for name in COUPLED}
+    res["smc"] = raises(lambda: SMC(glm_model, device="cpu").run(0, glm_data()),
+                        NotImplementedError)
     res["jax_pooled"] = pooled_on_jax_draws(mesh, out)
     return res
 
@@ -321,18 +574,24 @@ def job_four(rank, out):
     res["mismatch"] = raises(lambda: chain_data_mesh(3, None, device="cpu"), ValueError)
     X, y, _ = covtype_like(SHARDED_ROWS)
     Xs, ys = shard_data(torch.from_numpy(X), mesh), shard_data(torch.from_numpy(y), mesh)
-    data = glm.prepare_glm_data(Xs, ys, dtype="split")
     shard = mesh.chain_shard(GLM_SHAPE[2])
     w = shard.take(torch.from_numpy(glm_weights()))
-    mesh_lib.reset_collective_counts()
-    glm.reset_launch_counts()
-    g, ll = torch.func.vmap(torch.func.grad_and_value(glm.bernoulli_logits_loglik),
-                            in_dims=(0, None))(w, data)
-    res["glm"] = {"rows": (Xs.data_shard.start, Xs.data_shard.stop), "n": data.n,
-                  "all_reduce": mesh_lib.collective_counts["all_reduce"],
-                  "plain": glm.launch_counts["plain"],
-                  "ll": shard.gather(ll), "grad": shard.gather(g)}
+    res["glm"] = {}
+    for mode in GLM_MODES:
+        data = glm.prepare_glm_data(Xs, ys, dtype=GLM_MODES[mode])
+        mesh_lib.reset_collective_counts()
+        glm.reset_launch_counts()
+        g, ll = torch.func.vmap(torch.func.grad_and_value(glm.bernoulli_logits_loglik),
+                                in_dims=(0, None))(w, data)
+        res["glm"][mode] = {"rows": (Xs.data_shard.start, Xs.data_shard.stop), "n": data.n,
+                            "all_reduce": mesh_lib.collective_counts["all_reduce"],
+                            "plain": glm.launch_counts["plain"],
+                            "ll": shard.gather(ll), "grad": shard.gather(g)}
     res["nuts"] = fused_run(8, True, "parallel", mesh, glm_data(mesh))
+    res["subsample"] = shard_subsample_checks(mesh)
+    res["ecs"] = ecs_run("parallel", mesh, data_mesh=mesh)
+    res["ecs_proxy"] = ecs_proxy_steps(mesh)
+    res["ecs_jax"] = ecs_on_jax_draws(mesh, out)
     return res
 
 
