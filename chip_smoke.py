@@ -336,8 +336,23 @@ Phases (each prints on its own lines; any failure exits non-zero):
                ``CHEES_RUN``'s step size and trajectory with its 64 chains
                sharded 2 x 32 (``SHARDED_CHEES``): draws and adaptation equal
                the same leg's in this script bit for bit, one ``glm_split``
-               launch an evaluation.  A rank that fails, or runs past
-               ``RANK_TIMEOUT``, fails the script.
+               launch an evaluation.  (e) the covtype model written as a JAX
+               user writes it over ``shard_data``'s rows (``model_rows``:
+               ``Bernoulli(logits=X @ w)`` with ``obs=y`` under a plate of
+               all 581,012 rows, no GLM op) on the 1 x 2 data mesh: its
+               potential and gradient at phase 3's first 32 chains within
+               ``glm.kernel_tolerances`` of 23b's data-sharded ``glm_fused``
+               f32 on the same shard, two ``all_reduce``s over the data an
+               evaluation (the site's sum and the gradient's), then pooled
+               NUTS from phase 8d's MAP (``ROWS_NUTS``), the same draws on
+               both ranks, the posterior means within its gate of the
+               generating coefficients, no GLM launch.  (f) one Gibbs step
+               of 23c's HMCECS in ``panel_mode="lean"`` from 23c's seed: its
+               indices, potentials and draws equal 23c's first step (carry
+               mode) bit for bit, one ``all_reduce`` over the data an
+               evaluation (every panel of the evaluation at once) and one
+               for the proxy's statistics at the new indices.  A rank that
+               fails, or runs past ``RANK_TIMEOUT``, fails the script.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -5018,6 +5033,10 @@ DATA_ECS_RTOL = 1e-5
 # sharded 2 x 32 on a chain mesh: chains, warmup, samples; held bit for bit
 # against the same leg in one process
 SHARDED_CHEES = (64, 4, 2)
+# (e) pooled NUTS on model_rows over the 1 x 2 data mesh, started at phase
+# 8d's MAP: chains, warmup, samples, tree depth, and the gate on max
+# |mean(w) - true_w| (the bench's 0.05)
+ROWS_NUTS = (32, 4, 4, 3, 0.05)
 RANK_TIMEOUT = 300  # seconds to warm up, and from the go to the end, before the script fails
 SCRIPT_LIMIT = 1200  # seconds: a rank still waiting for the go by then ends itself
 WARM_ROWS = 1000  # rows of the plain model a rank warms up on while the kernels build
@@ -5057,6 +5076,169 @@ def warm_model(x, y):
     npt.sample("y", dist.Bernoulli(logits=x @ w), obs=y)
 
 
+def model_rows(X, y, size):
+    """The covtype model as a JAX user writes it over ``shard_data``'s rows:
+    the likelihood in plain ops under a plate of the whole data's ``size``,
+    no GLM op; the sums over the rows are the whole data's on every rank."""
+    w = npt.sample("w", dist.Normal(torch.zeros(D, device=X.device), 1.0).to_event(1))
+    with npt.plate("N", size):
+        npt.sample("y", dist.Bernoulli(logits=X @ w), obs=y)
+
+
+def model_rows_normal(X, y, size):
+    """A model over ``shard_data``'s rows with several replicated latents
+    that meet the rows: a Normal likelihood with a latent offset and scale
+    (the linear-probability model of covtype's labels)."""
+    zero, one = torch.zeros((), device=X.device), torch.ones((), device=X.device)
+    w = npt.sample("w", dist.Normal(torch.zeros(D, device=X.device), 1.0).to_event(1))
+    b = npt.sample("b", dist.Normal(zero, one))
+    sigma = npt.sample("sigma", dist.HalfNormal(one))
+    with npt.plate("N", size):
+        npt.sample("y", dist.Normal(X @ w + b, sigma), obs=y)
+
+
+def normal_rows_eval(X, y, w_chains, device):
+    """23e's second model (``model_rows_normal``) on a rank's rows: one
+    batched potential-and-gradient evaluation at ``w_chains``, warm, timed
+    with its all_reduces over the data, and beside it the same evaluation
+    on the rank's untagged rows (no tag, no sum); held against a plain
+    version on the rank's plain rows whose value and gradient are summed
+    over the data group by explicit all_reduces (potential rtol 1e-5,
+    gradient rtol 1e-4 and atol 1e-4 of the largest component)."""
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+    from numpyro_tpu_torch.parallel.data_shard import local_rows
+
+    c = w_chains.shape[0]
+    size = X.data_shard.size
+    z = {"w": w_chains, "b": torch.linspace(-0.2, 0.2, c, device=device),
+         "sigma": torch.linspace(-1.0, -0.5, c, device=device)}  # log sigma
+    fn = infer_util.batched_value_and_grad(
+        lambda z: infer_util.potential_energy(model_rows_normal, (X, y, size), {}, z))
+    fn(z)  # warm
+    mesh_lib.reset_collective_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    value, grad = fn(z)
+    _sync(device)
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "reduces": mesh_lib.collective_counts["over_data"]}
+    # the same evaluation on the rank's plain rows (no tag, no sum): what the
+    # tag and the sums add
+    Xl, yl = local_rows(X), local_rows(y)
+    untagged = infer_util.batched_value_and_grad(
+        lambda z: infer_util.potential_energy(model_rows_normal, (Xl, yl, Xl.shape[0]), {}, z))
+    untagged(z)
+    _sync(device)
+    t0 = time.perf_counter()
+    untagged(z)
+    _sync(device)
+    out["untagged_ms"] = (time.perf_counter() - t0) * 1e3
+    # the plain version: the rows' log-likelihood on this rank, its value and
+    # gradient summed over the group, and the prior with its Jacobian
+    half_log_2pi = 0.5 * math.log(2 * math.pi)
+
+    def loglik(w, b, u):
+        r = (yl - (Xl @ w + b)) * torch.exp(-u)
+        return (-0.5 * r * r - u - half_log_2pi).sum()
+
+    def prior(w, b, u):
+        sigma = torch.exp(u)
+        return (-0.5 * (w * w).sum() - 0.5 * b * b - 0.5 * sigma * sigma + math.log(2.0)
+                - (D + 2) * half_log_2pi + u)
+
+    def value_and_grad(f):
+        g, v = torch.func.vmap(torch.func.grad_and_value(f, argnums=(0, 1, 2)))(
+            z["w"], z["b"], z["sigma"])
+        return v, torch.cat([g[0], g[1][:, None], g[2][:, None]], 1)
+
+    ll, g_ll = value_and_grad(loglik)
+    group = X.data_shard.group
+    ll, g_ll = mesh_lib.all_reduce(ll, group), mesh_lib.all_reduce(g_ll, group)
+    lp, g_lp = value_and_grad(prior)
+    want, g_want = -(ll + lp), -(g_ll + g_lp)
+    got = torch.cat([grad["w"], grad["b"][:, None], grad["sigma"][:, None]], 1)
+    out["pe_err"] = ((value - want).abs() / want.abs()).max().item()
+    out["g_need"] = ((got - g_want).abs() - 1e-4 * g_want.abs()).max().item() \
+        / g_want.abs().max().item()
+    out["finite"] = bool(torch.isfinite(value).all() and torch.isfinite(got).all())
+    return out
+
+
+def rows_leg(X, y, w_chains, w_map, mesh, device):
+    """23e: ``model_rows`` on a rank's rows (``X``, ``y`` from
+    ``shard_data``): the potential and gradient at ``w_chains`` with the
+    all_reduces of that evaluation, then pooled NUTS from ``w_map``
+    (``ROWS_NUTS``) on ``mesh``: its draws, evaluations, all_reduces over
+    the data, GLM launches and seconds."""
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+
+    size = X.data_shard.size
+
+    def pe(z):
+        return infer_util.potential_energy(model_rows, (X, y, size), {}, z)
+
+    mesh_lib.reset_collective_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    value, grad = infer_util.batched_value_and_grad(pe)({"w": w_chains})
+    _sync(device)
+    out = {"pe": value.cpu(), "grad": grad["w"].cpu(), "eval_s": time.perf_counter() - t0,
+           "eval_reduces": mesh_lib.collective_counts["over_data"]}
+    out["normal"] = normal_rows_eval(X, y, w_chains, device)
+    chains, warmup, samples, depth, _ = ROWS_NUTS
+    mcmc = MCMC(NUTS(model_rows, max_tree_depth=depth, pooled_adaptation=True,
+                     init_strategy=init_to_value(values={"w": w_map})),
+                num_warmup=warmup, num_samples=samples, num_chains=chains,
+                chain_method="parallel", mesh=mesh)
+    glm.reset_launch_counts()
+    mesh_lib.reset_collective_counts()
+    t0 = time.perf_counter()
+    mcmc.run(3, X, y, size)
+    stats = mcmc.last_run_stats
+    out.update(draws=mcmc.get_samples(group_by_chain=True)["w"].cpu(),
+               evals=stats["potential_evals"], init_traces=stats["init_traces"],
+               reduces=mesh_lib.collective_counts["over_data"], s=time.perf_counter() - t0,
+               phases={k: stats[f"{k}_s"] for k in ("init", "warmup", "sample")},
+               glm_launches=sum(glm.launch_counts.values()))
+    return out
+
+
+def _ecs_step(state):
+    """What 23f compares of an HMCECS state: indices, draws, potentials."""
+    return {"idx": state.z["N"].cpu(), "w": state.z["w"].cpu(),
+            "pe": state.hmc_state.potential_energy.cpu()}
+
+
+def ecs_lean_step(X, y, w_map, device):
+    """23f: 23c's HMCECS (``DATA_ECS``, the proxy at ``w_map``) in
+    ``panel_mode="lean"`` on a rank's rows, from 23c's seed: init and one
+    Gibbs step; the step's state, its all_reduces over the data axis, its
+    potential evaluations and seconds."""
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+
+    chains, warmup, _, depth, _ = DATA_ECS
+    anchor = {"w": w_map}
+    kernel = HMCECS(NUTS(model_ecs, max_tree_depth=depth, init_strategy=init_to_value(
+        values=anchor)), num_blocks=NUM_BLOCKS, proxy=HMCECS.taylor_proxy(anchor),
+        panel_mode="lean")
+    kwargs = {"size": X.data_shard.size}
+    glm.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = kernel.init(torch.Generator(device=device).manual_seed(5), warmup, None, (X, y),
+                        kwargs, num_chains=chains)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    mesh_lib.reset_collective_counts()
+    evals = infer_util.potential_evals
+    t0 = time.perf_counter()
+    state = kernel.sample(state, (X, y), kwargs)
+    _sync(device)
+    return {"step": _ecs_step(state), "reduces": mesh_lib.collective_counts["over_data"],
+            "evals": infer_util.potential_evals - evals, "init_s": init_s,
+            "s": time.perf_counter() - t0, "modes": dict(kernel.resolved_modes),
+            "glm_launches": sum(glm.launch_counts.values())}
+
+
 def ecs_leg(X, y, w_map, device):
     """23c: HMCECS with the Taylor proxy at ``w_map`` (phase 8d's MAP), its
     chains started there (``DATA_ECS``), through the per-step API; on a
@@ -5087,10 +5269,13 @@ def ecs_leg(X, y, w_map, device):
     t0 = time.perf_counter()
     for i in range(warmup + samples):
         state = kernel.sample(state, (X, y), kwargs)
+        if i == 0:
+            first_step = _ecs_step(state)  # 23f's reference
         if i >= warmup:
             draws.append(state.z["w"])
     _sync(device)
-    return {"first": first, "draws": torch.stack(draws, 1).cpu(), "setup_reduces": setup,
+    return {"first": first, "first_step": first_step, "draws": torch.stack(draws, 1).cpu(),
+            "setup_reduces": setup,
             "reduces": mesh_lib.collective_counts["over_data"],
             "evals": infer_util.potential_evals - evals, "transitions": warmup + samples,
             "init_s": init_s, "s": time.perf_counter() - t0, "modes": dict(kernel.resolved_modes),
@@ -5258,8 +5443,12 @@ def phase23_rank(rank, tmp):
                                 "all_reduce": mesh_lib.collective_counts["all_reduce"]}
     del fused_rows
 
-    # (c) HMCECS on the data shard
+    # (e) a model written for the whole data over the rows, no GLM op
+    out["e"] = rows_leg(Xs, ys, w_chains[: ROWS_NUTS[0]], go["w_map"].to(device), grid, device)
+
+    # (c) HMCECS on the data shard; (f) one lean step of it
     out["c"] = ecs_leg(Xs, ys, go["w_map"].to(device), device)
+    out["f"] = ecs_lean_step(Xs, ys, go["w_map"].to(device), device)
     torch.save(out, f"{tmp}/rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -5474,6 +5663,63 @@ def phase_ranks(ranks, per_step, X, y, w_chains, w_map, true_w):
         if d["launches"] != d["evals"] or not same:
             raise SystemExit(f"23d rank {r}: {d['launches']} launches for {d['evals']} "
                              "evaluations, or draws other than the one-process leg's")
+    # (e) the model over the rows against 23b's glm_fused f32 on the shard
+    chains_e, warm_e, draws_e, depth_e, gate_e = ROWS_NUTS
+    ll_rtol, g_rtol, g_atol = glm.kernel_tolerances("f32", N)
+    for r, got in enumerate(res):
+        e, f = got["e"], got["b_fused"]["glm_fused_f32"]
+        w = w_chains[:chains_e].cpu()
+        # the likelihood's part of the potential: the potential is minus the
+        # log-likelihood and the prior's log-density, whose gradient is -w
+        prior = -0.5 * (w**2).sum(-1) - 0.5 * D * math.log(2 * math.pi)
+        ll, g = -e["pe"] - prior, -e["grad"] + w
+        ll_err = ((ll - f["ll"][:chains_e]).abs() / f["ll"][:chains_e].abs()).max().item()
+        g_need = ((g - f["g"][:chains_e]).abs() - g_rtol * f["g"][:chains_e].abs()).max().item()
+        err = (e["draws"].double().mean((0, 1)) - torch.from_numpy(true_w).double()).abs().max()
+        log(f"[ranks] 23e rank {r}: Bernoulli(logits=X @ w) with obs=y on {got['rows']:,} rows, "
+            f"no GLM op; at {chains_e} chains loglik max rel err {ll_err:.3e} (rtol {ll_rtol}), "
+            f"gradient least atol {g_need:.3e} (atol {g_atol:.3e}) against 23b's glm_fused f32 "
+            f"on the shard, {e['eval_reduces']} all_reduces over the data, "
+            f"{e['eval_s'] * 1e3:.1f} ms; pooled NUTS {warm_e} + {draws_e} at depth {depth_e} "
+            f"from the MAP: {e['evals']} evaluations + {e['init_traces']} init trace, "
+            f"{e['reduces']} all_reduces over the data ({e['reduces'] / e['evals']:.2f} an "
+            f"evaluation), {e['s']:.2f} s ("
+            + ", ".join(f"{k} {v:.2f} s" for k, v in e["phases"].items())
+            + f", {e['s'] / e['evals'] * 1e3:.2f} ms an evaluation); max |mean(w) - true_w| "
+            f"{err.item():.4f} (gate {gate_e}); GLM launches {e['glm_launches']}")
+        if ll_err > ll_rtol or g_need > g_atol or e["eval_reduces"] != 2:
+            raise SystemExit(f"23e rank {r}: the model over the rows disagrees with glm_fused "
+                             "f32 on the shard, or not two all_reduces an evaluation")
+        if (e["glm_launches"] or not torch.isfinite(e["draws"]).all() or not err < gate_e
+                or e["draws"].shape != (chains_e, draws_e, D)
+                or not torch.equal(e["draws"], res[0]["e"]["draws"])):
+            raise SystemExit(f"23e rank {r}: a GLM launch, bad draws, draws other than rank "
+                             "0's, or a missed gate")
+        nm = e["normal"]
+        log(f"[ranks] 23e rank {r}: Normal(X @ w + b, sigma) with obs=y at {chains_e} chains: "
+            f"one evaluation {nm['ms']:.1f} ms, {nm['reduces']} all_reduces over the data "
+            f"(on the rank's untagged rows, no sums: {nm['untagged_ms']:.1f} ms); "
+            f"potential max rel err {nm['pe_err']:.3e} (rtol 1e-5), gradient least atol "
+            f"{nm['g_need']:.3e} of its largest component (1e-4) against the plain version "
+            "summed by explicit all_reduces")
+        if not nm["finite"] or nm["pe_err"] > 1e-5 or nm["g_need"] > 1e-4:
+            raise SystemExit(f"23e rank {r}: the Normal model over the rows disagrees with "
+                             "its plain version")
+
+    # (f) one lean Gibbs step against 23c's first step in carry mode
+    for r, got in enumerate(res):
+        f, ref = got["f"], got["c"]["first_step"]
+        same = all(torch.equal(f["step"][k], ref[k]) for k in ref)
+        log(f"[ranks] 23f rank {r}: HMCECS {DATA_ECS[0]} chains, one Gibbs step in "
+            f"{f['modes']}: init {f['init_s']:.2f} s, the step {f['s']:.2f} s, "
+            f"{f['evals']} evaluations ({f['s'] / f['evals'] * 1e3:.2f} ms each), "
+            f"{f['reduces']} all_reduces over the data (one an evaluation and one for the "
+            f"proxy's statistics); indices, draws and potentials equal 23c's first step in "
+            f"carry mode bit for bit: {same}")
+        if (not same or f["modes"].get("panel") != "lean" or f["glm_launches"]
+                or f["reduces"] != f["evals"] + 1):
+            raise SystemExit(f"23f rank {r}: the lean step differs from carry mode's, or not "
+                             "one all_reduce an evaluation")
     launches = {
         "glm_split": [got["a"]["launches"] + got["b"]["launches"] + got["d"]["launches"]
                       for got in res] + [chees_ref["launches"]],

@@ -2,6 +2,7 @@
 annealing idle?
 
     python3 -m dev.dais_spread [cpu|cuda] [first] [last] [particles]
+    python3 -m dev.dais_spread compare PORT_IDLE PORT_RUNS JAX_IDLE JAX_RUNS
 
 Run from the root of the repo.  Fits the port's ``AutoDAIS(K=4,
 eta_init=0.01)`` to ``examples/dais_demo.py``'s model at
@@ -12,7 +13,9 @@ mean, sd and correlation and its learned ``eta_coeff``.  A run whose
 correlation stays above -0.3 has kept its step size clipped near 0: its fit
 is a mean-field one (sd about 0.15, correlation about 0).  The last line
 gives the share of such runs; ``JAX_PLATFORMS=cpu python3 -m
-dev.flows_reference dais_spread`` gives the JAX package's.
+dev.flows_reference dais_spread:8 KEYS`` gives the JAX package's.
+``compare`` tests two such counts against each other: the two-sided
+p-values of Fisher's exact test and of the two-proportion z test.
 """
 
 import os
@@ -29,7 +32,22 @@ from numpyro_tpu_torch.optim import Adam  # noqa: E402
 IDLE_CORRELATION = -0.3
 
 
+def compare(port_idle, port_runs, jax_idle, jax_runs):
+    from scipy import stats
+
+    table = [[port_idle, port_runs - port_idle], [jax_idle, jax_runs - jax_idle]]
+    fisher = stats.fisher_exact(table).pvalue
+    p1, p2 = port_idle / port_runs, jax_idle / jax_runs
+    pooled = (port_idle + jax_idle) / (port_runs + jax_runs)
+    z = (p1 - p2) / (pooled * (1 - pooled) * (1 / port_runs + 1 / jax_runs)) ** 0.5
+    print(f"dais_spread compare: port {port_idle} of {port_runs} idle ({p1:.4f}), JAX package "
+          f"{jax_idle} of {jax_runs} ({p2:.4f}); Fisher's exact p = {fisher:.4f}; "
+          f"two-proportion z = {z:.3f}, p = {2 * stats.norm.sf(abs(z)):.4f}")
+
+
 def main(argv):
+    if argv and argv[0] == "compare":
+        return compare(*(int(a) for a in argv[1:5]))
     device = torch.device(argv[0] if argv else "cpu")
     first = int(argv[1]) if len(argv) > 1 else 0
     last = int(argv[2]) if len(argv) > 2 else 40

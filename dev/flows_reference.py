@@ -4,8 +4,8 @@ CPU, as the reference for ``chip_smoke.IAF_GATE`` and ``DAIS_GATE``.
     JAX_PLATFORMS=cpu python3 -m dev.flows_reference [legs] [keys]
 
 Run from the root of the repo.  ``legs`` is a comma-separated subset of
-``iaf,dais,dais_spread,moon`` (``iaf,dais,moon`` by default), ``keys`` the PRNG keys (0 1 2 by
-default).
+``iaf,dais,dais_spread,moon`` (``iaf,dais,moon`` by default; ``dais_spread:8`` runs the
+spread at 8 particles alone), ``keys`` the PRNG keys (0 1 2 by default).
 
 - ``iaf``: ``AutoIAFNormal`` (3 flows, hidden widths [55, 55], ELU) with
   ``Trace_ELBO`` and ``Adam(0.01)`` at ``chip_smoke.IAF_RUN`` on the covtype-shape data of
@@ -136,10 +136,10 @@ def dais(keys):
               f"correlation {c:.4f}", flush=True)
 
 
-def dais_spread(keys):
+def dais_spread(keys, particles_list=(8, 16)):
     n, steps, lr, _, draws = DAIS_DEMO
     X, y = dais_demo_xy(n)
-    for particles in (8, 16):
+    for particles in particles_list:
         idle = []
         for key in keys:
             guide = AutoDAIS(dais_model, K=4, eta_init=0.01,
@@ -192,6 +192,11 @@ def main(argv):
     legs = argv[0].split(",") if argv else ["iaf", "dais", "moon"]
     keys = [int(a) for a in argv[1:]] or [0, 1, 2]
     for leg in legs:
+        # "dais_spread:8" runs the spread at 8 particles alone
+        leg, _, particles = leg.partition(":")
+        if particles:
+            dais_spread(keys, (int(particles),))
+            continue
         {"iaf": iaf, "dais": dais, "dais_spread": dais_spread, "moon": moon}[leg](keys)
 
 

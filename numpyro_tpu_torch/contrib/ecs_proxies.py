@@ -95,7 +95,6 @@ class subsample_panels(primitives.Messenger):
                 self.shards[msg["_shard_gathered"]] = msg["_data_shard"]
         else:
             msg["value"] = self.panels[self._i].to(msg["value"].dtype)
-            msg["_replayed"] = True
             self._i += 1
         msg["_pregathered"] = True
 
@@ -200,7 +199,8 @@ class subsample_estimator(primitives.Messenger):
         self._call_kwargs = {
             k: v
             for k, v in kwargs.items()
-            if k not in ("_gibbs_sites", "_gibbs_state", "_subsample_panels")
+            if k not in ("_gibbs_sites", "_gibbs_state", "_subsample_panels",
+                         "_lean_shard_latents")
         }
         return super().__call__(*args, **kwargs)
 

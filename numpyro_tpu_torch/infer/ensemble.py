@@ -43,9 +43,15 @@ chain shard ``i`` of ``S``.  The refreshed half is gathered back (one
 also sums its loop conditions and its counts of steps over the chain group
 (one ``all_reduce`` a bracket iteration).  Each rank keeps its rows of the
 result, so the run equals the one-process run bit for bit where a walker's
-density does not depend on how many walkers share its batch.  The walkers
-are the ensemble, so a chain count that the shards do not divide cannot be
-padded: such a run runs unsharded (``MCMC`` warns).
+density does not depend on how many walkers share its batch.  A walker count
+that the shards do not divide is padded, as the JAX package pads it: the
+ensemble then has the padded count of walkers, the pad walkers start where
+an init on the run's pad generator (``hmc_core.ShardedDraws``) puts them
+(copies of the first walkers where ``init_params`` are given), they move
+with the ensemble, and ``MCMC`` drops them at collection.  The kernel's
+``init`` takes the sharded draw source itself and returns this rank's rows
+(``inits_own_shard``); in one process, a ``ShardedDraws`` over one shard that
+holds every row runs the same padded ensemble.
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ from numpyro_tpu_torch.infer.initialization import init_to_uniform
 from numpyro_tpu_torch.infer.mcmc import MCMCKernel
 from numpyro_tpu_torch.infer.util import initialize_model
 from numpyro_tpu_torch.parallel.mesh import all_reduce, gather_rows
-from numpyro_tpu_torch.util import identity, tree_leaves
+from numpyro_tpu_torch.util import identity, tree_leaves, tree_map
 
 __all__ = [
     "AIES", "AIESState", "ESS", "ESSState", "EnsembleSampler", "EnsembleSamplerState",
@@ -167,7 +173,7 @@ class _HalfStep:
         if self.group is None:
             self.start, self.stop = 0, m
         else:
-            c = shard.num_chains
+            c = shard.padded
             self.start, self.stop = shard.start * m // c, shard.stop * m // c
         self.own = slice(self.start, self.stop)
 
@@ -199,8 +205,9 @@ class EnsembleSampler(MCMCKernel, ABC):
     ensemble given the second, then the second given the refreshed first."""
 
     sample_field = "z"
-    # the chains are the walkers of one ensemble: MCMC never pads them
-    pads_chains = False
+    # init takes MCMC's sharded draw source and returns this rank's walkers,
+    # the pad walkers made by the kernel itself
+    inits_own_shard = True
 
     def __init__(self, model=None, potential_fn=None, *, randomize_split, init_strategy):
         if not (model is None) ^ (potential_fn is None):
@@ -234,10 +241,10 @@ class EnsembleSampler(MCMCKernel, ABC):
     def _pick_move(self, draws):
         return 0 if len(self._moves) == 1 else draws.choice(self._weights)
 
-    def _setup_density(self, generator, model_args, model_kwargs, init_params):
+    def _setup_density(self, generator, model_args, model_kwargs, init_params, num_chains):
         if self._model is not None:
             info = initialize_model(
-                generator, self._model, num_chains=self._num_chains, dynamic_args=True,
+                generator, self._model, num_chains=num_chains, dynamic_args=True,
                 init_strategy=self._init_strategy, model_args=model_args,
                 model_kwargs=model_kwargs, validate_grad=False,
             )
@@ -261,13 +268,17 @@ class EnsembleSampler(MCMCKernel, ABC):
     def init(self, rng_key, num_warmup, init_params=None, model_args=(), model_kwargs=None,
              num_chains=None):
         """``rng_key``: a ``torch.Generator`` on the chains' device (or a draw
-        source); ``num_chains`` must be given and even."""
+        source); ``num_chains`` must be given and even.  A sharded draw
+        source (``hmc_core.ShardedDraws``) makes the ensemble the padded
+        panel of its shard, of which the state holds this rank's rows."""
         model_kwargs = {} if model_kwargs is None else model_kwargs
         assert num_chains is not None and num_chains > 1, (
             "EnsembleSampler only supports chain_method='vectorized' with num_chains > 1."
         )
-        assert num_chains % 2 == 0, "Number of chains must be even."
-        self._num_chains = num_chains
+        shard = getattr(rng_key, "shard", None)
+        walkers = num_chains if shard is None else shard.padded
+        assert walkers % 2 == 0, "Number of chains must be even."
+        self._num_chains = walkers
         if init_params is not None:
             assert all(x.shape[0] == num_chains for x in tree_leaves(init_params)), (
                 "The batch dimension of each param must match num_chains"
@@ -276,10 +287,36 @@ class EnsembleSampler(MCMCKernel, ABC):
             raise ValueError("Valid value of `init_params` must be provided with `potential_fn`.")
         infer_util.pin_full_f32_matmul()
         generator = getattr(core.as_draws(rng_key), "generator", rng_key)
-        init_params, flat = self._setup_density(generator, model_args, model_kwargs, init_params)
+        given = init_params is not None
+        init_params, flat = self._setup_density(generator, model_args, model_kwargs, init_params,
+                                                num_chains)
+        if walkers > num_chains:
+            init_params = self._padded(init_params, rng_key, model_args, model_kwargs, given)
+            flat = batch_ravel_pytree(init_params)[0]
         self._weights = self._weights.to(flat.device)
         self._num_warmup = num_warmup
+        if shard is not None:
+            init_params = tree_map(lambda x: x[shard.start : shard.stop], init_params)
         return EnsembleSamplerState(init_params, self.init_inner_state(rng_key, flat), rng_key)
+
+    def _padded(self, init_params, draws, model_args, model_kwargs, given):
+        """The real walkers' initial values followed by the pad walkers':
+        found by an init on the pad generator, or copies of the first
+        walkers where the caller gave the values."""
+        shard = draws.shard
+        pad = shard.padded - shard.num_chains
+        if given or self._model is None:
+            extra = tree_map(lambda x: x[torch.arange(pad, device=x.device) % x.shape[0]],
+                             init_params)
+        else:
+            if draws.pad_generator is None:
+                raise ValueError("the ensemble has pad walkers but no pad generator")
+            extra = initialize_model(
+                draws.pad_generator, self._model, num_chains=pad, dynamic_args=True,
+                init_strategy=self._init_strategy, model_args=model_args,
+                model_kwargs=model_kwargs, validate_grad=False,
+            ).param_info.z
+        return tree_map(lambda a, b: torch.cat([a, b]), init_params, extra)
 
     def postprocess_fn(self, args, kwargs):
         if self._postprocess_fn is None:
@@ -291,8 +328,9 @@ class EnsembleSampler(MCMCKernel, ABC):
         panel, unravel = batch_ravel_pytree(z)
         shard = getattr(rng_key, "shard", None)
         if shard is not None:
-            # the whole ensemble, and the draws that one process makes
-            panel = shard.gather(panel)
+            # the whole ensemble, pad walkers included, and the draws that
+            # one process makes
+            panel = gather_rows(panel, shard.start, shard.padded, shard.group)
             inner_state = inner_state._replace(rng_key=_whole_draws(inner_state.rng_key))
         if self._randomize_split:
             draws = _whole_draws(rng_key)

@@ -462,9 +462,10 @@ class ShardedDraws(GeneratorDraws):
     ranks (``shard``: a ``parallel.mesh.ChainShard``).  Every draw is made
     for all ``shard.num_chains`` real chains from ``generator``, as
     :class:`GeneratorDraws` makes it in one process, then for the pad rows
-    from ``pad_generator`` (only on the rank that holds them), and the rank
-    keeps its rows: a sharded run draws what the one-process run draws, row
-    for row, and the pad draws nothing from the real chains' generator.
+    from ``pad_generator`` (drawn from only on the rank that holds them; an
+    ensemble's init places its pad walkers with it on every rank), and the
+    rank keeps its rows: a sharded run draws what the one-process run draws,
+    row for row, and the pad draws nothing from the real chains' generator.
     Every rank's ``generator`` goes through the same states.
 
     A draw without a leading chain axis (``choice``, ``categorical``,

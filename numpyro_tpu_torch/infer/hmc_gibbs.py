@@ -42,6 +42,7 @@ from numpyro_tpu_torch.infer import util as infer_util
 from numpyro_tpu_torch.infer.hmc import HMC, HMCState
 from numpyro_tpu_torch.infer.initialization import init_to_sample
 from numpyro_tpu_torch.infer.mcmc import MCMCKernel
+from numpyro_tpu_torch.parallel.data_shard import shard_of
 from numpyro_tpu_torch.parallel.mesh import sum_partial_panels
 from numpyro_tpu_torch.util import identity, tree_map
 
@@ -434,6 +435,9 @@ def _wrap_gibbs_state(model, *args, **kwargs):
     msg = {"type": "_gibbs_state", "value": kwargs.pop("_gibbs_state", ())}
     primitives.apply_stack(msg)
     panels = kwargs.pop("_subsample_panels", None)
+    latents = kwargs.pop("_lean_shard_latents", None)
+    if panels is None and latents is not None:
+        panels = _lean_shard_panels(model, latents, args, kwargs)
     if panels is not None:
         # announce the panels to the estimator (for the proxy's pointwise
         # re-evaluations) and replay them in place of in-potential gathers
@@ -441,6 +445,36 @@ def _wrap_gibbs_state(model, *args, **kwargs):
         with subsample_panels(panels=panels):
             return model(*args, **kwargs)
     return model(*args, **kwargs)
+
+
+def _lean_shard_panels(model, latents, args, kwargs):
+    """The panels of one potential evaluation in lean mode on data shards:
+    every subsample plate's masked local gather, recorded in one pass of the
+    model (``latents`` in place of its latent sites, so that nothing draws),
+    and summed over the data group in one ``all_reduce`` for all of them
+    and every chain (``parallel.mesh.sum_partial_panels`` inside the
+    ``vmap``).  The evaluation then replays them, as carry mode replays its
+    carried panels."""
+    out, groups = [], []
+    with block(), subsample_panels(record=True, out=out, groups=groups), \
+            substitute(data=latents):
+        model(*args, **kwargs)
+    return sum_partial_panels(out, groups)
+
+
+def _holds_data_shard(tree):
+    """Whether a leaf of the model's arguments holds a rank's rows of a
+    data shard."""
+    found = []
+
+    def visit(x):
+        shard = shard_of(x)
+        if shard is not None and shard.partial:
+            found.append(x)
+        return x
+
+    tree_map(visit, tree)
+    return bool(found)
 
 
 class HMCECS(HMCGibbs):
@@ -469,6 +503,7 @@ class HMCECS(HMCGibbs):
         self._collect_subsample_indices = collect_subsample_indices
         self._panel_mode = panel_mode
         self._panel_mode_resolved = None
+        self._lean_on_shards = False
         self.inner_kernel._model = partial(_wrap_gibbs_state, self.inner_kernel._model)
         # the pristine wrapped model: init() layers the subsample estimator on
         # top of THIS each time, so that re-initialization is idempotent
@@ -572,8 +607,13 @@ class HMCECS(HMCGibbs):
         one_state = proxy_init(proto_idx, model_args, model_kwargs) if self._has_proxy else ()
         gibbs_state = tree_map(panel, one_state)
         self._resolve_panel_mode(proto_idx, model_args, model_kwargs, c)
+        # lean on data shards: each evaluation gathers its panels at once
+        self._lean_on_shards = self._panel_mode_resolved == "lean" and _holds_data_shard(
+            (model_args, model_kwargs))
         if self._panel_mode_resolved == "lean":
             panels = ()
+            if self._lean_on_shards:
+                model_kwargs["_lean_shard_latents"] = self._proto_latents
         else:
             whole = self._record_panels(idx_panel, model_args, model_kwargs)
             panels = self._cast_panels(whole)
@@ -673,6 +713,10 @@ class HMCECS(HMCGibbs):
             )
 
         # batched pseudo-marginal MH on the likelihood-estimator difference
+        if self._lean_on_shards:
+            # the evaluations gather their panels; the proxy's update has
+            # gathered its own above
+            model_kwargs = {**model_kwargs, "_lean_shard_latents": self._proto_latents}
         per_chain_new = {"_gibbs_sites": z_gibbs_new, "_gibbs_state": gibbs_state_new}
         if not lean:
             # one gather per step: the whole inner trajectory replays it

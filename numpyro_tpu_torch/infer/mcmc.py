@@ -20,7 +20,8 @@ Chain methods:
   vectorized program.  Kernels whose transition couples chains gather what
   couples them over the chain group: ChEES its adaptation's panels, the
   ensembles the walkers (``infer/chees.py``, ``infer/ensemble.py``); an
-  ensemble is not padded, and runs unsharded where it would be.
+  ensemble's pad walkers join its moves (their own generator places them
+  at the start) and are dropped at collection, as in the JAX package.
 - ``"sequential"``: one single-chain run per chain, one after another, with
   the results stacked on a leading chain axis.  Chain ``i`` runs on its own
   generator, seeded with the ``i``-th of ``num_chains`` integers that the
@@ -259,13 +260,6 @@ class MCMC:
         if n <= 1:
             return None
         pad = (-self.num_chains) % n
-        if pad and not getattr(self.sampler, "pads_chains", True):
-            warnings.warn(
-                f"num_chains={self.num_chains} is not divisible by the {n} chain shards, and "
-                f"{type(self.sampler).__name__}'s chains are the walkers of one ensemble, "
-                "which a pad would join; running unsharded.", stacklevel=3,
-            )
-            return None
         if pad and not allow_pad:
             warnings.warn(
                 f"num_chains={self.num_chains} is not divisible by the {n} chain shards and the "
@@ -293,12 +287,15 @@ class MCMC:
         t0 = time.perf_counter()
         shard = rng_key.shard if isinstance(rng_key, core.ShardedDraws) else None
         if init_state is None:
-            # sharded, every rank initializes the full panel and keeps its rows
+            # sharded, every rank initializes the full panel and keeps its
+            # rows; an ensemble makes its pad walkers and keeps its rows itself
+            own = shard is not None and getattr(sampler, "inits_own_shard", False)
             state = sampler.init(
-                rng_key if shard is None else rng_key.generator, self.num_warmup, init_params,
-                model_args=args, model_kwargs=kwargs, num_chains=num_chains if batched else None,
+                rng_key if shard is None or own else rng_key.generator, self.num_warmup,
+                init_params, model_args=args, model_kwargs=kwargs,
+                num_chains=num_chains if batched else None,
             )
-            if shard is not None:
+            if shard is not None and not own:
                 state = core.shard_state(state, shard, rng_key.pad_generator)
             _sync(self.device)
             stats["init_s"] = time.perf_counter() - t0
@@ -472,7 +469,7 @@ class MCMC:
             shard = self._shard_over_chains(allow_pad=init_state is None)
         if shard is not None:
             pad_generator = None
-            if shard.stop > shard.num_chains:
+            if shard.padded > shard.num_chains:
                 pad_generator = torch.Generator(device=self.device).manual_seed(
                     (rng_key.initial_seed() * 1_000_003 + self.num_chains) % 2**63
                 )

@@ -39,7 +39,8 @@ from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
-from numpyro_tpu_torch.primitives import Messenger, _refuse_data_shard, factor
+from numpyro_tpu_torch.parallel.data_shard import shard_of
+from numpyro_tpu_torch.primitives import Messenger, factor
 from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
 __all__ = [
@@ -192,10 +193,10 @@ def device_generator(rng_key, device, owner):
 
 def _site_log_prob(site, *, check_shapes=False):
     """Scaled elementwise log-prob of one sample site; a draw made with its
-    intermediates (``TransformedDistribution``) is scored with them.  A value
-    that holds one rank's rows of a data shard raises."""
+    intermediates (``TransformedDistribution``) is scored with them.  Over a
+    rank's rows of a data shard it holds those rows, tagged; its sum is the
+    whole data's (``parallel.data_shard``)."""
     value = site["value"]
-    _refuse_data_shard(value, f"the value of sample site {site['name']!r}")
     if site.get("intermediates"):
         lp = site["fn"].log_prob(value, site["intermediates"])
     else:
@@ -610,6 +611,12 @@ def _get_model_transforms(model, model_args=(), model_kwargs=None):
     has_enumerate_support = False
     for name, site in model_trace.items():
         if site["type"] == "sample" and not site["is_observed"]:
+            shard = shard_of(site["value"])
+            if shard is not None and shard.partial:
+                raise NotImplementedError(
+                    f"latent site {name!r} has a value over the rows of a data shard "
+                    f"({shard}): a latent a row would be this rank's alone, and the port "
+                    "keeps every latent whole on every rank (ROADMAP.md)")
             if site["fn"].support.is_discrete:
                 enum_type = site["infer"].get("enumerate")
                 if enum_type is not None and enum_type != "parallel":

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from numpyro_tpu_torch.ops.provenance import ProvenanceTensor, get_provenance
+from numpyro_tpu_torch.parallel.data_shard import local_rows
 from numpyro_tpu_torch.parallel.mesh import all_reduce
 
 __all__ = [
@@ -176,6 +177,8 @@ def prepare_glm_data(X, y, dtype=torch.float32):
                          "or neither")
     if x_shard is not None and x_shard.axis != 0:
         raise ValueError("the GLM data is sharded by rows (shard_data(..., axis=0))")
+    # the op sums over the data group itself: it reads the plain rows
+    X, y = local_rows(X), local_rows(y)
     N, D = X.shape
     mode = _mode(dtype)
     d_pad = max(8 * ((D + 7) // 8), 8)

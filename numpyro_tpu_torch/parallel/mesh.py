@@ -17,10 +17,12 @@ collectives.  PyTorch's idiom is one process per device, joined by
   ``S`` first).  A sharded run therefore draws what the one-process run
   draws, row for row (``infer.hmc_core.ShardedDraws``).
 - :func:`shard_data` gives a rank its rows of the observations, rows
-  ``[j N / S, (j + 1) N / S)`` of ``N`` on data shard ``j`` of ``S``; the
-  GLM op adds its partial sums over the data group (``ops.glm``), and a
-  ``subsample`` of such rows under a plate that subsamples them takes the
-  whole data's rows (:func:`subsample_shard`).
+  ``[j N / S, (j + 1) N / S)`` of ``N`` on data shard ``j`` of ``S``, tagged
+  (``parallel.data_shard.DataShardTensor``): every op carries the tag, and a
+  sum over the rows, a sample site's log-density included, is the whole
+  data's with its gradient; the GLM op adds its partial sums over the data
+  group (``ops.glm``), and a ``subsample`` of such rows under a plate that
+  subsamples them takes the whole data's rows (:func:`subsample_shard`).
 
 Collectives are ``all_reduce`` (and nothing else) on tensors of the device
 the data lives on: gloo supports only ``all_reduce`` and ``broadcast`` on
@@ -41,6 +43,7 @@ import torch.distributed as dist
 
 from numpyro_tpu_torch.diagnostics import effective_sample_size, split_gelman_rubin
 from numpyro_tpu_torch.distributions.util import in_transform
+from numpyro_tpu_torch.parallel.data_shard import DataShard, DataShardTensor, local_rows
 from numpyro_tpu_torch.util import tree_leaves, tree_map
 
 __all__ = [
@@ -340,49 +343,82 @@ def shard_chain_state(state, mesh, num_chains=None):
     return shard_state(state, mesh.chain_shard(num_chains))
 
 
-class DataShard:
-    """Rows ``[start, stop)`` along ``axis`` of a tensor of ``size`` rows
-    there, held by this rank of the data axis's process ``group``."""
-
-    def __init__(self, start, stop, axis, group, size):
-        self.start, self.stop, self.axis, self.group = start, stop, axis, group
-        self.size = size
-
-
 def shard_data(data, mesh, axis=0):
     """This rank's rows of ``data`` along ``axis`` over the mesh's ``data``
     axis (replicated over ``chains``), on the mesh's device: rows
     ``[j N / S, (j + 1) N / S)`` on data shard ``j`` of ``S``, so a count that
     does not divide evenly leaves the first shards a row fewer.
 
-    The result carries a ``data_shard`` (:class:`DataShard`: its rows, the
-    whole length ``N`` and the data group), which two paths read:
+    The result is a :class:`~numpyro_tpu_torch.parallel.data_shard.DataShardTensor`:
+    it holds those rows and carries its tag (``data_shard``: the rows, the
+    whole length ``N`` and the data group) through every op, so that a
+    model written for the whole data runs on it as the JAX package's model
+    runs on its global array (``parallel/data_shard.py`` has the rules):
 
-    - ``ops.glm.prepare_glm_data``: the GLM op sums its partial
-      log-likelihood and gradient over the group;
-    - ``subsample`` under a plate of size ``N`` that subsamples ``axis``:
-      the plate's indices run over the whole data, and the panel it gives is
-      the whole data's, bit for bit (:func:`subsample_shard`).  A model
-      gives such a plate the whole size, never ``X.shape[0]``, which is this
-      rank's count.
+    - ops along other axes keep the tag (``y.float()``, ``X[:, :3]``,
+      ``X @ w``);
+    - a sum over the rows, a sample site's log-density included (``obs=``,
+      a scored value, ``factor``), is the whole data's, on every rank, and
+      so is its gradient;
+    - ``subsample`` under a plate of size ``N`` that subsamples ``axis``
+      takes the whole data's rows at the plate's indices, bit for bit
+      (:func:`subsample_shard`); outside a plate, or under one that does
+      not subsample the axis, it returns the tagged rows unchanged;
+    - an op that cuts, reorders or mixes the rows by position raises.
 
-    Anything else raises a ``ValueError`` where the tag reaches it: ``obs=``
-    of a sample site, a scored site value, ``subsample`` under no plate that
-    subsamples the axis.  A tensor derived from the rows (``y.float()``,
-    ``X[:, :3]``, ``X @ w``) has no tag and holds this rank's rows alone:
-    derive it before ``shard_data``, or inside the subsampled plate."""
-    data = torch.as_tensor(data)
+    A plate over the rows takes the whole size ``N``, never ``X.shape[0]``,
+    which is this rank's count (such a plate raises).  The GLM op
+    (``ops.glm.prepare_glm_data``) sums its partial log-likelihood and
+    gradient over the group itself."""
+    data = torch.as_tensor(local_rows(data))
     n = data.shape[axis]
     j, s = mesh.coords.get("data", 0), mesh.num_data_shards
     start, stop = j * n // s, (j + 1) * n // s
     rows = data.narrow(axis, start, stop - start).to(mesh.device).contiguous()
-    rows.data_shard = DataShard(start, stop, axis % data.dim(), mesh.data_group, n)
-    return rows
+    positive = axis % data.dim()
+    shard = DataShard(start, stop, positive, mesh.data_group, n)
+    return DataShardTensor(rows, shard, positive - data.dim())
 
 
-# how subsample_shard sums: "now" (an all_reduce at once; not inside a
-# torch.func transform), "defer" (the caller sums after its vmap) or
-# "local" (this rank's own rows, summed by nobody)
+class _PanelSum(torch.autograd.Function):
+    """Partial panels summed over a data ``group`` as integers of their
+    bits (exact: every entry is one rank's or zeros), all of them in one
+    ``all_reduce`` (integers of at least 4 bytes; of 8 where the panels'
+    widths differ).  The ``vmap`` rule leaves the ``vmap`` and makes that one
+    ``all_reduce`` for every chain.  Panels are data: no cotangent crosses
+    the ranks."""
+
+    @staticmethod
+    def forward(group, *panels):
+        bits = [_as_bits(p) for p in panels]
+        if len({w.dtype for w, _ in bits}) > 1:
+            bits = [(w.to(torch.int64), b) for w, b in bits]
+        flat = torch.cat([w.reshape(-1) for w, _ in bits])
+        all_reduce(flat, group, over_data=True)
+        out, at = [], 0
+        for p, (w, b) in zip(panels, bits):
+            out.append(_from_bits(flat[at : at + w.numel()].reshape(w.shape), b, p.dtype))
+            at += w.numel()
+        return tuple(out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None,) * (len(cts) + 1)
+
+    @staticmethod
+    def vmap(info, in_dims, group, *panels):
+        moved = [p if d is None else p.movedim(d, 0) for p, d in zip(panels, in_dims[1:])]
+        return _PanelSum.apply(group, *moved), tuple(
+            None if d is None else 0 for d in in_dims[1:])
+
+
+# how subsample_shard sums: "now" (an all_reduce at once), "defer" (the
+# caller sums after its vmap) or "local" (this rank's own rows, summed by
+# nobody)
 _SUM_MODES = []
 
 
@@ -412,9 +448,11 @@ def subsample_shard(value, dim, indices, shard):
 
     Returns ``(panel, group)``: ``group`` is the data group whose sum the
     caller still owes under ``shard_sum_mode("defer")``, else ``None``.
-    Outside those modes the sum is one ``all_reduce`` at once, which a
-    ``torch.func`` transform cannot hold: there it raises."""
+    Outside those modes the sum is one ``all_reduce`` at once, inside a
+    ``torch.func`` transform too (:class:`_PanelSum`: ``panel_mode="lean"``
+    gathers in every potential evaluation)."""
     mode = _SUM_MODES[-1] if _SUM_MODES else "now"
+    value = local_rows(value)
     n_local = value.shape[dim]
     local = indices - shard.start
     inside = (local >= 0) & (local < n_local)
@@ -422,52 +460,28 @@ def subsample_shard(value, dim, indices, shard):
         if not in_transform() and not bool(inside.all()):
             raise ValueError("a local subsample of a data shard took rows of another rank")
         return torch.index_select(value, dim, local.clamp(0, n_local - 1)), None
-    if mode == "now" and shard.group is not None and (
-            in_transform()):
-        raise NotImplementedError(
-            "a subsample of a data shard inside a batched or differentiated evaluation "
-            "(torch.func.vmap or grad) needs a collective there, which torch.func cannot "
-            "run: HMCECS gathers its panels once a Gibbs step instead, and "
-            'panel_mode="lean", which gathers in every evaluation, does not run on data '
-            "shards (ROADMAP.md)"
-        )
     taken = torch.index_select(value, dim, local.clamp(0, n_local - 1))
     shape = [1] * value.dim()
     shape[dim] = -1
     panel = torch.where(inside.reshape(shape), taken, taken.new_zeros(()))
     if shard.group is None or mode == "defer":
         return panel, shard.group
-    wide, bits_dtype = _as_bits(panel)
-    return _from_bits(all_reduce(wide, shard.group, over_data=True), bits_dtype,
-                      panel.dtype), None
+    return _PanelSum.apply(shard.group, panel)[0], None
 
 
 def sum_partial_panels(panels, groups):
     """``panels`` with each partial one (its ``groups`` entry a data group,
     not ``None``) summed over its group, bit for bit: one ``all_reduce`` a
-    group, of every such panel's bits at once (integers of at least 4 bytes;
-    of 8 where the panels' widths differ)."""
+    group, of every such panel's bits at once (:class:`_PanelSum`), after a
+    ``vmap`` or inside one."""
     panels = list(panels)
     by_group = {}
     for i, g in enumerate(groups):
         if g is not None:
             by_group.setdefault(id(g), (g, []))[1].append(i)
-    if by_group and in_transform():
-        raise NotImplementedError(
-            "the partial panels of a data shard are summed once their vmap has returned: "
-            "record them outside any torch.func transform"
-        )
     for group, idx in by_group.values():
-        bits = [_as_bits(panels[i]) for i in idx]
-        if len({w.dtype for w, _ in bits}) > 1:
-            bits = [(w.to(torch.int64), b) for w, b in bits]
-        flat = torch.cat([w.reshape(-1) for w, _ in bits])
-        all_reduce(flat, group, over_data=True)
-        at = 0
-        for i, (w, b) in zip(idx, bits):
-            panels[i] = _from_bits(flat[at : at + w.numel()].reshape(w.shape), b,
-                                   panels[i].dtype)
-            at += w.numel()
+        for i, p in zip(idx, _PanelSum.apply(group, *(panels[i] for i in idx))):
+            panels[i] = p
     return tuple(panels)
 
 

@@ -13,12 +13,19 @@ returns and what every indexing path under ``vmap`` accepts); the JAX package
 keeps them as ``int32``.
 
 A tensor from ``parallel.shard_data`` holds one rank's rows of the data, where
-the JAX package's sharded array is the whole array.  ``subsample`` under a
-plate of the whole data's size that subsamples its rows takes the whole
-data's panel (``parallel.mesh.subsample_shard``); every other place where
-such a tensor would give this rank's rows alone raises a ``ValueError``:
-``obs=``, ``subsample`` with no plate that subsamples the sharded axis, a
-plate whose size is not the whole length.
+the JAX package's sharded array is the whole array; its tag rides through
+every op (``parallel.data_shard``), and a sum over its rows is the whole
+data's.  A sample site over tagged rows (an observed value, a distribution
+whose parameters carry the tag) is scored on the rank's rows, and the
+potential's sum over them is the whole data's.  A plate over such rows has
+the whole data's size ``N`` and takes the rank's rows as its ``N`` rows; a
+plate of the rank's own count (``X.shape[0]``) raises.  ``subsample`` under
+a plate of size ``N`` that subsamples the rows takes the whole data's panel
+(``parallel.mesh.subsample_shard``); with no plate, or one that does not
+subsample the rows, it returns them as they are, as the JAX package returns
+its global array.  A draw at a site over tagged rows (``Predictive``) takes
+the rank's rows from a generator of their own, seeded from the site's, so
+that the ranks' generators stay in step.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from contextlib import ExitStack, contextmanager
 import torch
 
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.distributions.util import broadcast_shape
+from numpyro_tpu_torch.distributions.util import broadcast_shape, in_transform
+from numpyro_tpu_torch.parallel.data_shard import distribution_shard, local_draws, shard_of
 from numpyro_tpu_torch.util import identity
 
 __all__ = [
@@ -48,11 +56,36 @@ _PYRO_STACK = []
 def default_process_message(msg):
     if msg["value"] is None:
         if msg["type"] == "sample":
+            shard = distribution_shard(msg["fn"])
+            if shard is not None and shard.partial:
+                _draw_rows(msg, shard)
+                return
             msg["value"], msg["intermediates"] = msg["fn"](
                 *msg["args"], sample_intermediates=True, **msg["kwargs"]
             )
         else:
             msg["value"] = msg["fn"](*msg["args"], **msg["kwargs"])
+
+
+def _draw_rows(msg, shard):
+    """A draw at a site whose distribution holds a rank's rows of a data
+    shard: one seed drawn from the site's generator (alike on every rank, so
+    the ranks' generators stay in step), and the rows drawn from a generator
+    seeded with it and the rank's first row."""
+    generator = msg["kwargs"].get("rng_key")
+    if not isinstance(generator, torch.Generator) or in_transform():
+        raise NotImplementedError(
+            f"sample site {msg['name']!r} draws over the rows of a data shard "
+            + ("inside a torch.func transform (a Predictive of more than one draw), where "
+               "the rows' generator cannot be seeded" if in_transform() else
+               f"from {type(generator).__name__}, not a torch.Generator")
+            + " (ROADMAP.md)")
+    seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+    rows = torch.Generator(device=generator.device).manual_seed(
+        (seed + shard.start) % 2**63)
+    with local_draws():
+        msg["value"], msg["intermediates"] = msg["fn"](
+            *msg["args"], sample_intermediates=True, **{**msg["kwargs"], "rng_key": rows})
 
 
 def apply_stack(msg):
@@ -119,26 +152,6 @@ def _dispatch(msg_type, name=None, fn=identity, value=None, kwargs=None, **extra
     return apply_stack(msg)
 
 
-def partial_data_shard(value):
-    """The ``data_shard`` of ``value`` if it holds part of the data's rows
-    (``parallel.shard_data`` over more than one data shard), else ``None``."""
-    shard = getattr(value, "data_shard", None)
-    if shard is None or shard.stop - shard.start == shard.size:
-        return None
-    return shard
-
-
-def _refuse_data_shard(value, where):
-    shard = partial_data_shard(value)
-    if shard is not None:
-        raise ValueError(
-            f"{where} is a data shard (parallel.shard_data): rows {shard.start} to "
-            f"{shard.stop} of {shard.size}, this rank's alone.  Take it through "
-            f"subsample() under a plate of size {shard.size} that subsamples it, or pass "
-            "the whole data"
-        )
-
-
 def _masked_observe(name, fn, obs, obs_mask, **kwargs):
     """A partly observed site as two: ``{name}_unobserved``, a latent of the
     whole shape whose density is masked out, and ``{name}_observed``, scored
@@ -158,7 +171,6 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
     entries of ``obs`` that are observed, the rest being latent."""
     if not isinstance(fn, dist.Distribution):
         raise TypeError(f"sample() fn must be a Distribution, got {fn!r}")
-    _refuse_data_shard(obs, f"obs of sample site {name!r}")
     if not _PYRO_STACK:
         if obs is not None:
             return obs
@@ -243,25 +255,19 @@ def get_mask():
 def subsample(data, event_dim):
     """Subselect ``data`` along the dims of the active subsampled plates.  A
     data shard's rows (``parallel.shard_data``) give the whole data's rows at
-    the plate's indices; such a tensor must meet a plate that subsamples its
-    sharded axis."""
-    shard = partial_data_shard(data)
+    the plate's indices under a plate that subsamples their sharded axis,
+    and come back as they are otherwise."""
     if not _PYRO_STACK:
-        _refuse_data_shard(data, "the data of subsample() outside any plate")
         return data
     assert isinstance(event_dim, int) and event_dim >= 0
     extras = {}
+    shard = shard_of(data)
     if shard is not None:
-        extras = {"_data_shard": shard, "_data_shard_dim": shard.axis - data.dim()}
+        extras = {"_data_shard": shard, "_data_shard_dim": data._axis}
     msg = _dispatch(
         "subsample", fn=lambda *a, **k: data, value=data, kwargs={"event_dim": event_dim},
         **extras,
     )
-    if shard is not None and not (msg.get("_shard_gathered") or msg.get("_replayed")):
-        _refuse_data_shard(
-            data, f"the data of subsample(..., event_dim={event_dim}) under no plate that "
-            f"subsamples its dim {extras['_data_shard_dim']}, so it"
-        )
     return msg["value"]
 
 
@@ -335,13 +341,16 @@ class plate(Messenger):
 
     def _broadcast_into_frame(self, msg):
         """Expand a sample site's batch shape over every enclosing plate dim
-        (an explicit sample_shape folds into the batch)."""
+        (an explicit sample_shape folds into the batch).  Where the site
+        holds a rank's rows of a data shard at a plate's dim, the plate of
+        the whole data's size takes them as its rows."""
         stack = msg["cond_indep_stack"]
         rank = max(-f.dim for f in stack)
         plate_shape = [1] * rank
-        for f in stack:
-            plate_shape[f.dim] = f.subsample_size
         fn_shape = tuple(msg["fn"].batch_shape)
+        local = _shard_rows_at(msg, fn_shape, stack)
+        for f in stack:
+            plate_shape[f.dim] = local.get(f.dim, f.subsample_size)
         sample_shape = tuple(msg["kwargs"].get("sample_shape", ()))
         if sample_shape:
             fn_shape = sample_shape + fn_shape
@@ -378,7 +387,8 @@ class plate(Messenger):
         if event_dim is None:
             return
         axis = self.dim - event_dim
-        if msg.get("_data_shard") is not None and axis == msg["_data_shard_dim"]:
+        if msg.get("_data_shard") is not None and axis == msg["_data_shard_dim"] \
+                and msg["_data_shard"].partial:
             self._subsample_shard(msg, axis)
             return
         shape = tuple(msg["value"].shape)
@@ -411,14 +421,36 @@ class plate(Messenger):
                 "the whole data's size, not the shard's"
             )
         if self.subsample_size >= self.size:
-            raise ValueError(
-                f"plate({self.name!r}, {self.size}) does not subsample, so subsample() of a "
-                "data shard under it would give this rank's rows alone: give the plate a "
-                "subsample_size, or pass the whole data"
-            )
+            return  # every row: the rank's rows, tagged, as they are
         msg["value"], msg["_partial_over"] = subsample_shard(
             msg["value"], axis, self._indices, shard)
         msg["_shard_gathered"] = self.name
+
+
+def _shard_rows_at(msg, fn_shape, stack):
+    """``{plate dim: this rank's row count}`` for the plates of ``stack``
+    at whose dim the sample site of ``msg`` holds a rank's rows of a data
+    shard (in its distribution's batch shape or its observed value's); a
+    plate there must have the whole data's size."""
+    shard = distribution_shard(msg["fn"])
+    value = msg.get("value")
+    shapes = [fn_shape]
+    if shard_of(value) is not None:
+        shard = shard or shard_of(value)
+        shapes.append(tuple(value.shape)[: value.dim() - msg["fn"].event_dim])
+    if shard is None or not shard.partial:
+        return {}
+    local = {}
+    for f in stack:
+        if any(len(s) >= -f.dim and s[f.dim] == shard.rows for s in shapes):
+            if f.size != shard.size:
+                raise ValueError(
+                    f"plate({f.name!r}, {f.size}) holds the rows of a data shard of "
+                    f"{shard.size} rows (this rank holds rows {shard.start} to {shard.stop}): "
+                    "give the plate the whole data's size, not the shard's"
+                )
+            local[f.dim] = shard.rows
+    return local
 
 
 @contextmanager

@@ -178,7 +178,8 @@ def soft_vmap(fn, xs, batch_ndims=1, chunk_size=None):
     xs = tree_map(lambda x: x.reshape(prepend + tuple(x.shape[batch_ndims:])), xs)
     if batch_size <= 1:
         return fn(xs)
-    mapped = torch.func.vmap(fn, randomness="different")
+    tags = []
+    mapped = torch.func.vmap(_untagged(fn, tags), randomness="different")
     if chunk_size is not None and 1 < chunk_size < batch_size:
         pad = -batch_size % chunk_size
 
@@ -195,7 +196,42 @@ def soft_vmap(fn, xs, batch_ndims=1, chunk_size=None):
         ys = tree_map(lambda *parts: torch.cat(parts)[:batch_size], chunks[0], *chunks[1:])
     else:
         ys = mapped(xs)
+    ys = _retagged(ys, tags)
     return tree_map(lambda y: y.reshape(batch_shape + tuple(y.shape[1:])), ys)
+
+
+def _untagged(fn, tags):
+    """``fn`` whose outputs that hold a rank's rows of a data shard come out
+    of it as plain tensors (a ``vmap`` would drop their tag), their tags
+    kept in ``tags``, leaf by leaf."""
+    from numpyro_tpu_torch.parallel.data_shard import local_rows, shard_of
+
+    def plain(y):
+        tags.append((shard_of(y), getattr(y, "_axis", None)))
+        return local_rows(y)
+
+    def run(*args):
+        tags.clear()
+        return tree_map(plain, fn(*args))
+
+    return run
+
+
+def _retagged(ys, tags):
+    """``ys`` with the tags :func:`_untagged` kept put back (their sharded
+    axes count from the right, so the batch axes in front leave them
+    alone)."""
+    if not any(shard is not None for shard, _ in tags):
+        return ys
+    from numpyro_tpu_torch.parallel.data_shard import DataShardTensor
+
+    it = iter(tags)
+
+    def tag(y):
+        shard, axis = next(it)
+        return y if shard is None else DataShardTensor(y, shard, axis)
+
+    return tree_map(tag, ys)
 
 
 def fori_collect(lower, upper, body_fun, init_val, transform=identity, progbar=True,

@@ -274,6 +274,10 @@ def one_process():
         "ecs": w.ecs_run("vectorized"),
         "ecs_proxy": w.ecs_proxy_steps(),
         **{name: w.coupled_run(name, "vectorized") for name in w.COUPLED},
+        "parity": {case: w.parity_potential(case) for case in w.PARITY},
+        "shard_nuts": w.shard_nuts_run("vectorized"),
+        "ecs_carry": w.ecs_lean_run(None, "carry"),
+        **{"padded_" + name: w.padded_ensemble_run(name) for name in w.PADDED},
     }
 
 
@@ -518,24 +522,152 @@ def test_shard_aware_subsample_gives_the_whole_datas_panels(jobs):
         assert sub["batched_reduces"] == 1
 
 
-@pytest.mark.parametrize("case,words", [
-    ("obs", "obs of sample site 'y' is a data shard"),
-    ("unsubsampled", "does not subsample"),
-    ("local_size", "give the plate the whole data's size"),
-    ("no_plate", "under no plate that subsamples its dim -2"),
-    ("outside", "outside any plate"),
-    ("ten_rows", "obs of sample site 'y' is a data shard"),
-    ("lean", 'panel_mode="lean"'),
-])
-def test_data_shard_where_it_would_give_a_shards_result_raises(jobs, case, words):
-    """``obs=`` of a shard, a plate that does not subsample, a plate of the
-    shard's own size, ``subsample`` with no plate or outside every handler,
-    the 10-row ``Bernoulli(logits=X @ w)`` that gave a rank's log-likelihood
-    alone (-5.6259 and -2.1496 for -7.7756), and lean panels: each raises on
-    every rank."""
+# the cases' ids name the message each raised while a shard's tag did not
+# ride through ops; all but local_size now give the whole data's result
+SHARD_CASES = {
+    "obs": "obs-obs of sample site 'y' is a data shard",
+    "unsubsampled": "unsubsampled-does not subsample",
+    "local_size": "local_size-give the plate the whole data's size",
+    "no_plate": "no_plate-under no plate that subsamples its dim -2",
+    "outside": "outside-outside any plate",
+    "ten_rows": "ten_rows-obs of sample site 'y' is a data shard",
+    "lean": 'lean-panel_mode="lean"',
+}
+# all_reduces over the data axis of one batched potential-and-gradient
+# evaluation: the site's sum, and one a replicated tensor's entry into an op
+# with the rows (w[:-1] and w[-1] in "outside")
+PARITY_REDUCES = {"obs": 2, "unsubsampled": 2, "no_plate": 2, "outside": 3, "ten_rows": 2}
+
+
+def _jax_parity(case):
+    """The JAX package's potential and gradient of a parity case's model on
+    all rows, at every chain's point (and the 10-row case's log density at
+    w = 1)."""
+    from numpyro_tpu.infer.util import log_density as jlog_density
+    from numpyro_tpu.infer.util import potential_energy as jpotential
+
+    X, y, W = (jnp.asarray(a) for a in w.parity_data(case))
+    n, d = X.shape
+    if case == "outside":
+        X = numpyro_tpu.subsample(X, event_dim=1)
+
+    def model(X, y):
+        wv = numpyro_tpu.sample("w", jdist.Normal(jnp.zeros(d), 1.0).to_event(1))
+        if case in ("obs", "ten_rows"):
+            numpyro_tpu.sample("y", jdist.Bernoulli(logits=X @ wv), obs=y)
+        elif case == "unsubsampled":
+            with numpyro_tpu.plate("N", n):
+                xb = numpyro_tpu.subsample(X, event_dim=1)
+                yb = numpyro_tpu.subsample(y, event_dim=0)
+                numpyro_tpu.sample("y", jdist.Bernoulli(logits=xb @ wv), obs=yb)
+        elif case == "no_plate":
+            xb = numpyro_tpu.subsample(X, event_dim=1)
+            numpyro_tpu.factor("lik", jdist.Bernoulli(logits=xb @ wv).log_prob(y))
+        else:
+            logits = X[:, :-1] @ wv[:-1] + X[:, -1] * wv[-1]
+            with numpyro_tpu.plate("N", n):
+                numpyro_tpu.sample("y", jdist.Bernoulli(logits=logits),
+                                   obs=(y > 0.5).astype(jnp.float32))
+
+    def pe(v):
+        return jpotential(model, (X, y), {}, {"w": v})
+
+    value, grad = jax.vmap(jax.value_and_grad(pe))(W)
+    out = {"pe": np.asarray(value), "grad": np.asarray(grad)}
+    if case == "ten_rows":
+        out["log_density"] = float(jlog_density(model, (X, y), {}, {"w": jnp.ones(d)})[0])
+    return out
+
+
+def _lean_on_a_data_mesh(jobs, one_process):
+    """HMCECS in lean mode on the 2 x 2 mesh against carry mode in one
+    process on all rows: indices, draws, potentials, gradients and accept
+    probabilities bit for bit; one all_reduce over the data axis an
+    evaluation (every panel of the evaluation at once), none besides; a
+    lean evaluation's panels the whole data's rows bit for bit."""
+    X, y = (torch.from_numpy(a) for a in w.ecs_data())
+    ref = one_process["ecs_carry"]
+    assert ref["modes"]["panel"] == "carry"
     for r in jobs["four"].results():
-        message = r["subsample"]["raises"][case]
-        assert message is not None and words in message, message
+        lean, carry = r["lean"], r["carry"]
+        assert lean["modes"]["panel"] == "lean" and carry["modes"]["panel"] == "carry"
+        assert lean["reduces"] == lean["evals"] and min(lean["evals"]) > 1
+        assert carry["reduces"] == [1] * len(carry["reduces"])
+        _equal_trees(tuple(lean["states"]), tuple(ref["states"]))
+        _equal_trees(tuple(carry["states"]), tuple(ref["states"]))
+        idx = lean["idx"]
+        assert torch.equal(lean["panels"][0], X[idx]) and torch.equal(lean["panels"][1], y[idx])
+        assert lean["panel_reduces"] == 1
+
+
+@pytest.mark.parametrize("case", list(SHARD_CASES), ids=list(SHARD_CASES.values()))
+def test_data_shard_where_it_would_give_a_shards_result_raises(jobs, one_process, case):
+    """A model written for the whole data over ``shard_data``'s rows on the
+    2 x 2 mesh (1,000 or 1,001 of 2,001 rows a rank): ``obs=`` of the rows,
+    ``subsample`` under a plate that does not subsample them, under no
+    plate (with ``factor`` of each row's term) and outside every handler
+    (with column slices and a cast), and the 10-row ``Bernoulli(logits=X @
+    w)`` that once gave a rank's log-likelihood alone (-5.6259 and -2.1496
+    for -7.7756): every rank's potential and gradient at 8 points equal the
+    JAX package's on all rows (potential rtol 1e-5, gradient rtol 1e-4 and
+    atol 1e-4 of its largest component) and the port's one-process ones
+    (``ECS_PROXY_RTOL``: the ranks' float32 partial sums add in another
+    order).  HMCECS in lean mode on the mesh equals carry mode in one
+    process bit for bit.  A plate of the shard's own size still raises."""
+    if case == "local_size":
+        for r in jobs["four"].results():
+            message = r["subsample"]["raises"][case]
+            assert message is not None and "give the plate the whole data's size" in message
+        return
+    if case == "lean":
+        _lean_on_a_data_mesh(jobs, one_process)
+        return
+    want, ref = _jax_parity(case), one_process["parity"][case]
+    g_scale = np.abs(want["grad"]).max()
+    for r in jobs["four"].results():
+        got = r["parity"][case]
+        assert got["over_data"] == PARITY_REDUCES[case]
+        np.testing.assert_allclose(got["pe"].numpy(), want["pe"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad"].numpy(), want["grad"], rtol=1e-4,
+                                   atol=1e-4 * g_scale)
+        np.testing.assert_allclose(got["pe"].numpy(), ref["pe"].numpy(), rtol=ECS_PROXY_RTOL)
+        np.testing.assert_allclose(got["grad"].numpy(), ref["grad"].numpy(),
+                                   rtol=ECS_PROXY_RTOL, atol=ECS_PROXY_RTOL * g_scale)
+        if case == "ten_rows":
+            np.testing.assert_allclose(got["log_density"].item(), want["log_density"],
+                                       rtol=1e-6)
+        if case in r["subsample"]["returned"]:
+            assert r["subsample"]["returned"][case] == "DataShardTensor"
+
+
+def test_data_sharded_nuts_of_a_model_written_for_the_whole_data(jobs, one_process):
+    """Pooled NUTS on ``Bernoulli(logits=X @ w)`` with ``obs=`` of the rows,
+    its chains over the 2 x 2 mesh's chains and its rows over its data:
+    every rank gathers the same panel, a sample of the posterior that the
+    one-process run on all rows samples (4 combined Monte-Carlo errors)."""
+    res = [r["shard_nuts"] for r in jobs["four"].results()]
+    for r in res[1:]:
+        _equal_trees(r, res[0])
+    ref = one_process["shard_nuts"]
+    assert res[0]["w"].shape == ref["w"].shape and torch.isfinite(res[0]["w"]).all()
+    (m1, e1), (m2, e2) = _mean_and_error(res[0]["w"]), _mean_and_error(ref["w"])
+    assert ((m1 - m2).abs() <= 4 * (e1**2 + e2**2).sqrt()).all()
+
+
+@pytest.mark.parametrize("kernel", w.PADDED)
+def test_padded_ensemble_on_four_chain_shards_equals_one_process(jobs, one_process, kernel):
+    """AIES and ESS with 18 walkers on the four-rank chain mesh: padded to
+    20, the pad walkers placed by the pad generator's init and moving with
+    the ensemble; the draws and last state of the 18 real walkers equal the
+    one-process run of the same padded ensemble bit for bit."""
+    ref = one_process["padded_" + kernel]
+    assert ref["w"].shape[:2] == (w.PADDED_ENSEMBLE[0], w.PADDED_ENSEMBLE[2])
+    for r in jobs["four"].results():
+        got = r["padded"][kernel]
+        said = got.pop("warnings")
+        assert any("padding the chain axis to 20" in m for m in said)
+        assert not any("running unsharded" in m for m in said)
+        _equal_trees(got, ref)
 
 
 def test_hmcecs_chain_and_data_sharded_equals_one_process(jobs, one_process):

@@ -33,7 +33,7 @@ from numpyro_tpu_torch.infer import AIES, ESS, HMCECS, MCMC, NUTS, SMC, CheesHMC
 from numpyro_tpu_torch.infer import hmc as thmc  # noqa: E402
 from numpyro_tpu_torch.infer import hmc_core as core  # noqa: E402
 from numpyro_tpu_torch.infer import util as infer_util  # noqa: E402
-from numpyro_tpu_torch.infer.hmc_gibbs import ecs_state_from_numpy  # noqa: E402
+from numpyro_tpu_torch.infer.hmc_gibbs import _lean_shard_panels, ecs_state_from_numpy  # noqa: E402
 from numpyro_tpu_torch.ops import glm  # noqa: E402
 from numpyro_tpu_torch.parallel import (  # noqa: E402
     chain_data_mesh, chain_mesh, cross_chain_diagnostics, initialize_distributed,
@@ -68,6 +68,16 @@ ECS_PROXY = (np.linspace(-0.8, 0.8, ECS_RUN[1]).astype(np.float32), 10, 2)
 # the JAX package's step on its own draws (tests/parallel/test_ecs_sharded_data.py):
 # chains, tree depth, warmup
 ECS_JAX = (8, 4, 10)
+# models over data shards written as for the whole data, held against the
+# JAX package's potential on all rows (the 10-row one on ecs_data's first 10)
+PARITY = ("obs", "unsubsampled", "no_plate", "outside", "ten_rows")
+# a data-sharded NUTS run of the "obs" model on the 2 x 2 mesh: chains,
+# warmup, samples, tree depth
+SHARD_NUTS = (8, 20, 10, 4)
+# the padded ensembles on the four-rank chain mesh: walkers (padded to 20),
+# warmup, samples
+PADDED_ENSEMBLE = (18, 3, 3)
+PADDED = ("AIES", "ESS")
 
 
 def covtype_like(n=GLM_SHAPE[0], d=GLM_SHAPE[1], seed=0):
@@ -288,6 +298,163 @@ def ecs_on_jax_draws(mesh, out):
             "x_rows": tuple(Xs.shape), "panel_rows": tuple(state.panels[0].shape)}
 
 
+def parity_model(case, n, d):
+    """The model of a parity case over ``n`` rows of ``d`` columns, written
+    as for the whole data; each case reaches the rows another way."""
+
+    def prior():
+        return npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
+
+    def obs(X, y):  # obs= of the rows, no plate
+        w = prior()
+        npt.sample("y", dist.Bernoulli(logits=X @ w), obs=y)
+
+    def unsubsampled(X, y):  # subsample() under a plate of every row
+        w = prior()
+        with npt.plate("N", n):
+            xb = npt.subsample(X, event_dim=1)
+            yb = npt.subsample(y, event_dim=0)
+            npt.sample("y", dist.Bernoulli(logits=xb @ w), obs=yb)
+
+    def no_plate(X, y):  # subsample() under no plate, factor of each row's term
+        w = prior()
+        xb = npt.subsample(X, event_dim=1)
+        npt.factor("lik", dist.Bernoulli(logits=xb @ w).log_prob(y))
+
+    def outside(X, y):  # X taken by subsample() outside any handler: columns, casts
+        w = prior()
+        logits = X[:, :-1] @ w[:-1] + X[:, -1] * w[-1]
+        with npt.plate("N", n):
+            npt.sample("y", dist.Bernoulli(logits=logits), obs=(y > 0.5).float())
+
+    return {"obs": obs, "unsubsampled": unsubsampled, "no_plate": no_plate,
+            "outside": outside, "ten_rows": obs}[case]
+
+
+def parity_data(case):
+    """The rows of a parity case (numpy X, y) and the chains' points."""
+    if case == "ten_rows":
+        X, y = ecs_data()
+        return X[:10], y[:10], glm_weights()[:, : X.shape[1]]
+    X, y, _ = covtype_like(SHARDED_ROWS)
+    return X, y, glm_weights()
+
+
+def parity_potential(case, mesh=None):
+    """Every chain's potential and gradient of a parity case's model (on
+    ``mesh``'s data shards, or the whole data), the all_reduces of one
+    batched evaluation over the data axis, and for the 10-row case the log
+    density at w = 1."""
+    X, y, W = parity_data(case)
+    X, y = torch.from_numpy(X), torch.from_numpy(y)
+    if mesh is not None:
+        X, y = shard_data(X, mesh), shard_data(y, mesh)
+    if case == "outside":
+        X = npt.subsample(X, event_dim=1)
+    model = parity_model(case, X.data_shard.size if mesh is not None else X.shape[0],
+                         W.shape[1])
+
+    def pe(z):
+        return infer_util.potential_energy(model, (X, y), {}, z)
+
+    mesh_lib.reset_collective_counts()
+    value, grad = infer_util.batched_value_and_grad(pe)({"w": torch.from_numpy(W)})
+    out = {"pe": value, "grad": grad["w"], "over_data": mesh_lib.collective_counts["over_data"]}
+    if case == "ten_rows":
+        out["log_density"] = infer_util.log_density(
+            model, (X, y), {}, {"w": torch.ones(W.shape[1])})[0]
+    return out
+
+
+def shard_nuts_run(chain_method, mesh=None):
+    """Pooled NUTS on the "obs" model over covtype_like's 2,001 rows: on
+    ``mesh``'s data shards (chains over its chain axis) or the whole data."""
+    chains, warmup, samples, depth = SHARD_NUTS
+    X, y, _ = covtype_like(SHARDED_ROWS)
+    X, y = torch.from_numpy(X), torch.from_numpy(y)
+    if mesh is not None:
+        X, y = shard_data(X, mesh), shard_data(y, mesh)
+    m = MCMC(NUTS(parity_model("obs", SHARDED_ROWS, X.shape[1]), max_tree_depth=depth,
+                  pooled_adaptation=True),
+             num_warmup=warmup, num_samples=samples, num_chains=chains,
+             chain_method=chain_method, mesh=mesh, device="cpu")
+    m.run(7, X, y)
+    return {"w": m.get_samples(group_by_chain=True)["w"]}
+
+
+def ecs_lean_run(mesh=None, panel_mode="lean"):
+    """HMCECS without a proxy (``ECS_RUN``) in ``panel_mode``, through the
+    per-step API from one seed: the gathered state after init and after
+    each transition, with X and y on ``mesh``'s data shards (chains over
+    its chain axis) or whole, and the all_reduces over the data axis of
+    each transition and its potential evaluations."""
+    model, X, y = ecs_problem()
+    _, _, _, blocks, chains, warmup, samples = ECS_RUN
+    if mesh is not None:
+        X, y = shard_data(X, mesh), shard_data(y, mesh)
+    kernel = HMCECS(NUTS(model, max_tree_depth=3), num_blocks=blocks, panel_mode=panel_mode)
+    state = kernel.init(torch.Generator().manual_seed(4), warmup, None, (X, y), {},
+                        num_chains=chains)
+    if mesh is not None:
+        state = shard_chain_state(state, mesh)
+    states, reduces, evals = [state], [], []
+    for _ in range(samples):
+        mesh_lib.reset_collective_counts()
+        before = infer_util.potential_evals
+        states.append(kernel.sample(states[-1], (X, y), {}))
+        reduces.append(mesh_lib.collective_counts["over_data"])
+        evals.append(infer_util.potential_evals - before)
+    out = []
+    for s in states:
+        g = core.gather_state(s)
+        out.append({"idx": g.z["N"], "w": g.z["w"], "pe": g.hmc_state.potential_energy,
+                    "grad": g.hmc_state.z_grad["w"], "accept": g.accept_prob})
+    # the panels one lean evaluation gathers for every chain at the last
+    # state's indices, and the all_reduces that takes
+    idx = core.gather_state(states[-1]).z["N"]
+    inner = kernel._base_inner_model.args[0]
+    mesh_lib.reset_collective_counts()
+    panels = torch.func.vmap(lambda i: _lean_shard_panels(
+        inner, kernel._proto_latents, (X, y), {"_gibbs_sites": {"N": i}}))(idx)
+    return {"states": out, "reduces": reduces, "evals": evals, "idx": idx,
+            "modes": dict(kernel.resolved_modes), "panels": panels,
+            "panel_reduces": mesh_lib.collective_counts["over_data"]}
+
+
+def padded_ensemble_run(name, mesh=None):
+    """AIES or ESS on the covtype-shape model with ``PADDED_ENSEMBLE``'s 18
+    walkers padded to 20: through ``MCMC`` over ``mesh``'s chain shards, or
+    in one process through the kernel on a sharded draw source over one
+    shard that holds every row (the same pad generator's seed)."""
+    walkers, warmup, samples = PADDED_ENSEMBLE
+    kernel = coupled_kernel(name)
+    data = glm_data()
+    if mesh is not None:
+        m = MCMC(kernel, num_warmup=warmup, num_samples=samples, num_chains=walkers,
+                 chain_method="parallel", mesh=mesh, device="cpu")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            m.run(6, data)
+        return {"w": m.get_samples(group_by_chain=True)["w"],
+                "last": core.replace_draw_sources(m.last_state, None),
+                "warnings": [str(c.message) for c in caught]}
+    from numpyro_tpu_torch.parallel.mesh import ChainShard
+
+    padded = walkers + (-walkers) % 4
+    generator = torch.Generator().manual_seed(6)
+    pad = torch.Generator().manual_seed((6 * 1_000_003 + walkers) % 2**63)
+    draws = core.ShardedDraws(generator, ChainShard(0, padded, walkers, padded, None), pad)
+    state = kernel.init(draws, warmup, None, (data,), {}, num_chains=walkers)
+    rows = []
+    for i in range(warmup + samples):
+        state = kernel.sample(state, (data,), {})
+        if i >= warmup:
+            rows.append(state.z["w"])
+    last = core.replace_draw_sources(state, None)
+    last = last._replace(z={"w": last.z["w"][:walkers]})
+    return {"w": torch.stack(rows, 1)[:walkers], "last": last}
+
+
 def subsample_take(X, y, n, sub):
     with npt.plate("N", n, subsample_size=sub):
         return npt.subsample(X, event_dim=1), npt.subsample(y, event_dim=0)
@@ -302,8 +469,9 @@ def shard_idx():
 def shard_subsample_checks(mesh):
     """The shard-aware subsample on the mesh's data axis: the panels, eager
     (one all_reduce a take) and recorded under vmap as HMCECS records them
-    (one all_reduce for both), and what raises."""
-    n, d, sub = ECS_RUN[:3]
+    (one all_reduce for both), what still raises and what comes back
+    tagged."""
+    n, _, sub = ECS_RUN[:3]
     X, y = ecs_data()
     Xs, ys = shard_data(torch.from_numpy(X), mesh), shard_data(torch.from_numpy(y), mesh)
     idx = shard_idx()
@@ -325,48 +493,27 @@ def shard_subsample_checks(mesh):
     res["batched"] = mesh_lib.sum_partial_panels(torch.func.vmap(record)(idx), groups)
     res["batched_reduces"] = mesh_lib.collective_counts["over_data"]
 
-    def obs_model(X, y):
-        w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
-        npt.sample("y", dist.Bernoulli(logits=X @ w), obs=y)
-
     def unsubsampled(X, y):
         with npt.plate("N", n):
-            npt.subsample(X, event_dim=1)
+            return npt.subsample(X, event_dim=1)
 
     def local_size(X, y):
         with npt.plate("N", X.shape[0], subsample_size=sub):
             npt.subsample(X, event_dim=1)
 
     def no_plate(X, y):
-        npt.subsample(X, event_dim=1)
-
-    # the re-anchor's example: 10 rows, w all ones, Bernoulli(logits=X @ w)
-    X10, y10 = shard_data(torch.from_numpy(X[:10]), mesh), shard_data(torch.from_numpy(y[:10]),
-                                                                        mesh)
-
-    def ten_rows():
-        w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
-        npt.sample("y", dist.Bernoulli(logits=X10 @ w), obs=y10)
+        return npt.subsample(X, event_dim=1)
 
     seeded = lambda fn, *a: lambda: handlers.seed(fn, 0)(*a)  # noqa: E731
-    res["raises"] = {
-        "obs": raises(seeded(obs_model, Xs, ys), ValueError),
-        "unsubsampled": raises(seeded(unsubsampled, Xs, ys), ValueError),
-        "local_size": raises(seeded(local_size, Xs, ys), ValueError),
-        "no_plate": raises(seeded(no_plate, Xs, ys), ValueError),
-        "outside": raises(lambda: npt.subsample(Xs, event_dim=1), ValueError),
-        "ten_rows": raises(lambda: infer_util.log_density(
-            ten_rows, (), {}, {"w": torch.ones(d)}), ValueError),
-        "lean": raises(lambda: ecs_run_lean(mesh), NotImplementedError),
+    res["raises"] = {"local_size": raises(seeded(local_size, Xs, ys), ValueError)}
+    # what used to raise: subsample() with no plate or one that does not
+    # subsample gives the tagged rows back, as the JAX package its array
+    res["returned"] = {
+        "unsubsampled": type(handlers.seed(unsubsampled, 0)(Xs, ys)).__name__,
+        "no_plate": type(handlers.seed(no_plate, 0)(Xs, ys)).__name__,
+        "outside": type(npt.subsample(Xs, event_dim=1)).__name__,
     }
     return res
-
-
-def ecs_run_lean(mesh):
-    model, X, y = ecs_problem()
-    kernel = HMCECS(NUTS(model, max_tree_depth=3), num_blocks=ECS_RUN[3], panel_mode="lean")
-    kernel.init(torch.Generator().manual_seed(0), 2, None,
-                (shard_data(X, mesh), shard_data(y, mesh)), {}, num_chains=2)
 
 
 def coupled_kernel(name):
@@ -592,6 +739,12 @@ def job_four(rank, out):
     res["ecs"] = ecs_run("parallel", mesh, data_mesh=mesh)
     res["ecs_proxy"] = ecs_proxy_steps(mesh)
     res["ecs_jax"] = ecs_on_jax_draws(mesh, out)
+    res["parity"] = {case: parity_potential(case, mesh) for case in PARITY}
+    res["shard_nuts"] = shard_nuts_run("parallel", mesh)
+    res["lean"] = ecs_lean_run(mesh)
+    res["carry"] = ecs_lean_run(mesh, "carry")
+    chains = chain_mesh(device="cpu")
+    res["padded"] = {name: padded_ensemble_run(name, chains) for name in PADDED}
     return res
 
 
