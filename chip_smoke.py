@@ -15,7 +15,7 @@ Phases (each prints on its own lines; any failure exits non-zero):
                the split kernel is timed at 64, 256 and 1,024 chains.
 4. main     -- with every launch count set to 0: MCMC(NUTS) with 256
                vectorized chains on the covtype model in each precision mode.
-               Split mode (the bench's) runs 100 + 10 transitions, f32 mode
+               Split mode (the bench's) runs 100 + 5 transitions, f32 mode
                (``prepare_glm_data``'s default) 50 + 5, both at warmup depth
                5, and both must
                recover the generating coefficients to 0.05.  bf16 mode runs a
@@ -351,8 +351,23 @@ Phases (each prints on its own lines; any failure exits non-zero):
                indices, potentials and draws equal 23c's first step (carry
                mode) bit for bit, one ``all_reduce`` over the data an
                evaluation (every panel of the evaluation at once) and one
-               for the proxy's statistics at the new indices.  A rank that
-               fails, or runs past ``RANK_TIMEOUT``, fails the script.
+               for the proxy's statistics at the new indices.  (g) covtype
+               with a latent ``e`` for each of its 581,012 rows
+               (``model_row_latent``: overdispersed logistic regression,
+               ``y ~ Bernoulli(logits=X @ w + tau * e)``), ``e`` whole on
+               every rank and cut to its rows: one evaluation at
+               ``ROW_LATENT_RUN``'s 8 chains with a logsumexp and the
+               columns' maxima over the rows, timed, against a plain
+               version summed by explicit all_reduces (potential rtol 1e-5,
+               gradients rtol 1e-4 and atol 1e-4 of the largest component),
+               ``e``'s gradient whole and alike on both ranks, 7
+               all_reduces over the data; pooled NUTS from phase 8d's MAP
+               (tau small, e at 0), the same draws on both ranks, 23e's
+               gate; ``Predictive`` of ``ROW_LATENT_DRAWS`` draws of ``y``
+               over the rows against this script's on all rows from the
+               same generator (the draws that differ counted, and bounded
+               by the probabilities' differences).  A rank that fails, or
+               runs past ``RANK_TIMEOUT``, fails the script.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -446,9 +461,12 @@ SWEEP_CHAINS = (64, 256, 1024)
 # 10 took 5.04 s, 632 evaluations; its draws need only be finite) and the
 # per-step run's from 10 to 5 (its 10 took 3.72 s; phase 22a resumes its first
 # 3): phase 8c, tried first, was 0.0931 off at 700 steps against the gate of
-# 0.05 (NVIDIA H100 80GB HBM3, 700.00 W).
+# 0.05 (NVIDIA H100 80GB HBM3, 700.00 W).  To make room for phase 23g the
+# split run's draws went from 10 to 5: its 10 took 11.40 s at depth 10 (1,920
+# evaluations) and 0.0082 of the 0.05 gate, and nothing else reads them but
+# logs (phases 8, 13 and 21 print per-draw figures and std ratios from them).
 RUNS = {
-    "glm_split": (100, 10, (5, 10), 0.05),
+    "glm_split": (100, 5, (5, 10), 0.05),
     "glm_fused_f32": (50, 5, (5, 10), 0.05),
     "glm_fused_bf16": (20, 5, 6, None),
 }
@@ -5037,6 +5055,20 @@ SHARDED_CHEES = (64, 4, 2)
 # 8d's MAP: chains, warmup, samples, tree depth, and the gate on max
 # |mean(w) - true_w| (the bench's 0.05)
 ROWS_NUTS = (32, 4, 4, 3, 0.05)
+# (g) covtype with a latent a row (overdispersed logistic regression, Gelman
+# & Hill 2007, ch. 15): w, tau ~ HalfNormal(1), e ~ Normal(0, 1) for each of
+# the 581,012 rows under a plate of the whole data, y ~ Bernoulli(logits=X @
+# w + tau * e) over shard_data's rows, e whole on every rank and cut to its
+# rows.  (i) one evaluation at ROW_LATENT_RUN's chains with a logsumexp over
+# the rows of the logits of X scaled by its columns' largest magnitudes
+# (weighted LSE_WEIGHT) against a plain version summed by explicit
+# all_reduces; (ii) pooled NUTS from phase 8d's MAP, tau at ROW_LATENT_TAU
+# and e at 0: chains, warmup, samples, tree depth, 23e's gate; (iii)
+# Predictive of ROW_LATENT_DRAWS draws of y against this script's on all rows
+ROW_LATENT_RUN = (8, 2, 2, 3)
+ROW_LATENT_TAU = 0.05
+ROW_LATENT_DRAWS = 8
+LSE_WEIGHT = 1e-3
 RANK_TIMEOUT = 300  # seconds to warm up, and from the go to the end, before the script fails
 SCRIPT_LIMIT = 1200  # seconds: a rank still waiting for the go by then ends itself
 WARM_ROWS = 1000  # rows of the plain model a rank warms up on while the kernels build
@@ -5161,6 +5193,168 @@ def normal_rows_eval(X, y, w_chains, device):
     out["g_need"] = ((got - g_want).abs() - 1e-4 * g_want.abs()).max().item() \
         / g_want.abs().max().item()
     out["finite"] = bool(torch.isfinite(value).all() and torch.isfinite(got).all())
+    return out
+
+
+def model_row_latent(X, y, size, check=False):
+    """23g's model: covtype with a latent ``e`` for each row, as a JAX user
+    writes it over ``shard_data``'s rows (every rank holds ``e`` whole and
+    cuts it to its rows where it meets them); with ``check``, minus
+    ``LSE_WEIGHT`` times a logsumexp over the rows of the logits of X scaled
+    by its columns' largest magnitudes (the reductions' collectives)."""
+    zero, one = torch.zeros((), device=X.device), torch.ones((), device=X.device)
+    w = npt.sample("w", dist.Normal(torch.zeros(D, device=X.device), one).to_event(1))
+    tau = npt.sample("tau", dist.HalfNormal(one))
+    with npt.plate("N", size):
+        e = npt.sample("e", dist.Normal(zero, one))
+        npt.sample("y", dist.Bernoulli(logits=X @ w + tau * e), obs=y)
+    if check:
+        npt.factor("rows_lse", -LSE_WEIGHT * torch.logsumexp((X / X.abs().amax(0)) @ w, 0))
+
+
+def row_latent_points(w_chains, size, device):
+    """23g (i)'s points: phase 3's chains' coefficients, log tau from -4 to
+    -2, and e from seed 23 on the device (alike on every rank)."""
+    c = w_chains.shape[0]
+    gen = torch.Generator(device=device).manual_seed(23)
+    return {"w": w_chains, "tau": torch.linspace(-4.0, -2.0, c, device=device),
+            "e": torch.randn((c, size), generator=gen, device=device)}
+
+
+def row_latent_samples(w_chains, size, device):
+    """23g (iii)'s posterior draws: the first ``ROW_LATENT_DRAWS`` of phase
+    3's chains, tau from 0.2 to 1, e from seed 24 on the device."""
+    gen = torch.Generator(device=device).manual_seed(24)
+    return {"w": w_chains[:ROW_LATENT_DRAWS],
+            "tau": torch.linspace(0.2, 1.0, ROW_LATENT_DRAWS, device=device),
+            "e": torch.randn((ROW_LATENT_DRAWS, size), generator=gen, device=device)}
+
+
+def row_latent_predictive(X, w_chains, size, device):
+    """23g (iii): ``Predictive`` of ``y`` at ``row_latent_samples``' draws
+    from seed 25 (one ``vmap``), on a rank's rows or all of them, and the
+    logits the draws come from (computed beside it, as the model does)."""
+    samples = row_latent_samples(w_chains, size, device)
+    gen = torch.Generator(device=device).manual_seed(25)
+    _sync(device)
+    t0 = time.perf_counter()
+    draws = Predictive(model_row_latent, samples, return_sites=["y"], device=device)(
+        gen, X, None, size)["y"]
+    _sync(device)
+    s = time.perf_counter() - t0
+    from numpyro_tpu_torch.parallel.data_shard import local_rows, shard_of
+
+    shard = shard_of(draws)
+    Xl = local_rows(X)
+    start = 0 if shard is None else shard.start
+    e = samples["e"][:, start:start + Xl.shape[0]]
+    logits = torch.func.vmap(lambda w: Xl @ w)(samples["w"]) + samples["tau"][:, None] * e
+    return {"y": local_rows(draws).to(torch.uint8).cpu(), "logits": logits.cpu(), "s": s,
+            "tagged": shard is not None, "start": start}
+
+
+def row_latent_leg(X, y, w_chains, w_map, mesh, device):
+    """23g on a rank: (i) one batched evaluation of ``model_row_latent`` with
+    its check at ``ROW_LATENT_RUN``'s chains, warm and timed, with its
+    all_reduces, against a plain version on the rank's rows summed by
+    explicit all_reduces (potential rtol 1e-5; the gradients of w and tau,
+    and of e, rtol 1e-4 and atol 1e-4 of the largest component), the bits
+    of e's gradient summed (alike on every rank when it is whole), and a
+    gloo sum of a whole e panel timed; (ii) pooled NUTS from the MAP; (iii)
+    ``row_latent_predictive``."""
+    import torch.nn.functional as F
+
+    from numpyro_tpu_torch.parallel import mesh as mesh_lib
+    from numpyro_tpu_torch.parallel.data_shard import local_rows
+
+    chains, warmup, samples, depth = ROW_LATENT_RUN
+    size = X.data_shard.size
+    z = row_latent_points(w_chains[:chains], size, device)
+    fn = infer_util.batched_value_and_grad(lambda z: infer_util.potential_energy(
+        model_row_latent, (X, y, size), {"check": True}, z))
+    fn(z)  # warm
+    mesh_lib.reset_collective_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    value, grad = fn(z)
+    _sync(device)
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "reduces": mesh_lib.collective_counts["over_data"],
+           "e_shape": tuple(grad["e"].shape),
+           "e_bits": grad["e"].contiguous().view(torch.int32).to(torch.int64).sum().item()}
+    # the plain version: each part on this rank's rows, summed by all_reduces
+    group = X.data_shard.group
+    Xl, yl = local_rows(X), local_rows(y)
+    start, rows = X.data_shard.start, Xl.shape[0]
+    ar = functools.partial(mesh_lib.all_reduce, group=group)
+
+    def loglik(w, u, e_rows):
+        logits = Xl @ w + torch.exp(u) * e_rows
+        return (yl * logits - F.softplus(logits)).sum()
+
+    (g_w, g_u, g_rows), ll = torch.func.vmap(torch.func.grad_and_value(
+        loglik, argnums=(0, 1, 2)))(z["w"], z["tau"], z["e"][:, start:start + rows])
+    ll, g_w, g_u = ar(ll), ar(g_w), ar(g_u)
+    g_e = torch.zeros_like(z["e"])
+    g_e[:, start:start + rows] = g_rows
+    g_e = ar(g_e)
+    Xn = Xl / ar(Xl.abs().amax(0), op="max")
+    m = ar(torch.func.vmap(lambda w: (Xn @ w).amax())(z["w"]), op="max")
+    g_s, s = torch.func.vmap(torch.func.grad_and_value(
+        lambda w, mm: torch.exp(Xn @ w - mm).sum()))(z["w"], m)
+    s, g_s = ar(s), ar(g_s)
+    lse, g_lse = m + torch.log(s), g_s / s[:, None]
+    half_log_2pi = 0.5 * math.log(2 * math.pi)
+    w, u, e = z["w"], z["tau"], z["e"]
+    tau = torch.exp(u)
+    lp = (-0.5 * (w * w).sum(-1) - D * half_log_2pi + math.log(2.0) - half_log_2pi
+          - 0.5 * tau * tau + u - 0.5 * (e * e).sum(-1) - size * half_log_2pi)
+    want = -(ll + lp - LSE_WEIGHT * lse)
+    g_want = -torch.cat([g_w - w - LSE_WEIGHT * g_lse, (g_u + 1.0 - tau * tau)[:, None]], 1)
+    e_want = -(g_e - e)
+    got = torch.cat([grad["w"], grad["tau"][:, None]], 1)
+    out["pe_err"] = ((value - want).abs() / want.abs()).max().item()
+    out["g_need"] = ((got - g_want).abs() - 1e-4 * g_want.abs()).max().item() \
+        / g_want.abs().max().item()
+    out["e_need"] = ((grad["e"] - e_want).abs() - 1e-4 * e_want.abs()).max().item() \
+        / e_want.abs().max().item()
+    out["finite"] = bool(torch.isfinite(value).all() and torch.isfinite(got).all()
+                         and torch.isfinite(grad["e"]).all())
+    panel = torch.zeros_like(z["e"])
+    ar(panel)
+    _sync(device)
+    t0 = time.perf_counter()
+    ar(panel)
+    _sync(device)
+    out["sum_ms"] = (time.perf_counter() - t0) * 1e3
+    del z, value, grad, g_e, e_want, panel
+    # (ii) pooled NUTS from the MAP, tau small and e at 0
+    start_at = {"w": w_map, "tau": torch.tensor(ROW_LATENT_TAU, device=device),
+                "e": torch.zeros(size, device=device)}
+    mcmc = MCMC(NUTS(model_row_latent, max_tree_depth=depth, pooled_adaptation=True,
+                     init_strategy=init_to_value(values=start_at)),
+                num_warmup=warmup, num_samples=samples, num_chains=chains,
+                chain_method="parallel", mesh=mesh)
+    glm.reset_launch_counts()
+    mesh_lib.reset_collective_counts()
+    t0 = time.perf_counter()
+    mcmc.run(4, X, y, size)
+    _sync(device)
+    stats = mcmc.last_run_stats
+    draws = mcmc.get_samples(group_by_chain=True)
+    out["nuts"] = {
+        "w": draws["w"].cpu(), "tau": draws["tau"].cpu(), "e_shape": tuple(draws["e"].shape),
+        "e_bits": draws["e"].contiguous().view(torch.int32).to(torch.int64).sum().item(),
+        "e_finite": bool(torch.isfinite(draws["e"]).all()),
+        "evals": stats["potential_evals"], "init_traces": stats["init_traces"],
+        "reduces": mesh_lib.collective_counts["over_data"], "s": time.perf_counter() - t0,
+        "phases": {k: stats[f"{k}_s"] for k in ("init", "warmup", "sample")},
+        "glm_launches": sum(glm.launch_counts.values())}
+    del mcmc, draws
+    # (iii) Predictive of y over the rows
+    mesh_lib.reset_collective_counts()
+    out["predictive"] = row_latent_predictive(X, w_chains, size, device)
+    out["predictive"]["reduces"] = mesh_lib.collective_counts["over_data"]
     return out
 
 
@@ -5449,6 +5643,11 @@ def phase23_rank(rank, tmp):
     # (c) HMCECS on the data shard; (f) one lean step of it
     out["c"] = ecs_leg(Xs, ys, go["w_map"].to(device), device)
     out["f"] = ecs_lean_step(Xs, ys, go["w_map"].to(device), device)
+
+    # (g) a latent a row, held whole on every rank and cut to its rows
+    t0 = time.perf_counter()
+    out["g"] = row_latent_leg(Xs, ys, w_chains, go["w_map"].to(device), grid, device)
+    out["g"]["s"] = time.perf_counter() - t0
     torch.save(out, f"{tmp}/rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -5555,6 +5754,8 @@ def phase_ranks(ranks, per_step, X, y, w_chains, w_map, true_w):
     data = glm.prepare_glm_data(X, y, dtype="split")
     chees_ref = chees_leg(data, "vectorized")
     del data
+    # 23g's Predictive on all rows
+    pred_ref = row_latent_predictive(X, w_chains, N, X.device)
     ref_s = time.perf_counter() - t0
     res, wall = ranks.finish({"w_map": torch.as_tensor(w_map).cpu()})
     wall += ref_s
@@ -5720,6 +5921,53 @@ def phase_ranks(ranks, per_step, X, y, w_chains, w_map, true_w):
                 or f["reduces"] != f["evals"] + 1):
             raise SystemExit(f"23f rank {r}: the lean step differs from carry mode's, or not "
                              "one all_reduce an evaluation")
+    # (g) a latent a row: the evaluation against its plain version, NUTS,
+    # Predictive against this script's on all rows
+    chains_g, warm_g, draws_g, depth_g = ROW_LATENT_RUN
+    gate_g = ROWS_NUTS[4]
+    for r, got in enumerate(res):
+        g, nuts, pred = got["g"], got["g"]["nuts"], got["g"]["predictive"]
+        err = (nuts["w"].double().mean((0, 1)) - torch.from_numpy(true_w).double()).abs().max()
+        start, rows = pred["start"], pred["y"].shape[-1]
+        ref_y, ref_l = pred_ref["y"][:, start:start + rows], pred_ref["logits"][:, start:start + rows]
+        differ = int((pred["y"] != ref_y).sum())
+        logit_diff = (pred["logits"] - ref_l).abs().max().item()
+        # a draw differs only where the uniform falls between the two
+        # probabilities: a Poisson count of mean sum |dp| at most
+        expected = (torch.sigmoid(pred["logits"].double())
+                    - torch.sigmoid(ref_l.double())).abs().sum().item()
+        log(f"[ranks] 23g rank {r}: a latent a row, e whole ({g['e_shape'][1]:,} a chain): one "
+            f"evaluation at {chains_g} chains with a logsumexp and column maxima over the rows "
+            f"{g['ms']:.1f} ms, {g['reduces']} all_reduces over the data (a gloo sum of the "
+            f"whole e panel {g['sum_ms']:.1f} ms); potential max rel err {g['pe_err']:.3e} "
+            f"(rtol 1e-5), gradient least atol {g['g_need']:.3e} (w, tau) and "
+            f"{g['e_need']:.3e} (e) of the largest component (1e-4) against the plain version "
+            f"summed by explicit all_reduces; pooled NUTS {warm_g} + {draws_g} at depth "
+            f"{depth_g} from the MAP: {nuts['evals']} evaluations + {nuts['init_traces']} init "
+            f"trace, {nuts['reduces']} all_reduces over the data, {nuts['s']:.2f} s ("
+            + ", ".join(f"{k} {v:.2f} s" for k, v in nuts["phases"].items())
+            + f", {nuts['s'] / max(nuts['evals'], 1) * 1e3:.1f} ms an evaluation); max "
+            f"|mean(w) - true_w| {err.item():.4f} (gate {gate_g}); Predictive of "
+            f"{ROW_LATENT_DRAWS} draws over the rows {pred['s']:.3f} s ({pred_ref['s']:.3f} s on "
+            f"all rows in this process), {pred['reduces']} all_reduces: {differ} of "
+            f"{pred['y'].numel():,} draws differ from this script's (expected at most "
+            f"{expected:.3f}), largest logit difference {logit_diff:.3e}; 23g {g['s']:.2f} s")
+        if (not g["finite"] or g["pe_err"] > 1e-5 or g["g_need"] > 1e-4 or g["e_need"] > 1e-4
+                or g["e_shape"] != (chains_g, N) or g["e_bits"] != res[0]["g"]["e_bits"]
+                or g["reduces"] != 7):
+            raise SystemExit(f"23g rank {r}: the evaluation disagrees with its plain version, "
+                             "e's gradient is not whole or not alike on the ranks, or not 7 "
+                             "all_reduces")
+        if (nuts["glm_launches"] or not nuts["e_finite"] or not torch.isfinite(nuts["w"]).all()
+                or nuts["e_shape"] != (chains_g, draws_g, N) or not err < gate_g
+                or not torch.equal(nuts["w"], res[0]["g"]["nuts"]["w"])
+                or not torch.equal(nuts["tau"], res[0]["g"]["nuts"]["tau"])
+                or nuts["e_bits"] != res[0]["g"]["nuts"]["e_bits"]):
+            raise SystemExit(f"23g rank {r}: NUTS launched a GLM kernel, drew other than rank "
+                             "0's, drew e other than whole, or missed its gate")
+        if not pred["tagged"] or differ > 8 + 4 * expected:
+            raise SystemExit(f"23g rank {r}: Predictive's draws are not the rank's rows, or "
+                             f"{differ} differ from this script's")
     launches = {
         "glm_split": [got["a"]["launches"] + got["b"]["launches"] + got["d"]["launches"]
                       for got in res] + [chees_ref["launches"]],
@@ -5895,7 +6143,7 @@ def main():
     wall = time.perf_counter() - t23 + ranks.spawn_s + ranks.warm_wait_s
     log(f"[ranks] phase 23: {wall:.1f} s with the spawn and the wait for the warm-up, about "
         f"{wall * 24.0 / ecs['ms_per_eval']:.1f} s on a host where the ECS leg takes 24.0 ms per "
-        f"evaluation (budget 10 s)")
+        f"evaluation (budget 14 s)")
     for name in kernels:
         for c in SHARD_CHAINS:
             timed = [got["b_timed"] if name == "glm_split" else got["b_fused_timed"][name]

@@ -13,10 +13,10 @@ card over NCCL (a machine with two or more cards); ``--twice`` runs the
 phase a second time.  With ``cpu`` it rehearses the phase on the CPU with
 ``rows`` rows (20,000 by default; about 90 s at 3,000), one thread a
 process, the GLM op's plain version standing for ``glm_split``.  23c's
-proxy and 23e's and 23f's starts are anchored at the generating
+proxy and 23e's, 23f's and 23g's starts are anchored at the generating
 coefficients, where the script anchors them at phase 8d's MAP; on the CPU
-23e's gate is 0.2 in place of the bench's 0.05.  Exits non-zero where a leg
-fails.
+23e's and 23g's gate is 0.2 in place of the bench's 0.05.  Exits non-zero
+where a leg fails.
 
 ``--contention`` measures what sharing one card costs, without any
 collective: phase 4's per-step leg, warm (each process runs it once first),

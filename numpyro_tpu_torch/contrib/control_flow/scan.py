@@ -31,6 +31,10 @@ PyTorch has no ``lax.scan``, so each form takes its own design:
   ``torch.where`` on the step index, the JAX package's ``lax.cond``).  The
   JAX package's scope holds as well: ``history <= 1`` and one enumerated
   site per step.
+
+``xs`` that hold a rank's rows of a data shard (``parallel.shard_data``) are
+gathered once, at entry: a step takes one row, which would otherwise gather
+them every step.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from numpyro_tpu_torch.contrib.enum.enum_messenger import enum as enum_handler
 from numpyro_tpu_torch.contrib.enum.infer_util import _site_log_prob
 from numpyro_tpu_torch.distributions.batch_util import promote_batch_shape
 from numpyro_tpu_torch.distributions.util import logmatmulexp
+from numpyro_tpu_torch.parallel.data_shard import whole
 from numpyro_tpu_torch.primitives import _PYRO_STACK, apply_stack, factor
 from numpyro_tpu_torch.util import tree_leaves, tree_map
 
@@ -433,6 +438,7 @@ def scan(f, init, xs, length=None, reverse=False, history=1):
     :param history: the Markov order of an enumerated carry (0 or 1).
     :return: ``(last_carry, ys)``, ``ys`` stacked along time.
     """
+    xs = tree_map(whole, xs)
     if not _PYRO_STACK:
         (_, _, carry), (_, ys) = scan_wrapper(f, init, xs, length=length, reverse=reverse)
         return carry, ys

@@ -21,6 +21,13 @@ postprocessing is :func:`constrain_fn` of one draw, which ``MCMC`` maps over
 chains and draws.  ``Predictive`` and ``log_likelihood`` map a one-draw
 function over the batch with ``util.soft_vmap``; all their draws come from
 one ``torch.Generator``, which decides their device.
+
+Over a data shard's rows (``parallel.shard_data``) every latent is whole on
+every rank, a latent with a value a row too: its sample site carries the
+whole data's distribution (``primitives.sample``), so the init strategies
+draw it whole, its support's bijection maps it whole, and its samples are
+whole.  ``Predictive`` returns the rank's rows of such a site's draw, and
+``log_likelihood`` the rank's rows of each observed site's terms, tagged.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from numpyro_tpu_torch.distributions import constraints
 from numpyro_tpu_torch.distributions.transforms import biject_to
 from numpyro_tpu_torch.distributions.util import broadcast_shape, sum_rightmost
 from numpyro_tpu_torch.infer.initialization import init_to_uniform
-from numpyro_tpu_torch.parallel.data_shard import shard_of
+from numpyro_tpu_torch.parallel.data_shard import cut_rows, distribution_shard, shard_of
 from numpyro_tpu_torch.primitives import Messenger, factor
 from numpyro_tpu_torch.util import identity, soft_vmap, tree_leaves, tree_map
 
@@ -203,6 +210,11 @@ def _site_log_prob(site, *, check_shapes=False):
         if check_shapes:
             # an observed or conditioned value may be a Python number
             fn_shape, value_shape = tuple(site["fn"].shape()), tuple(np.shape(value))
+            shard = distribution_shard(site["fn"]) or shard_of(value)
+            if shard is not None and shard.partial:
+                # a whole value or distribution meets the rank's rows of the other
+                fn_shape, value_shape = (tuple(shard.rows if n == shard.size else n for n in s)
+                                         for s in (fn_shape, value_shape))
             try:
                 broadcast_shape(value_shape, fn_shape)
             except RuntimeError:
@@ -611,12 +623,6 @@ def _get_model_transforms(model, model_args=(), model_kwargs=None):
     has_enumerate_support = False
     for name, site in model_trace.items():
         if site["type"] == "sample" and not site["is_observed"]:
-            shard = shard_of(site["value"])
-            if shard is not None and shard.partial:
-                raise NotImplementedError(
-                    f"latent site {name!r} has a value over the rows of a data shard "
-                    f"({shard}): a latent a row would be this rank's alone, and the port "
-                    "keeps every latent whole on every rank (ROADMAP.md)")
             if site["fn"].support.is_discrete:
                 enum_type = site["infer"].get("enumerate")
                 if enum_type is not None and enum_type != "parallel":
@@ -809,7 +815,7 @@ def _predictive(rng_key, model, posterior_samples, batch_shape, return_sites=Non
                 if (site["type"] == "sample" and k not in samples)
                 or site["type"] == "deterministic"
             }
-        return {name: site["value"] for name, site in model_trace.items() if name in sites}
+        return {name: _rows_returned(site) for name, site in model_trace.items() if name in sites}
 
     num_samples = math.prod(batch_shape)
     # the element index carries the batch shape, as the JAX package's
@@ -817,6 +823,15 @@ def _predictive(rng_key, model, posterior_samples, batch_shape, return_sites=Non
     index = torch.arange(num_samples, device=rng_key.device).reshape(batch_shape)
     chunk_size = num_samples if parallel else 1
     return soft_vmap(single_prediction, (index, posterior_samples), len(batch_shape), chunk_size)
+
+
+def _rows_returned(site):
+    """A site's value as ``Predictive`` returns it: the rank's rows, tagged,
+    of a whole site over a data shard's rows (``primitives.sample``)."""
+    value, rows = site["value"], site.get("_whole_rows")
+    if rows is None or not isinstance(value, torch.Tensor):
+        return value
+    return cut_rows(value, rows)
 
 
 def _common_batch_shape(samples, batch_ndims):

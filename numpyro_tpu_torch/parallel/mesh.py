@@ -20,16 +20,21 @@ collectives.  PyTorch's idiom is one process per device, joined by
   ``[j N / S, (j + 1) N / S)`` of ``N`` on data shard ``j`` of ``S``, tagged
   (``parallel.data_shard.DataShardTensor``): every op carries the tag, and a
   sum over the rows, a sample site's log-density included, is the whole
-  data's with its gradient; the GLM op adds its partial sums over the data
-  group (``ops.glm``), and a ``subsample`` of such rows under a plate that
-  subsamples them takes the whole data's rows (:func:`subsample_shard`).
+  data's with its gradient; an op that cuts, reorders or mixes the rows runs
+  on the whole rows, gathered (:func:`gather_along`), and a whole tensor
+  that meets the rows is cut to them; the GLM op adds its partial sums over
+  the data group (``ops.glm``), and a ``subsample`` of such rows under a
+  plate that subsamples them takes the whole data's rows
+  (:func:`subsample_shard`).
 
 Collectives are ``all_reduce`` (and nothing else) on tensors of the device
 the data lives on: gloo supports only ``all_reduce`` and ``broadcast`` on
 CUDA tensors, NCCL every collective.  A gather is an ``all_reduce`` of a
 zero-filled buffer of the full panel, summed as integers of the same bits,
-so the gathered panel equals the one-process panel bit for bit.  Every
-collective adds one to :data:`collective_counts`.
+so the gathered panel equals the one-process panel bit for bit, whatever
+each rank's share of the rows.  A sum, a maximum or a minimum is an
+``all_reduce`` with that operation.  Every collective adds one to
+:data:`collective_counts`.
 """
 
 from __future__ import annotations
@@ -58,8 +63,11 @@ __all__ = [
 
 # collectives launched by this package: every all_reduce, and those over a
 # data axis (the GLM op's sum, the subsample panels' sum, the Taylor proxy's
-# whole-data statistics) once more under "over_data"
+# whole-data statistics, the sums, maxima and gathers of a data shard's
+# rows) once more under "over_data"
 collective_counts = {"all_reduce": 0, "over_data": 0}
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
 def reset_collective_counts():
@@ -67,9 +75,10 @@ def reset_collective_counts():
         collective_counts[k] = 0
 
 
-def all_reduce(tensor, group, over_data=False):
-    """In-place sum of ``tensor`` over ``group`` (counted)."""
-    dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
+def all_reduce(tensor, group, over_data=False, op="sum"):
+    """In-place ``op`` (``"sum"``, ``"max"`` or ``"min"``) of ``tensor`` over
+    ``group`` (counted)."""
+    dist.all_reduce(tensor, op=_OPS[op], group=group)
     collective_counts["all_reduce"] += 1
     if over_data:
         collective_counts["over_data"] += 1
@@ -256,13 +265,35 @@ def gather_rows(x, start, total, group):
     for bit to the panel one process holds: each rank writes its rows into a
     zero-filled buffer, and the buffers are summed as integers of the same
     bits (one ``all_reduce``)."""
+    return gather_along(x, 0, start, total, group)
+
+
+def gather_along(x, axis, start, total, group, over_data=False):
+    """:func:`gather_rows` along ``axis``: the tensor of ``total`` entries
+    there of which this rank holds ``[start, start + x.shape[axis])``."""
     if group is None:
         return x
     wide, bits_dtype = _as_bits(x)
-    full = wide.new_zeros((total,) + tuple(x.shape[1:]))
-    full[start : start + x.shape[0]] = wide
-    all_reduce(full, group)
+    shape = list(x.shape)
+    shape[axis] = total
+    full = wide.new_zeros(shape)
+    full.narrow(axis, start, x.shape[axis]).copy_(wide)
+    all_reduce(full, group, over_data=over_data)
     return _from_bits(full, bits_dtype, x.dtype)
+
+
+def gather_ranks(x, key, group):
+    """Every rank's ``x`` (alike in shape) of ``group`` stacked along a new
+    leading axis in the group's order, bit for bit, and every rank's integer
+    ``key`` beside it: ``(panel, keys)``, one ``all_reduce`` over the data."""
+    rank, world = group.rank(), group.size()
+    wide, bits_dtype = _as_bits(x)
+    flat = torch.zeros((world, 1 + wide.numel()), dtype=torch.int64, device=x.device)
+    flat[rank, 0] = key
+    flat[rank, 1:] = wide.reshape(-1).to(torch.int64)
+    all_reduce(flat, group, over_data=True)
+    panel = flat[:, 1:].to(wide.dtype).reshape((world,) + tuple(x.shape))
+    return _from_bits(panel, bits_dtype, x.dtype), flat[:, 0]
 
 
 class ChainShard:
@@ -364,7 +395,12 @@ def shard_data(data, mesh, axis=0):
       takes the whole data's rows at the plate's indices, bit for bit
       (:func:`subsample_shard`); outside a plate, or under one that does
       not subsample the axis, it returns the tagged rows unchanged;
-    - an op that cuts, reorders or mixes the rows by position raises.
+    - an op that cuts, reorders or mixes the rows by position (a row slice,
+      ``torch.cat``, ``sort``) runs on the whole rows, gathered, and gives a
+      replicated result; ``max``, ``logsumexp``, ``softmax`` and ``cumsum``
+      along the rows take collectives of their own;
+    - a tensor every rank holds whole (a latent with a value a row) that
+      meets the rows is cut to them, and its gradient is the whole data's.
 
     A plate over the rows takes the whole size ``N``, never ``X.shape[0]``,
     which is this rank's count (such a plate raises).  The GLM op

@@ -23,9 +23,17 @@ plate of the rank's own count (``X.shape[0]``) raises.  ``subsample`` under
 a plate of size ``N`` that subsamples the rows takes the whole data's panel
 (``parallel.mesh.subsample_shard``); with no plate, or one that does not
 subsample the rows, it returns them as they are, as the JAX package returns
-its global array.  A draw at a site over tagged rows (``Predictive``) takes
-the rank's rows from a generator of their own, seeded from the site's, so
-that the ranks' generators stay in step.
+its global array.  A site with no observed value whose distribution holds
+tagged rows is whole on every rank, decided once, in :func:`sample`: its
+message carries the whole data's distribution (its parameters gathered,
+``parallel.data_shard.whole_site``), so that every handler and every
+consumer of a trace (the init strategies, the supports' bijections, the
+autoguides, the reparametrizers) reads the whole distribution and its
+support, and ``msg["_whole_rows"]`` says where the rank's rows lie in it.
+Its draw is the whole data's, from the site's generator, which stays in
+step on every rank: it equals the one-process draw on the whole data,
+inside a ``torch.func`` transform too; ``Predictive`` returns the rank's
+rows of it.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ from contextlib import ExitStack, contextmanager
 import torch
 
 import numpyro_tpu_torch.distributions as dist
-from numpyro_tpu_torch.distributions.util import broadcast_shape, in_transform
-from numpyro_tpu_torch.parallel.data_shard import distribution_shard, local_draws, shard_of
+from numpyro_tpu_torch.distributions.util import broadcast_shape
+from numpyro_tpu_torch.parallel.data_shard import (
+    distribution_shard, shard_of, whole_distribution, whole_site,
+)
 from numpyro_tpu_torch.util import identity
 
 __all__ = [
@@ -56,36 +66,14 @@ _PYRO_STACK = []
 def default_process_message(msg):
     if msg["value"] is None:
         if msg["type"] == "sample":
-            shard = distribution_shard(msg["fn"])
-            if shard is not None and shard.partial:
-                _draw_rows(msg, shard)
-                return
-            msg["value"], msg["intermediates"] = msg["fn"](
+            # a distribution over a data shard's rows that a handler put on
+            # the site draws the whole data's rows too
+            fn = whole_distribution(msg["fn"])
+            msg["value"], msg["intermediates"] = fn(
                 *msg["args"], sample_intermediates=True, **msg["kwargs"]
             )
         else:
             msg["value"] = msg["fn"](*msg["args"], **msg["kwargs"])
-
-
-def _draw_rows(msg, shard):
-    """A draw at a site whose distribution holds a rank's rows of a data
-    shard: one seed drawn from the site's generator (alike on every rank, so
-    the ranks' generators stay in step), and the rows drawn from a generator
-    seeded with it and the rank's first row."""
-    generator = msg["kwargs"].get("rng_key")
-    if not isinstance(generator, torch.Generator) or in_transform():
-        raise NotImplementedError(
-            f"sample site {msg['name']!r} draws over the rows of a data shard "
-            + ("inside a torch.func transform (a Predictive of more than one draw), where "
-               "the rows' generator cannot be seeded" if in_transform() else
-               f"from {type(generator).__name__}, not a torch.Generator")
-            + " (ROADMAP.md)")
-    seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
-    rows = torch.Generator(device=generator.device).manual_seed(
-        (seed + shard.start) % 2**63)
-    with local_draws():
-        msg["value"], msg["intermediates"] = msg["fn"](
-            *msg["args"], sample_intermediates=True, **{**msg["kwargs"], "rng_key": rows})
 
 
 def apply_stack(msg):
@@ -184,6 +172,10 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
         return _masked_observe(
             name, fn, obs, obs_mask, rng_key=rng_key, sample_shape=sample_shape, infer=infer
         )
+    rows = None
+    if obs is None:
+        # over a data shard's rows, a site with no observed value is whole
+        fn, rows = whole_site(fn)
     return _dispatch(
         "sample",
         name,
@@ -194,6 +186,7 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None, obs_ma
         is_observed=obs is not None,
         intermediates=[],
         infer={} if infer is None else infer,
+        _whole_rows=rows,
     )["value"]
 
 

@@ -23,7 +23,9 @@ a checkpoint saved from the card restored onto the card and onto the CPU,
 ``SVI`` on the card by default; a one-rank mesh that leaves ``glm_split``'s
 bits as they are, and whose data shard ``subsample`` takes from as from the
 data; an enumerated ``scan`` whose carry moves beside its state, and one
-given a series shorter than itself, on the card against the CPU.
+given a series shorter than itself, on the card against the CPU; phase
+23g's model with a latent a row over two thread ranks of a data group on
+the card against one process.
 
 Every test here carries ``requires_cuda`` and skips without a GPU, but the
 check that SteinVI and SVGD raise without one, which runs everywhere.  The file
@@ -1742,3 +1744,71 @@ def test_enumerated_scan_cases_on_gpu_match_the_cpu(cuda):
     assert zs.device.type == "cuda" and torch.equal(zs[:3].cpu(), z_short)
     whole = handlers.substitute(_latent_hmm(torch.device("cpu"), []), data={"z": zs.cpu()})
     np.testing.assert_allclose(got, _scan_density(whole, ys), rtol=1e-5)
+
+
+def _row_latent_model(size, check):
+    """Phase 23g's model (``chip_smoke.model_row_latent``): a latent ``e``
+    for each row, with a logsumexp and the columns' maxima over the rows
+    where ``check``."""
+
+    def model(X, y):
+        one = torch.ones((), device=X.device)
+        w = npt.sample("w", dist.Normal(torch.zeros(X.shape[-1], device=X.device), one)
+                       .to_event(1))
+        tau = npt.sample("tau", dist.HalfNormal(one))
+        with npt.plate("N", size):
+            e = npt.sample("e", dist.Normal(torch.zeros((), device=X.device), one))
+            npt.sample("y", dist.Bernoulli(logits=X @ w + tau * e), obs=y)
+        if check:
+            npt.factor("rows_lse", -1e-3 * torch.logsumexp((X / X.abs().amax(0)) @ w, 0))
+
+    return model
+
+
+@pytest.mark.requires_cuda
+def test_a_latent_a_row_over_two_thread_ranks_on_gpu(cuda, monkeypatch):
+    """Phase 23g's rules on the card without a second process: the 3,001
+    rows held by two thread ranks of a data group (1,500 and 1,501 rows;
+    ``torch_thread_ranks.py``).  The potential at 4 points of the model
+    with a latent a row (cut to each rank's rows), a logsumexp and column
+    maxima over the rows (``MAX`` and sum ``all_reduce``s) equals the
+    one-process model's on all rows on the card (rtol 1e-5); ``Predictive``
+    of 4 draws of ``y`` (a gather of the logits under ``vmap``) returns each
+    rank's rows of the one-process draws from the same generator, bit for
+    bit.  The gradients cross the ranks in phase 23g (a CUDA backward pass
+    runs on autograd's own thread, where thread ranks cannot meet)."""
+    from numpyro_tpu_torch.infer import util as infer_util
+    from numpyro_tpu_torch.parallel.data_shard import DataShard, DataShardTensor, local_rows
+    from torch_thread_ranks import patch_all_reduce
+
+    n, d, c = 3001, 8, 4
+    X, y, W, _ = _problem(cuda, n=n, d=d, c=c, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    z = {"w": W, "tau": torch.linspace(-2.0, 0.0, c, device=cuda),
+         "e": torch.randn((c, n), generator=gen, device=cuda)}
+    group = patch_all_reduce(monkeypatch)
+    halves = ((0, 1500), (1500, n))
+
+    def evaluate(data):
+        model = _row_latent_model(n, True)
+        value = infer_util.batched_value(
+            lambda z: infer_util.potential_energy(model, data, {}, z))(z)
+        samples = {"w": W, "tau": torch.linspace(0.2, 1.0, c, device=cuda), "e": z["e"]}
+        draws = Predictive(_row_latent_model(n, False), samples, return_sites=["y"],
+                           device=cuda)(torch.Generator(device=cuda).manual_seed(5),
+                                        data[0], None)["y"]
+        return value, draws
+
+    def rank(r):
+        start, stop = halves[r]
+        shard = DataShard(start, stop, 0, group, n)
+        return evaluate((DataShardTensor(X[start:stop], shard, -2),
+                         DataShardTensor(y[start:stop], shard, -1)))
+
+    want = evaluate((X, y))
+    for r, (value, draws) in enumerate(group.run(rank)):
+        assert value.device == want[0].device
+        torch.testing.assert_close(value, want[0], rtol=1e-5, atol=0.0)
+        start, stop = halves[r]
+        assert isinstance(draws, DataShardTensor) and draws._axis == -1
+        assert torch.equal(local_rows(draws), want[1][:, start:stop])

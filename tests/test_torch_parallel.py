@@ -57,6 +57,14 @@ Tolerances:
   transition (potential rtol 1e-4, positions rtol 1e-4 and atol 1e-5, the
   gradient rtol 1e-4 and atol 1e-4 of its largest component, the accept
   probability rtol 1e-3 and atol 1e-4; indices and panels exactly).
+- models over data shards that cut a whole latent to the rows (a latent a
+  row) or gather the rows (lag slices, ``scan``, ``logsumexp`` and ``max``
+  over them) against the JAX package on all 2,001 rows: potential rtol
+  1e-5, gradient rtol 1e-4 and atol 1e-4 of its largest component, as
+  above; ``Predictive`` of 16 draws over the rows against the port's
+  one-process draws of the same generator bit for bit, and its mean
+  against the JAX package's draws within 4 Monte-Carlo errors (the
+  binomial spread of the draws' mean at the draws' probabilities).
 - a data-sharded NUTS run against the one-process run: the posterior means
   within 4 combined Monte-Carlo standard errors.  The sums above move the
   potential's last bits, and NUTS trajectories carry that apart within a
@@ -276,6 +284,8 @@ def one_process():
         **{name: w.coupled_run(name, "vectorized") for name in w.COUPLED},
         "parity": {case: w.parity_potential(case) for case in w.PARITY},
         "shard_nuts": w.shard_nuts_run("vectorized"),
+        "row_nuts": w.row_nuts_run("vectorized"),
+        "row_predictive": w.row_predictive(),
         "ecs_carry": w.ecs_lean_run(None, "carry"),
         **{"padded_" + name: w.padded_ensemble_run(name) for name in w.PADDED},
     }
@@ -638,6 +648,151 @@ def test_data_shard_where_it_would_give_a_shards_result_raises(jobs, one_process
                                        rtol=1e-6)
         if case in r["subsample"]["returned"]:
             assert r["subsample"]["returned"][case] == "DataShardTensor"
+
+
+# all_reduces over the data axis of one batched potential-and-gradient
+# evaluation of each ROW_PARITY case: row_latent the site's sum, w's entry
+# and the cut tau * e's cotangent; lags and scan the three gathers of the
+# series' slices (y[2:], y[1:-1], y[:-2]; y[2:], y[1], y[0]); reductions the
+# columns' MAX, w's entry, logsumexp's MAX and sum, the MAX of the logits,
+# its entry, the sum of its weights at the ranks that hold it and the site's
+# sum; forward mode row_latent the site's sum and its tangent's, reductions
+# the columns' MAX, logsumexp's MAX, its sum and its tangent's, the MAX of
+# the logits, its tangent's with its weights, the site's sum and its
+# tangent's
+ROW_REDUCES = {"row_latent": 3, "lags": 3, "scan": 3, "reductions": 8, "row_latent_forward": 2,
+               "reductions_forward": 8}
+
+
+def _jax_row_model(case, n, d):
+    """The JAX package's model of a ``ROW_PARITY`` case over ``n`` rows."""
+    from numpyro_tpu.contrib.control_flow import scan as jscan
+
+    def ar2_priors():
+        return (numpyro_tpu.sample("a1", jdist.Normal(0.0, 1.0)),
+                numpyro_tpu.sample("a2", jdist.Normal(0.0, 1.0)),
+                numpyro_tpu.sample("const", jdist.Normal(0.0, 1.0)),
+                numpyro_tpu.sample("sigma", jdist.HalfNormal(1.0)))
+
+    def model(*data):
+        if case in ("lags", "scan"):
+            (y,) = data
+            a1, a2, const, sigma = ar2_priors()
+            if case == "lags":
+                with numpyro_tpu.plate("T", n - 2):
+                    numpyro_tpu.sample("y", jdist.Normal(const + a1 * y[1:-1] + a2 * y[:-2],
+                                                         sigma), obs=y[2:])
+                return
+
+            def transition(carry, yt):
+                y_prev, y_prev2 = carry
+                m = const + a1 * y_prev + a2 * y_prev2
+                numpyro_tpu.sample("y", jdist.Normal(m, sigma), obs=yt)
+                return (yt, y_prev), None
+
+            jscan(transition, (y[1], y[0]), y[2:])
+            return
+        X, y = data
+        wv = numpyro_tpu.sample("w", jdist.Normal(jnp.zeros(d), 1.0).to_event(1))
+        if case == "reductions":
+            logits = (X / jnp.abs(X).max(0)) @ wv
+            numpyro_tpu.factor("lse", -jax.nn.logsumexp(logits, 0))
+            numpyro_tpu.sample("y", jdist.Bernoulli(logits=logits - logits.max()), obs=y)
+            return
+        tau = numpyro_tpu.sample("tau", jdist.HalfNormal(1.0))
+        with numpyro_tpu.plate("N", n):
+            e = numpyro_tpu.sample("e", jdist.Normal(0.0, 1.0))
+            numpyro_tpu.sample("y", jdist.Bernoulli(logits=X @ wv + tau * e), obs=y)
+
+    return model
+
+
+def _jax_row_parity(case):
+    """The JAX package's potential and gradient of a ``ROW_PARITY`` case on
+    all rows, at every chain's point."""
+    from numpyro_tpu.infer.util import potential_energy as jpotential
+
+    data, points = w.row_parity_data(case)
+    data = tuple(jnp.asarray(a) for a in data)
+    model = _jax_row_model(case, w.SHARDED_ROWS, w.GLM_SHAPE[1])
+    value, grad = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda z: jpotential(model, data, {}, z))))({k: jnp.asarray(v) for k, v in points.items()})
+    return np.asarray(value), {k: np.asarray(v) for k, v in grad.items()}
+
+
+@pytest.mark.parametrize("case", list(w.ROW_PARITY) + [f"{c}_forward" for c in w.ROW_FORWARD])
+def test_models_that_cut_or_gather_the_rows_match_jax(jobs, case):
+    """A model written for the whole data over ``shard_data``'s rows on the
+    2 x 2 mesh (1,000 or 1,001 of 2,001 rows a rank) that cuts a whole
+    latent to the rows (``row_latent``: a latent ``e`` a row under a plate
+    of the whole size, overdispersed logistic regression) or gathers them
+    (``lags``: AR(2) by lag slices; ``scan``: ``examples/ar2.py``;
+    ``reductions``: a logsumexp and a max over the rows), ``row_latent``
+    and ``reductions`` in forward mode too: every rank's potential and
+    gradient at 8 points equal the JAX package's on all rows (potential
+    rtol 1e-5, gradient rtol 1e-4 and atol 1e-4 of its largest component); the gradient of ``e`` is whole on every
+    rank."""
+    want_pe, want_grad = _jax_row_parity(case.replace("_forward", ""))
+    for r in jobs["four"].results():
+        got = r["row_parity_forward"][case[:-len("_forward")]] if case.endswith("_forward") \
+            else r["row_parity"][case]
+        assert got["over_data"] == ROW_REDUCES[case]
+        np.testing.assert_allclose(got["pe"].numpy(), want_pe, rtol=1e-5)
+        assert set(got["grad"]) == set(want_grad)
+        for k, g_j in want_grad.items():
+            assert got["grad"][k].shape == g_j.shape
+            np.testing.assert_allclose(got["grad"][k].numpy(), g_j, rtol=1e-4,
+                                       atol=1e-4 * np.abs(g_j).max(), err_msg=k)
+
+
+def test_data_sharded_nuts_with_a_latent_a_row(jobs, one_process):
+    """Pooled NUTS on ``row_latent`` (a latent ``e`` for each of the 2,001
+    rows, held whole on every rank) with its chains over the 2 x 2 mesh's
+    chains and its rows over its data: every rank holds the same draws, the
+    whole ``e`` among them, and the posterior means of ``w`` and ``tau``
+    are within 4 combined Monte-Carlo errors of the one-process run's."""
+    res = [r["row_nuts"] for r in jobs["four"].results()]
+    for r in res[1:]:
+        _equal_trees(r, res[0])
+    ref = one_process["row_nuts"]
+    chains, _, samples, _ = w.ROW_NUTS
+    assert res[0]["e"].shape == ref["e"].shape == (chains, samples, w.SHARDED_ROWS)
+    for k in ("w", "tau"):
+        got, want = res[0][k], ref[k]
+        if k == "tau":
+            got, want = got[..., None], want[..., None]
+        assert torch.isfinite(got).all()
+        (m1, e1), (m2, e2) = _mean_and_error(got), _mean_and_error(want)
+        assert ((m1 - m2).abs() <= 4 * (e1**2 + e2**2).sqrt()).all(), k
+
+
+def test_predictive_of_many_draws_over_the_rows(jobs, one_process):
+    """``Predictive`` of 16 draws of ``row_latent``'s ``y`` (one ``vmap``)
+    on the 2 x 2 mesh: each rank returns its rows, tagged, equal bit for bit
+    to those rows of the port's one-process draws from the same generator;
+    their mean over draws and rows is within 4 Monte-Carlo errors of the
+    JAX package's ``Predictive`` on all rows from the same posterior draws
+    (the binomial spread of both means at the draws' probabilities)."""
+    from numpyro_tpu.infer import Predictive as JPredictive
+
+    ref = one_process["row_predictive"]["y"]
+    assert ref.shape == (w.ROW_DRAWS, w.SHARDED_ROWS)
+    for r in jobs["four"].results():
+        got = r["row_predictive"]
+        assert got["type"] == "DataShardTensor" and got["axis"] == -1
+        n = got["y"].shape[-1]
+        assert n in (1000, 1001)
+        assert torch.equal(got["y"], ref[:, got["start"]:got["start"] + n])
+    X, _, _ = w.covtype_like(w.SHARDED_ROWS)
+    samples = w.row_predictive_samples()
+    model = _jax_row_model("row_latent", w.SHARDED_ROWS, w.GLM_SHAPE[1])
+    y_j = np.asarray(JPredictive(model, {k: jnp.asarray(v) for k, v in samples.items()},
+                                 return_sites=["y"])(random.PRNGKey(9), jnp.asarray(X), None)["y"])
+    assert y_j.shape == tuple(ref.shape)
+    logits = X @ samples["w"].T + samples["tau"] * samples["e"].T
+    p = 1.0 / (1.0 + np.exp(-logits.astype(np.float64)))
+    err = np.sqrt(2.0 * (p * (1.0 - p)).sum()) / p.size
+    assert abs(ref.double().mean().item() - y_j.mean()) <= 4 * err
 
 
 def test_data_sharded_nuts_of_a_model_written_for_the_whole_data(jobs, one_process):

@@ -28,10 +28,12 @@ import numpyro_tpu_torch as npt  # noqa: E402
 import numpyro_tpu_torch.distributions as dist  # noqa: E402
 from numpyro_tpu_torch import handlers  # noqa: E402
 from numpyro_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from numpyro_tpu_torch.contrib.control_flow import scan  # noqa: E402
 from numpyro_tpu_torch.contrib.ecs_proxies import subsample_panels  # noqa: E402
 from numpyro_tpu_torch.infer import AIES, ESS, HMCECS, MCMC, NUTS, SMC, CheesHMC  # noqa: E402
 from numpyro_tpu_torch.infer import hmc as thmc  # noqa: E402
 from numpyro_tpu_torch.infer import hmc_core as core  # noqa: E402
+from numpyro_tpu_torch.infer import Predictive, init_to_value  # noqa: E402
 from numpyro_tpu_torch.infer import util as infer_util  # noqa: E402
 from numpyro_tpu_torch.infer.hmc_gibbs import _lean_shard_panels, ecs_state_from_numpy  # noqa: E402
 from numpyro_tpu_torch.ops import glm  # noqa: E402
@@ -40,6 +42,7 @@ from numpyro_tpu_torch.parallel import (  # noqa: E402
     pooled_step_size, shard_chain_state, shard_data,
 )
 from numpyro_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from numpyro_tpu_torch.parallel.data_shard import local_rows  # noqa: E402
 from numpyro_tpu_torch.util import tree_leaves  # noqa: E402
 
 # the covtype-shape problem: rows, coefficients with the intercept, chains
@@ -78,6 +81,18 @@ SHARD_NUTS = (8, 20, 10, 4)
 # warmup, samples
 PADDED_ENSEMBLE = (18, 3, 3)
 PADDED = ("AIES", "ESS")
+# models over data shards that cut a whole latent to the rows or gather the
+# rows, on SHARDED_ROWS rows, held against the JAX package's potential on
+# all rows: a latent a row, AR(2) by lag slices, examples/ar2.py's scan, and
+# a logsumexp and a max over the rows
+ROW_PARITY = ("row_latent", "lags", "scan", "reductions")
+# the cases of ROW_PARITY run in forward mode as well
+ROW_FORWARD = ("row_latent", "reductions")
+# pooled NUTS of row_latent on the 2 x 2 mesh: chains, warmup, samples,
+# tree depth
+ROW_NUTS = (8, 20, 10, 3)
+# Predictive of row_latent's y over the rows: draws
+ROW_DRAWS = 16
 
 
 def covtype_like(n=GLM_SHAPE[0], d=GLM_SHAPE[1], seed=0):
@@ -364,6 +379,141 @@ def parity_potential(case, mesh=None):
         out["log_density"] = infer_util.log_density(
             model, (X, y), {}, {"w": torch.ones(W.shape[1])})[0]
     return out
+
+
+def ar2_series(n=SHARDED_ROWS, seed=0):
+    """``examples/ar2.py``'s series: ``n`` points of an AR(2) process."""
+    rng = np.random.RandomState(seed)
+    y = [0.0, 0.1]
+    for _ in range(n - 2):
+        y.append(0.1 + 0.5 * y[-1] - 0.3 * y[-2] + 0.2 * rng.randn())
+    return np.asarray(y, dtype=np.float32)
+
+
+def row_parity_model(case, n, d):
+    """The model of a case of ``ROW_PARITY`` over ``n`` rows, written as
+    for the whole data."""
+
+    def row_latent(X, y):  # overdispersed logistic regression: a latent a row
+        w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
+        tau = npt.sample("tau", dist.HalfNormal(1.0))
+        with npt.plate("N", n):
+            e = npt.sample("e", dist.Normal(0.0, 1.0))
+            npt.sample("y", dist.Bernoulli(logits=X @ w + tau * e), obs=y)
+
+    def ar2_priors():
+        return (npt.sample("a1", dist.Normal(0.0, 1.0)), npt.sample("a2", dist.Normal(0.0, 1.0)),
+                npt.sample("const", dist.Normal(0.0, 1.0)),
+                npt.sample("sigma", dist.HalfNormal(1.0)))
+
+    def lags(y):  # the series against itself one and two steps back
+        a1, a2, const, sigma = ar2_priors()
+        with npt.plate("T", n - 2):
+            npt.sample("y", dist.Normal(const + a1 * y[1:-1] + a2 * y[:-2], sigma), obs=y[2:])
+
+    def ar2_scan(y):  # examples/ar2.py
+        a1, a2, const, sigma = ar2_priors()
+
+        def transition(carry, yt):
+            y_prev, y_prev2 = carry
+            m = const + a1 * y_prev + a2 * y_prev2
+            npt.sample("y", dist.Normal(m, sigma), obs=yt)
+            return (yt, y_prev), None
+
+        scan(transition, (y[1], y[0]), y[2:])
+
+    def reductions(X, y):  # the columns' largest magnitudes, a logsumexp, a max
+        w = npt.sample("w", dist.Normal(torch.zeros(d), 1.0).to_event(1))
+        logits = (X / X.abs().amax(0)) @ w
+        npt.factor("lse", -torch.logsumexp(logits, 0))
+        npt.sample("y", dist.Bernoulli(logits=logits - logits.max()), obs=y)
+
+    return {"row_latent": row_latent, "lags": lags, "scan": ar2_scan,
+            "reductions": reductions}[case]
+
+
+def row_parity_data(case):
+    """The data of a case of ``ROW_PARITY`` (a tuple of numpy arrays) and
+    the chains' points (unconstrained, by site)."""
+    c = GLM_SHAPE[2]
+    rng = np.random.default_rng(11)
+    if case in ("lags", "scan"):
+        points = {k: (0.3 * rng.standard_normal(c)).astype(np.float32)
+                  for k in ("a1", "a2", "const")}
+        points["sigma"] = np.linspace(-2.0, 0.0, c).astype(np.float32)
+        return (ar2_series(),), points
+    X, y, _ = covtype_like(SHARDED_ROWS)
+    points = {"w": glm_weights()}
+    if case == "row_latent":
+        points["tau"] = np.linspace(-3.0, 0.0, c).astype(np.float32)
+        points["e"] = rng.standard_normal((c, SHARDED_ROWS)).astype(np.float32)
+    return (X, y), points
+
+
+def row_parity_potential(case, mesh=None, forward=False):
+    """Every chain's potential and gradient of a ``ROW_PARITY`` case (on
+    ``mesh``'s data shards, or the whole data; ``forward``: by ``jacfwd``)
+    and the all_reduces over the data axis of one batched evaluation."""
+    data, points = row_parity_data(case)
+    data = tuple(torch.from_numpy(a) for a in data)
+    if mesh is not None:
+        data = tuple(shard_data(a, mesh) for a in data)
+    model = row_parity_model(case, SHARDED_ROWS, GLM_SHAPE[1])
+
+    def pe(z):
+        return infer_util.potential_energy(model, data, {}, z)
+
+    mesh_lib.reset_collective_counts()
+    value, grad = infer_util.batched_value_and_grad(pe, forward_mode=forward)(
+        {k: torch.from_numpy(v) for k, v in points.items()})
+    return {"pe": value, "grad": grad, "over_data": mesh_lib.collective_counts["over_data"]}
+
+
+def row_nuts_run(chain_method, mesh=None):
+    """Pooled NUTS of ``row_latent`` (``ROW_NUTS``) over covtype_like's 2,001
+    rows, started from w = 0, tau = 0.1 and e = 0: its draws of ``w`` and
+    ``tau`` and of ``e`` (whole on every rank)."""
+    chains, warmup, samples, depth = ROW_NUTS
+    X, y, _ = covtype_like(SHARDED_ROWS)
+    X, y = torch.from_numpy(X), torch.from_numpy(y)
+    if mesh is not None:
+        X, y = shard_data(X, mesh), shard_data(y, mesh)
+    start = {"w": torch.zeros(GLM_SHAPE[1]), "tau": torch.tensor(0.1),
+             "e": torch.zeros(SHARDED_ROWS)}
+    m = MCMC(NUTS(row_parity_model("row_latent", SHARDED_ROWS, GLM_SHAPE[1]),
+                  max_tree_depth=depth, pooled_adaptation=True,
+                  init_strategy=init_to_value(values=start)),
+             num_warmup=warmup, num_samples=samples, num_chains=chains,
+             chain_method=chain_method, mesh=mesh, device="cpu")
+    m.run(8, X, y)
+    return {k: v for k, v in m.get_samples(group_by_chain=True).items()}
+
+
+def row_predictive_samples():
+    """``ROW_DRAWS`` posterior draws of row_latent's latents, from numpy."""
+    rng = np.random.default_rng(13)
+    d = GLM_SHAPE[1]
+    return {"w": (0.5 * rng.standard_normal((ROW_DRAWS, d))).astype(np.float32),
+            "tau": rng.uniform(0.2, 1.0, ROW_DRAWS).astype(np.float32),
+            "e": rng.standard_normal((ROW_DRAWS, SHARDED_ROWS)).astype(np.float32)}
+
+
+def row_predictive(mesh=None):
+    """``Predictive`` of row_latent's ``y`` (``ROW_DRAWS`` draws, one
+    ``vmap``) from seed 9: the rank's rows, tagged, on ``mesh``'s data
+    shards (returned as plain rows with their start), or all rows."""
+    X, _, _ = covtype_like(SHARDED_ROWS)
+    X = torch.from_numpy(X)
+    if mesh is not None:
+        X = shard_data(X, mesh)
+    samples = {k: torch.from_numpy(v) for k, v in row_predictive_samples().items()}
+    pred = Predictive(row_parity_model("row_latent", SHARDED_ROWS, GLM_SHAPE[1]), samples,
+                      return_sites=["y"], device="cpu")
+    y = pred(9, X, None)["y"]
+    if mesh is None:
+        return {"y": y}
+    return {"y": local_rows(y), "type": type(y).__name__, "axis": y._axis,
+            "start": X.data_shard.start}
 
 
 def shard_nuts_run(chain_method, mesh=None):
@@ -743,6 +893,13 @@ def job_four(rank, out):
     res["shard_nuts"] = shard_nuts_run("parallel", mesh)
     res["lean"] = ecs_lean_run(mesh)
     res["carry"] = ecs_lean_run(mesh, "carry")
+    t0 = time.perf_counter()
+    res["row_parity"] = {case: row_parity_potential(case, mesh) for case in ROW_PARITY}
+    res["row_parity_forward"] = {case: row_parity_potential(case, mesh, forward=True)
+                                 for case in ROW_FORWARD}
+    res["row_nuts"] = row_nuts_run("parallel", mesh)
+    res["row_predictive"] = row_predictive(mesh)
+    res["row_s"] = time.perf_counter() - t0
     chains = chain_mesh(device="cpu")
     res["padded"] = {name: padded_ensemble_run(name, chains) for name in PADDED}
     return res
